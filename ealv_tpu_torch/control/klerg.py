@@ -1,0 +1,375 @@
+"""Sample-based KL-ergodic MPC in torch (port of
+``ealv_tpu/control/klerg.py``).
+
+The JAX planner is one jitted program whose fixed-trip ``lax.scan``s carry
+``done`` masks. Here they are Python loops over the same fixed trip counts
+with ``torch.where`` on the masks: no ``.item()``, ``bool(tensor)`` or
+``.cpu()`` inside a planner call, so the device is never waited on and the
+number of K1 launches per call is fixed (13 at the default config: the
+target spread, the base footprint, the initial cost, and two per inner
+iteration).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..ops import (
+    renormalize,
+    cost_norm,
+    traj_footprint,
+    traj_spread,
+    kldiv_grad_batch,
+    psi_matrix,
+)
+from ..data.replay import TrajMemory
+from .dynamics import rk4_step, DynState
+from .policies import RollPolicy
+from .target_dists import prior_dist as make_prior
+
+
+@dataclasses.dataclass(frozen=True)
+class KlergConfig:
+    """Static planner configuration."""
+
+    horizon: int = 10
+    num_target_samples: int = 2000
+    num_traj_samples: int = 3000
+    dt: float = 0.1
+    R: float = 0.5
+    std: float = 0.05
+    alpha: float = 1.0
+    pct_inner: float = 0.5  # share of the horizon run as inner iterations
+    ctrl_app_search: bool = True
+    full_cost: bool = False
+    fixed_lam: bool = False
+    lam: int = 1
+    saturate: bool = False
+    max_app_dur: int = 5
+    weight_temp: bool = True
+    weight_env: bool = False
+    uniform_tdist: bool = False
+    add_recent_history: bool = False
+    sample_near_current_loc: bool = False
+    vel_smoothing: float = 0.8
+
+    @property
+    def num_iters(self) -> int:
+        return max(1, int(self.pct_inner * self.horizon))
+
+
+@dataclasses.dataclass
+class PlannerState:
+    u: torch.Tensor  # (H, m) control plan
+    dyn: DynState  # current (measured) robot state
+    memory: TrajMemory  # visited-state ring
+    lims: torch.Tensor  # (d_explr, 2) sampling limits
+    barrier: object  # BarrierFunction
+    last_plan: torch.Tensor  # (H+1, n) forward-simulated plan
+    gen: torch.Generator  # the planner's own random stream
+
+
+class KlergPlanner:
+    """Binds the static config, dynamics, policy and target ``pdf_fn(ctx,
+    samples)``. ``explr_locs`` are the explored state indices; ``states``
+    is the exploration state string (per-dim kernel widths)."""
+
+    def __init__(self, cfg: KlergConfig, dyn, policy, pdf_fn: Callable,
+                 states: str, explr_locs, prior_dist=None, device="cpu"):
+        if cfg.full_cost or cfg.fixed_lam or not cfg.ctrl_app_search:
+            raise NotImplementedError("only the default line-search application "
+                                      "(ctrl_app_search, no full_cost/fixed_lam) "
+                                      "is ported")
+        if cfg.add_recent_history or cfg.sample_near_current_loc:
+            raise NotImplementedError("the extra sampling modes are not ported yet")
+        if not isinstance(policy, RollPolicy):
+            raise NotImplementedError("only the Roll policy is ported")
+        self.cfg = cfg
+        self.dyn = dyn
+        self.policy = policy
+        self.pdf_fn = pdf_fn
+        self.device = device
+        self.prior_dist = prior_dist if prior_dist is not None else make_prior(states, device)
+        self.states = states
+        self.explr_locs = list(explr_locs)
+        # velocities (upper case) get a 5x kernel width
+        self.std = torch.tensor([1.0 if s == s.lower() else 5.0 for s in states],
+                                device=device) * cfg.std
+        m = dyn.num_actions
+        ctrl_states = states[:m] if len(states) >= m else states
+        self.control_lim = torch.tensor(
+            [[-0.5, 0.5] if s == "z" else [-1.0, 1.0] for s in ctrl_states.ljust(m, "x")],
+            device=device)
+        self.R_inv = torch.linalg.inv(torch.eye(m, device=device) * cfg.R)
+        self._robot_lim = None
+
+    # ------------------------------------------------------------------
+    def init_state(self, x0, robot_lim, barrier, buffer_capacity: int = 3000,
+                   explr_lim_scale: float = 1.0, seed: int = 0) -> PlannerState:
+        robot_lim = robot_lim.float()
+        self._robot_lim = robot_lim
+        span = (robot_lim[:, 1] - robot_lim[:, 0])[:, None]
+        lims = robot_lim + torch.tensor([[-1.0, 1.0]], device=robot_lim.device) \
+            * span * (explr_lim_scale - 1.0) / 2.0
+        dyn0 = self.dyn.init(x0.float())
+        u0 = torch.zeros((self.cfg.horizon, self.dyn.num_actions), device=x0.device)
+        gen = torch.Generator(device=x0.device)
+        gen.manual_seed(seed)
+        return PlannerState(
+            u=u0, dyn=dyn0,
+            memory=TrajMemory.create(buffer_capacity, self.dyn.num_states, x0.device),
+            lims=lims, barrier=barrier, last_plan=self._rollout(dyn0, u0), gen=gen)
+
+    # ------------------------------------------------------------------
+    def _traj_states(self, dyn0: DynState, u):
+        """(..., H, n) post-step states of plan(s) u (..., H, m)."""
+        x = dyn0.x.expand(*u.shape[:-2], dyn0.x.shape[0])
+        xs = []
+        for t in range(u.shape[-2]):
+            x = self.dyn.step_x(x, u[..., t, :])
+            xs.append(x)
+        return torch.stack(xs, -2)
+
+    def _rollout(self, dyn0: DynState, u):
+        """(H+1, n) states from rolling u open loop, start included."""
+        return torch.cat([dyn0.x[None], self._traj_states(dyn0, u)], 0)
+
+    def _cost(self, dyn0, u_test, samples, p_n, q_base, barrier):
+        """KL + barrier cost of a plan (H, m) -> (), or of candidates
+        (K, H, m) -> (K,) through one plain psi matrix."""
+        if u_test.ndim == 2:
+            traj = self._traj_states(dyn0, u_test)
+            q_iter = traj_footprint(traj, samples, self.explr_locs, self.std)
+            q = cost_norm(renormalize(q_base + q_iter))
+            return (p_n * torch.log(p_n / q)).sum() + barrier.batch(traj).sum()
+        trajs = self._traj_states(dyn0, u_test)  # (K, H, n)
+        k, h, _ = trajs.shape
+        flat = trajs.reshape(k * h, -1)[:, self.explr_locs]
+        psi_m = psi_matrix(samples, flat, self.std)  # (N, K*H)
+        q_iters = psi_m.reshape(-1, k, h).sum(-1).T  # (K, N)
+        q = renormalize(q_base[None, :] + q_iters, dim=1)
+        q = torch.where(torch.isnan(q), torch.full_like(q, 1e-6), q)
+        q = q / q.sum(1, keepdim=True)
+        d_kl = (p_n[None, :] * torch.log(p_n[None, :] / q)).sum(1)
+        return d_kl + barrier.batch(trajs).sum(-1)
+
+    def _forward(self, pstate: PlannerState, u, idx: int):
+        """Forward pass collecting linearizations. Returns (u_eff (H, m),
+        pre-step states (H, n), A (H, n, n), B (H, n, m), dbarr (H, n),
+        dmu (H, m, n))."""
+        s = pstate.dyn
+        u_eff, xs = [], []
+        for t in range(u.shape[0]):
+            ut = self.policy.act(s.x, u[t])
+            u_eff.append(ut)
+            xs.append(s.x)
+            s = self.dyn.step(s, ut)
+        u_eff, xs = torch.stack(u_eff), torch.stack(xs)
+        H = u.shape[0]
+        A, B = self.dyn.get_lin(pstate.dyn, None)
+        A = A.expand(H, *A.shape)
+        B = B.expand(H, *B.shape)
+        return (u_eff, xs, A, B, pstate.barrier.dbarr(xs),
+                self.policy.dx(xs, u_eff))
+
+    def _backward(self, samples, p, q, xs, A, B, dbarr, dmu):
+        """Costate integration backwards over the horizon. Returns
+        (du (H, m), djdlam (H,))."""
+        dgdx = kldiv_grad_batch(xs, samples, self.explr_locs, self.std, p / q)
+        M = (A + B @ dmu).transpose(-1, -2)  # (H, n, n)
+        drive = dgdx - dbarr
+        rho = torch.zeros(self.dyn.num_states, device=xs.device)
+        rhos = [None] * xs.shape[0]
+        for t in reversed(range(xs.shape[0])):
+            rho = rk4_step(lambda r, _: drive[t] - M[t] @ r, -self.cfg.dt, rho, None)
+            rhos[t] = rho
+        rhos = torch.stack(rhos)  # (H, n)
+        Bt_rho = (B.transpose(-1, -2) @ rhos[..., None])[..., 0]  # (H, m)
+        du = -(self.R_inv @ Bt_rho[..., None])[..., 0]
+        djdlam = (Bt_rho * du).sum(-1)
+        return du, djdlam
+
+    def _target_dist(self, pdf_ctx, pstate, samples, temp, use_prior: bool = False,
+                     with_aux: bool = False):
+        """Target density at the samples: the model pdf (or the scene prior,
+        or uniform) shaped by the coverage of the visited-state memory.
+        ``with_aux`` also returns {'pdf': raw model pdf, 'spread': mean
+        normalized coverage}, which the trainer's entropy schedule reuses."""
+        cfg = self.cfg
+        rl = self._robot_lim
+        aux = {}
+        outside = ((samples < rl[:, 0]) | (samples > rl[:, 1])).any(1)
+        if cfg.uniform_tdist:
+            p = renormalize(torch.ones(samples.shape[0], device=samples.device))
+        else:
+            p = self.pdf_fn(pdf_ctx, samples)
+            aux["pdf"] = p
+            if use_prior:
+                d = self.prior_dist.means.shape[1]
+                p = renormalize(self.prior_dist.pdf(samples[:, :d]))
+        if cfg.weight_env or cfg.weight_temp:
+            traj_all, mask = pstate.memory.get_all()
+            spread = traj_spread(traj_all, samples, self.explr_locs, self.std,
+                                 traj_mask=mask)
+            spread = spread / spread.max().clamp(min=1e-30)
+            nonempty = pstate.memory.size > 0
+            zero = torch.zeros((), device=samples.device)
+            aux["spread"] = torch.where(nonempty, spread.mean(), zero)
+            spread = torch.where(outside, torch.ones_like(spread), spread)
+            spread = torch.where(nonempty, spread, torch.zeros_like(spread))
+            if cfg.weight_env:
+                p = p + (1.0 - spread) * p.min()
+            else:
+                p = p ** spread.mean()
+            p = renormalize(p)
+        if with_aux:
+            return p ** temp, aux
+        return p ** temp
+
+    def _saturate(self, u):
+        if self.cfg.saturate:
+            return torch.tanh(u / 0.1) * self.control_lim[:, 1]
+        return torch.clamp(u, self.control_lim[:, 0], self.control_lim[:, 1])
+
+    def _line_search(self, cost_fn, t_app, u_app, u, idx: int, J0):
+        """Application-window search. All candidate windows (lam = 1 ..
+        max_app_dur) are costed in one batched call; the sequential
+        early-stopping acceptance then runs as a masked loop over the cost
+        vector. Returns (tau_i, tau_f, success) as () tensors."""
+        H = self.cfg.horizon
+        mad = self.cfg.max_app_dur
+        dev = u.device
+        i64 = lambda v: torch.full((), v, dtype=torch.int64, device=dev)
+        w = torch.where
+        lam0 = w((t_app == 0) | (t_app == H - 1), i64(min(H, mad)),
+                 w(t_app == idx, (H - t_app).clamp(max=mad),
+                   torch.minimum(torch.minimum(t_app - idx, H - t_app - idx),
+                                 i64((mad + 1) // 2))))
+        lam0 = lam0.clamp(min=1)
+
+        lams = torch.arange(1, mad + 1, device=dev)
+        tis = w(t_app == idx, t_app.expand(mad), w(t_app == H - 1, lams - 1, t_app - lams))
+        tfs = w(t_app == idx, lams + 1, w(t_app == H - 1, t_app.expand(mad), t_app + lams + 1))
+        t = torch.arange(H, device=dev)
+        masks = (t[None, :] >= tis[:, None]) & (t[None, :] < tfs[:, None])  # (mad, H)
+        u_variants = w(masks[:, :, None], u_app[None, None, :], u[None, :, :])
+        Js = cost_fn(u_variants)  # (mad,)
+
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        ti_l, tf_l, Jn_last = i64(idx), lam0, J0 * 2.0
+        ti, tf, Jn = i64(idx), lam0, J0 * 2.0
+        for k in range(mad):
+            lam_k = lam0 - k
+            active = ~done & (lam_k > 0)
+            sel = (lam_k - 1).clamp(min=0).reshape(1)
+            # keep the current window as "last" before testing the next one
+            ti_l2 = w(active, ti, ti_l)
+            tf_l2 = w(active, tf, tf_l)
+            Jn_last2 = w(active, Jn, Jn_last)
+            Jn2 = w(active, Js.gather(0, sel)[0], Jn)
+            done = done | (active & (Jn_last2 < J0) & (Jn2 > Jn_last2))
+            ti_l, tf_l, Jn_last = ti_l2, tf_l2, Jn_last2
+            ti = w(active, tis.gather(0, sel)[0], ti)
+            tf = w(active, tfs.gather(0, sel)[0], tf)
+            Jn = Jn2
+        take_cur = ~done & (Jn < J0)
+        return w(take_cur, ti, ti_l), w(take_cur, tf, tf_l), done | take_cur
+
+    # ------------------------------------------------------------------
+    def plan(self, pstate: PlannerState, pdf_ctx, temp: float = 1.0,
+             use_prior: bool = False, samples=None, hist_idx=None):
+        """One planner call. Draws the target samples and the history
+        sample from ``pstate.gen`` unless ``samples`` (N, d) and
+        ``hist_idx`` (num_traj_samples,) feed them. Returns (pstate, info)."""
+        cfg = self.cfg
+        if samples is None:
+            lo, hi = pstate.lims[:, 0], pstate.lims[:, 1]
+            u01 = torch.rand((cfg.num_target_samples, lo.shape[0]),
+                             generator=pstate.gen, device=lo.device)
+            samples = u01 * (hi - lo) + lo
+        traj_hist, hist_mask = pstate.memory.sample(
+            cfg.num_traj_samples, pstate.gen, idx=hist_idx)
+        return self.plan_with_inputs(pstate, pdf_ctx, samples, traj_hist,
+                                     hist_mask, temp=temp, use_prior=use_prior)
+
+    def plan_with_inputs(self, pstate: PlannerState, pdf_ctx, samples,
+                         traj_hist, hist_mask, temp: float = 1.0,
+                         use_prior: bool = False):
+        """The planner call after sampling: target shaping, base footprint
+        and the hybrid inner loop on given (samples, history) inputs."""
+        cfg = self.cfg
+        H = cfg.horizon
+        dev = samples.device
+        p, tdist_aux = self._target_dist(pdf_ctx, pstate, samples, temp,
+                                         use_prior=use_prior, with_aux=True)
+        q_base = traj_footprint(traj_hist, samples, self.explr_locs, self.std,
+                                traj_mask=hist_mask)
+        p_n = cost_norm(p)
+
+        def cost_fn(u_test):
+            return self._cost(pstate.dyn, u_test, samples, p_n, q_base, pstate.barrier)
+
+        u = pstate.u
+        last_cost = cost_fn(u)
+        q_keep = renormalize(q_base)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        t = torch.arange(H, device=dev)
+        for idx in range(cfg.num_iters):
+            u_eff, xs, A, B, dbarr, dmu = self._forward(pstate, u, idx)
+            q_iter = traj_footprint(xs, samples, self.explr_locs, self.std)
+            q = renormalize(q_base + q_iter)
+            du, djdlam = self._backward(samples, p, q, xs, A, B, dbarr, dmu)
+            u_star = self._saturate(u_eff + cfg.alpha * du)
+            t_app = torch.argmin(djdlam)
+            u_app = u_star.index_select(0, t_app.reshape(1))[0]
+            ti, tf, ls_ok = self._line_search(cost_fn, t_app, u_app, u, idx, last_cost)
+            m = (ls_ok & (t >= ti) & (t < tf))[:, None]
+            u_new = torch.where(m, u_app[None], u_eff)
+            # a djdlam that is not negative stops the loop without updating
+            step_done = ~(djdlam.gather(0, t_app.reshape(1))[0] < 0)
+            cost = cost_fn(u_new)
+            cost_break = (last_cost <= cost) if idx > 0 else torch.zeros_like(done)
+            accept = ~done & ~step_done & ~cost_break
+            u = torch.where(accept, u_new, u)
+            last_cost = torch.where(accept, cost, last_cost)
+            q_keep = torch.where(accept, q, q_keep)
+            done = done | step_done | cost_break
+        u = torch.nan_to_num(u)
+        last_plan = self._rollout(pstate.dyn, u)
+
+        q_n = cost_norm(q_keep)
+        d_kl = (p_n * torch.log(p_n / q_n)).sum()
+        pstate = dataclasses.replace(pstate, u=u, last_plan=last_plan)
+        info = dict(samples=samples, p=p, q=q_keep, cost=d_kl,
+                    planned_traj=last_plan[:, self.explr_locs])
+        if "pdf" in tdist_aux:
+            info["tdist_pdf"] = tdist_aux["pdf"]
+        if "spread" in tdist_aux:
+            info["tdist_spread"] = tdist_aux["spread"]
+        return pstate, info
+
+    def save_update(self, pstate: PlannerState, full_state, save: bool = True):
+        """Sync the planner to a measured state: nan guard, closest-plan-
+        point policy shift, velocity smoothing, memory push."""
+        full_state = full_state.float()
+        bad = torch.isnan(full_state).any()
+        full_state = torch.nan_to_num(full_state)
+        m = self.dyn.num_actions
+
+        dist = torch.linalg.norm(pstate.last_plan - full_state[None, :], dim=1)
+        policy_idx = torch.argmin(dist)
+        planned = pstate.last_plan.index_select(0, policy_idx.reshape(1))[0]
+        vs = self.cfg.vel_smoothing
+        vel = vs * full_state[m:] + (1 - vs) * planned[m:]
+        dyn_new = self.dyn.init(torch.cat([full_state[:m], vel]))
+        u_new = self.policy.shift(pstate.u, policy_idx)
+
+        memory = pstate.memory
+        if save:
+            memory.push(dyn_new.x, skip=bad)  # a nan measurement is not pushed
+        dyn_out = DynState(x=torch.where(bad, pstate.dyn.x, dyn_new.x))
+        u_out = torch.where(bad, pstate.u, u_new)
+        return dataclasses.replace(pstate, dyn=dyn_out, u=u_out, memory=memory)

@@ -1,0 +1,64 @@
+"""Build a CUDA source of ``ealv_tpu_torch/csrc`` into a shared library and
+load it with ctypes.
+
+Each source has a plain C interface and includes no PyTorch header, so one
+``nvcc`` call builds it in seconds. The library is built at first use into
+``ealv_tpu_torch/_build/`` (git-ignored), named by a hash of the source and
+the flags, so an edit rebuilds it and an unchanged source is loaded as is.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# -Xptxas=-v reports each kernel's registers, shared memory and spills
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(source: str) -> Path:
+    src = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` if its library is missing, then load it."""
+    if source in _loaded:
+        return _loaded[source]
+    out = _library_path(source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {source} (rc {res.returncode}):\n"
+                f"{res.stdout}\n{res.stderr}")
+        if res.stderr.strip():
+            print(f"[nvcc {source}] {res.stderr.strip()}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _loaded[source] = lib
+    return lib

@@ -1,0 +1,269 @@
+"""The explore-and-learn experiment (port of ``ealv_tpu/runtime/agent.py``).
+
+One ``tick`` syncs the planner to the measured state, plans with the
+KL-ergodic MPC, converts the plan to a velocity command, steps the
+synthetic env and renders the camera, pushes the sample to the replay
+ring, reseeds z, and makes the throttled trainer call. The state is
+updated in place and returned. The throttle counters (``explr_step``,
+``learning_ind``) are host ints, so the throttle branches in Python and a
+tick never waits on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..utils.config import ExperimentConfig, TRAY_LIM
+from ..utils.states import ws_conversion
+from ..models import CVAE
+from ..models.cvae import init_model_state, update_dist, ModelState
+from ..data.replay import ReplayBuffer
+from ..control.klerg import KlergConfig, KlergPlanner, PlannerState
+from ..control.dynamics import make_dynamics
+from ..control.policies import make_policy
+from ..control.barrier import setup_barrier
+from ..sim.env import SyntheticEnv, EnvState
+from ..sim.renderer import TrayScene
+from .trainer import TrainerStatics, TrainDraws, train_call
+from .schedules import HyperState, hyperparam_update, entropy_grade, \
+    entropy_grade_spread
+
+
+@dataclasses.dataclass
+class ExperimentState:
+    model: CVAE  # holds the parameters
+    opt: torch.optim.Optimizer
+    mstate: ModelState
+    pstate: PlannerState
+    buf: ReplayBuffer
+    env: EnvState
+    hyper: HyperState
+    gen: torch.Generator  # the trainer's random stream
+    explr_step: int = 0
+    learning_ind: int = 0  # trainer calls so far
+
+
+@dataclasses.dataclass
+class TickDraws:
+    """One tick's random draws, fed instead of drawn (for step-matched
+    tests): planner target samples (N, d), the history draw's indices
+    (num_traj_samples,), and one ``TrainDraws`` per trainer call."""
+
+    samples: torch.Tensor
+    hist_idx: torch.Tensor
+    train: list
+
+
+class Experiment:
+    """Builds and runs the online-learning experiment on ``device``."""
+
+    def __init__(self, cfg: ExperimentConfig, train_calls_per_tick: int = 3,
+                 scene: Optional[TrayScene] = None, train_every: int = 1,
+                 device="cpu", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("the multi-device mesh is not ported yet")
+        if "klerg" not in cfg.explr_method:
+            raise NotImplementedError(f"baseline method {cfg.explr_method!r} "
+                                      "is not ported yet")
+        if cfg.use_z_ensemble:
+            raise NotImplementedError("use_z_ensemble is not ported yet")
+        if cfg.sim_backend != "free":
+            raise NotImplementedError(f"sim_backend={cfg.sim_backend!r} is not "
+                                      "ported yet")
+        if "b" in cfg.states or cfg.states != cfg.states.lower():
+            raise NotImplementedError("the port explores lower-case pose "
+                                      "states without 'b'")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            # float32 math runs in full float32 on the card: cuDNN would
+            # otherwise run f32 convs in TF32 (matmuls are f32 by default)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.train_calls_per_tick = train_calls_per_tick
+        self.train_every = train_every
+        self.scene = scene
+        dev = self.device
+        states = cfg.states
+        self.pose_sel = torch.tensor(cfg.sel(), device=dev)
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+
+        self.dyn = make_dynamics(states, dt=cfg.dt, use_magnitude=cfg.use_magnitude,
+                                 device=dev)
+        kcfg = KlergConfig(
+            horizon=cfg.horizon, num_target_samples=cfg.num_target_samples,
+            num_traj_samples=cfg.num_traj_samples, dt=cfg.dt, R=cfg.R, std=cfg.std,
+            uniform_tdist="unif" in cfg.explr_method,
+            vel_smoothing=0.5,  # the simulator's smoothing
+        )
+        self.planner = KlergPlanner(
+            kcfg, self.dyn, make_policy("Roll", self.dyn, cfg.horizon),
+            lambda ctx, samples: ctx[0].pdf(ctx[1], samples),
+            states, explr_locs=list(range(len(states))), device=dev)
+        self.trainer = TrainerStatics(
+            batch_size=cfg.batch_size, num_learning_opt=cfg.num_learning_opt,
+            gamma_weight=cfg.gamma_weight, other_locs=cfg.other_locs,
+            lr=cfg.model_lr)
+
+        self.tray6 = tuple(TRAY_LIM[s] for s in "xyzrpw")
+        self.env = SyntheticEnv(tray_lim=self.tray6, dt=cfg.dt / 5.0,
+                                img_hw=cfg.image_dim[:2], device=str(dev))
+        t = lambda a: torch.as_tensor(a, device=dev)
+        self.tray_lim = t(cfg.tray_lim)
+        self.robot_lim = t(cfg.robot_lim)
+        self.tray_ctrl_lim = t(cfg.tray_ctrl_lim)
+        self.robot_ctrl_lim = t(cfg.robot_ctrl_lim)
+        self.tray_full_lim = torch.cat([self.tray_lim, self.tray_ctrl_lim], 0)
+        self.robot_full_lim = torch.cat([self.robot_lim, self.robot_ctrl_lim], 0)
+
+    def make_model(self) -> CVAE:
+        cfg = self.cfg
+        return CVAE(
+            img_dim=cfg.image_dim, z_dim=cfg.z_dim, s_dim=cfg.s_dim,
+            hidden_dim=cfg.model_hidden(), cnn_kernels=cfg.cnn_kernels,
+            cnn_strides=cfg.cnn_strides, cnn_channels=cfg.cnn_channels,
+            y_logvar_dim=cfg.y_logvar_dim, learn_force=cfg.learn_force, dx=cfg.dx,
+            compute_dtype=self.compute_dtype, decoder_mode=cfg.decoder_mode,
+            fast_encoder_grads=cfg.fast_encoder_grads, lane_pad=cfg.lane_pad)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> ExperimentState:
+        """Random weights from ``seed`` (drawn on the CPU, so every device
+        starts from the same model); runtime draws from device generators
+        seeded with ``seed`` (trainer) and ``seed + 1`` (planner)."""
+        cfg, dev = self.cfg, self.device
+        model = self.make_model()
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.to(dev)
+        barrier, _ = setup_barrier(cfg.states, self.robot_lim,
+                                   self.robot_ctrl_lim, list(range(cfg.s_dim)))
+        tray_center = torch.tensor([(lo + hi) / 2 for lo, hi in self.tray6], device=dev)
+        x0r = ws_conversion(tray_center[self.pose_sel], self.tray_lim, self.robot_lim)
+        pstate = self.planner.init_state(
+            torch.cat([x0r, torch.zeros_like(x0r)]), self.robot_lim, barrier,
+            buffer_capacity=cfg.traj_buffer_capacity,
+            explr_lim_scale=cfg.explr_robot_lim_scale, seed=seed + 1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return ExperimentState(
+            model=model, opt=self.trainer.make_optimizer(model),
+            mstate=init_model_state(model, dev), pstate=pstate,
+            buf=ReplayBuffer.create(cfg.buffer_capacity, cfg.s_dim, cfg.image_dim,
+                                    dev, img_dtype=self.compute_dtype),
+            env=self.env.init(tray_center, scene=self.scene),
+            hyper=HyperState.create(dev), gen=gen)
+
+    # ------------------------------------------------------------------
+    def _measured_robot_state(self, env: EnvState):
+        """(pose, vel) tray -> robot coords over the explored states."""
+        full = torch.cat([env.pose[self.pose_sel], env.vel[self.pose_sel]])
+        return ws_conversion(full, self.tray_full_lim, self.robot_full_lim)
+
+    def plan_step(self, es: ExperimentState, full_state, draws: TickDraws | None = None):
+        """Sync the planner to the measured state, plan, and convert the
+        predicted velocity to a tray-frame 6-twist. Returns (pstate, vel6,
+        info)."""
+        m = self.dyn.num_actions
+        pstate = self.planner.save_update(es.pstate, full_state, save=True)
+        pstate, info = self.planner.plan(
+            pstate, (es.model, es.mstate),
+            use_prior=es.explr_step < self.cfg.prior_steps,
+            samples=draws.samples if draws else None,
+            hist_idx=draws.hist_idx if draws else None)
+        vel_pred_r = self.dyn.step(pstate.dyn, pstate.u[0]).x[m:]
+        vel_tray = ws_conversion(vel_pred_r, self.robot_ctrl_lim, self.tray_ctrl_lim)
+        vel_tray = torch.clamp(vel_tray, self.tray_ctrl_lim[:, 0], self.tray_ctrl_lim[:, 1])
+        vel6 = torch.zeros(6, device=self.device)
+        vel6[self.pose_sel] = vel_tray
+        return pstate, vel6, info
+
+    def tick(self, es: ExperimentState, draws: TickDraws | None = None):
+        """One exploration step plus throttled learning. Returns (es,
+        tick_info); ``es`` is updated in place."""
+        full_state = self._measured_robot_state(es.env)
+        pstate, vel6, info = self.plan_step(es, full_state, draws)
+        env = es.env
+        for _ in range(self.cfg.data_to_ctrl_rate):
+            env = self.env.step_vel(env, vel6)
+        _, _, force, img = self.env.observe(env)
+        robot_state = self._measured_robot_state(env)[: self.cfg.s_dim]
+        es.env = env
+        return self.absorb_step(es, pstate, info, robot_state, img, force, draws)
+
+    def absorb_step(self, es: ExperimentState, pstate, info, robot_state, img,
+                    force, draws: TickDraws | None = None):
+        """Push the sample, reseed the target distribution, update the
+        hyperparameters and run the throttled learning."""
+        cfg = self.cfg
+        force = force.float().reshape(-1)
+        if force.shape[0] > 1:
+            force = torch.linalg.norm(force)[None]
+        if cfg.image_dim[2] == 1 and img.shape[-1] != 1:
+            img = img.mean(-1, keepdim=True)
+        es.buf.push(robot_state, img, force)
+        es.mstate, _ = update_dist(es.model, es.mstate, robot_state, img)
+        es.pstate = pstate
+
+        metrics = None
+        for i in range(self.train_calls_per_tick):
+            do = (es.learning_ind
+                  < cfg.target_learning_rate * (es.explr_step + 1 - cfg.frames_before_training)
+                  and es.explr_step + 1 >= cfg.frames_before_training)
+            if self.train_every > 1:
+                do = do and es.explr_step % self.train_every == 0
+            if not do:
+                # a skipped call reports zero metrics and pushes no grade
+                metrics = None
+                continue
+            if cfg.hyper_from_planner and "tdist_pdf" in info and "tdist_spread" in info:
+                # reuse the planner's pdf decode and coverage of this tick
+                spread = info["tdist_spread"]
+                grade = entropy_grade(info["tdist_pdf"], spread, cfg.xi)
+            else:
+                lo, hi = self.robot_lim[:, 0], self.robot_lim[:, 1]
+                samples_hp = torch.rand((cfg.num_target_samples, cfg.s_dim),
+                                        generator=es.gen, device=self.device) \
+                    * (hi - lo) + lo
+                pdf_vals = es.model.pdf(es.mstate, samples_hp)
+                all_x, x_mask = es.buf.get_all_x()
+                grade, spread = entropy_grade_spread(
+                    pdf_vals, all_x, x_mask, samples_hp, list(range(cfg.s_dim)),
+                    torch.full((cfg.s_dim,), cfg.std, device=self.device), cfg.xi)
+            hyper = hyperparam_update(
+                es.hyper, grade, spread,
+                fixed_beta=cfg.fixed_beta, beta_manual_ramp=cfg.beta_manual_ramp,
+                fixed_gamma=cfg.fixed_gamma, gamma_manual_ramp=cfg.gamma_manual_ramp,
+                other_locs=cfg.other_locs,
+                beta_start=cfg.beta_start_weight, beta_end=cfg.beta_end_weight,
+                beta_warmup_steps=cfg.beta_warmup_steps,
+                beta_warmup_epoch=cfg.beta_warmup_epoch,
+                gamma_start=cfg.gamma_start_weight, gamma_end=cfg.gamma_end_weight,
+                gamma_warmup_steps=cfg.gamma_warmup_steps,
+                gamma_warmup_epoch=cfg.gamma_warmup_epoch)
+            hyper.iter += self.trainer.num_learning_opt
+            es.hyper = hyper
+            metrics = train_call(self.trainer, es.model, es.opt, es.buf,
+                                 hyper.beta, hyper.gamma, generator=es.gen,
+                                 draws=draws.train[i] if draws else None)
+            es.buf.update_hyperparams(es.explr_step, grade, spread)
+            es.learning_ind += 1
+
+        es.explr_step += 1
+        zero = torch.zeros((), device=self.device)
+        tick_info = {
+            "ergodic_cost": info["cost"],
+            "loss": metrics["loss"][-1] if metrics is not None else zero,
+            "beta": es.hyper.beta,
+            "gamma": es.hyper.gamma,
+            "robot_state": robot_state,
+            "force": force,
+        }
+        return es, tick_info
+
+    def run_chunk(self, es: ExperimentState, n_steps: int):
+        """n ticks; returns (es, infos stacked over the ticks)."""
+        infos = [self.tick(es)[1] for _ in range(n_steps)]
+        return es, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}

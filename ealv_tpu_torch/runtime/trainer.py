@@ -1,0 +1,91 @@
+"""Trainer call, the learning half of the loop (port of
+``ealv_tpu/runtime/trainer.py``): ``num_learning_opt`` Adam steps on
+weighted batches with the cross-decode loss and the latent diagnostics.
+
+``torch.optim.Adam`` computes the same update as ``optax.adam`` (eps_root
+0). The fused Adam kernel of the JAX package (K2) is off there by default
+and is not on this path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models import CVAE, cvae_loss
+from ..data.replay import ReplayBuffer
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerStatics:
+    """Static half of the trainer: model architecture and sizes."""
+
+    batch_size: int = 64
+    num_learning_opt: int = 25
+    gamma_weight: float = 0.1
+    other_locs: bool = True
+    lr: float = 1e-3
+
+    def make_optimizer(self, model: CVAE):
+        return torch.optim.Adam(model.parameters(), lr=self.lr)
+
+
+@dataclasses.dataclass
+class TrainDraws:
+    """One trainer call's random draws, fed instead of drawn: batch indices
+    (steps, B), cross-decode indices (steps, B) and reparam noise
+    (steps, B, z_dim)."""
+
+    idx: torch.Tensor
+    idx2: torch.Tensor
+    eps: torch.Tensor
+
+
+def train_call(statics: TrainerStatics, model: CVAE, opt, buf: ReplayBuffer,
+               beta, gamma, generator: torch.Generator | None = None,
+               weighted: bool = True, deterministic: bool = False,
+               draws: TrainDraws | None = None):
+    """One trainer call of ``num_learning_opt`` steps; updates ``model`` in
+    place through ``opt``. ``deterministic`` decodes z = z_mu (no noise).
+    Returns the metrics, each stacked to (num_learning_opt,)."""
+    B = statics.batch_size
+    rows = []
+    for step in range(statics.num_learning_opt):
+        if draws is not None:
+            idx, idx2, eps = draws.idx[step], draws.idx2[step], draws.eps[step]
+        else:
+            idx = buf.sample_indices(B, weighted=weighted, generator=generator)
+            idx2 = (buf.sample_indices(B, weighted=False, generator=generator)
+                    if statics.other_locs else None)
+            eps = None
+        x, y = buf.x[idx], buf.y[idx]
+        x_dec = y2 = None
+        if statics.other_locs:
+            x2, y2 = buf.x[idx2], buf.y[idx2]
+            x_dec = x2 - x if model.dx else x2
+        out = model(x, y, x_decode=x_dec, train=not deterministic, eps=eps,
+                    generator=generator)
+        loss, m = cvae_loss(out, y, y2=y2, beta=beta, gamma=gamma,
+                            gamma_weight=statics.gamma_weight,
+                            other_locs=statics.other_locs)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+        thr = 0.01
+        z_mu, z_logvar = out["z_mu"].detach(), out["z_logvar"].detach()
+        vars_of_means = z_mu.var(0, correction=0)
+        means_of_vars = torch.exp(z_logvar).mean(0)
+        row = {
+            "loss": loss.detach(),
+            "rc": m["rc"].detach(),
+            "kl": m["kl"].detach(),
+            "z_activity": vars_of_means.sum(),
+            "active_units": (vars_of_means > thr).sum(),
+            "active_units_vars": (means_of_vars < thr).sum(),
+        }
+        if statics.other_locs:
+            row["rc_other"] = m["rc_other"].detach()
+        rows.append(row)
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

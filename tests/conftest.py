@@ -42,3 +42,8 @@ def pytest_configure(config):
         "`pytest -m 'not slow'` gives a ~3 min smoke tier on a 1-core "
         "box; the full suite should run serially (~30 min single-core).",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; skips without one (on the GPU: "
+        "`python -m pytest --noconftest tests/test_torch_cuda.py`).",
+    )
