@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fast_conv import conv2d_valid_direct
 from ..utils.config import conv_output_dims
 
 LOGVAR_LIMS = (-10.0, 2.0)
@@ -56,8 +57,9 @@ class CVAE(nn.Module):
         if decoder_mode != "conv_transpose":
             raise NotImplementedError(f"decoder_mode={decoder_mode!r}: the port "
                                       "builds only 'conv_transpose'")
-        if fast_encoder_grads:
-            raise NotImplementedError("fast_encoder_grads is not ported")
+        if fast_encoder_grads not in (False, "pallas"):
+            raise NotImplementedError(f"fast_encoder_grads={fast_encoder_grads!r}: "
+                                      "the port builds only False and 'pallas'")
         if lane_pad:
             raise NotImplementedError("lane_pad is not ported")
         if learn_force:
@@ -68,6 +70,7 @@ class CVAE(nn.Module):
         self.y_logvar_dim = y_logvar_dim
         self.dx = dx
         self.compute_dtype = compute_dtype
+        self.fast_encoder_grads = fast_encoder_grads
         (h, w), dims = conv_output_dims(self.img_dim[:2], cnn_kernels, cnn_strides)
         self.inner_shape = (cnn_channels[-1], h, w)  # NCHW
         self.feat_dim = h * w * cnn_channels[-1]
@@ -136,12 +139,18 @@ class CVAE(nn.Module):
 
     def img_encode(self, y):
         """(B, H, W, C) -> (B, feat), features in (C, h, w) order. The last
-        conv is not activated."""
+        conv is not activated. With ``fast_encoder_grads="pallas"`` each conv
+        takes its weight gradient from K3 (``ops/fast_conv.py``) and the bias
+        is added after it, as the JAX ``_FastValidConv`` does."""
         dt = self.compute_dtype
         h = y.to(dt).permute(0, 3, 1, 2)
         convs = self._layers(self.img_encoder, nn.Conv2d)
         for i, conv in enumerate(convs):
-            h = F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt), stride=conv.stride)
+            if self.fast_encoder_grads == "pallas":
+                h = conv2d_valid_direct(h, conv.weight.to(dt), conv.stride[0]) \
+                    + conv.bias.to(dt)[:, None, None]
+            else:
+                h = F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt), stride=conv.stride)
             if i < len(convs) - 1:
                 h = F.relu(h)
         return h.flatten(1)

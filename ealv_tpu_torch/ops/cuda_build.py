@@ -1,11 +1,12 @@
-"""Build a CUDA source of ``ealv_tpu_torch/csrc`` into a shared library and
-load it with ctypes.
+"""Build CUDA sources of ``ealv_tpu_torch/csrc`` into shared libraries and
+load them with ctypes.
 
 Each source has a plain C interface and includes no PyTorch header, so one
-``nvcc`` call builds it in seconds. The library is built at first use into
+``nvcc`` call builds it in seconds. A library is built at first use into
 ``ealv_tpu_torch/_build/`` (git-ignored), named by a hash of the source and
 the flags, so an edit rebuilds it and an unchanged source is loaded as is.
-Nothing here runs at import time.
+``build`` starts one ``nvcc`` per missing library, all at once, and waits
+for every one of them. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -42,23 +43,39 @@ def _library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
 
+def build(*sources: str) -> None:
+    """Build the missing libraries of ``csrc/<source>``, one ``nvcc``
+    process per source, all started together. Raises after every process
+    has ended if any of them failed."""
+    jobs = []
+    for source in sources:
+        out = _library_path(source)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        jobs.append((source, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for source, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source} (rc {proc.returncode}):\n"
+                          f"{stdout}\n{stderr}")
+            continue
+        if stderr.strip():
+            print(f"[nvcc {source}] {stderr.strip()}")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if its library is missing, then load it."""
     if source in _loaded:
         return _loaded[source]
-    out = _library_path(source)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {source} (rc {res.returncode}):\n"
-                f"{res.stdout}\n{res.stderr}")
-        if res.stderr.strip():
-            print(f"[nvcc {source}] {res.stderr.strip()}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    build(source)
+    lib = ctypes.CDLL(str(_library_path(source)))
     _loaded[source] = lib
     return lib

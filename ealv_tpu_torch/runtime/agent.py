@@ -6,7 +6,8 @@ synthetic env and renders the camera, pushes the sample to the replay
 ring, reseeds z, and makes the throttled trainer call. The state is
 updated in place and returned. The throttle counters (``explr_step``,
 ``learning_ind``) are host ints, so the throttle branches in Python and a
-tick never waits on the device.
+tick never waits on the device. ``post_train_chunk`` is the training that
+follows exploration: trainer calls with no exploration.
 """
 
 from __future__ import annotations
@@ -55,6 +56,16 @@ class TickDraws:
     samples: torch.Tensor
     hist_idx: torch.Tensor
     train: list
+
+
+@dataclasses.dataclass
+class PostTrainDraws:
+    """One post-exploration trainer call's random draws, fed instead of
+    drawn: the entropy grade's uniform samples (num_target_samples, s_dim)
+    and the trainer call's ``TrainDraws``."""
+
+    samples: torch.Tensor
+    train: TrainDraws
 
 
 class Experiment:
@@ -223,33 +234,9 @@ class Experiment:
                 spread = info["tdist_spread"]
                 grade = entropy_grade(info["tdist_pdf"], spread, cfg.xi)
             else:
-                lo, hi = self.robot_lim[:, 0], self.robot_lim[:, 1]
-                samples_hp = torch.rand((cfg.num_target_samples, cfg.s_dim),
-                                        generator=es.gen, device=self.device) \
-                    * (hi - lo) + lo
-                pdf_vals = es.model.pdf(es.mstate, samples_hp)
-                all_x, x_mask = es.buf.get_all_x()
-                grade, spread = entropy_grade_spread(
-                    pdf_vals, all_x, x_mask, samples_hp, list(range(cfg.s_dim)),
-                    torch.full((cfg.s_dim,), cfg.std, device=self.device), cfg.xi)
-            hyper = hyperparam_update(
-                es.hyper, grade, spread,
-                fixed_beta=cfg.fixed_beta, beta_manual_ramp=cfg.beta_manual_ramp,
-                fixed_gamma=cfg.fixed_gamma, gamma_manual_ramp=cfg.gamma_manual_ramp,
-                other_locs=cfg.other_locs,
-                beta_start=cfg.beta_start_weight, beta_end=cfg.beta_end_weight,
-                beta_warmup_steps=cfg.beta_warmup_steps,
-                beta_warmup_epoch=cfg.beta_warmup_epoch,
-                gamma_start=cfg.gamma_start_weight, gamma_end=cfg.gamma_end_weight,
-                gamma_warmup_steps=cfg.gamma_warmup_steps,
-                gamma_warmup_epoch=cfg.gamma_warmup_epoch)
-            hyper.iter += self.trainer.num_learning_opt
-            es.hyper = hyper
-            metrics = train_call(self.trainer, es.model, es.opt, es.buf,
-                                 hyper.beta, hyper.gamma, generator=es.gen,
-                                 draws=draws.train[i] if draws else None)
-            es.buf.update_hyperparams(es.explr_step, grade, spread)
-            es.learning_ind += 1
+                grade, spread = self._grade_spread(es)
+            metrics = self._hyper_and_train(es, grade, spread,
+                                            draws.train[i] if draws else None)
 
         es.explr_step += 1
         zero = torch.zeros((), device=self.device)
@@ -263,7 +250,64 @@ class Experiment:
         }
         return es, tick_info
 
+    def _grade_spread(self, es: ExperimentState, samples=None):
+        """Entropy grade and coverage spread from a fresh pdf decode at
+        ``samples`` (drawn uniformly from ``es.gen`` unless fed) and the
+        replay ring's poses."""
+        cfg = self.cfg
+        if samples is None:
+            lo, hi = self.robot_lim[:, 0], self.robot_lim[:, 1]
+            samples = torch.rand((cfg.num_target_samples, cfg.s_dim),
+                                 generator=es.gen, device=self.device) * (hi - lo) + lo
+        pdf_vals = es.model.pdf(es.mstate, samples)
+        all_x, x_mask = es.buf.get_all_x()
+        return entropy_grade_spread(
+            pdf_vals, all_x, x_mask, samples, list(range(cfg.s_dim)),
+            torch.full((cfg.s_dim,), cfg.std, device=self.device), cfg.xi)
+
+    def _hyper_and_train(self, es: ExperimentState, grade, spread,
+                         train_draws: TrainDraws | None):
+        """Update beta/gamma, make one trainer call, push (grade, spread) to
+        the hyperparameter ring and count the call. Returns the metrics."""
+        cfg = self.cfg
+        hyper = hyperparam_update(
+            es.hyper, grade, spread,
+            fixed_beta=cfg.fixed_beta, beta_manual_ramp=cfg.beta_manual_ramp,
+            fixed_gamma=cfg.fixed_gamma, gamma_manual_ramp=cfg.gamma_manual_ramp,
+            other_locs=cfg.other_locs,
+            beta_start=cfg.beta_start_weight, beta_end=cfg.beta_end_weight,
+            beta_warmup_steps=cfg.beta_warmup_steps,
+            beta_warmup_epoch=cfg.beta_warmup_epoch,
+            gamma_start=cfg.gamma_start_weight, gamma_end=cfg.gamma_end_weight,
+            gamma_warmup_steps=cfg.gamma_warmup_steps,
+            gamma_warmup_epoch=cfg.gamma_warmup_epoch)
+        hyper.iter += self.trainer.num_learning_opt
+        es.hyper = hyper
+        metrics = train_call(self.trainer, es.model, es.opt, es.buf,
+                             hyper.beta, hyper.gamma, generator=es.gen,
+                             draws=train_draws)
+        es.buf.update_hyperparams(es.explr_step, grade, spread)
+        es.learning_ind += 1
+        return metrics
+
     def run_chunk(self, es: ExperimentState, n_steps: int):
         """n ticks; returns (es, infos stacked over the ticks)."""
         infos = [self.tick(es)[1] for _ in range(n_steps)]
         return es, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+
+    def post_train_chunk(self, es: ExperimentState, n_calls: int,
+                         draws: list[PostTrainDraws] | None = None):
+        """n trainer calls with no exploration: the post-exploration
+        training phase (port of ``Experiment.post_train_chunk`` of the JAX
+        package). Each call grades the model's entropy at fresh uniform
+        samples over the frozen replay ring, updates beta/gamma and trains.
+        ``draws`` feeds each call's samples and trainer draws. Returns (es,
+        infos): the last loss, beta and gamma of each call, stacked."""
+        rows = []
+        for c in range(n_calls):
+            d = draws[c] if draws else None
+            grade, spread = self._grade_spread(es, d.samples if d else None)
+            metrics = self._hyper_and_train(es, grade, spread, d.train if d else None)
+            rows.append({"loss": metrics["loss"][-1], "beta": es.hyper.beta,
+                         "gamma": es.hyper.gamma})
+        return es, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

@@ -3,8 +3,10 @@
 weighted batches with the cross-decode loss and the latent diagnostics.
 
 ``torch.optim.Adam`` computes the same update as ``optax.adam`` (eps_root
-0). The fused Adam kernel of the JAX package (K2) is off there by default
-and is not on this path.
+0). ``fused_adam=True`` swaps in ``FusedAdam``, whose step is one launch of
+the multi-tensor Adam kernel K2 (``ops/adam.py``) over every parameter. As
+in the JAX package the switch is off by default; a user turns it on with
+``dataclasses.replace(exp.trainer, fused_adam=True)`` before ``exp.init``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from ..models import CVAE, cvae_loss
 from ..data.replay import ReplayBuffer
+from ..ops.adam import FusedAdam
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,8 +29,11 @@ class TrainerStatics:
     gamma_weight: float = 0.1
     other_locs: bool = True
     lr: float = 1e-3
+    fused_adam: bool = False  # K2: one Adam kernel launch per step
 
-    def make_optimizer(self, model: CVAE):
+    def make_optimizer(self, model: CVAE) -> torch.optim.Optimizer:
+        if self.fused_adam:
+            return FusedAdam(model.parameters(), lr=self.lr)
         return torch.optim.Adam(model.parameters(), lr=self.lr)
 
 

@@ -113,8 +113,9 @@ class ExperimentConfig:
     # image decoder family; the port builds only 'conv_transpose' and
     # raises on 'subpixel' and 'resize_conv'
     decoder_mode: str = "conv_transpose"
-    # alternative encoder weight-gradient schedules of the JAX package; the
-    # port raises on anything but False
+    # encoder weight-gradient schedule: False = autograd's conv wgrad,
+    # 'pallas' = the direct wgrad kernel K3 (ops/fast_conv.py); the port
+    # raises on the JAX package's True, 's2d' and 'im2col'
     fast_encoder_grads: object = False
     # lane-padded conv layouts of the JAX package; the port raises on
     # anything but 0

@@ -1,4 +1,4 @@
-"""JAX CVAE parameters -> the port's CVAE ``state_dict``.
+"""JAX CVAE parameters and Adam state -> the port's ``state_dict``s.
 
 ``params_from_jax`` inverts ``ealv_tpu/utils/torch_import.py::
 convert_state_dict``, so both packages compute the same function from the
@@ -13,6 +13,11 @@ same weights:
     feature columns of ``enc_fc0`` and the feature rows of ``dec_out`` are
     permuted.
 
+``opt_state_from_jax`` carries an optax ``ScaleByAdamState`` or the JAX
+package's ``PallasAdamState`` (count, mu, nu) over to the port's
+optimizer: the moments are parameter-shaped trees, so they go through the
+same mapping as the parameters.
+
 Values may be JAX arrays or numpy arrays; only numpy is used here.
 """
 
@@ -21,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops.adam import FusedAdam
 
 
 def _feat_perm(inner_hw, channels):
@@ -84,3 +91,35 @@ def params_from_jax(params, model) -> dict:
             raise ValueError(f"shape mismatch at {k}: JAX gives {sd[k].shape}, "
                              f"model expects {tuple(t.shape)}")
     return {k: torch.from_numpy(np.array(x)) for k, x in sd.items()}
+
+
+def _find_adam_state(state):
+    """The (count, mu, nu) node of an optax state tree."""
+    if all(hasattr(state, k) for k in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state, model, opt) -> dict:
+    """JAX Adam state -> ``state_dict`` for ``opt``, a
+    ``torch.optim.Adam`` or a ``FusedAdam`` over ``model.parameters()``."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the JAX optimizer state")
+    count = int(np.asarray(adam.count))
+    mu, nu = params_from_jax(adam.mu, model), params_from_jax(adam.nu, model)
+    names = [n for n, _ in model.named_parameters()]
+    sd = opt.state_dict()
+    state = {}
+    for i, name in enumerate(names):
+        state[i] = {"exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        if not isinstance(opt, FusedAdam):
+            state[i]["step"] = torch.tensor(float(count))
+    groups = [dict(g, step=count) if isinstance(opt, FusedAdam) else g
+              for g in sd["param_groups"]]
+    return {"state": state, "param_groups": groups}

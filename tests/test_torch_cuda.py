@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain torch version.
+"""K1, K2 and K3 on the card: each CUDA kernel against its plain torch
+version, at the main path's shapes and at ragged probe shapes.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -11,8 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from ealv_tpu_torch.models import CVAE
+from ealv_tpu_torch.ops import adam as tad
+from ealv_tpu_torch.ops import fast_conv as tfc
 from ealv_tpu_torch.ops import footprint as tfp
 from ealv_tpu_torch.ops import kernels as tk
+from ealv_tpu_torch.ops import wgrad as twg
+from ealv_tpu_torch.utils.config import ExperimentConfig
 
 
 @pytest.fixture
@@ -75,3 +81,175 @@ def test_other_dtypes_and_shapes_raise(cuda):
         tfp.footprint_and_spread(samples, traj.t().contiguous().t(), std, mask)
     with pytest.raises(ValueError):
         tfp.footprint_and_spread(*_inputs(8, 9, 9, "ones", cuda))
+
+
+# ---- K2: the multi-tensor Adam kernel ----
+
+# f32 on both sides with the same formula; nvcc contracts the moment
+# updates into FMAs, so values may differ by a few ulps
+ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
+
+
+def production_param_shapes():
+    cfg = ExperimentConfig()
+    model = CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim, s_dim=cfg.s_dim,
+                 hidden_dim=cfg.model_hidden())
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def _adam_state(shapes, dev, seed=0):
+    """(p, m, v, g) lists with non-zero moments, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    out = [[], [], [], []]
+    for shape in shapes:
+        out[0].append(t(rng.normal(0, 0.05, shape)))
+        out[1].append(t(rng.normal(0, 1e-3, shape)))
+        out[2].append(t(rng.uniform(0, 1e-5, shape)))
+        out[3].append(t(rng.normal(0, 1e-2, shape)))
+    return out
+
+
+def _adam_check(shapes, dev, count, launches):
+    p, m, v, g = _adam_state(shapes, dev)
+    want = [[x.clone() for x in xs] for xs in (p, m, v)]
+    before = tad.adam_apply.launches
+    tad.adam_apply(p, m, v, g, 1e-3, count)
+    assert tad.adam_apply.launches == before + launches
+    for i in range(len(shapes)):
+        tad.adam_update_reference(want[0][i], want[1][i], want[2][i], g[i], 1e-3, count)
+    torch.cuda.synchronize()
+    for got, ref in zip((p, m, v), want):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, **ADAM_TOL)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_matches_plain_at_production_shapes(cuda):
+    """The CVAE's 24 parameter tensors (4.3 M elements) in one launch, at a
+    step count > 1 with non-zero moments."""
+    shapes = production_param_shapes()
+    assert len(shapes) == 24
+    _adam_check(shapes, cuda, count=7, launches=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,count,launches", [
+    ((1,), 1, 1), ((127,), 1, 1), ((129,), 3, 1), ((1, 127, 129, 4097, 3 * 4096 + 5), 2, 1),
+    ((33,) * 50, 4, 2)])
+def test_adam_kernel_ragged_sizes(cuda, sizes, count, launches):
+    """Tensors shorter than a chunk, crossing chunk edges, and more tensors
+    than one launch's table holds (two launches)."""
+    _adam_check([(n,) for n in sizes], cuda, count, launches)
+
+
+@pytest.mark.cuda
+def test_fused_adam_matches_torch_adam(cuda):
+    """Three steps of FusedAdam against torch.optim.Adam on the card: the
+    two formulas place the bias correction differently (sqrt(v / c2) vs
+    sqrt(v) / sqrt(c2)), so rtol 1e-5, atol 1e-6."""
+    rng = np.random.default_rng(3)
+    init = [rng.normal(0, 0.1, s) for s in ((64, 33), (64,), (7, 3, 3, 3))]
+    params = [[torch.tensor(a, dtype=torch.float32, device=cuda, requires_grad=True)
+               for a in init] for _ in range(2)]
+    opts = [tad.FusedAdam(params[0], lr=1e-3), torch.optim.Adam(params[1], lr=1e-3)]
+    for step in range(3):
+        grads = [rng.normal(0, 1e-2, a.shape) for a in init]
+        for ps, opt in zip(params, opts):
+            for p, gr in zip(ps, grads):
+                p.grad = torch.tensor(gr, dtype=torch.float32, device=cuda)
+            opt.step()
+    for a, b in zip(*params):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_rejects_other_grads_without_copying(cuda):
+    p, m, v, g = _adam_state([(64, 48)], cuda)
+    p0 = p[0].clone()
+    before = tad.adam_apply.launches
+    with pytest.raises(TypeError):
+        tad.adam_apply(p, m, v, [g[0].bfloat16()], 1e-3, 1)
+    with pytest.raises(ValueError):
+        tad.adam_apply(p, m, v, [g[0].t().contiguous().t()], 1e-3, 1)
+    with pytest.raises(ValueError):
+        tad.adam_apply(p, m, v, [g[0][:, :24]], 1e-3, 1)
+    with pytest.raises(TypeError):
+        tad.adam_apply(p, m, v, [g[0].cpu()], 1e-3, 1)
+    assert tad.adam_apply.launches == before
+    assert torch.equal(p[0], p0)
+
+
+# ---- K3: the direct conv weight gradient ----
+
+# (B, H, W, Cin, Cout, k, s): the CVAE encoder's three layers at batch 64
+# and the probe shapes of the JAX package's tests
+WGRAD_PRODUCTION = [(64, 180, 180, 3, 10, 3, 2), (64, 89, 89, 10, 10, 3, 2),
+                    (64, 44, 44, 10, 20, 5, 3)]
+WGRAD_PROBES = [(2, 17, 17, 3, 5, 3, 2), (1, 20, 20, 4, 6, 5, 3),
+                (2, 16, 16, 2, 3, 3, 3), (1, 13, 11, 1, 2, 1, 1), (3, 9, 9, 2, 40, 3, 2)]
+
+
+def _wgrad_inputs(shape, dtype, dev, seed=0, channels_last=False):
+    B, H, W, cin, cout, k, s = shape
+    rng = np.random.default_rng(seed)
+    oh, ow = (H - k) // s + 1, (W - k) // s + 1
+    x = torch.tensor(rng.normal(size=(B, H, W, cin)), dtype=dtype, device=dev)
+    x = x.permute(0, 3, 1, 2) if channels_last else x.permute(0, 3, 1, 2).contiguous()
+    cot = torch.tensor(rng.normal(size=(B, cout, oh, ow)), dtype=dtype, device=dev)
+    return x, cot, k, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WGRAD_PRODUCTION + WGRAD_PROBES)
+def test_wgrad_kernel_matches_plain(cuda, shape, dtype):
+    """f32 sums of exact products (bf16 x bf16 fits f32) in another order
+    than cuDNN's, over up to 507 k terms: rtol 1e-4, atol 1e-3. The
+    channels-last view (the CVAE's first layer) is read in place and gives
+    the same bits as the contiguous copy; two calls give the same bits."""
+    x, cot, k, s = _wgrad_inputs(shape, dtype, cuda)
+    before = twg.conv_wgrad_direct.launches
+    got = twg.conv_wgrad_direct(x, cot, k, s)
+    assert twg.conv_wgrad_direct.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (shape[4], shape[3], k, k)
+    want = twg.conv_wgrad_reference(x, cot, k, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    xl, _, _, _ = _wgrad_inputs(shape, dtype, cuda, channels_last=True)
+    assert not xl.is_contiguous() or shape[3] == 1
+    assert torch.equal(twg.conv_wgrad_direct(xl, cot, k, s), got)
+    assert torch.equal(twg.conv_wgrad_direct(x, cot, k, s), got)
+
+
+@pytest.mark.cuda
+def test_conv_autograd_function_on_the_card(cuda):
+    """Forward equals F.conv2d; dx and dW against autograd of F.conv2d (f32,
+    TF32 off): rtol 1e-4, atol 1e-3."""
+    x, cot, k, s = _wgrad_inputs((4, 45, 45, 10, 20, 5, 3), torch.float32, cuda)
+    w = torch.tensor(np.random.default_rng(1).normal(size=(20, 10, k, k)),
+                     dtype=torch.float32, device=cuda)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ya = tfc.conv2d_valid_direct(xa, wa, s)
+    yb = torch.nn.functional.conv2d(xb, wb, stride=s)
+    torch.testing.assert_close(ya, yb, rtol=0, atol=0)
+    before = twg.conv_wgrad_direct.launches
+    (ya * cot).sum().backward()
+    (yb * cot).sum().backward()
+    assert twg.conv_wgrad_direct.launches == before + 1
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(wa.grad, wb.grad, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_wgrad_kernel_rejects_other_inputs(cuda):
+    x, cot, k, s = _wgrad_inputs((2, 17, 17, 3, 5, 3, 2), torch.float32, cuda)
+    before = twg.conv_wgrad_direct.launches
+    with pytest.raises(TypeError):
+        twg.conv_wgrad_direct(x, cot.bfloat16(), k, s)
+    with pytest.raises(TypeError):
+        twg.conv_wgrad_direct(x.half(), cot.half(), k, s)
+    with pytest.raises(ValueError):
+        twg.conv_wgrad_direct(x, cot[:, :, 1:], k, s)
+    assert twg.conv_wgrad_direct.launches == before

@@ -25,7 +25,7 @@ from ealv_tpu.utils.config import ExperimentConfig as JConfig
 from ealv_tpu_torch.runtime import Experiment, TickDraws
 from ealv_tpu_torch.utils.config import ExperimentConfig
 from ealv_tpu_torch.utils.convert import params_from_jax
-from test_torch_trainer import jax_train_draws
+from test_torch_trainer import jax_train_draws, one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -14,6 +14,7 @@ from ealv_tpu.utils.config import ExperimentConfig as JConfig
 from ealv_tpu_torch.runtime import Experiment
 from ealv_tpu_torch.utils.config import ExperimentConfig
 from test_torch_tick import TOY
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 
 def test_twenty_ticks_statistically_like_jax():

@@ -36,6 +36,17 @@ torch.backends.cudnn.allow_tf32 = False
 IMG, S, Z, HID, B, LR = (24, 24, 3), 3, 8, (64, 32), 8, 1e-3
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Tier-1 runs several test processes side by side on the machine's
+    cores; torch's own thread pool in each of them would oversubscribe the
+    cores, so a port test runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True):
     """The draws JAX ``train_call`` makes from ``key`` (other_locs on)."""
 
