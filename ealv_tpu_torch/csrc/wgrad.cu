@@ -23,29 +23,39 @@
 // bf16 inputs (wgrad_mma_kernel, the trainer's path): dW[co, t] =
 // sum_p cot[co, p] * X[p, t] is a GEMM with a long K (p = (b, oh, ow): 507 k,
 // 124 k and 12.5 k at batch 64 for the CVAE encoder's three layers), a small
-// M (Cout <= 20) and a small N (taps t = (ci, kh, kw): 27, 90, 250). What
-// bounds it is memory traffic and per-position overhead, not the 63-137 M
-// multiply-adds (about 1 us of tensor-core time per layer). The first
-// design (one block per tap) re-read the cotangent once per tap, 27-250
-// times per layer. Here, as the TPU kernel's docstring set out, each input
-// crosses the memory system about once: a block takes work items (a band
-// of R output rows of one image, all columns), stages the band's
+// M (Cout <= 20) and a small N (taps t = (ci, kh, kw): 27, 90, 250). The
+// 63-137 M multiply-adds per layer are about 1 us of tensor-core time. The
+// first design (one block per tap) re-read the cotangent once per tap,
+// 27-250 times per layer. Here, as the TPU kernel's docstring set out, each
+// input crosses the memory system about once: a block takes work items (a
+// band of R output rows of one image, all columns), stages the band's
 // s*(R-1)+k rows of x and its R rows of cot in shared memory, builds the
 // im2col tile there from two offset tables (position and tap) and sums
 // with warp-level tensor-core MMA (nvcuda::wmma, 16x16x16 bf16 fragments,
 // f32 accumulators). Cout pads to 16, the taps of a channel group to 16;
 // warps split the n-tiles, then the k-steps. A block's warps add their
-// accumulators in a fixed order through shared memory. wgmma is not used:
-// its 64-row tiles would leave two thirds idle at Cout <= 20, and the
-// MACs are not the limit; TMA is not used: it needs 16-byte global
-// strides, and layer 1's channels-last rows are 1,080 bytes and odd
-// widths leave rows at 2-byte alignment. Contiguous spans (a channel
-// plane's rows, or a channels-last band) are copied as their 16-byte-
-// aligned superset (never past the 16-byte chunk that holds a valid
-// element, so never outside the allocation); other strides are staged
-// element by element. The schedule (band rows, groups, grid, shared-memory
-// layout) is fixed on the host by ops/wgrad.py::wgrad_plan from the shape
-// alone, so a channels-last view and its contiguous copy give the same bits.
+// accumulators in a fixed order through shared memory. The staging is
+// double-buffered: cp.async copies the block's next item while it computes
+// on the current one. wgmma is not used: its 64-row tiles would leave two
+// thirds idle at Cout <= 20, and the MACs are not the limit; TMA is not
+// used: it needs 16-byte global strides, and layer 1's channels-last rows
+// are 1,080 bytes and odd widths leave rows at 2-byte alignment. Contiguous
+// spans (a channel plane's rows, or a channels-last band) are copied as
+// their 16-byte-aligned superset (never past the 16-byte chunk that holds
+// a valid element, so never outside the allocation); other strides are
+// staged element by element. The schedule (band rows, groups, grid,
+// shared-memory layout) is fixed on the host by ops/wgrad.py::wgrad_plan
+// from the shape alone, so a channels-last view and its contiguous copy
+// give the same bits.
+//
+// What bounds it on an H100 (measured at the trainer's layouts, batch 64):
+// neither device memory (layer 1 moves 32.5 MB in 54 us, 0.6 TB/s) nor the
+// tensor cores, but the block's own shared-memory work per item. With the
+// copies removed the kernel keeps 89% of its time; staging alone takes
+// 42%, building the A tile 19%, and gathering the im2col tiles plus the
+// MMAs the remaining 39%. The next step is to cut that per-item work (an
+// A tile loaded straight from the staged cot, wider im2col gathers), not
+// to copy faster.
 //
 // f32 inputs (wgrad_partial_kernel; the toy and CPU-agreement path, where
 // TF32 tensor cores would break the f32 tolerance): one block per (tap
@@ -60,9 +70,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cuda_pipeline.h>
 #include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -221,18 +233,22 @@ __device__ __forceinline__ int span_lead(const bf16* src) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15) >> 1);
 }
 
-// Copy the 16-byte chunks that cover src[0, len) to dst (16-byte aligned):
-// src[i] lands at dst[span_lead(src) + i].
+// Start the asynchronous copy (cp.async) of the 16-byte chunks that cover
+// src[0, len) to dst (16-byte aligned): src[i] lands at dst[span_lead(src)
+// + i] once the block's pipeline has waited for it.
 __device__ __forceinline__ void copy_span(bf16* dst, const bf16* src, int len) {
   const uintptr_t a0 = reinterpret_cast<uintptr_t>(src) & ~uintptr_t(15);
   const uintptr_t a1 = (reinterpret_cast<uintptr_t>(src + len) + 15) & ~uintptr_t(15);
   const int n = static_cast<int>((a1 - a0) >> 4);
   for (int i = threadIdx.x; i < n; i += kThreads)
-    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(a0)[i];
+    __pipeline_memcpy_async(reinterpret_cast<uint4*>(dst) + i,
+                            reinterpret_cast<const uint4*>(a0) + i, 16);
 }
 
 // Stage item `it`'s x slice (channels g0 .. g0+nci) and cot slice (channels
-// c0 .. c0+nco) in xs and cs.
+// c0 .. c0+nco) in xs and cs: contiguous spans by cp.async (complete after
+// the pipeline's wait), other strides element by element (complete after
+// the next __syncthreads).
 __device__ void stage_item(const MmaPlan& p, const bf16* x, const bf16* cot,
                            const Item& it, bf16* xs, bf16* cs, int g0, int nci,
                            int c0, int nco) {
@@ -285,8 +301,12 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ ws, const MmaPlan p) {
   namespace wmma = nvcuda::wmma;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem + p.off_x0);
-  bf16* cs = reinterpret_cast<bf16*>(smem + p.off_c0);
+  // two staging buffers each: item i is read from buffer i % 2 while the
+  // next item's copy lands in the other
+  bf16* const xbuf[2] = {reinterpret_cast<bf16*>(smem + p.off_x0),
+                         reinterpret_cast<bf16*>(smem + p.off_x1)};
+  bf16* const cbuf[2] = {reinterpret_cast<bf16*>(smem + p.off_c0),
+                         reinterpret_cast<bf16*>(smem + p.off_c1)};
   bf16* a_tile = reinterpret_cast<bf16*>(smem + p.off_a);  // [M_pad][P_pad]
   int* pos = reinterpret_cast<int*>(smem + p.off_pos);     // [P_pad]
   int* tap = reinterpret_cast<int*>(smem + p.off_tap);     // [N_pad]
@@ -317,9 +337,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < NTW; ++j) wmma::fill_fragment(acc[m][j], 0.0f);
 
-  for (int item = blockIdx.x; item < p.n_items; item += p.G) {
+  if (blockIdx.x < p.n_items)
+    stage_item(p, x, cot, item_at(p, blockIdx.x), xbuf[0], cbuf[0], g0, nci, c0, nco);
+  __pipeline_commit();
+  for (int item = blockIdx.x, i = 0; item < p.n_items; item += p.G, ++i) {
     const Item it = item_at(p, item);
-    stage_item(p, x, cot, it, xs, cs, g0, nci, c0, nco);
+    bf16* const xs = xbuf[i & 1];
+    bf16* const cs = cbuf[i & 1];
+    // the next item's copy goes out before this item's arrival is awaited
+    if (item + p.G < p.n_items)
+      stage_item(p, x, cot, item_at(p, item + p.G), xbuf[(i + 1) & 1],
+                 cbuf[(i + 1) & 1], g0, nci, c0, nco);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
     __syncthreads();
 
     // the A tile [co][p] from the staged cot, zero past nco and npos, and
@@ -404,12 +434,14 @@ __global__ void __launch_bounds__(kThreads)
 template <int MT, int NTW>
 cudaError_t launch_mma_t(const void* x, const void* cot, float* ws, const MmaPlan& p,
                          cudaStream_t stream) {
-  if (p.smem_bytes > 48 * 1024) {
-    // per launch, not once: the attribute belongs to the current device
+  // raised once per instantiation to the largest size it has launched with
+  static int smem_allowed = 48 * 1024;
+  if (p.smem_bytes > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         wgrad_mma_kernel<MT, NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         p.smem_bytes);
     if (err != cudaSuccess) return err;
+    smem_allowed = p.smem_bytes;
   }
   const dim3 grid(p.G, (p.Cin + p.cig - 1) / p.cig, (p.Cout + p.MG - 1) / p.MG);
   wgrad_mma_kernel<MT, NTW><<<grid, kThreads, p.smem_bytes, stream>>>(
@@ -468,8 +500,9 @@ extern "C" int conv_wgrad_direct(const void* x, const void* cot, float* ws,
   } else if (dtype == 1) {
     if (plan == nullptr) return cudaErrorInvalidValue;
     MmaPlan p;
-    int* fields = &p.B;  // the kPlanInts ints of MmaPlan, in order
+    int fields[kPlanInts];  // the ints of MmaPlan, in order
     for (int i = 0; i < kPlanInts; ++i) fields[i] = static_cast<int>(plan[i]);
+    memcpy(&p, fields, sizeof(fields));
     for (int i = 0; i < 4; ++i) { p.sx[i] = xs[i]; p.sc[i] = cs[i]; }
     n_chunks = p.G;
     err = launch_mma(x, cot, ws, p, st);

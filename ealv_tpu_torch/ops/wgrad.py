@@ -35,7 +35,7 @@ _POSITIONS_PER_BLOCK = 2048
 # bf16 tensor-core kernel (csrc/wgrad.cu, wgrad_mma_kernel)
 WARPS = 8                # warps per block
 MIN_BLOCKS = 132         # shrink the band until the grid has one block per SM
-MAX_BLOCKS = 2 * 132     # the persistent grid; more work items loop
+MAX_BLOCKS = 3 * 132     # the persistent grid; more work items loop
 BAND_POSITIONS = 256     # output positions a band aims at before shrinking
 MAX_GROUP_TAPS = 256     # taps per ci group: 16 n-tiles, two per warp
 MAX_GROUP_CO = 64        # output channels per co group: four m-tiles

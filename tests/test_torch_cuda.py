@@ -182,12 +182,28 @@ def test_adam_kernel_rejects_other_grads_without_copying(cuda):
 
 # ---- K3: the direct conv weight gradient ----
 
-# (B, H, W, Cin, Cout, k, s): the CVAE encoder's three layers at batch 64
-# and the probe shapes of the JAX package's tests
+# (B, H, W, Cin, Cout, k, s): the CVAE encoder's three layers at batch 64,
+# the probe shapes of the JAX package's tests, then the bf16 kernel's tile
+# edges: Cout of 16, 17, 33 and 70 (two co groups); 16 and 17 taps; 300
+# taps (two ci groups); bands that do not divide OH, with several items per
+# block; B = 1
 WGRAD_PRODUCTION = [(64, 180, 180, 3, 10, 3, 2), (64, 89, 89, 10, 10, 3, 2),
                     (64, 44, 44, 10, 20, 5, 3)]
 WGRAD_PROBES = [(2, 17, 17, 3, 5, 3, 2), (1, 20, 20, 4, 6, 5, 3),
-                (2, 16, 16, 2, 3, 3, 3), (1, 13, 11, 1, 2, 1, 1), (3, 9, 9, 2, 40, 3, 2)]
+                (2, 16, 16, 2, 3, 3, 3), (1, 13, 11, 1, 2, 1, 1), (3, 9, 9, 2, 40, 3, 2),
+                (2, 13, 13, 3, 16, 3, 2), (2, 13, 13, 3, 17, 3, 2), (1, 12, 12, 2, 33, 3, 1),
+                (1, 9, 9, 2, 70, 3, 2), (2, 15, 15, 1, 5, 4, 2), (2, 9, 9, 17, 6, 1, 1),
+                (1, 13, 13, 12, 6, 5, 2), (6, 100, 100, 3, 10, 3, 2),
+                (40, 100, 100, 3, 10, 3, 2), (1, 31, 31, 4, 12, 3, 2)]
+# (x, cot) memory orders of (b, c, h, w), slowest first, extra elements per
+# batch stride and storage offset: the trainer's channels-last tensors, its
+# last layer's cot sliced out of a wider row, and a w-major order that has
+# no contiguous span (staged element by element)
+WGRAD_LAYOUTS = {
+    "channels-last": (("bhwc", 0, 3), ("bhwc", 0, 5)),
+    "trainer-last-layer": (("bhwc", 0, 1), ("bchw", 3, 0)),
+    "w-major": (("bcwh", 0, 2), ("bcwh", 1, 7)),
+}
 
 
 def _wgrad_inputs(shape, dtype, dev, seed=0, channels_last=False):
@@ -220,6 +236,40 @@ def test_wgrad_kernel_matches_plain(cuda, shape, dtype):
     assert not xl.is_contiguous() or shape[3] == 1
     assert torch.equal(twg.conv_wgrad_direct(xl, cot, k, s), got)
     assert torch.equal(twg.conv_wgrad_direct(x, cot, k, s), got)
+
+
+def _strided(t, order, batch_pad, offset):
+    """The NCHW tensor t in memory order ``order`` (slowest dim first), with
+    ``batch_pad`` extra elements per image and ``offset`` leading ones."""
+    strides, step = [0] * 4, 1
+    for d in reversed(order):
+        i = "bchw".index(d)
+        strides[i] = step + (batch_pad if d == "b" else 0)
+        step = strides[i] * t.shape[i]
+    buf = torch.zeros(offset + step, dtype=t.dtype, device=t.device)
+    out = buf.as_strided(t.shape, strides, offset)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", list(WGRAD_LAYOUTS))
+@pytest.mark.parametrize("shape", [WGRAD_PRODUCTION[0], WGRAD_PRODUCTION[2],
+                                   (2, 17, 17, 3, 5, 3, 2), (1, 9, 9, 2, 70, 3, 2),
+                                   (1, 13, 13, 12, 6, 5, 2)])
+def test_wgrad_kernel_reads_strided_inputs(cuda, shape, layout, dtype):
+    """x and cot in the trainer's layouts (misaligned starts included) and
+    in one with no contiguous span give the same bits as contiguous copies,
+    which match the plain version (rtol 1e-4, atol 1e-3)."""
+    x, cot, k, s = _wgrad_inputs(shape, dtype, cuda)
+    (xo, xp, xoff), (co, cp, coff) = WGRAD_LAYOUTS[layout]
+    xl, cl = _strided(x, xo, xp, xoff), _strided(cot, co, cp, coff)
+    assert not cl.is_contiguous() or shape[0] == 1  # one image: no batch stride
+    got = twg.conv_wgrad_direct(xl, cl, k, s)
+    torch.testing.assert_close(got, twg.conv_wgrad_reference(x, cot, k, s),
+                               rtol=1e-4, atol=1e-3)
+    assert torch.equal(got, twg.conv_wgrad_direct(x, cot, k, s))
 
 
 @pytest.mark.cuda

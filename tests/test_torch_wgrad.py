@@ -355,7 +355,7 @@ def test_mma_schedule_matches_pallas_kernel(shape):
 
 
 @pytest.mark.parametrize("shape,R,blocks", [
-    ((64, 180, 180, 3, 10, 3, 2), 3, 240), ((64, 89, 89, 10, 10, 3, 2), 6, 256),
+    ((64, 180, 180, 3, 10, 3, 2), 3, 384), ((64, 89, 89, 10, 10, 3, 2), 6, 256),
     ((64, 44, 44, 10, 20, 5, 3), 4, 256)])
 def test_mma_plan_at_production_shapes(shape, R, blocks):
     """The encoder's layers at batch 64: at least one block per SM, bands of
