@@ -50,11 +50,17 @@ ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
 # than cuDNN's, over up to 507 k terms
 WGRAD_TOL = dict(rtol=1e-4, atol=1e-3)
 # (B, H, W, Cin, Cout, k, s): the CVAE encoder's three layers at batch 64,
-# then the CPU tests' probe shapes
+# the CPU tests' probe shapes, then the bf16 kernel's tile edges: Cout of
+# 16, 17, 33 and 70 (two co groups); 16 and 17 taps; 300 taps (two ci
+# groups); bands that do not divide OH, with several items per block; B = 1
 WGRAD_PRODUCTION = [(64, 180, 180, 3, 10, 3, 2), (64, 89, 89, 10, 10, 3, 2),
                     (64, 44, 44, 10, 20, 5, 3)]
 WGRAD_PROBES = [(2, 17, 17, 3, 5, 3, 2), (1, 20, 20, 4, 6, 5, 3),
-                (2, 16, 16, 2, 3, 3, 3), (1, 13, 11, 1, 2, 1, 1)]
+                (2, 16, 16, 2, 3, 3, 3), (1, 13, 11, 1, 2, 1, 1), (3, 9, 9, 2, 40, 3, 2),
+                (2, 13, 13, 3, 16, 3, 2), (2, 13, 13, 3, 17, 3, 2), (1, 12, 12, 2, 33, 3, 1),
+                (1, 9, 9, 2, 70, 3, 2), (2, 15, 15, 1, 5, 4, 2), (2, 9, 9, 17, 6, 1, 1),
+                (1, 13, 13, 12, 6, 5, 2), (6, 100, 100, 3, 10, 3, 2),
+                (40, 100, 100, 3, 10, 3, 2), (1, 31, 31, 4, 12, 3, 2)]
 # the production config (bench.py:372-379)
 PRODUCTION = dict(states="xyw", num_target_samples=2000, num_traj_samples=3000,
                   image_dim=(180, 180, 3), batch_size=64, num_learning_opt=25)
@@ -212,11 +218,27 @@ def phase_adam(dev):
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
+def _trainer_layout(x, cot, last_layer):
+    """x and cot laid out as the trainer hands them to K3: channels-last
+    views, except the encoder's last layer, whose cot is NCHW sliced out of
+    rows three elements wider (its start 2-byte aligned in bf16)."""
+    cl = lambda t: t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    if not last_layer:
+        return cl(x), cl(cot)
+    B, C, OH, OW = cot.shape
+    rows = cot.new_zeros(B, C * OH * OW + 3)
+    out = rows[:, :C * OH * OW].view(B, C, OH, OW)
+    out.copy_(cot)
+    return cl(x), out
+
+
 def phase_wgrad(dev):
     """K3 against its plain version at the encoder's three production
     layers and the probe shapes, f32 and bf16 inputs, with the first
-    layer's input a channels-last view as the CVAE gives it; then kernel,
-    plain and cuDNN's own bf16 wgrad times at the production layers."""
+    layer's input a channels-last view as the CVAE gives it; the same
+    values in the trainer's layouts give the same bits. Then kernel, plain
+    and cuDNN's own bf16 wgrad times at the production layers, in the
+    trainer's layouts."""
     import torch
     from ealv_tpu_torch.ops import wgrad as twg
 
@@ -238,17 +260,24 @@ def phase_wgrad(dev):
             got = twg.conv_wgrad_direct(x, cot, k, s)
             want = twg.conv_wgrad_reference(x, cot, k, s)
             again = twg.conv_wgrad_direct(x, cot, k, s)
+            laid = twg.conv_wgrad_direct(*_trainer_layout(x, cot, shape == WGRAD_PRODUCTION[2]),
+                                         k, s)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **WGRAD_TOL)
             if not torch.equal(got, again):
                 raise RuntimeError(f"wgrad kernel {shape} is not deterministic")
+            if not torch.equal(got, laid):
+                raise RuntimeError(f"wgrad kernel {shape} gives other bits in the trainer's "
+                                   "layouts")
             err = float((got - want).abs().max())
             max_err = max(max_err, err)
             print(f"[kernels] conv_wgrad_direct {shape} {str(dtype)[6:]}: "
-                  f"max|kernel-plain| = {err:.3e} (|dW| <= {float(want.abs().max()):.1f})")
+                  f"max|kernel-plain| = {err:.3e} (|dW| <= {float(want.abs().max()):.1f}); "
+                  f"bit-equal on repeat and in the trainer's layouts")
     ms = plain_ms = 0.0
     for shape in WGRAD_PRODUCTION:
         x, cot, k, s = inputs(shape, torch.bfloat16)
+        x, cot = _trainer_layout(x, cot, shape == WGRAD_PRODUCTION[2])
         fns = (lambda: twg.conv_wgrad_direct(x, cot, k, s),
                lambda: twg.conv_wgrad_reference(x, cot, k, s),
                lambda: torch.nn.grad.conv2d_weight(
@@ -256,8 +285,8 @@ def phase_wgrad(dev):
         t_k, t_p, t_c = (_time_ms(f, inner=20) for f in fns)
         h_k, h_p, h_c = (_host_ms(f, inner=20) for f in fns)
         ms, plain_ms = ms + t_k, plain_ms + t_p
-        print(f"[kernels] conv_wgrad_direct {shape} bf16, ms per call, device (CUDA "
-              f"events, median of 21 x 20): kernel {t_k:.4f}, plain torch (f32 cuDNN on "
+        print(f"[kernels] conv_wgrad_direct {shape} bf16 in the trainer's layouts, ms per "
+              f"call, device (CUDA events, median of 21 x 20): kernel {t_k:.4f}, plain torch (f32 cuDNN on "
               f"upcast inputs) {t_p:.4f}, cuDNN bf16 wgrad {t_c:.4f}; host clock per "
               f"call: {h_k:.4f}, {h_p:.4f}, {h_c:.4f}")
     print(f"[kernels] conv_wgrad_direct, the three encoder layers: kernel {ms:.4f} ms, "

@@ -302,11 +302,12 @@ __global__ void __launch_bounds__(kThreads)
   namespace wmma = nvcuda::wmma;
   extern __shared__ __align__(128) unsigned char smem[];
   // two staging buffers each: item i is read from buffer i % 2 while the
-  // next item's copy lands in the other
-  bf16* const xbuf[2] = {reinterpret_cast<bf16*>(smem + p.off_x0),
-                         reinterpret_cast<bf16*>(smem + p.off_x1)};
-  bf16* const cbuf[2] = {reinterpret_cast<bf16*>(smem + p.off_c0),
-                         reinterpret_cast<bf16*>(smem + p.off_c1)};
+  // next item's copy lands in the other (chosen by a select: an indexed
+  // pointer array would live in local memory)
+  bf16* const xs0 = reinterpret_cast<bf16*>(smem + p.off_x0);
+  bf16* const xs1 = reinterpret_cast<bf16*>(smem + p.off_x1);
+  bf16* const cs0 = reinterpret_cast<bf16*>(smem + p.off_c0);
+  bf16* const cs1 = reinterpret_cast<bf16*>(smem + p.off_c1);
   bf16* a_tile = reinterpret_cast<bf16*>(smem + p.off_a);  // [M_pad][P_pad]
   int* pos = reinterpret_cast<int*>(smem + p.off_pos);     // [P_pad]
   int* tap = reinterpret_cast<int*>(smem + p.off_tap);     // [N_pad]
@@ -338,16 +339,17 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NTW; ++j) wmma::fill_fragment(acc[m][j], 0.0f);
 
   if (blockIdx.x < p.n_items)
-    stage_item(p, x, cot, item_at(p, blockIdx.x), xbuf[0], cbuf[0], g0, nci, c0, nco);
+    stage_item(p, x, cot, item_at(p, blockIdx.x), xs0, cs0, g0, nci, c0, nco);
   __pipeline_commit();
   for (int item = blockIdx.x, i = 0; item < p.n_items; item += p.G, ++i) {
     const Item it = item_at(p, item);
-    bf16* const xs = xbuf[i & 1];
-    bf16* const cs = cbuf[i & 1];
+    const bool odd = i & 1;
+    bf16* const xs = odd ? xs1 : xs0;
+    bf16* const cs = odd ? cs1 : cs0;
     // the next item's copy goes out before this item's arrival is awaited
     if (item + p.G < p.n_items)
-      stage_item(p, x, cot, item_at(p, item + p.G), xbuf[(i + 1) & 1],
-                 cbuf[(i + 1) & 1], g0, nci, c0, nco);
+      stage_item(p, x, cot, item_at(p, item + p.G), odd ? xs0 : xs1, odd ? cs0 : cs1,
+                 g0, nci, c0, nco);
     __pipeline_commit();
     __pipeline_wait_prior(1);
     __syncthreads();
