@@ -49,13 +49,13 @@
 // give the same bits.
 //
 // What bounds it on an H100 (measured at the trainer's layouts, batch 64):
-// neither device memory (layer 1 moves 32.5 MB in 54 us, 0.6 TB/s) nor the
+// neither device memory (layer 1 moves 32.5 MB in 47 us, 0.7 TB/s) nor the
 // tensor cores, but the block's own shared-memory work per item. With the
-// copies removed the kernel keeps 89% of its time; staging alone takes
-// 42%, building the A tile 19%, and gathering the im2col tiles plus the
-// MMAs the remaining 39%. The next step is to cut that per-item work (an
-// A tile loaded straight from the staged cot, wider im2col gathers), not
-// to copy faster.
+// copies removed the kernel keeps 92% of its time; staging alone (with the
+// offset tables and barriers) takes 45%, building the A tile 16%, and
+// gathering the im2col tiles plus the MMAs the remaining 39%. The next step
+// is to cut that per-item work (an A tile loaded straight from the staged
+// cot, wider im2col gathers), not to copy faster.
 //
 // f32 inputs (wgrad_partial_kernel; the toy and CPU-agreement path, where
 // TF32 tensor cores would break the f32 tolerance): one block per (tap
@@ -78,7 +78,6 @@
 
 namespace {
 
-
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -90,9 +89,6 @@ struct WgradShape {
 };
 
 __device__ __forceinline__ float to_f32(float a) { return a; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 a) {
-  return __bfloat162float(a);
-}
 
 template <typename T, int CG>
 __global__ void __launch_bounds__(kThreads)
@@ -179,7 +175,6 @@ cudaError_t launch_partial(const void* x, const void* cot, float* ws,
   if (sh.Cout <= 16) return launch_partial_cg<T, 16>(x, cot, ws, sh, n_chunks, stream);
   return launch_partial_cg<T, 32>(x, cot, ws, sh, n_chunks, stream);
 }
-
 
 // ---- bf16: the tensor-core kernel ----
 

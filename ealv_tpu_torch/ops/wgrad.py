@@ -100,14 +100,6 @@ class WgradPlan:
     smem_bytes: int
 
     @property
-    def NT(self) -> int:
-        return self.N_pad // 16
-
-    @property
-    def MT(self) -> int:
-        return self.M_pad // 16
-
-    @property
     def grid(self) -> tuple[int, int, int]:
         return (self.G, self.n_cig, self.n_cog)
 
@@ -189,7 +181,8 @@ def stage_modes(plan: WgradPlan, xs, cs):
     elif xs[1] == 1 and xs[3] == plan.Cin and xs[2] == plan.W * plan.Cin:
         x = (MODE_CHANNELS_LAST, plan.W * plan.Cin, plan.Cin)
     else:
-        x = (MODE_SCALAR, x_cols(plan), 1)
+        # row pitch: the s * (OW - 1) + k columns a band reads
+        x = (MODE_SCALAR, plan.s * (plan.OW - 1) + plan.k, 1)
     if cs[3] == 1 and cs[2] == plan.OW:
         c = (MODE_PLANES, 1)
     elif cs[1] == 1 and cs[3] == plan.Cout and cs[2] == plan.OW * plan.Cout:
@@ -197,12 +190,6 @@ def stage_modes(plan: WgradPlan, xs, cs):
     else:
         c = (MODE_SCALAR, 1)
     return (*x, *c)
-
-
-def x_cols(plan: WgradPlan) -> int:
-    """x columns a band reads, s * (OW - 1) + k: the row pitch of x staged
-    element by element."""
-    return plan.s * (plan.OW - 1) + plan.k
 
 
 def plane_base(mode: int, j: int, j0: int, lead: int, pitch: int, scalar_pitch: int) -> int:
