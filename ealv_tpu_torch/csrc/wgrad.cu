@@ -49,13 +49,13 @@
 // give the same bits.
 //
 // What bounds it on an H100 (measured at the trainer's layouts, batch 64):
-// neither device memory (layer 1 moves 32.5 MB in 47 us, 0.7 TB/s) nor the
-// tensor cores, but the block's own shared-memory work per item. With the
-// copies removed the kernel keeps 92% of its time; staging alone (with the
-// offset tables and barriers) takes 45%, building the A tile 16%, and
-// gathering the im2col tiles plus the MMAs the remaining 39%. The next step
-// is to cut that per-item work (an A tile loaded straight from the staged
-// cot, wider im2col gathers), not to copy faster.
+// neither device memory (layer 1 reads about 24.6 MB in 47 us, 0.5 TB/s)
+// nor the tensor cores, but the block's own shared-memory work per item.
+// With the copies removed the kernel keeps 92% of its time; staging alone
+// (with the offset tables and barriers) takes 45%, building the A tile
+// 16%, and gathering the im2col tiles plus the MMAs the remaining 39%. The
+// next step is to cut that per-item work (an A tile loaded straight from
+// the staged cot, wider im2col gathers), not to copy faster.
 //
 // f32 inputs (wgrad_partial_kernel; the toy and CPU-agreement path, where
 // TF32 tensor cores would break the f32 tolerance): one block per (tap
