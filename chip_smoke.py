@@ -46,8 +46,11 @@ import numpy as np
 TOL = dict(rtol=1e-5, atol=1e-6)  # f32 K1: summation order only
 # f32 K2, same formula; nvcc contracts the moment updates into FMAs
 ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
-# K3: f32 sums of exact products (bf16 x bf16 fits f32) in another order
-# than cuDNN's, over up to 507 k terms
+# K3 against the plain version in f64, the exact sums: the kernels' f32
+# summation error over up to 507 k terms (at most 1.4e-3, on entries of
+# |dW| > 1000, at the production layers). Not against the plain version in
+# f32: cuDNN's f32 wgrad is off the exact sums by up to 3.4e-3 itself, and
+# by a different amount on every call (split sums in no fixed order)
 WGRAD_TOL = dict(rtol=1e-4, atol=1e-3)
 # (B, H, W, Cin, Cout, k, s): the CVAE encoder's three layers at batch 64,
 # the CPU tests' probe shapes, then the bf16 kernel's tile edges: Cout of
@@ -233,7 +236,7 @@ def _trainer_layout(x, cot, last_layer):
 
 
 def phase_wgrad(dev):
-    """K3 against its plain version at the encoder's three production
+    """K3 against its plain version in f64 at the encoder's three production
     layers and the probe shapes, f32 and bf16 inputs, with the first
     layer's input a channels-last view as the CVAE gives it; the same
     values in the trainer's layouts give the same bits. Then kernel, plain
@@ -258,22 +261,25 @@ def phase_wgrad(dev):
         for dtype in (torch.float32, torch.bfloat16):
             x, cot, k, s = inputs(shape, dtype)
             got = twg.conv_wgrad_direct(x, cot, k, s)
-            want = twg.conv_wgrad_reference(x, cot, k, s)
+            want = twg.conv_wgrad_reference(x, cot, k, s, dtype=torch.float64)
+            f32 = twg.conv_wgrad_reference(x, cot, k, s)
             again = twg.conv_wgrad_direct(x, cot, k, s)
             laid = twg.conv_wgrad_direct(*_trainer_layout(x, cot, shape == WGRAD_PRODUCTION[2]),
                                          k, s)
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, **WGRAD_TOL)
+            torch.testing.assert_close(got.double(), want, **WGRAD_TOL)
             if not torch.equal(got, again):
                 raise RuntimeError(f"wgrad kernel {shape} is not deterministic")
             if not torch.equal(got, laid):
                 raise RuntimeError(f"wgrad kernel {shape} gives other bits in the trainer's "
                                    "layouts")
-            err = float((got - want).abs().max())
+            err = float((got.double() - want).abs().max())
             max_err = max(max_err, err)
             print(f"[kernels] conv_wgrad_direct {shape} {str(dtype)[6:]}: "
-                  f"max|kernel-plain| = {err:.3e} (|dW| <= {float(want.abs().max()):.1f}); "
-                  f"bit-equal on repeat and in the trainer's layouts")
+                  f"max|kernel-plain f64| = {err:.3e}, max|plain f32-plain f64| = "
+                  f"{float((f32.double() - want).abs().max()):.3e} (|dW| <= "
+                  f"{float(want.abs().max()):.1f}); bit-equal on repeat and in the "
+                  f"trainer's layouts")
     ms = plain_ms = 0.0
     for shape in WGRAD_PRODUCTION:
         x, cot, k, s = inputs(shape, torch.bfloat16)

@@ -213,11 +213,13 @@ PLAN_FIELDS = ("B", "Cin", "H", "W", "Cout", "k", "s", "OH", "OW", "R", "XR",
                "smem_bytes")
 
 
-def conv_wgrad_reference(x, cot, k: int, stride: int):
-    """Plain torch K3: autograd's conv weight gradient on f32 copies of the
-    inputs. The test oracle of the kernels and the path for CPU tensors."""
+def conv_wgrad_reference(x, cot, k: int, stride: int, dtype=torch.float32):
+    """Plain torch K3: autograd's conv weight gradient on copies of the
+    inputs in ``dtype``. In f32 it is the path for CPU tensors; in f64 it is
+    the card's test oracle, the exact sums that any f32 summation order
+    (the kernels' or cuDNN's) is held to."""
     return torch.nn.grad.conv2d_weight(
-        x.float(), (cot.shape[1], x.shape[1], k, k), cot.float(), stride=stride)
+        x.to(dtype), (cot.shape[1], x.shape[1], k, k), cot.to(dtype), stride=stride)
 
 
 @functools.cache

@@ -72,6 +72,28 @@ def test_plain_reads_bf16_inputs():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PROBES)
+def test_plain_in_f64_is_the_exact_sum(shape, dtype):
+    """The card's oracle, the plain version in f64, against the sums taken
+    tap by tap in f64 with numpy on the same (f32 or bf16) values: rtol
+    1e-12, atol 1e-12."""
+    B, H, W, cin, cout, k, s = shape
+    x, cot = _inputs(shape, seed=3)
+    tx = torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2)
+    tc = torch.from_numpy(cot).to(dtype).permute(0, 3, 1, 2)
+    got = twg.conv_wgrad_reference(tx, tc, k, s, dtype=torch.float64)
+    assert got.dtype == torch.float64
+    xv = tx.permute(0, 2, 3, 1).double().numpy()
+    cv = tc.permute(0, 2, 3, 1).double().numpy()
+    oh, ow = cv.shape[1], cv.shape[2]
+    want = np.zeros((cout, cin, k, k))
+    for kh, kw in itertools.product(range(k), range(k)):
+        patch = xv[:, kh:kh + s * (oh - 1) + 1:s, kw:kw + s * (ow - 1) + 1:s]
+        want[:, :, kh, kw] = np.einsum("bhwi,bhwo->oi", patch, cv)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("shape", PROBES)
 def test_autograd_function_matches_conv2d(shape):
     """Forward bit-equal to F.conv2d; dx (the floor-divided tail rows and
