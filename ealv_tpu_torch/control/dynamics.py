@@ -32,7 +32,7 @@ class DoubleIntegrator:
     """[pos; vel] with posdot = 0.8 * vel (the reference's velocity
     damping) and veldot = u."""
 
-    def __init__(self, num_states: int, num_actions: int, dt: float, device="cpu"):
+    def __init__(self, num_states: int, num_actions: int, dt: float, device="cuda"):
         self.num_states = num_states
         self.num_actions = num_actions
         self.dt = dt
@@ -63,7 +63,7 @@ class DoubleIntegrator:
         return DynState(x=self.step_x(s.x, u))
 
 
-def make_dynamics(states: str, dt: float, use_magnitude: bool = False, device="cpu"):
+def make_dynamics(states: str, dt: float, use_magnitude: bool = False, device="cuda"):
     """Pick the dynamics model from the position state string. More than
     one of 'rpw' selects the SO(3) roll model and ``use_magnitude`` the
     speed-augmented one; neither is ported yet."""

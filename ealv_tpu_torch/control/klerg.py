@@ -78,7 +78,7 @@ class KlergPlanner:
     is the exploration state string (per-dim kernel widths)."""
 
     def __init__(self, cfg: KlergConfig, dyn, policy, pdf_fn: Callable,
-                 states: str, explr_locs, prior_dist=None, device="cpu"):
+                 states: str, explr_locs, prior_dist=None, device="cuda"):
         if cfg.full_cost or cfg.fixed_lam or not cfg.ctrl_app_search:
             raise NotImplementedError("only the default line-search application "
                                       "(ctrl_app_search, no full_cost/fixed_lam) "

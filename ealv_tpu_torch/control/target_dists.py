@@ -24,7 +24,7 @@ class GaussianMixtureDist(NamedTuple):
         return torch.exp(-0.5 * maha + log_norm[None, :]).sum(1) + self.floor
 
 
-def prior_dist(states: str, device="cpu") -> GaussianMixtureDist:
+def prior_dist(states: str, device="cuda") -> GaussianMixtureDist:
     """The reference's hardcoded two-object scene prior."""
     base_states = "xyzrpw"
     base_duck = [-0.8, -0.8, -0.15, 3.6, 0.5, 0.0]

@@ -73,7 +73,7 @@ class Experiment:
 
     def __init__(self, cfg: ExperimentConfig, train_calls_per_tick: int = 3,
                  scene: Optional[TrayScene] = None, train_every: int = 1,
-                 device="cpu", mesh=None):
+                 device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError("the multi-device mesh is not ported yet")
         if "klerg" not in cfg.explr_method:

@@ -29,7 +29,7 @@ class SyntheticEnv:
     img_hw: tuple = (180, 180)
     max_force: float = 30.0
     vel_alpha: float = 0.7  # EMA toward the commanded twist
-    device: str = "cpu"
+    device: str = "cuda"
 
     def _lims(self):
         return torch.tensor(self.tray_lim, device=self.device)

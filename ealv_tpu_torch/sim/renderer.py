@@ -22,7 +22,7 @@ class TrayScene(NamedTuple):
     checker_scale: float = 12.0
 
     @classmethod
-    def default(cls, device="cpu"):
+    def default(cls, device="cuda"):
         """Two objects: a yellow round one and a taller green one."""
         t = lambda v: torch.tensor(v, device=device)
         return cls(

@@ -176,7 +176,8 @@ def test_trainer_switch_follows_the_jax_user_flow():
     from ealv_tpu_torch.runtime import Experiment
     from ealv_tpu_torch.utils.config import ExperimentConfig
     exp = Experiment(ExperimentConfig(states="xyw", image_dim=(24, 24, 3), batch_size=8,
-                                      num_target_samples=64, num_traj_samples=64))
+                                      num_target_samples=64, num_traj_samples=64),
+                     device="cpu")
     assert isinstance(exp.init(0).opt, torch.optim.Adam)
     exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
     assert isinstance(exp.init(0).opt, tad.FusedAdam)

@@ -29,7 +29,7 @@ def tiny_experiment(fused_adam=False, fast_encoder_grads=False):
         cnn_channels=(8, 8), hidden_dim=(64, 32), z_dim=8, num_target_samples=128,
         num_traj_samples=64, traj_buffer_capacity=256, buffer_capacity=256,
         batch_size=8, num_learning_opt=2, fast_encoder_grads=fast_encoder_grads)
-    exp = Experiment(cfg, train_calls_per_tick=1)
+    exp = Experiment(cfg, train_calls_per_tick=1, device="cpu")
     exp.trainer = dataclasses.replace(exp.trainer, fused_adam=fused_adam)
     return exp
 
@@ -110,6 +110,6 @@ def test_load_into_another_shape_raises(tmp_path):
     exp = tiny_experiment()
     ck = save_checkpoint(str(tmp_path / "c"), exp.init(seed=0), step=0)
     other = Experiment(dataclasses.replace(exp.cfg, buffer_capacity=128),
-                       train_calls_per_tick=1)
+                       train_calls_per_tick=1, device="cpu")
     with pytest.raises(ValueError):
         load_checkpoint(ck, other.init(seed=0))

@@ -58,11 +58,11 @@ def _jax_planner(pdf_fn, u0, hist):
 
 
 def _torch_planner(pdf_fn, u0, hist):
-    dyn = tc.make_dynamics("xy", dt=0.1)
+    dyn = tc.make_dynamics("xy", dt=0.1, device="cpu")
     cfg = tc.KlergConfig(horizon=H, num_target_samples=N, num_traj_samples=M,
                          R=0.5, std=0.05)
     planner = tc.KlergPlanner(cfg, dyn, tc.make_policy("Roll", dyn, H), pdf_fn,
-                              "xy", explr_locs=[0, 1])
+                              "xy", explr_locs=[0, 1], device="cpu")
     lim = torch.tensor([[-1.0, 1.0], [-1.0, 1.0]])
     barrier, _ = tc.setup_barrier("xy", lim, lim, [0, 1], barr_weight=5.0)
     ps = planner.init_state(torch.tensor([0.5, -0.5, 0.0, 0.0]), lim, barrier,

@@ -39,7 +39,7 @@ N_FILLED = 6
 
 def _experiments():
     exp_j = JExperiment(JConfig(**TOY), train_calls_per_tick=1)
-    exp_t = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1)
+    exp_t = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1, device="cpu")
     exp_j.trainer = dataclasses.replace(exp_j.trainer, fused_adam=True)
     exp_t.trainer = dataclasses.replace(exp_t.trainer, fused_adam=True)
     es_j, es_t = exp_j.init(seed=0), exp_t.init(seed=0)

@@ -24,7 +24,7 @@ POSES = [
 @pytest.mark.parametrize("hw,brightness", [((24, 24), 1.0), ((40, 31), 0.6)])
 def test_render_camera_matches_jax(pose, hw, brightness):
     want = j_render(JScene.default(), jnp.array(pose), brightness, hw)
-    got = render_camera(TrayScene.default(), torch.tensor(pose), brightness, hw)
+    got = render_camera(TrayScene.default("cpu"), torch.tensor(pose), brightness, hw)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=2e-6)
 
@@ -32,7 +32,7 @@ def test_render_camera_matches_jax(pose, hw, brightness):
 def test_render_full_size_matches_jax():
     pose = POSES[1]
     want = j_render(JScene.default(), jnp.array(pose), 1.0, (180, 180))
-    got = render_camera(TrayScene.default(), torch.tensor(pose), 1.0, (180, 180))
+    got = render_camera(TrayScene.default("cpu"), torch.tensor(pose), 1.0, (180, 180))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=2e-6)
 
 
@@ -40,9 +40,9 @@ def test_render_full_size_matches_jax():
                                           [0.53, 0.07, 0.2, 0, 0, 0]])
 def test_contact_force_matches_jax(pose):
     je = JEnv(tray_lim=TRAY6, img_hw=(16, 16))
-    te = SyntheticEnv(tray_lim=TRAY6, img_hw=(16, 16))
+    te = SyntheticEnv(tray_lim=TRAY6, img_hw=(16, 16), device="cpu")
     want = je._contact_force(jnp.array(pose), JScene.default())
-    got = te._contact_force(torch.tensor(pose), TrayScene.default())
+    got = te._contact_force(torch.tensor(pose), TrayScene.default("cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
@@ -50,7 +50,7 @@ def test_step_vel_and_observe_match_jax():
     """A command sequence that drives into an object (force block), into
     the box limits, and back: poses, velocities, forces and images."""
     je = JEnv(tray_lim=TRAY6, dt=0.04, img_hw=(20, 20))
-    te = SyntheticEnv(tray_lim=TRAY6, dt=0.04, img_hw=(20, 20))
+    te = SyntheticEnv(tray_lim=TRAY6, dt=0.04, img_hw=(20, 20), device="cpu")
     start = [0.42, -0.06, 0.3, 3.14, 0.0, 0.0]
     js = je.init(jnp.array(start))
     ts = te.init(torch.tensor(start))

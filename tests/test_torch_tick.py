@@ -81,7 +81,7 @@ def test_two_ticks_step_matched():
     cfg_j = JConfig(**TOY, compute_dtype="float32")
     cfg_t = ExperimentConfig(**TOY, compute_dtype="float32")
     exp_j = JExperiment(cfg_j, train_calls_per_tick=1, train_every=1)
-    exp_t = Experiment(cfg_t, train_calls_per_tick=1, train_every=1)
+    exp_t = Experiment(cfg_t, train_calls_per_tick=1, train_every=1, device="cpu")
     es_j = exp_j.init(seed=0)
     es_t = exp_t.init(seed=0)
     es_t.model.load_state_dict(params_from_jax(es_j.params, es_t.model))
@@ -134,7 +134,7 @@ def test_standalone_entropy_schedule_path():
     fresh pdf decode and the replay ring, as the reference recomputes
     them; the ticks still train with finite beta and gamma."""
     exp = Experiment(ExperimentConfig(**TOY, hyper_from_planner=False),
-                     train_calls_per_tick=1, train_every=1)
+                     train_calls_per_tick=1, train_every=1, device="cpu")
     es, inf = exp.run_chunk(exp.init(seed=1), 4)
     assert es.learning_ind == 3
     assert torch.isfinite(inf["beta"]).all() and torch.isfinite(inf["gamma"]).all()
@@ -147,4 +147,4 @@ def test_standalone_entropy_schedule_path():
                                     dict(states="xyzrpw"), dict(use_magnitude=True)])
 def test_unported_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError):
-        Experiment(ExperimentConfig(**{**TOY, **kwargs}))
+        Experiment(ExperimentConfig(**{**TOY, **kwargs}), device="cpu")

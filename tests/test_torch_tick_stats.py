@@ -24,7 +24,7 @@ def test_twenty_ticks_statistically_like_jax():
     the larger of its spread and 25% of its mean magnitude."""
     cfg_j, cfg_t = JConfig(**TOY), ExperimentConfig(**TOY)
     exp_j = JExperiment(cfg_j, train_calls_per_tick=1, train_every=1)
-    exp_t = Experiment(cfg_t, train_calls_per_tick=1, train_every=1)
+    exp_t = Experiment(cfg_t, train_calls_per_tick=1, train_every=1, device="cpu")
     chunk = jax.jit(lambda s: exp_j.run_chunk(s, 20))
     stats = {"jax": [], "torch": []}
     for seed in range(3):
