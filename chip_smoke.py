@@ -8,8 +8,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build: compiles every kernel (K1 footprint.cu, K2 adam.cu, K3
      wgrad.cu) from ealv_tpu_torch/csrc, one nvcc per source, in parallel;
   3. kernels vs their plain torch versions on the card, at the main paths'
-     shapes and the CPU tests' probe shapes, plus kernel and plain timings
-     (CUDA events);
+     shapes and the probe shapes (K1's and K3's the same bits on a repeated
+     call), then device times (CUDA events) and host clock per call of each
+     kernel, its plain version and the one PyTorch call for the same
+     function where there is one (torch.optim.Adam(fused=True) for K2,
+     cuDNN's bf16 wgrad for K3), beside each kernel's bound on this card;
   4. agreement: two toy-size ticks on the card and on the CPU with the same
      weights and the same fed random draws (float32, TF32 off); one toy
      trainer call with both trainer kernels on, card vs CPU; one
@@ -76,46 +79,26 @@ def _smi():
     return out.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps=21, inner=50):
-    """Device time per call: median over ``reps`` of the mean time of
-    ``inner`` back-to-back calls, from CUDA events. A spin kernel holds the
-    stream while the host enqueues the calls, so the host's per-call
-    overhead does not pace the device."""
-    import torch
-    host = _host_ms(fn, inner)
-    spin = int(2e9 * 2 * host * 1e-3 * inner)  # twice the loop, at <= 2 GHz
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return float(np.median(times))
-
-
-def _host_ms(fn, inner=50):
-    """Host clock per call of ``inner`` back-to-back calls ending in a
-    synchronize, after 5 warm calls: what a caller that launches the work
-    and nothing else pays."""
-    import torch
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(inner):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / inner * 1e3
+def _k1_bound_ms(n, t, d, mask):
+    """The least time for K1 on these inputs: 3d + 5 f32 operations for each
+    pair of a sample and an unmasked point (d subtractions and FMAs, the
+    scale, the exponential, the mask, the add and the max) at 67 TFLOP/s,
+    against each input read once and both outputs written once at 3.35
+    TB/s."""
+    pairs = n * int((mask != 0).sum())
+    ops_ms = pairs * (3 * d + 5) / 67e12 * 1e3
+    bytes_ms = 4 * (n * d + t * d + d + t + 2 * n) / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def phase_kernels(dev):
+    """K1 against its plain version at the main path's shapes and the probe
+    shapes, the same bits on a repeated call; then kernel and plain times
+    at the main path's two shapes."""
     import torch
-    from ealv_tpu_torch.ops import footprint_and_spread, footprint_and_spread_reference
+    from ealv_tpu_torch.ops import (footprint_and_spread, footprint_and_spread_reference,
+                                    footprint_plan)
+    from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     g = torch.Generator(device=dev).manual_seed(0)
     u = lambda *s: torch.rand(s, generator=g, device=dev) * 2 - 1
@@ -134,28 +117,50 @@ def phase_kernels(dev):
         return samples, traj, std, mask
 
     # (n, t, d, mask): the main path's shapes (target spread and base
-    # footprint 2000x3000, horizon costs 2000x10) and the CPU probe shapes
+    # footprint 2000x3000, horizon costs 2000x10), the CPU probe shapes, and
+    # T-splits cut unevenly: a T that S does not divide, more splits than
+    # points per split, splits longer than one staged stretch, T = 1, d = 8
     shapes = [(2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
               (700, 900, 4, "random"), (700, 900, 2, "random"),
               (700, 900, 6, "random"), (64, 100, 3, "ones"),
-              (2000, 3000, 3, "zero"), (1, 1, 3, "ones"), (129, 513, 7, "random")]
+              (2000, 3000, 3, "zero"), (1, 1, 3, "ones"), (129, 513, 7, "random"),
+              (2000, 3001, 3, "random"), (3, 6400, 2, "random"),
+              (33, 80000, 5, "random"), (1500, 700, 8, "random"), (2000, 1, 3, "ones")]
     max_err = 0.0
     for n, t, d, mk in shapes:
         args = case(n, t, d, mk)
         got = footprint_and_spread(*args)
+        again = footprint_and_spread(*args)
         want = footprint_and_spread_reference(*args)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, **TOL)
-            max_err = max(max_err, float((a - b).abs().max()))
-        print(f"[kernels] footprint_and_spread {n}x{t}x{d} mask={mk}: "
-              f"max|kernel-plain| = {max(float((a - b).abs().max()) for a, b in zip(got, want)):.3e}")
-    prod = case(2000, 3000, 3, "tail")
-    ms = _time_ms(lambda: footprint_and_spread(*prod))
-    plain_ms = _time_ms(lambda: footprint_and_spread_reference(*prod))
-    print(f"[kernels] footprint_and_spread 2000x3000x3: kernel {ms:.4f} ms, "
-          f"plain torch {plain_ms:.4f} ms (median of 21 x 50 launches)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"footprint kernel {n}x{t}x{d} is not deterministic")
+        err = _max_err(got, want)
+        max_err = max(max_err, err)
+        plan = footprint_plan(n, t, d)
+        print(f"[kernels] footprint_and_spread {n}x{t}x{d} mask={mk} (rows {plan.rows}, "
+              f"splits {plan.splits} of {plan.split_len}): max|kernel-plain| = {err:.3e}, "
+              f"bit-equal on repeat")
+    rec = {}
+    for n, t, d, mk in ((2000, 3000, 3, "tail"), (2000, 10, 3, "ones")):
+        args = case(n, t, d, mk)
+        kernel = lambda: footprint_and_spread(*args)
+        plain = lambda: footprint_and_spread_reference(*args)
+        ms, plain_ms = device_ms(kernel), device_ms(plain)
+        h_ms, h_plain = host_ms(kernel), host_ms(plain)
+        bound_ms, bound_by = _k1_bound_ms(n, t, d, args[3])
+        print(f"[kernels] footprint_and_spread {n}x{t}x{d} mask={mk}: device (CUDA events, "
+              f"median of 21 x 50) kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; host "
+              f"clock per call {h_ms:.4f} / {h_plain:.4f} ms; bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+        rec[t] = dict(ms=ms, plain_ms=plain_ms, host_ms=h_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+    big, small = rec[3000], rec[10]
+    return dict(max_abs_err=max_err, **big, library_ms=None, shape="2000x3000x3",
+                ms_2000x10x3=small["ms"], plain_ms_2000x10x3=small["plain_ms"],
+                host_ms_2000x10x3=small["host_ms"], bound_ms_2000x10x3=small["bound_ms"])
 
 
 def _max_err(got, want):
@@ -164,12 +169,14 @@ def _max_err(got, want):
 
 def phase_adam(dev):
     """K2 against its plain version: the CVAE's 24 parameter tensors in one
-    launch, and ragged and tiny sizes, at step counts > 1 with non-zero
-    moments; then kernel, plain and torch.optim.Adam(fused=True) times."""
+    launch, ragged and tiny sizes, and tensors that start off a 16-byte
+    boundary (the scalar path), at step counts > 1 with non-zero moments;
+    then kernel, plain and torch.optim.Adam(fused=True) times."""
     import torch
     from ealv_tpu_torch.models import CVAE
     from ealv_tpu_torch.ops import adam as tad
     from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     cfg = ExperimentConfig(**PRODUCTION)
     prod = [tuple(p.shape) for p in CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim,
@@ -177,16 +184,20 @@ def phase_adam(dev):
                                          hidden_dim=cfg.model_hidden()).parameters()]
     g = torch.Generator(device=dev).manual_seed(1)
 
-    def state(shapes):
-        r = lambda s, scale: torch.randn(s, generator=g, device=dev) * scale
+    def state(shapes, offset=0):
+        def r(s, scale, rand=torch.randn):
+            n = int(np.prod(s))
+            buf = rand(n + offset, generator=g, device=dev) * scale
+            return buf[offset:].view(s)
         return ([r(s, 0.05) for s in shapes], [r(s, 1e-3) for s in shapes],
-                [torch.rand(s, generator=g, device=dev) * 1e-5 for s in shapes],
-                [r(s, 1e-2) for s in shapes])
+                [r(s, 1e-5, torch.rand) for s in shapes], [r(s, 1e-2) for s in shapes])
 
     max_err = 0.0
-    for shapes, count in ((prod, 7), ([(1,)], 1), ([(127,)], 1), ([(129,)], 3),
-                          ([(1,), (127,), (129,), (4097,), (3 * 4096 + 5,)], 2)):
-        p, m, v, gr = state(shapes)
+    for shapes, count, offset in ((prod, 7, 0), ([(1,)], 1, 0), ([(127,)], 1, 0),
+                                  ([(129,)], 3, 0),
+                                  ([(1,), (127,), (129,), (4097,), (3 * 4096 + 5,)], 2, 0),
+                                  ([(129,), (4097,), (3 * 4096 + 5,)], 2, 1)):
+        p, m, v, gr = state(shapes, offset)
         want = [[x.clone() for x in xs] for xs in (p, m, v)]
         before = tad.adam_apply.launches
         tad.adam_apply(p, m, v, gr, 1e-3, count)
@@ -202,7 +213,8 @@ def phase_adam(dev):
             err = max(err, _max_err(got, ref))
         max_err = max(max_err, err)
         n = sum(x.numel() for x in p)
-        print(f"[kernels] adam_apply {len(shapes)} tensors, {n} elements, step {count}: "
+        print(f"[kernels] adam_apply {len(shapes)} tensors, {n} elements, step {count}"
+              f"{', offset 4 B (scalar path)' if offset else ''}: "
               f"max|kernel-plain| = {err:.3e}")
     p, m, v, gr = state(prod)
     n = sum(x.numel() for x in p)
@@ -212,13 +224,20 @@ def phase_adam(dev):
     for q, d in zip(params, gr):
         q.grad = d.clone()
     fused = torch.optim.Adam(params, lr=1e-3, fused=True).step
-    ms, plain_ms, fused_ms = (_time_ms(f) for f in (kernel, plain, fused))
-    host = [_host_ms(f) for f in (kernel, plain, fused)]
+    # in turns: kernel, fused, fused, kernel
+    (ms, h_ms), (fused_ms, h_fused), (fused2, h_fused2), (ms2, h_ms2) = (
+        (device_ms(f), host_ms(f)) for f in (kernel, fused, fused, kernel))
+    plain_ms, h_plain = device_ms(plain), host_ms(plain)
+    bound_ms = 28 * n / 3.35e12 * 1e3  # p, m, v, g read, p, m, v written, f32
     print(f"[kernels] adam_apply 24 CVAE tensors ({n} elements), ms per step, device "
-          f"(CUDA events, median of 21 x 50): kernel {ms:.4f} (one launch), plain torch "
-          f"{plain_ms:.4f}, torch.optim.Adam(fused=True) {fused_ms:.4f}; host clock per "
-          f"call: kernel {host[0]:.4f}, plain {host[1]:.4f}, fused {host[2]:.4f}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+          f"(CUDA events, median of 21 x 50, in turns kernel, fused, fused, kernel): "
+          f"kernel {ms:.4f} / {ms2:.4f} (one launch), torch.optim.Adam(fused=True) "
+          f"{fused_ms:.4f} / {fused2:.4f}, plain torch {plain_ms:.4f}; host clock per call: "
+          f"kernel {h_ms:.4f} / {h_ms2:.4f}, fused {h_fused:.4f} / {h_fused2:.4f}, plain "
+          f"{h_plain:.4f}; bound {bound_ms:.4f} (bytes)")
+    return dict(max_abs_err=max_err, ms=(ms + ms2) / 2, plain_ms=plain_ms,
+                host_ms=(h_ms + h_ms2) / 2, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=(fused_ms + fused2) / 2, library_host_ms=(h_fused + h_fused2) / 2)
 
 
 def _trainer_layout(x, cot, last_layer):
@@ -244,6 +263,7 @@ def phase_wgrad(dev):
     trainer's layouts."""
     import torch
     from ealv_tpu_torch.ops import wgrad as twg
+    from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     g = torch.Generator(device=dev).manual_seed(2)
 
@@ -280,7 +300,7 @@ def phase_wgrad(dev):
                   f"{float((f32.double() - want).abs().max()):.3e} (|dW| <= "
                   f"{float(want.abs().max()):.1f}); bit-equal on repeat and in the "
                   f"trainer's layouts")
-    ms = plain_ms = 0.0
+    ms = plain_ms = cudnn_ms = host = bound_bytes = 0.0
     for shape in WGRAD_PRODUCTION:
         x, cot, k, s = inputs(shape, torch.bfloat16)
         x, cot = _trainer_layout(x, cot, shape == WGRAD_PRODUCTION[2])
@@ -288,16 +308,21 @@ def phase_wgrad(dev):
                lambda: twg.conv_wgrad_reference(x, cot, k, s),
                lambda: torch.nn.grad.conv2d_weight(
                    x, (cot.shape[1], x.shape[1], k, k), cot, stride=s))
-        t_k, t_p, t_c = (_time_ms(f, inner=20) for f in fns)
-        h_k, h_p, h_c = (_host_ms(f, inner=20) for f in fns)
-        ms, plain_ms = ms + t_k, plain_ms + t_p
+        t_k, t_p, t_c = (device_ms(f, inner=20) for f in fns)
+        h_k, h_p, h_c = (host_ms(f, inner=20) for f in fns)
+        ms, plain_ms, cudnn_ms, host = ms + t_k, plain_ms + t_p, cudnn_ms + t_c, host + h_k
+        # x and cot read once in bf16, dW written once in f32
+        bound_bytes += 2 * (x.numel() + cot.numel()) + 4 * cot.shape[1] * x.shape[1] * k * k
         print(f"[kernels] conv_wgrad_direct {shape} bf16 in the trainer's layouts, ms per "
               f"call, device (CUDA events, median of 21 x 20): kernel {t_k:.4f}, plain torch (f32 cuDNN on "
               f"upcast inputs) {t_p:.4f}, cuDNN bf16 wgrad {t_c:.4f}; host clock per "
               f"call: {h_k:.4f}, {h_p:.4f}, {h_c:.4f}")
+    bound_ms = bound_bytes / 3.35e12 * 1e3
     print(f"[kernels] conv_wgrad_direct, the three encoder layers: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms per Adam step")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+          f"plain {plain_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms per Adam step; host clock "
+          f"{host:.4f} ms; bound {bound_ms:.4f} ms ({bound_bytes / 1e6:.1f} MB, bytes)")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, host_ms=host,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=cudnn_ms)
 
 
 def _toy_draws(exp, k, rng, dev):

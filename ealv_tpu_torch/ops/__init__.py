@@ -6,7 +6,8 @@ from .kernels import (
     renormalize,
     cost_norm,
 )
-from .footprint import footprint_and_spread, footprint_and_spread_reference
+from .footprint import (footprint_and_spread, footprint_and_spread_reference,
+                        footprint_plan)
 from .adam import (
     FusedAdam,
     adam_apply,

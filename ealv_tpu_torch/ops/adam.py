@@ -13,11 +13,22 @@ The update is the JAX package's (optax's, eps_root 0):
 ``p - lr * (m / c1) / (sqrt(v / c2) + eps)`` with ``c1 = 1 - b1^t`` and
 ``c2 = 1 - b2^t`` computed in f32 on the host from the int step count
 ``t``, so a step reads no device value and never waits on the device.
+
+Host cost: the kernel's plan (``adam_plan``), the checks and the ctypes
+argument arrays are built once per tensor list and kept under a key of
+every tensor's address and size and every grad's dtype and contiguity, so
+a grad that is replaced by another tensor (``zero_grad(set_to_none=True)``)
+or by a view of another layout is checked again before the kernel reads
+it. The kernel never reads an address that is not in the key.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import functools
+import operator
 
 import numpy as np
 import torch
@@ -26,6 +37,13 @@ from . import cuda_build
 
 _SOURCE = "adam.cu"
 ADAM_MAX_TENSORS = 48  # tensors per launch, kMaxTensors in csrc/adam.cu
+THREADS = 256          # threads per block, kThreads
+VECS = 4               # float4 of each array per thread, kVecs
+CHUNK = THREADS * VECS * 4  # elements per block, kChunk
+_PLAN_CACHE = 16       # tensor lists whose launch arguments are kept
+
+_ADDR_FIELDS = (torch.Tensor.data_ptr, torch.Tensor.numel)  # of every tensor
+_GRAD_FIELDS = (operator.attrgetter("dtype"), torch.Tensor.is_contiguous)  # of the grads
 
 
 def bias_corrections(count: int, b1: float, b2: float):
@@ -48,42 +66,110 @@ def adam_update_reference(p, m, v, g, lr, count: int, b1: float = 0.9,
     return p, m, v
 
 
+@dataclasses.dataclass(frozen=True)
+class AdamPlan:
+    """One launch's schedule: tensor i takes blocks ``block_start[i]`` to
+    ``block_start[i + 1] - 1``, one ``CHUNK`` of elements each, read as
+    float4 with a scalar tail of ``size % 4`` if ``vec[i]``, else element
+    by element."""
+
+    sizes: tuple[int, ...]
+    vec: tuple[bool, ...]
+    block_start: tuple[int, ...]
+
+    @property
+    def blocks(self) -> int:
+        return self.block_start[-1]
+
+
+def adam_plan(sizes, vec) -> AdamPlan:
+    """The kernel's plan for tensors of ``sizes`` > 0 elements; ``vec[i]``
+    says whether tensor i's four arrays all start on a 16-byte boundary."""
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // CHUNK))
+    return AdamPlan(tuple(sizes), tuple(bool(x) for x in vec), tuple(starts))
+
+
+@functools.cache
 def _library():
     fn = cuda_build.load(_SOURCE).adam_multi_f32
     fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
                    ctypes.c_int] + [ctypes.c_float] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_cuda(params, mu, nu, grads):
-    dev = params[0].device
-    for i, group in enumerate(zip(params, mu, nu, grads)):
-        for name, x in zip(("param", "exp_avg", "exp_avg_sq", "grad"), group):
-            if x.dtype != torch.float32 or x.device != dev:
-                raise TypeError(f"{name} {i}: the Adam kernel takes float32 on "
-                                f"{dev}, got {x.dtype} on {x.device}")
-            if not x.is_contiguous():
-                raise ValueError(f"{name} {i}: the Adam kernel takes contiguous "
-                                 f"tensors, got strides {x.stride()}")
-            if x.numel() != group[0].numel():
-                raise ValueError(f"{name} {i}: {x.numel()} elements, the "
-                                 f"parameter has {group[0].numel()}")
+def _check(tensors, n):
+    """``tensors`` is params, exp_avg, exp_avg_sq and grads, n of each."""
+    dev = tensors[0].device
+    for k, x in enumerate(tensors):
+        name = f"{('param', 'exp_avg', 'exp_avg_sq', 'grad')[k // n]} {k % n}"
+        if x.dtype != torch.float32 or x.device != dev:
+            raise TypeError(f"{name}: the Adam kernel takes float32 on {dev}, got "
+                            f"{x.dtype} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 4:
+            raise ValueError(f"{name}: the Adam kernel takes contiguous, 4-byte "
+                             f"aligned tensors, got strides {x.stride()}")
+        if x.numel() != tensors[k % n].numel():
+            raise ValueError(f"{name}: {x.numel()} elements, the parameter has "
+                             f"{tensors[k % n].numel()}")
+    return dev
 
 
-def _launch(params, mu, nu, grads, lr, count, b1, b2, eps):
-    _check_cuda(params, mu, nu, grads)
-    fn = _library()
+def _build_launches(tensors, ptrs, sizes):
+    """Check the tensors and build each launch's plan and ctypes arrays:
+    (device, [(n_tensors, ptrs, sizes, block_start, vec, plan), ...])."""
+    n = len(sizes) // 4
+    dev = _check(tensors, n)
+    live = [i for i in range(n) if sizes[i] > 0]
+    launches = []
+    for lo in range(0, len(live), ADAM_MAX_TENSORS):
+        part = live[lo: lo + ADAM_MAX_TENSORS]
+        aligned = [all(ptrs[k * n + i] % 16 == 0 for k in range(4)) for i in part]
+        plan = adam_plan([sizes[i] for i in part], aligned)
+        launches.append((
+            len(part),
+            (ctypes.c_uint64 * (4 * len(part)))(*[ptrs[k * n + i] for k in range(4)
+                                                  for i in part]),
+            (ctypes.c_int64 * len(part))(*plan.sizes),
+            (ctypes.c_int * (len(part) + 1))(*plan.block_start),
+            (ctypes.c_int * len(part))(*plan.vec),
+            plan))
+    return dev, launches
+
+
+_launch_cache: dict = {}
+
+
+def _launches(tensors):
+    """The cached launches for this tensor list (params, exp_avg,
+    exp_avg_sq, grads): checks and ctypes arrays are built again whenever a
+    tensor's address or size, or a grad's dtype or contiguity, differs from
+    a cached list's. A param or moment changes dtype or layout only with a
+    new address."""
+    grads = tensors[3 * len(tensors) // 4:]
+    key = (*(tuple(map(f, tensors)) for f in _ADDR_FIELDS),
+           *(tuple(map(f, grads)) for f in _GRAD_FIELDS))
+    hit = _launch_cache.get(key)
+    if hit is None:
+        hit = _build_launches(tensors, key[0], key[1])
+        if len(_launch_cache) >= _PLAN_CACHE:
+            _launch_cache.clear()
+        _launch_cache[key] = hit
+    return hit
+
+
+def _launch(tensors, lr, count, b1, b2, eps, fn=None):
+    dev, launches = _launches(tensors)
+    fn = fn or _library()
     c1, c2 = bias_corrections(count, b1, b2)
-    live = [i for i, p in enumerate(params) if p.numel() > 0]
-    with torch.cuda.device(params[0].device):
+    switch = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         stream = torch.cuda.current_stream().cuda_stream
-        for lo in range(0, len(live), ADAM_MAX_TENSORS):
-            part = live[lo: lo + ADAM_MAX_TENSORS]
-            ptrs = (ctypes.c_uint64 * (4 * len(part)))(*[
-                t[i].data_ptr() for i in part for t in (params, mu, nu, grads)])
-            sizes = (ctypes.c_int64 * len(part))(*[params[i].numel() for i in part])
-            err = fn(ptrs, sizes, len(part), lr, c1, c2, b1, b2, 1.0 - b1,
+        for n_t, ptrs, sizes, starts, vec, _ in launches:
+            err = fn(ptrs, sizes, starts, vec, n_t, lr, c1, c2, b1, b2, 1.0 - b1,
                      1.0 - b2, eps, stream)
             if err != 0:
                 raise RuntimeError(f"Adam kernel launch failed: cudaError {err}")
@@ -94,18 +180,23 @@ def adam_apply(params, mu, nu, grads, lr, count: int, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8):
     """One Adam step over lists of tensors, in place. ``count`` is the
     post-increment step (the first update uses 1). CUDA f32 tensors go to
-    the kernel, one launch per ``ADAM_MAX_TENSORS`` tensors; CPU tensors to
-    the plain version. ``adam_apply.launches`` counts kernel launches."""
+    the kernel, one launch per ``ADAM_MAX_TENSORS`` non-empty tensors; CPU
+    tensors to the plain version. ``adam_apply.launches`` counts kernel
+    launches."""
     if not params:
         return
-    devices = {x.device.type for t in (params, mu, nu, grads) for x in t}
-    if devices == {"cuda"}:
-        _launch(params, mu, nu, grads, float(lr), int(count), b1, b2, eps)
-    elif devices == {"cpu"}:
+    if not len(params) == len(mu) == len(nu) == len(grads):
+        raise ValueError(f"{len(params)} params, {len(mu)} exp_avg, {len(nu)} "
+                         f"exp_avg_sq and {len(grads)} grads")
+    tensors = [*params, *mu, *nu, *grads]
+    if tensors[0].is_cuda:
+        _launch(tensors, float(lr), int(count), b1, b2, eps)
+    elif all(x.device.type == "cpu" for x in tensors):
         for p, m, v, g in zip(params, mu, nu, grads):
             adam_update_reference(p, m, v, g, lr, count, b1, b2, eps)
     else:
-        raise TypeError(f"no Adam path for tensors on {sorted(devices)}")
+        raise TypeError(f"no Adam path for tensors on "
+                        f"{sorted({str(x.device) for x in tensors})}")
 
 
 adam_apply.launches = 0
@@ -134,27 +225,48 @@ class FusedAdam(torch.optim.Optimizer):
     The step count is a host int in each param group (``group["step"]``),
     one for the whole group as in the JAX optimizer state; the moments are
     ``exp_avg``/``exp_avg_sq`` per parameter, so ``state_dict`` and
-    ``load_state_dict`` carry the whole optimizer state."""
+    ``load_state_dict`` carry the whole optimizer state. Each group's
+    moment lists are looked up in ``self.state`` once and kept while the
+    group's parameters with a grad stay the same tensors;
+    ``load_state_dict`` drops them."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, step=0))
+        self._moments: dict[int, tuple[list, list, list]] = {}
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict(state_dict)
+        self._moments.clear()
+
+    def _group_moments(self, k, params):
+        kept = self._moments.get(k)
+        if kept is not None and len(kept[0]) == len(params) \
+                and all(map(operator.is_, kept[0], params)):
+            return kept[1], kept[2]
+        for p in params:
+            if not self.state[p]:
+                mu, nu = adam_init([p])
+                self.state[p]["exp_avg"], self.state[p]["exp_avg_sq"] = mu[0], nu[0]
+        kept = (params, [self.state[p]["exp_avg"] for p in params],
+                [self.state[p]["exp_avg_sq"] for p in params])
+        self._moments[k] = kept
+        return kept[1], kept[2]
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise NotImplementedError("FusedAdam takes no closure")
-        for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            for p in params:
-                if not self.state[p]:
-                    mu, nu = adam_init([p])
-                    self.state[p]["exp_avg"], self.state[p]["exp_avg_sq"] = mu[0], nu[0]
+        for k, group in enumerate(self.param_groups):
+            params = group["params"]
+            grads = [p.grad for p in params]
+            if any(g is None for g in grads):
+                params = [p for p, g in zip(params, grads) if g is not None]
+                grads = [g for g in grads if g is not None]
+                if not params:
+                    continue
+            mu, nu = self._group_moments(k, params)
             group["step"] += 1
             b1, b2 = group["betas"]
-            adam_apply(params, [self.state[p]["exp_avg"] for p in params],
-                       [self.state[p]["exp_avg_sq"] for p in params],
-                       [p.grad for p in params], group["lr"], group["step"],
-                       b1, b2, group["eps"])
+            adam_apply(params, mu, nu, grads, group["lr"], group["step"], b1, b2,
+                       group["eps"])

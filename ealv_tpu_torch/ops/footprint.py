@@ -2,8 +2,9 @@
 
 ``footprint_and_spread`` is the port of the Pallas TPU kernel
 ``ealv_tpu/ops/pallas_kernels.py::footprint_and_spread``. On a CUDA f32
-tensor it launches the hand-written kernel ``csrc/footprint.cu`` (built at
-first use, see ``cuda_build``); on a CPU tensor it computes the same thing
+tensor it launches the hand-written kernels of ``csrc/footprint.cu`` (built
+at first use, see ``cuda_build``) with the schedule ``footprint_plan``
+fixes here from the shape alone; on a CPU tensor it computes the same thing
 with ``footprint_and_spread_reference``; anything else raises. There is no
 fallback from the kernel to the plain version.
 """
@@ -11,12 +12,18 @@ fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from . import cuda_build
 
 _SOURCE = "footprint.cu"
+THREADS = 128        # threads per block
+ROWS = (2, 4)        # rows per thread the kernel is built for
+MIN_BLOCKS = 2 * 132  # the grid aims at two blocks per SM
+MIN_SPLIT = 64       # trajectory points a split stages at least
 
 
 def footprint_and_spread_reference(samples, traj, std, traj_mask):
@@ -32,15 +39,61 @@ def footprint_and_spread_reference(samples, traj, std, traj_mask):
     return psi.sum(1), psi.amax(1)
 
 
+@dataclasses.dataclass(frozen=True)
+class FootprintPlan:
+    """The kernel's schedule for one shape. The grid is (splits, tiles)
+    blocks of ``threads``; block (k, j) takes trajectory points [k *
+    split_len, min((k + 1) * split_len, t)) and the rows j * threads *
+    rows + r * threads + thread for r < rows, and writes one partial (sum,
+    max) per row to the workspace, which a second kernel combines in split
+    order. With one split the first kernel writes the outputs."""
+
+    n: int
+    t: int
+    d: int
+    rows: int       # R, sample rows per thread
+    threads: int
+    tiles: int      # row tiles, ceil(n / (threads * rows))
+    splits: int     # S, trajectory splits
+    split_len: int  # points per split; the last split may be shorter
+
+    @property
+    def ws_elems(self) -> int:
+        return 2 * self.splits * self.n if self.splits > 1 else 0
+
+
+def plan_for(n: int, t: int, d: int, rows: int, threads: int, splits: int) -> FootprintPlan:
+    """The plan with these choices, ``splits`` cut to the number of
+    non-empty splits of ceil(t / splits) points."""
+    split_len = -(-t // splits)
+    return FootprintPlan(n, t, d, rows, threads, -(-n // (threads * rows)),
+                         -(-t // split_len), split_len)
+
+
+@functools.lru_cache(maxsize=None)
+def footprint_plan(n: int, t: int, d: int) -> FootprintPlan:
+    """The plan for samples (n, d) and a trajectory of t points: four rows
+    per thread only when the row tiles alone fill ``MIN_BLOCKS`` blocks,
+    else two (more tiles, so fewer splits); then as many splits as bring
+    the grid to ``MIN_BLOCKS`` blocks while each split keeps ``MIN_SPLIT``
+    points (one split, no workspace, below that). More splits than that
+    only add partials to combine: at 2000x3000x3 the 264 blocks of 91
+    points measured faster than more, shorter splits."""
+    rows = 4 if -(-n // (THREADS * 4)) >= MIN_BLOCKS else 2
+    tiles = -(-n // (THREADS * rows))
+    splits = max(1, min(-(-MIN_BLOCKS // tiles), t // MIN_SPLIT))
+    return plan_for(n, t, d, rows, THREADS, splits)
+
+
+@functools.cache
 def _library():
-    lib = cuda_build.load(_SOURCE)
-    fn = lib.footprint_and_spread_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = cuda_build.load(_SOURCE).footprint_and_spread_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(samples, traj, std, traj_mask):
+def _launch(samples, traj, std, traj_mask, plan=None):
     n, d = samples.shape
     t = traj.shape[0]
     for name, x, shape in (("samples", samples, (n, d)), ("traj", traj, (t, d)),
@@ -54,18 +107,21 @@ def _launch(samples, traj, std, traj_mask):
     if not 1 <= d <= 8 or n == 0 or t == 0:
         raise ValueError(f"footprint kernel takes 1 <= d <= 8 and n, t > 0; "
                          f"got n={n}, t={t}, d={d}")
+    plan = plan or footprint_plan(n, t, d)
     fn = _library()
-    out_sum = torch.empty(n, device=samples.device, dtype=torch.float32)
-    out_max = torch.empty(n, device=samples.device, dtype=torch.float32)
+    out = torch.empty((2, n), device=samples.device, dtype=torch.float32)
+    ws = (torch.empty(plan.ws_elems, device=samples.device, dtype=torch.float32)
+          if plan.ws_elems else None)
     with torch.cuda.device(samples.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(samples.data_ptr(), traj.data_ptr(), std.data_ptr(),
-                 traj_mask.data_ptr(), out_sum.data_ptr(), out_max.data_ptr(),
-                 n, t, d, stream)
+                 traj_mask.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 None if ws is None else ws.data_ptr(), n, t, d, plan.rows,
+                 plan.threads, plan.splits, plan.split_len, stream)
     if err != 0:
         raise RuntimeError(f"footprint kernel launch failed: cudaError {err}")
     footprint_and_spread.launches += 1
-    return out_sum, out_max
+    return out[0], out[1]
 
 
 def footprint_and_spread(samples, traj, std, traj_mask):
@@ -74,7 +130,9 @@ def footprint_and_spread(samples, traj, std, traj_mask):
     samples (N, d), traj (T, d), std (d,), traj_mask (T,) in {0, 1}.
     Returns (footprint (N,), spread (N,)) in float32. CUDA float32 tensors
     go to the kernel at every size; CPU tensors to the plain version.
-    ``footprint_and_spread.launches`` counts kernel launches.
+    ``footprint_and_spread.launches`` counts calls that went to the kernel,
+    one per call, whether the plan runs one kernel or two (the T-split and
+    its ordered combine).
     """
     if samples.device.type == "cuda":
         if samples.dtype != torch.float32:

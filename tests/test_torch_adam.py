@@ -181,3 +181,119 @@ def test_trainer_switch_follows_the_jax_user_flow():
     assert isinstance(exp.init(0).opt, torch.optim.Adam)
     exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
     assert isinstance(exp.init(0).opt, tad.FusedAdam)
+
+
+# ---- the kernel's plan (csrc/adam.cu), emulated on the CPU ----
+
+RAGGED = [1, 3, 4, 5, 127, 129, 4097, 3 * 4096 + 5]
+
+
+def _cvae_sizes():
+    from ealv_tpu_torch.models import CVAE
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    cfg = ExperimentConfig()
+    model = CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim, s_dim=cfg.s_dim,
+                 hidden_dim=cfg.model_hidden())
+    return [p.numel() for p in model.parameters()]
+
+
+def _kernel_writes(plan):
+    """Per tensor, how often the kernel's blocks write each element: the
+    block's tensor by the kernel's binary search over first blocks, its
+    chunk, then float4 j of each thread and unroll step and the scalar tail
+    (or the scalar loop)."""
+    counts = [np.zeros(n, np.int64) for n in plan.sizes]
+    tid = np.arange(tad.THREADS)
+    for b in range(plan.blocks):
+        lo, hi = 0, len(plan.sizes) - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            if plan.block_start[mid] <= b:
+                lo = mid
+            else:
+                hi = mid - 1
+        begin = (b - plan.block_start[lo]) * tad.CHUNK
+        end = min(begin + tad.CHUNK, plan.sizes[lo])
+        if not plan.vec[lo]:
+            for j0 in range(begin, end, tad.THREADS):
+                j = j0 + tid
+                np.add.at(counts[lo], j[j < end], 1)
+            continue
+        vbegin, vend = begin >> 2, end >> 2
+        for u in range(tad.VECS):
+            j = vbegin + u * tad.THREADS + tid
+            j = j[j < vend]
+            for c in range(4):
+                np.add.at(counts[lo], 4 * j + c, 1)
+        j = (vend << 2) + tid
+        np.add.at(counts[lo], j[j < end], 1)
+    return counts
+
+
+@pytest.mark.parametrize("sizes", [[n] for n in RAGGED] + [RAGGED, "cvae"],
+                         ids=lambda s: "cvae" if s == "cvae" else "-".join(map(str, s)))
+@pytest.mark.parametrize("aligned", ["all", "none", "alternate"])
+def test_plan_updates_every_element_once(sizes, aligned):
+    """Every element of every tensor is written by exactly one thread,
+    through the float4 path and its scalar tail or the scalar path."""
+    sizes = _cvae_sizes() if sizes == "cvae" else sizes
+    vec = {"all": [True] * len(sizes), "none": [False] * len(sizes),
+           "alternate": [i % 2 == 0 for i in range(len(sizes))]}[aligned]
+    plan = tad.adam_plan(sizes, vec)
+    assert plan.blocks == sum(-(-n // tad.CHUNK) for n in sizes)
+    for n, c in zip(sizes, _kernel_writes(plan)):
+        assert c.size == n and (c == 1).all()
+
+
+def test_cvae_plan_is_one_launch_of_float4_blocks():
+    sizes = _cvae_sizes()
+    assert len(sizes) == 24 and sum(sizes) == 4309220
+    plan = tad.adam_plan(sizes, [True] * 24)
+    assert plan.blocks == 1070 and len(sizes) <= tad.ADAM_MAX_TENSORS
+
+
+def _lists(shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [[torch.tensor(rng.normal(0, 0.1, s), dtype=torch.float32) for s in shapes]
+            for _ in range(4)]
+
+
+def test_launch_cache_notices_replaced_grads():
+    """The checks and ctypes arrays are built once per tensor list; a grad
+    replaced by a new tensor (as zero_grad(set_to_none=True) does) makes a
+    new entry whose pointers are the new grad's."""
+    p, m, v, g = _lists([(64, 3), (5,)])
+    tad._launch_cache.clear()
+    dev, launches = tad._launches([*p, *m, *v, *g])
+    assert tad._launches([*p, *m, *v, *g])[1] is launches
+    g2 = [x.clone() for x in g]
+    _, again = tad._launches([*p, *m, *v, *g2])
+    assert again is not launches and len(tad._launch_cache) == 2
+    ptrs = list(again[0][1])
+    assert ptrs[6:8] == [x.data_ptr() for x in g2]
+    assert dev.type == "cpu" and again[0][5].sizes == (192, 5)
+
+
+@pytest.mark.parametrize("bad,error", [
+    (lambda g: g.bfloat16(), TypeError), (lambda g: g.t().contiguous().t(), ValueError),
+    (lambda g: g[:, :2], ValueError), (lambda g: g.t(), ValueError),
+    (lambda g: g.to("meta"), TypeError)])
+def test_launch_cache_checks_every_new_list(bad, error):
+    """A grad of another dtype, device or layout, or a view with the old
+    grad's address and size but not its layout, raises before any launch."""
+    p, m, v, g = _lists([(6, 6)])
+    tad._launches([*p, *m, *v, *g])
+    with pytest.raises(error):
+        tad._launches([*p, *m, *v, bad(g[0])])
+
+
+def test_unaligned_tensors_take_the_scalar_path():
+    """A contiguous view 4 bytes past a 16-byte boundary is read element by
+    element; the other tensors keep float4."""
+    buf = torch.zeros(4 * 200 + 1)
+    p, m, v, g = _lists([(100,), (37,)])
+    g[0] = buf[1:101]
+    _, launches = tad._launches([*p, *m, *v, *g])
+    plan = launches[0][5]
+    aligned = all(x.data_ptr() % 16 == 0 for x in (p[1], m[1], v[1], g[1]))
+    assert plan.vec == (False, aligned)

@@ -46,17 +46,36 @@ def _inputs(n, t, d, mask_kind, dev, seed=0):
 @pytest.mark.parametrize("n,t,d,mask_kind", [
     (700, 900, 4, "random"), (700, 900, 2, "random"), (700, 900, 6, "random"),
     (300, 500, 3, "zero"), (2000, 10, 3, "ones"), (2000, 3000, 3, "random"),
-    (1, 1, 8, "ones")])
+    (1, 1, 8, "ones"),
+    # T-splits cut unevenly: a T that S does not divide, more splits than
+    # points per split, splits longer than one staged stretch, T = 1, d = 8
+    (2000, 3001, 3, "random"), (3, 6400, 2, "random"), (33, 80000, 5, "random"),
+    (2000, 1, 3, "ones"), (1500, 700, 8, "random"), (129, 513, 7, "random")])
 def test_kernel_matches_plain(cuda, n, t, d, mask_kind):
-    """f32 on both sides, summation order only: rtol 1e-5, atol 1e-6."""
+    """f32 on both sides, summation order only: rtol 1e-5, atol 1e-6. One
+    launch per call whether the plan splits T or not, and the same bits on
+    a repeated call (the partials are combined in split order)."""
     args = _inputs(n, t, d, mask_kind, cuda)
     before = tfp.footprint_and_spread.launches
     got = tfp.footprint_and_spread(*args)
     assert tfp.footprint_and_spread.launches == before + 1
     want = tfp.footprint_and_spread_reference(*args)
+    again = tfp.footprint_and_spread(*args)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_kernel_propagates_nan_across_splits(cuda):
+    """A NaN point in one split makes every row's spread and footprint
+    NaN, as torch.amax and sum do."""
+    args = _inputs(50, 3000, 3, "ones", cuda)
+    args[1][2500, 0] = float("nan")
+    assert tfp.footprint_plan(50, 3000, 3).splits > 1
+    got_sum, got_max = tfp.footprint_and_spread(*args)
+    assert got_sum.isnan().all() and got_max.isnan().all()
 
 
 @pytest.mark.cuda
@@ -141,6 +160,63 @@ def test_adam_kernel_ragged_sizes(cuda, sizes, count, launches):
     """Tensors shorter than a chunk, crossing chunk edges, and more tensors
     than one launch's table holds (two launches)."""
     _adam_check([(n,) for n in sizes], cuda, count, launches)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_after_grads_are_replaced(cuda):
+    """Two steps with new grad tensors for the second, as the trainer's
+    zero_grad(set_to_none=True) makes them: once at new addresses (the old
+    grads still alive) and once where the allocator may hand out the old
+    grads' memory again; each against the plain version."""
+    shapes = [(64, 33), (7,), (4097,)]
+    p, m, v, g = _adam_state(shapes, cuda)
+    want = [[x.clone() for x in xs] for xs in (p, m, v)]
+    tad.adam_apply(p, m, v, g, 1e-3, 1)
+    g_new = _adam_state(shapes, cuda, seed=1)[3]
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(g, g_new))
+    tad.adam_apply(p, m, v, g_new, 1e-3, 2)
+    for count, grads in ((1, g), (2, g_new)):
+        for i in range(len(shapes)):
+            tad.adam_update_reference(want[0][i], want[1][i], want[2][i], grads[i],
+                                      1e-3, count)
+    del g
+    g_third = _adam_state(shapes, cuda, seed=2)[3]
+    tad.adam_apply(p, m, v, g_third, 1e-3, 3)
+    for i in range(len(shapes)):
+        tad.adam_update_reference(want[0][i], want[1][i], want[2][i], g_third[i], 1e-3, 3)
+    torch.cuda.synchronize()
+    for got, ref in zip((p, m, v), want):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, **ADAM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["grad", "all"])
+def test_adam_kernel_takes_unaligned_tensors(cuda, which):
+    """Contiguous views one element past a 16-byte boundary (of the grad
+    only, or of all four arrays) take the scalar path; the aligned tensor
+    beside them keeps float4. Against the plain version."""
+    shapes = [(4097,), (3 * 4096 + 5,)]
+    p, m, v, g = _adam_state(shapes, cuda)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        out = buf[1:]
+        out.copy_(x)
+        return out
+
+    arrays = [p, m, v, g] if which == "all" else [g]
+    for xs in arrays:
+        xs[0] = shifted(xs[0])
+    assert g[0].data_ptr() % 16 != 0 and g[0].is_contiguous()
+    want = [[x.clone() for x in xs] for xs in (p, m, v)]
+    tad.adam_apply(p, m, v, g, 1e-3, 5)
+    for i in range(len(shapes)):
+        tad.adam_update_reference(want[0][i], want[1][i], want[2][i], g[i], 1e-3, 5)
+    torch.cuda.synchronize()
+    for got, ref in zip((p, m, v), want):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, **ADAM_TOL)
 
 
 @pytest.mark.cuda

@@ -128,3 +128,92 @@ def test_cost_norm_matches_jax():
     want = jk.cost_norm(jnp.array(d))
     got = tk.cost_norm(T(d))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+# ---- the kernel's schedule (csrc/footprint.cu), emulated on the CPU ----
+
+# the probes, the main path's two shapes, and T-splits cut unevenly: a T
+# that S does not divide, more splits than points per split, splits longer
+# than one staged stretch, T = 1, d = 8
+PLAN_SHAPES = [(n, t, d) for n, t, d, _ in PROBES] + [
+    (2000, 3000, 3), (2000, 3001, 3), (3, 6400, 2), (33, 80000, 5), (1500, 700, 8),
+    (1, 1, 3), (2000, 1, 3), (129, 513, 7)]
+STAGE = 256  # kStage in csrc/footprint.cu
+
+
+def _split_ranges(plan):
+    return [(k * plan.split_len, min((k + 1) * plan.split_len, plan.t))
+            for k in range(plan.splits)]
+
+
+@pytest.mark.parametrize("n,t,d", PLAN_SHAPES)
+def test_plan_covers_every_point_and_row_once(n, t, d):
+    """Every trajectory point lies in exactly one non-empty split, every row
+    below n is owned by exactly one (tile, thread, r) and rows past n are
+    never written; the grid reaches MIN_BLOCKS unless splits would fall
+    under MIN_SPLIT points."""
+    plan = tfp.footprint_plan(n, t, d)
+    assert plan.rows in tfp.ROWS and plan.threads % 32 == 0
+    seen = np.zeros(t, np.int64)
+    for lo, hi in _split_ranges(plan):
+        assert lo < hi
+        seen[lo:hi] += 1
+        # the kernel stages [lo, hi) in stretches of STAGE points
+        staged = sum(min(STAGE, hi - b) for b in range(lo, hi, STAGE))
+        assert staged == hi - lo
+    assert (seen == 1).all()
+    written = np.zeros(plan.tiles * plan.threads * plan.rows, np.int64)
+    for tile in range(plan.tiles):
+        for r in range(plan.rows):
+            rows = tile * plan.threads * plan.rows + r * plan.threads + np.arange(plan.threads)
+            written[rows] += 1
+    assert (written == 1).all() and written.size >= n
+    assert written.size - n < plan.threads * plan.rows  # only the last tile is ragged
+    blocks = plan.splits * plan.tiles
+    assert blocks >= tfp.MIN_BLOCKS or plan.splits == max(1, t // tfp.MIN_SPLIT)
+    assert plan.ws_elems == (2 * plan.splits * n if plan.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("n,t,d", PLAN_SHAPES)
+def test_split_schedule_matches_plain(n, t, d):
+    """The plan's schedule in torch: each split's partial (sum, max) from
+    the plain version over its slice of T, then summed and maxed in split
+    order as the second kernel does. Against the plain version over all of
+    T: summation order only, rtol 1e-5, atol 1e-6."""
+    s, x, std, m = _inputs(n, t, d, "random", seed=7)
+    s, x, std, m = T(s), T(x), T(std), T(m)
+    plan = tfp.footprint_plan(n, t, d)
+    acc_sum = torch.zeros(n)
+    acc_max = torch.full((n,), -torch.inf)
+    for lo, hi in _split_ranges(plan):
+        part_sum, part_max = tfp.footprint_and_spread_reference(s, x[lo:hi], std, m[lo:hi])
+        acc_sum = acc_sum + part_sum
+        acc_max = torch.where((part_max > acc_max) | part_max.isnan(), part_max, acc_max)
+    want_sum, want_max = tfp.footprint_and_spread_reference(s, x, std, m)
+    torch.testing.assert_close(acc_sum, want_sum, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(acc_max, want_max, rtol=1e-5, atol=1e-6)
+
+
+def test_split_schedule_propagates_nan():
+    """A NaN in one split's points reaches the row's max through the
+    ordered combine, as torch.amax propagates it."""
+    s, x, std, m = (T(a) for a in _inputs(5, 300, 3, "ones"))
+    x[250, 1] = float("nan")
+    plan = tfp.footprint_plan(5, 300, 3)
+    assert plan.splits > 1
+    _, want_max = tfp.footprint_and_spread_reference(s, x, std, m)
+    acc = torch.full((5,), -torch.inf)
+    for lo, hi in _split_ranges(plan):
+        _, part = tfp.footprint_and_spread_reference(s, x[lo:hi], std, m[lo:hi])
+        acc = torch.where((part > acc) | part.isnan(), part, acc)
+    assert want_max.isnan().all() and acc.isnan().all()
+
+
+def test_main_path_plans():
+    """The planner's two shapes: 2000x3000 splits T to fill the card, the
+    launch-bound 2000x10 takes one pass and no workspace."""
+    big, small = tfp.footprint_plan(2000, 3000, 3), tfp.footprint_plan(2000, 10, 3)
+    assert big.splits > 1 and big.splits * big.tiles >= 132
+    assert big.split_len >= tfp.MIN_SPLIT
+    assert small.splits == 1 and small.ws_elems == 0
+    assert tfp.footprint_plan(2000, 3000, 3) is big  # cached per shape
