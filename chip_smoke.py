@@ -220,24 +220,29 @@ def phase_adam(dev):
     n = sum(x.numel() for x in p)
     kernel = lambda: tad.adam_apply(p, m, v, gr, 1e-3, 7)
     plain = lambda: [tad.adam_update_reference(*t, 1e-3, 7) for t in zip(p, m, v, gr)]
-    params = [x.clone().requires_grad_() for x in p]
-    for q, d in zip(params, gr):
-        q.grad = d.clone()
-    fused = torch.optim.Adam(params, lr=1e-3, fused=True).step
+    optimizers = []
+    for make in (lambda ps: torch.optim.Adam(ps, lr=1e-3, fused=True), tad.FusedAdam):
+        params = [x.clone().requires_grad_() for x in p]
+        for q, d in zip(params, gr):
+            q.grad = d.clone()
+        optimizers.append(make(params).step)
+    fused, ours = optimizers
     # in turns: kernel, fused, fused, kernel
     (ms, h_ms), (fused_ms, h_fused), (fused2, h_fused2), (ms2, h_ms2) = (
         (device_ms(f), host_ms(f)) for f in (kernel, fused, fused, kernel))
     plain_ms, h_plain = device_ms(plain), host_ms(plain)
+    h_step = host_ms(ours)
     bound_ms = 28 * n / 3.35e12 * 1e3  # p, m, v, g read, p, m, v written, f32
     print(f"[kernels] adam_apply 24 CVAE tensors ({n} elements), ms per step, device "
           f"(CUDA events, median of 21 x 50, in turns kernel, fused, fused, kernel): "
           f"kernel {ms:.4f} / {ms2:.4f} (one launch), torch.optim.Adam(fused=True) "
           f"{fused_ms:.4f} / {fused2:.4f}, plain torch {plain_ms:.4f}; host clock per call: "
-          f"kernel {h_ms:.4f} / {h_ms2:.4f}, fused {h_fused:.4f} / {h_fused2:.4f}, plain "
-          f"{h_plain:.4f}; bound {bound_ms:.4f} (bytes)")
+          f"kernel {h_ms:.4f} / {h_ms2:.4f}, FusedAdam.step {h_step:.4f}, fused {h_fused:.4f} / "
+          f"{h_fused2:.4f}, plain {h_plain:.4f}; bound {bound_ms:.4f} (bytes)")
     return dict(max_abs_err=max_err, ms=(ms + ms2) / 2, plain_ms=plain_ms,
                 host_ms=(h_ms + h_ms2) / 2, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=(fused_ms + fused2) / 2, library_host_ms=(h_fused + h_fused2) / 2)
+                library_ms=(fused_ms + fused2) / 2, library_host_ms=(h_fused + h_fused2) / 2,
+                optimizer_step_host_ms=h_step)
 
 
 def _trainer_layout(x, cot, last_layer):

@@ -16,10 +16,13 @@ The update is the JAX package's (optax's, eps_root 0):
 
 Host cost: the kernel's plan (``adam_plan``), the checks and the ctypes
 argument arrays are built once per tensor list and kept under a key of
-every tensor's address and size and every grad's dtype and contiguity, so
-a grad that is replaced by another tensor (``zero_grad(set_to_none=True)``)
-or by a view of another layout is checked again before the kernel reads
-it. The kernel never reads an address that is not in the key.
+every tensor's size, dtype, contiguity and device and the addresses of the
+params and moments. The grads' addresses are not in the key: the trainer's
+``zero_grad(set_to_none=True)`` makes new grads at new addresses on every
+step, so they are read on every call and written into the cached pointer
+table, and a grad off a 16-byte boundary (which changes the plan) adds its
+misalignment to the key. Any other change of a grad (dtype, layout,
+device, size) misses the cache and is checked again before a launch.
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ VECS = 4               # float4 of each array per thread, kVecs
 CHUNK = THREADS * VECS * 4  # elements per block, kChunk
 _PLAN_CACHE = 16       # tensor lists whose launch arguments are kept
 
-_ADDR_FIELDS = (torch.Tensor.data_ptr, torch.Tensor.numel)  # of every tensor
-_GRAD_FIELDS = (operator.attrgetter("dtype"), torch.Tensor.is_contiguous)  # of the grads
+_PTR = torch.Tensor.data_ptr
+_FIELDS = (torch.Tensor.numel, operator.attrgetter("dtype"), torch.Tensor.is_contiguous,
+           operator.attrgetter("device"))  # of every tensor, in the cache key
 
 
 def bias_corrections(count: int, b1: float, b2: float):
@@ -120,7 +124,8 @@ def _check(tensors, n):
 
 def _build_launches(tensors, ptrs, sizes):
     """Check the tensors and build each launch's plan and ctypes arrays:
-    (device, [(n_tensors, ptrs, sizes, block_start, vec, plan), ...])."""
+    (device, [(n_tensors, ptrs, sizes, block_start, vec, plan, part), ...])
+    where ``part`` lists the launch's tensor indices."""
     n = len(sizes) // 4
     dev = _check(tensors, n)
     live = [i for i in range(n) if sizes[i] > 0]
@@ -136,7 +141,7 @@ def _build_launches(tensors, ptrs, sizes):
             (ctypes.c_int64 * len(part))(*plan.sizes),
             (ctypes.c_int * (len(part) + 1))(*plan.block_start),
             (ctypes.c_int * len(part))(*plan.vec),
-            plan))
+            plan, part))
     return dev, launches
 
 
@@ -144,20 +149,24 @@ _launch_cache: dict = {}
 
 
 def _launches(tensors):
-    """The cached launches for this tensor list (params, exp_avg,
-    exp_avg_sq, grads): checks and ctypes arrays are built again whenever a
-    tensor's address or size, or a grad's dtype or contiguity, differs from
-    a cached list's. A param or moment changes dtype or layout only with a
-    new address."""
-    grads = tensors[3 * len(tensors) // 4:]
-    key = (*(tuple(map(f, tensors)) for f in _ADDR_FIELDS),
-           *(tuple(map(f, grads)) for f in _GRAD_FIELDS))
+    """The launches for this tensor list (params, exp_avg, exp_avg_sq,
+    grads), from the cache when every tensor's size, dtype, contiguity and
+    device, the params' and moments' addresses and the grads' misalignment
+    match a cached list's; the grads' current addresses are written into
+    the pointer tables."""
+    n = len(tensors) // 4
+    fixed = tuple(map(_PTR, tensors[:3 * n]))
+    grad_ptrs = tuple(map(_PTR, tensors[3 * n:]))
+    off = tuple(p & 15 for p in grad_ptrs) if any(p & 15 for p in grad_ptrs) else None
+    key = (fixed, off, *(tuple(map(f, tensors)) for f in _FIELDS))
     hit = _launch_cache.get(key)
     if hit is None:
-        hit = _build_launches(tensors, key[0], key[1])
+        hit = _build_launches(tensors, fixed + grad_ptrs, key[2])
         if len(_launch_cache) >= _PLAN_CACHE:
             _launch_cache.clear()
         _launch_cache[key] = hit
+    for n_t, ptrs, *_, part in hit[1]:
+        ptrs[3 * n_t:] = [grad_ptrs[i] for i in part]
     return hit
 
 
@@ -168,7 +177,7 @@ def _launch(tensors, lr, count, b1, b2, eps, fn=None):
     switch = dev.index != torch.cuda.current_device()
     with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         stream = torch.cuda.current_stream().cuda_stream
-        for n_t, ptrs, sizes, starts, vec, _ in launches:
+        for n_t, ptrs, sizes, starts, vec, _, _ in launches:
             err = fn(ptrs, sizes, starts, vec, n_t, lr, c1, c2, b1, b2, 1.0 - b1,
                      1.0 - b2, eps, stream)
             if err != 0:

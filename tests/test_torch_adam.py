@@ -258,20 +258,27 @@ def _lists(shapes, seed=0):
             for _ in range(4)]
 
 
-def test_launch_cache_notices_replaced_grads():
-    """The checks and ctypes arrays are built once per tensor list; a grad
-    replaced by a new tensor (as zero_grad(set_to_none=True) does) makes a
-    new entry whose pointers are the new grad's."""
+def test_launch_cache_takes_replaced_grads():
+    """The checks and ctypes arrays are built once per tensor list; grads
+    replaced by new tensors (as zero_grad(set_to_none=True) makes them on
+    every step) reuse the entry, with their own addresses written into the
+    pointer table; a grad off a 16-byte boundary makes a new entry whose
+    plan reads that tensor element by element."""
     p, m, v, g = _lists([(64, 3), (5,)])
     tad._launch_cache.clear()
     dev, launches = tad._launches([*p, *m, *v, *g])
-    assert tad._launches([*p, *m, *v, *g])[1] is launches
+    assert dev.type == "cpu" and launches[0][5].sizes == (192, 5)
+    assert launches[0][5].vec == (True, True)
     g2 = [x.clone() for x in g]
     _, again = tad._launches([*p, *m, *v, *g2])
-    assert again is not launches and len(tad._launch_cache) == 2
-    ptrs = list(again[0][1])
-    assert ptrs[6:8] == [x.data_ptr() for x in g2]
-    assert dev.type == "cpu" and again[0][5].sizes == (192, 5)
+    assert again is launches and len(tad._launch_cache) == 1
+    assert list(again[0][1]) == [x.data_ptr() for x in (*p, *m, *v, *g2)]
+    buf = torch.zeros(200)
+    g3 = [buf[1:193].view(64, 3), g2[1]]
+    _, shifted = tad._launches([*p, *m, *v, *g3])
+    assert shifted is not launches and len(tad._launch_cache) == 2
+    assert shifted[0][5].vec == (False, True)
+    assert list(shifted[0][1])[6:] == [x.data_ptr() for x in g3]
 
 
 @pytest.mark.parametrize("bad,error", [
