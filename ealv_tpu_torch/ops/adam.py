@@ -170,9 +170,9 @@ def _launches(tensors):
     return hit
 
 
-def _launch(tensors, lr, count, b1, b2, eps, fn=None):
+def _launch(tensors, lr, count, b1, b2, eps):
     dev, launches = _launches(tensors)
-    fn = fn or _library()
+    fn = _library()
     c1, c2 = bias_corrections(count, b1, b2)
     switch = dev.index != torch.cuda.current_device()
     with torch.cuda.device(dev) if switch else contextlib.nullcontext():
