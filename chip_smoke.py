@@ -17,7 +17,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      weights and the same fed random draws (float32, TF32 off); one toy
      trainer call with both trainer kernels on, card vs CPU; one
      production-size trainer call on the card with the kernels on vs off,
-     from the same weights and draws, and ms per trainer call on and off;
+     from the same weights and draws, ms per trainer call on and off (K2's
+     launch cache must hit on every step), and the device's busy time in
+     profiled calls;
   5. the tick path at production size (180x180x3 images, 2000 target
      samples, 3000 trajectory points, batch 64, 25 Adam steps every third
      tick, bf16), trainer kernels off as in the JAX default: warm ticks,
@@ -140,8 +142,8 @@ def phase_kernels(dev):
         err = _max_err(got, want)
         max_err = max(max_err, err)
         plan = footprint_plan(n, t, d)
-        print(f"[kernels] footprint_and_spread {n}x{t}x{d} mask={mk} (rows {plan.rows}, "
-              f"splits {plan.splits} of {plan.split_len}): max|kernel-plain| = {err:.3e}, "
+        print(f"[kernels] footprint_and_spread {n}x{t}x{d} mask={mk} (splits "
+              f"{plan.splits} of {plan.split_len}): max|kernel-plain| = {err:.3e}, "
               f"bit-equal on repeat")
     rec = {}
     for n, t, d, mk in ((2000, 3000, 3, "tail"), (2000, 10, 3, "ones")):
@@ -438,12 +440,43 @@ def phase_trainer_agreement():
           f"atol 1e-4); max|param diff| {perr:.3e}")
 
 
+def _profiled_call(call):
+    """One call under torch.profiler, ending in a synchronize: its host
+    clock; the device's busy time, the union of its kernels' and copies'
+    intervals; the plain sum of those intervals (more than the union only
+    if some overlapped); the sum of ``self_device_time_total`` over
+    ``key_averages()``'s device rows (a second reading of the same
+    intervals); and the number of intervals. All in ms but the count."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_card = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == on_card)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy, end = busy + b - max(a, end), b
+    summed = sum(b - a for a, b in spans)
+    averaged = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == on_card)
+    return wall, busy / 1e3, summed / 1e3, averaged / 1e3, len(spans)
+
+
 def phase_trainer_production(n_filled=200, rounds=2):
     """One production-size trainer call with the trainer kernels on and off
     from the same weights, ring and fed draws: 25 losses within the bf16
     tolerance. Then ms per trainer call on and off, interleaved (on, off,
-    off, on), host clock around calls that end in a synchronize."""
+    off, on), host clock around calls that end in a synchronize, in which
+    K2's launch cache must not miss; then one call of each, twice (on,
+    off, off, on), under torch.profiler for the device's busy time."""
     import torch
+    from ealv_tpu_torch.ops import adam as tad
     from ealv_tpu_torch.runtime import train_call
     from ealv_tpu_torch.utils.config import ExperimentConfig
 
@@ -470,15 +503,24 @@ def phase_trainer_production(n_filled=200, rounds=2):
     # 3e-2 at this config (CPU float arithmetic, same draws)
     torch.testing.assert_close(losses[True][0], losses[False][0], rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(losses[True], losses[False], rtol=5e-2, atol=5e-2)
+
+    def call(on):
+        exp, es = runs[on]
+        train_call(exp.trainer, es.model, es.opt, es.buf, beta, gamma, generator=es.gen)
+
     times = {True: [], False: []}
+    builds = tad.adam_apply.builds
     for _ in range(rounds):
         for on in (True, False, False, True):
-            exp, es = runs[on]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            train_call(exp.trainer, es.model, es.opt, es.buf, beta, gamma, generator=es.gen)
+            call(on)
             torch.cuda.synchronize()
             times[on].append((time.perf_counter() - t0) * 1e3)
+    builds = tad.adam_apply.builds - builds
+    if builds:
+        raise RuntimeError(f"K2's launch cache missed {builds} times in {50 * rounds} "
+                           "steps with the same parameters")
     on_ms, off_ms = float(np.median(times[True])), float(np.median(times[False]))
     print(f"[agreement] production trainer call, kernels on vs off, same weights and "
           f"draws: 25 losses agree (first at 1e-2, all at rtol 5e-2, atol 5e-2), max|diff| "
@@ -486,7 +528,15 @@ def phase_trainer_production(n_filled=200, rounds=2):
           f"{float(losses[True][-1]):.4f} vs {float(losses[False][-1]):.4f}")
     print(f"[trainer] ms per 25-step trainer call at production size: kernels on "
           f"{on_ms:.2f} (K2 + K3), off {off_ms:.2f} (torch.optim.Adam + cuDNN wgrad); "
-          f"median of {2 * rounds} each, interleaved on/off/off/on")
+          f"median of {2 * rounds} each, interleaved on/off/off/on, host clock "
+          f"{[round(x, 2) for x in times[True]]} / {[round(x, 2) for x in times[False]]}; "
+          f"K2 launch cache built {builds} times in {50 * rounds} steps")
+    for on in (True, False, False, True):
+        wall, busy, summed, averaged, n = _profiled_call(lambda: call(on))
+        print(f"[trainer] profiled trainer call, kernels {'on' if on else 'off'}: host "
+              f"{wall:.2f} ms; device busy {busy:.2f} ms (union of {n} kernel and copy "
+              f"intervals; {100 * (1 - busy / wall):.1f}% idle), their sum {summed:.2f} "
+              f"ms, key_averages sum {averaged:.2f} ms")
     return on_ms, off_ms
 
 

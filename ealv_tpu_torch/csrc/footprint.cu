@@ -16,18 +16,19 @@
 // (88 KB, 0.03 us at 3.35 TB/s). Every pair is a dependent chain (subtract,
 // FMA, exponential, add, max), so the design is about keeping enough
 // independent chains in flight on all 132 SMs:
-//   - each thread owns R sample rows (R = 2 or 4), whitened once into
-//     registers, with R sums and R maxes. A trajectory point is read once
-//     from shared memory as a broadcast (every thread reads the same
-//     address: no bank conflicts) and serves R independent chains;
+//   - each thread owns kRows = 2 sample rows, whitened once into
+//     registers, with two sums and two maxes. A trajectory point is read
+//     once from shared memory as a broadcast (every thread reads the same
+//     address: no bank conflicts) and serves two independent chains;
 //   - a staged point is one float4 for d <= 3 (whitened coordinates and
 //     the mask), two for d <= 7, three for d = 8;
 //   - T is split: the grid is (S splits, row tiles). A block whitens and
 //     stages its split's points and mask in shared memory, kStage at a
 //     time, and writes one partial (sum, max) per row to a workspace. The
-//     host plan (ops/footprint.py::footprint_plan) picks R, the block size
-//     and S from the shape alone, so that the grid has at least two blocks
-//     per SM while a split keeps enough points to pay for staging them;
+//     host plan (ops/footprint.py::footprint_plan) picks S from the shape
+//     alone, so that the grid of kThreads-thread blocks has at least two
+//     blocks per SM while a split keeps enough points to pay for staging
+//     them;
 //   - a second kernel sums and maxes each row's S partials in split order.
 //     The summation order depends on the shape only: the same bits on every
 //     call, and no atomics. With S = 1 (the planner's T = 10 calls, which
@@ -47,7 +48,8 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kThreads = 128;  // threads per block
+constexpr int kRows = 2;       // sample rows per thread
 constexpr int kStage = 256;  // trajectory points staged in shared memory at a time
 constexpr int kCombineThreads = 256;
 // sqrt(0.5 * log2(e)): exp(-0.5 * q) = exp2(-q * 0.5 * log2(e))
@@ -57,8 +59,8 @@ __device__ __forceinline__ float nan_max(float acc, float e) {
   return (e > acc || e != e) ? e : acc;
 }
 
-template <int D, int R>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
     footprint_kernel(const float* __restrict__ samples,
                      const float* __restrict__ traj,
                      const float* __restrict__ stdv,
@@ -72,12 +74,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
   for (int k = 0; k < D; ++k) w[k] = rsqrtf(fabsf(stdv[k])) * kWhiten;
 
-  const int row0 = blockIdx.y * blockDim.x * R + threadIdx.x;
-  float s[R][D];
-  float acc_sum[R], acc_max[R];
+  const int row0 = blockIdx.y * kThreads * kRows + threadIdx.x;
+  float s[kRows][D];
+  float acc_sum[kRows], acc_max[kRows];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r * blockDim.x;
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r * kThreads;
 #pragma unroll
     for (int k = 0; k < D; ++k)
       s[r][k] = row < n ? samples[(size_t)row * D + k] * w[k] : 0.0f;
@@ -90,7 +92,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int base = t0; base < t1; base += kStage) {
     const int len = min(kStage, t1 - base);
     __syncthreads();  // the previous stretch is fully consumed
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    for (int i = threadIdx.x; i < len; i += kThreads) {
       const float* src = traj + (size_t)(base + i) * D;
       float v[4 * P] = {};
 #pragma unroll
@@ -113,7 +115,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         x[4 * j + 3] = q.w;
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
+      for (int r = 0; r < kRows; ++r) {
         float sq = 0.0f;
 #pragma unroll
         for (int k = 0; k < D; ++k) {
@@ -130,8 +132,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   // with S > 1, dst is the workspace: partials of split s at s * n
   const size_t off = (size_t)blockIdx.x * n;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r * blockDim.x;
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r * kThreads;
     if (row < n) {
       dst_sum[off + row] = acc_sum[r];
       dst_max[off + row] = acc_max[r];
@@ -157,15 +159,14 @@ __global__ void __launch_bounds__(kCombineThreads)
   out_max[row] = acc_max;
 }
 
-template <int D, int R>
+template <int D>
 cudaError_t launch(const float* samples, const float* traj, const float* stdv,
                    const float* mask, float* out_sum, float* out_max, float* ws,
-                   int n, int t, int threads, int splits, int split_len,
-                   cudaStream_t stream) {
-  const int tiles = (n + threads * R - 1) / (threads * R);
+                   int n, int t, int splits, int split_len, cudaStream_t stream) {
+  const int tiles = (n + kThreads * kRows - 1) / (kThreads * kRows);
   float* dst_sum = splits > 1 ? ws : out_sum;
   float* dst_max = splits > 1 ? ws + (size_t)splits * n : out_max;
-  footprint_kernel<D, R><<<dim3(splits, tiles), threads, 0, stream>>>(
+  footprint_kernel<D><<<dim3(splits, tiles), kThreads, 0, stream>>>(
       samples, traj, stdv, mask, dst_sum, dst_max, n, t, split_len);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -174,15 +175,33 @@ cudaError_t launch(const float* samples, const float* traj, const float* stdv,
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_rows(int d, const float* samples, const float* traj,
-                        const float* stdv, const float* mask, float* out_sum,
-                        float* out_max, float* ws, int n, int t, int threads,
-                        int splits, int split_len, cudaStream_t s) {
-#define FOOTPRINT_CASE(D)                                                      \
-  case D:                                                                      \
-    return launch<D, R>(samples, traj, stdv, mask, out_sum, out_max, ws, n, t, \
-                        threads, splits, split_len, s);
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. All pointers are device pointers
+// to contiguous f32 arrays: samples (n, d), traj (t, d), stdv (d,), mask
+// (t,), out_sum (n,), out_max (n,), and ws (2 * splits * n, the partials;
+// unused and may be null when splits is 1). splits and split_len are the
+// host plan of ops/footprint.py::footprint_plan: split k covers points
+// [k * split_len, min((k + 1) * split_len, t)), and every split must be
+// non-empty. Launches on `stream` (two kernels when splits > 1) and does
+// not synchronise. Returns the launches' cudaError_t (0 on success); 1
+// (cudaErrorInvalidValue) for a d outside 1..8, a non-positive n or t, or a
+// plan outside those limits.
+extern "C" int footprint_and_spread_f32(const float* samples,
+                                        const float* traj, const float* stdv,
+                                        const float* mask, float* out_sum,
+                                        float* out_max, float* ws, int n, int t,
+                                        int d, int splits, int split_len,
+                                        void* stream) {
+  if (n <= 0 || t <= 0 || splits < 1 || split_len < 1 ||
+      (long long)(splits - 1) * split_len >= t ||
+      (long long)splits * split_len < t || (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FOOTPRINT_CASE(D)                                                   \
+  case D:                                                                   \
+    return launch<D>(samples, traj, stdv, mask, out_sum, out_max, ws, n, t, \
+                     splits, split_len, s);
   switch (d) {
     FOOTPRINT_CASE(1)
     FOOTPRINT_CASE(2)
@@ -195,42 +214,4 @@ cudaError_t launch_rows(int d, const float* samples, const float* traj,
     default: return cudaErrorInvalidValue;
   }
 #undef FOOTPRINT_CASE
-}
-
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. All pointers are device pointers
-// to contiguous f32 arrays: samples (n, d), traj (t, d), stdv (d,), mask
-// (t,), out_sum (n,), out_max (n,), and ws (2 * splits * n, the partials;
-// unused and may be null when splits is 1). rows (2 or 4), threads (a
-// multiple of 32 up to 256), splits and split_len are the host plan of
-// ops/footprint.py::footprint_plan: split k covers points [k * split_len,
-// min((k + 1) * split_len, t)), and every split must be non-empty. Launches
-// on `stream` (two kernels when splits > 1) and does not synchronise.
-// Returns the launches' cudaError_t (0 on success); 1
-// (cudaErrorInvalidValue) for a d outside 1..8, a non-positive n or t, or a
-// plan outside those limits.
-extern "C" int footprint_and_spread_f32(const float* samples,
-                                        const float* traj, const float* stdv,
-                                        const float* mask, float* out_sum,
-                                        float* out_max, float* ws, int n, int t,
-                                        int d, int rows, int threads,
-                                        int splits, int split_len,
-                                        void* stream) {
-  if (n <= 0 || t <= 0 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || splits < 1 || split_len < 1 ||
-      (long long)(splits - 1) * split_len >= t ||
-      (long long)splits * split_len < t || (splits > 1 && ws == nullptr))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 2:
-      return launch_rows<2>(d, samples, traj, stdv, mask, out_sum, out_max, ws,
-                            n, t, threads, splits, split_len, s);
-    case 4:
-      return launch_rows<4>(d, samples, traj, stdv, mask, out_sum, out_max, ws,
-                            n, t, threads, splits, split_len, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }

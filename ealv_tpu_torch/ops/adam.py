@@ -162,6 +162,7 @@ def _launches(tensors):
     hit = _launch_cache.get(key)
     if hit is None:
         hit = _build_launches(tensors, fixed + grad_ptrs, key[2])
+        adam_apply.builds += 1
         if len(_launch_cache) >= _PLAN_CACHE:
             _launch_cache.clear()
         _launch_cache[key] = hit
@@ -191,7 +192,8 @@ def adam_apply(params, mu, nu, grads, lr, count: int, b1: float = 0.9,
     post-increment step (the first update uses 1). CUDA f32 tensors go to
     the kernel, one launch per ``ADAM_MAX_TENSORS`` non-empty tensors; CPU
     tensors to the plain version. ``adam_apply.launches`` counts kernel
-    launches."""
+    launches, ``adam_apply.builds`` the tensor lists that missed the launch
+    cache and were checked and built anew."""
     if not params:
         return
     if not len(params) == len(mu) == len(nu) == len(grads):
@@ -209,6 +211,7 @@ def adam_apply(params, mu, nu, grads, lr, count: int, b1: float = 0.9,
 
 
 adam_apply.launches = 0
+adam_apply.builds = 0
 
 
 def adam_update_flat(p, m, v, g, lr, count: int, b1: float = 0.9,

@@ -20,8 +20,8 @@ import torch
 from . import cuda_build
 
 _SOURCE = "footprint.cu"
-THREADS = 128        # threads per block
-ROWS = (2, 4)        # rows per thread the kernel is built for
+THREADS = 128        # threads per block, kThreads in csrc/footprint.cu
+ROWS = 2             # sample rows per thread, kRows
 MIN_BLOCKS = 2 * 132  # the grid aims at two blocks per SM
 MIN_SPLIT = 64       # trajectory points a split stages at least
 
@@ -41,59 +41,52 @@ def footprint_and_spread_reference(samples, traj, std, traj_mask):
 
 @dataclasses.dataclass(frozen=True)
 class FootprintPlan:
-    """The kernel's schedule for one shape. The grid is (splits, tiles)
-    blocks of ``threads``; block (k, j) takes trajectory points [k *
-    split_len, min((k + 1) * split_len, t)) and the rows j * threads *
-    rows + r * threads + thread for r < rows, and writes one partial (sum,
-    max) per row to the workspace, which a second kernel combines in split
-    order. With one split the first kernel writes the outputs."""
+    """The kernel's schedule for samples (n, d) and t trajectory points.
+    The grid is (splits, tiles) blocks of ``THREADS``; block (k, j) takes
+    trajectory points [k * split_len, min((k + 1) * split_len, t)) and the
+    rows j * THREADS * ROWS + r * THREADS + thread for r < ROWS, and writes
+    one partial (sum, max) per row to the workspace, which a second kernel
+    combines in split order. With one split the first kernel writes the
+    outputs."""
 
     n: int
     t: int
-    d: int
-    rows: int       # R, sample rows per thread
-    threads: int
-    tiles: int      # row tiles, ceil(n / (threads * rows))
     splits: int     # S, trajectory splits
     split_len: int  # points per split; the last split may be shorter
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.n // (THREADS * ROWS))
 
     @property
     def ws_elems(self) -> int:
         return 2 * self.splits * self.n if self.splits > 1 else 0
 
 
-def plan_for(n: int, t: int, d: int, rows: int, threads: int, splits: int) -> FootprintPlan:
-    """The plan with these choices, ``splits`` cut to the number of
-    non-empty splits of ceil(t / splits) points."""
-    split_len = -(-t // splits)
-    return FootprintPlan(n, t, d, rows, threads, -(-n // (threads * rows)),
-                         -(-t // split_len), split_len)
-
-
 @functools.lru_cache(maxsize=None)
 def footprint_plan(n: int, t: int, d: int) -> FootprintPlan:
-    """The plan for samples (n, d) and a trajectory of t points: four rows
-    per thread only when the row tiles alone fill ``MIN_BLOCKS`` blocks,
-    else two (more tiles, so fewer splits); then as many splits as bring
-    the grid to ``MIN_BLOCKS`` blocks while each split keeps ``MIN_SPLIT``
-    points (one split, no workspace, below that). More splits than that
-    only add partials to combine: at 2000x3000x3 the 264 blocks of 91
-    points measured faster than more, shorter splits."""
-    rows = 4 if -(-n // (THREADS * 4)) >= MIN_BLOCKS else 2
-    tiles = -(-n // (THREADS * rows))
+    """The plan for samples (n, d) and a trajectory of t points: as many
+    splits as bring the grid to ``MIN_BLOCKS`` blocks while each split keeps
+    ``MIN_SPLIT`` points (one split, no workspace, below that), cut to the
+    number of non-empty splits of ceil(t / splits) points. The plan is the
+    same for every d. More splits than that only add partials to combine:
+    at 2000x3000x3 the 264 blocks of 91 points measured faster than more,
+    shorter splits."""
+    tiles = -(-n // (THREADS * ROWS))
     splits = max(1, min(-(-MIN_BLOCKS // tiles), t // MIN_SPLIT))
-    return plan_for(n, t, d, rows, THREADS, splits)
+    split_len = -(-t // splits)
+    return FootprintPlan(n, t, -(-t // split_len), split_len)
 
 
 @functools.cache
 def _library():
     fn = cuda_build.load(_SOURCE).footprint_and_spread_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(samples, traj, std, traj_mask, plan=None):
+def _launch(samples, traj, std, traj_mask):
     n, d = samples.shape
     t = traj.shape[0]
     for name, x, shape in (("samples", samples, (n, d)), ("traj", traj, (t, d)),
@@ -107,7 +100,7 @@ def _launch(samples, traj, std, traj_mask, plan=None):
     if not 1 <= d <= 8 or n == 0 or t == 0:
         raise ValueError(f"footprint kernel takes 1 <= d <= 8 and n, t > 0; "
                          f"got n={n}, t={t}, d={d}")
-    plan = plan or footprint_plan(n, t, d)
+    plan = footprint_plan(n, t, d)
     fn = _library()
     out = torch.empty((2, n), device=samples.device, dtype=torch.float32)
     ws = (torch.empty(plan.ws_elems, device=samples.device, dtype=torch.float32)
@@ -116,8 +109,8 @@ def _launch(samples, traj, std, traj_mask, plan=None):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(samples.data_ptr(), traj.data_ptr(), std.data_ptr(),
                  traj_mask.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 None if ws is None else ws.data_ptr(), n, t, d, plan.rows,
-                 plan.threads, plan.splits, plan.split_len, stream)
+                 None if ws is None else ws.data_ptr(), n, t, d, plan.splits,
+                 plan.split_len, stream)
     if err != 0:
         raise RuntimeError(f"footprint kernel launch failed: cudaError {err}")
     footprint_and_spread.launches += 1

@@ -167,14 +167,17 @@ def test_adam_kernel_after_grads_are_replaced(cuda):
     """Two steps with new grad tensors for the second, as the trainer's
     zero_grad(set_to_none=True) makes them: once at new addresses (the old
     grads still alive) and once where the allocator may hand out the old
-    grads' memory again; each against the plain version."""
+    grads' memory again; each against the plain version. New aligned grads
+    of the same kind do not miss the launch cache."""
     shapes = [(64, 33), (7,), (4097,)]
     p, m, v, g = _adam_state(shapes, cuda)
     want = [[x.clone() for x in xs] for xs in (p, m, v)]
     tad.adam_apply(p, m, v, g, 1e-3, 1)
+    builds = tad.adam_apply.builds
     g_new = _adam_state(shapes, cuda, seed=1)[3]
     assert all(a.data_ptr() != b.data_ptr() for a, b in zip(g, g_new))
     tad.adam_apply(p, m, v, g_new, 1e-3, 2)
+    assert tad.adam_apply.builds == builds
     for count, grads in ((1, g), (2, g_new)):
         for i in range(len(shapes)):
             tad.adam_update_reference(want[0][i], want[1][i], want[2][i], grads[i],

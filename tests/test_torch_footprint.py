@@ -153,7 +153,6 @@ def test_plan_covers_every_point_and_row_once(n, t, d):
     never written; the grid reaches MIN_BLOCKS unless splits would fall
     under MIN_SPLIT points."""
     plan = tfp.footprint_plan(n, t, d)
-    assert plan.rows in tfp.ROWS and plan.threads % 32 == 0
     seen = np.zeros(t, np.int64)
     for lo, hi in _split_ranges(plan):
         assert lo < hi
@@ -162,13 +161,14 @@ def test_plan_covers_every_point_and_row_once(n, t, d):
         staged = sum(min(STAGE, hi - b) for b in range(lo, hi, STAGE))
         assert staged == hi - lo
     assert (seen == 1).all()
-    written = np.zeros(plan.tiles * plan.threads * plan.rows, np.int64)
+    per_tile = tfp.THREADS * tfp.ROWS
+    written = np.zeros(plan.tiles * per_tile, np.int64)
     for tile in range(plan.tiles):
-        for r in range(plan.rows):
-            rows = tile * plan.threads * plan.rows + r * plan.threads + np.arange(plan.threads)
+        for r in range(tfp.ROWS):
+            rows = tile * per_tile + r * tfp.THREADS + np.arange(tfp.THREADS)
             written[rows] += 1
     assert (written == 1).all() and written.size >= n
-    assert written.size - n < plan.threads * plan.rows  # only the last tile is ragged
+    assert written.size - n < per_tile  # only the last tile is ragged
     blocks = plan.splits * plan.tiles
     assert blocks >= tfp.MIN_BLOCKS or plan.splits == max(1, t // tfp.MIN_SPLIT)
     assert plan.ws_elems == (2 * plan.splits * n if plan.splits > 1 else 0)
