@@ -92,6 +92,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int base = t0; base < t1; base += kStage) {
     const int len = min(kStage, t1 - base);
     __syncthreads();  // the previous stretch is fully consumed
+#pragma unroll 1  // unrolled, it made ptxas spill registers at d = 1
     for (int i = threadIdx.x; i < len; i += kThreads) {
       const float* src = traj + (size_t)(base + i) * D;
       float v[4 * P] = {};
