@@ -8,23 +8,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build: compiles every kernel (K1 footprint.cu, K2 adam.cu, K3
      wgrad.cu) from ealv_tpu_torch/csrc, one nvcc per source, in parallel;
   3. kernels vs their plain torch versions on the card, at the main paths'
-     shapes and the probe shapes (K1's and K3's the same bits on a repeated
-     call), then device times (CUDA events) and host clock per call of each
-     kernel, its plain version and the one PyTorch call for the same
-     function where there is one (torch.optim.Adam(fused=True) for K2,
-     cuDNN's bf16 wgrad for K3), beside each kernel's bound on this card;
+     shapes (K1 at d = 3 for the xyw tick, d = 6 for the xyzrpw tick, and
+     N = 2010 for the planner's add_recent_history samples) and the probe
+     shapes (K1's and K3's the same bits on a repeated call), then device
+     times (CUDA events) and host clock per call of each kernel, its plain
+     version and the one PyTorch call for the same function where there is
+     one (torch.optim.Adam(fused=True) for K2, cuDNN's bf16 wgrad for K3),
+     beside each kernel's bound on this card;
   4. agreement: two toy-size ticks on the card and on the CPU with the same
      weights and the same fed random draws (float32, TF32 off); one toy
-     trainer call with both trainer kernels on, card vs CPU; one
+     planner call on the card and on the CPU with the same fed draws for
+     every dynamics model (single, double, speed, SO(3) roll), every
+     warm-start policy (Roll, Zero, BarrierPush, LQR) and every mode
+     (full_cost, fixed_lam, ctrl_app_search=False, add_recent_history,
+     sample_near_current_loc), comparing the plan, the cost and the
+     rolled-out R; one toy trainer call with both trainer kernels on, card
+     vs CPU; one
      production-size trainer call on the card with the kernels on vs off,
      from the same weights and draws, ms per trainer call on and off (K2's
      launch cache must hit on every step), and the device's busy time in
      profiled calls;
-  5. the tick path at production size (180x180x3 images, 2000 target
+  5. the tick paths at production size (180x180x3 images, 2000 target
      samples, 3000 trajectory points, batch 64, 25 Adam steps every third
-     tick, bf16), trainer kernels off as in the JAX default: warm ticks,
-     then timed ticks, with the kernels' launch counts read over the timed
-     window;
+     tick, bf16), trainer kernels off as in the JAX default: the xyw tick
+     (double integrator), then the 6-DoF xyzrpw tick (SO(3) roll dynamics,
+     linearized at every step); for each, warm ticks, then timed ticks,
+     with K1's launch count read over the timed window;
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
@@ -94,9 +103,9 @@ def _k1_bound_ms(n, t, d, mask):
 
 
 def phase_kernels(dev):
-    """K1 against its plain version at the main path's shapes and the probe
+    """K1 against its plain version at the main paths' shapes and the probe
     shapes, the same bits on a repeated call; then kernel and plain times
-    at the main path's two shapes."""
+    at the main paths' shapes: d = 3 (xyw) and d = 6 (xyzrpw)."""
     import torch
     from ealv_tpu_torch.ops import (footprint_and_spread, footprint_and_spread_reference,
                                     footprint_plan)
@@ -118,11 +127,14 @@ def phase_kernels(dev):
             mask.zero_()
         return samples, traj, std, mask
 
-    # (n, t, d, mask): the main path's shapes (target spread and base
-    # footprint 2000x3000, horizon costs 2000x10), the CPU probe shapes, and
-    # T-splits cut unevenly: a T that S does not divide, more splits than
-    # points per split, splits longer than one staged stretch, T = 1, d = 8
+    # (n, t, d, mask): the main paths' shapes (target spread and base
+    # footprint 2000x3000, horizon costs 2000x10, at d = 3 and d = 6; N =
+    # 2010 with add_recent_history), the CPU probe shapes, and T-splits cut
+    # unevenly: a T that S does not divide, more splits than points per
+    # split, splits longer than one staged stretch, T = 1, d = 8
     shapes = [(2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
+              (2000, 3000, 6, "tail"), (2000, 10, 6, "ones"),
+              (2010, 3000, 6, "tail"), (2010, 10, 6, "ones"), (2010, 3000, 3, "random"),
               (700, 900, 4, "random"), (700, 900, 2, "random"),
               (700, 900, 6, "random"), (64, 100, 3, "ones"),
               (2000, 3000, 3, "zero"), (1, 1, 3, "ones"), (129, 513, 7, "random"),
@@ -146,7 +158,8 @@ def phase_kernels(dev):
               f"{plan.splits} of {plan.split_len}): max|kernel-plain| = {err:.3e}, "
               f"bit-equal on repeat")
     rec = {}
-    for n, t, d, mk in ((2000, 3000, 3, "tail"), (2000, 10, 3, "ones")):
+    for n, t, d, mk in ((2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
+                        (2000, 3000, 6, "tail"), (2000, 10, 6, "ones")):
         args = case(n, t, d, mk)
         kernel = lambda: footprint_and_spread(*args)
         plain = lambda: footprint_and_spread_reference(*args)
@@ -157,12 +170,13 @@ def phase_kernels(dev):
               f"median of 21 x 50) kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; host "
               f"clock per call {h_ms:.4f} / {h_plain:.4f} ms; bound {bound_ms:.5f} ms "
               f"({bound_by})")
-        rec[t] = dict(ms=ms, plain_ms=plain_ms, host_ms=h_ms, bound_ms=bound_ms,
-                      bound_by=bound_by)
-    big, small = rec[3000], rec[10]
-    return dict(max_abs_err=max_err, **big, library_ms=None, shape="2000x3000x3",
-                ms_2000x10x3=small["ms"], plain_ms_2000x10x3=small["plain_ms"],
-                host_ms_2000x10x3=small["host_ms"], bound_ms_2000x10x3=small["bound_ms"])
+        rec[n, t, d] = dict(ms=ms, plain_ms=plain_ms, host_ms=h_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+    out = dict(max_abs_err=max_err, **rec[2000, 3000, 3], library_ms=None, shape="2000x3000x3")
+    for key in ((2000, 10, 3), (2000, 3000, 6), (2000, 10, 6)):
+        tag = "x".join(map(str, key))
+        out.update({f"{k}_{tag}": v for k, v in rec[key].items()})
+    return out
 
 
 def _max_err(got, want):
@@ -383,6 +397,114 @@ def phase_agreement():
           f"{float(runs['cpu'][1]['loss']):.6f}")
 
 
+# the planner agreement phase: (dynamics, policy, config flags) on a toy
+# scene (horizon 10, 256 samples, 64 history points); every model and
+# policy at the default flags, then every mode on the SO(3) roll model
+PLANNER_STATES = {"single": "xy", "double": "xy", "speed": "xy", "roll": "xyzrpw"}
+PLANNER_MODES = [{"full_cost": True}, {"fixed_lam": True}, {"ctrl_app_search": False},
+                 {"add_recent_history": True}, {"sample_near_current_loc": True}]
+PLANNER_CASES = ([(dyn, pol, {}) for dyn in ("double", "speed", "roll")
+                  for pol in ("Roll", "Zero", "BarrierPush", "LQR")]
+                 + [("single", pol, {}) for pol in ("Roll", "Zero", "LQR")]
+                 + [("roll", "Roll", mode) for mode in PLANNER_MODES])
+
+
+def _toy_plan(dyn_name, policy, mode, dev, H=10, N=256, M=64):
+    """One planner call (``plan`` with fed draws, so the planner appends
+    the recent history itself) on a toy scene made from seed 7: limits,
+    a start state (a positive roll for the roll model), a non-zero initial
+    plan, a Gaussian target, 64 visited states and the draws. Returns the
+    plan u, the ergodic cost, R after rolling the plan out from the start,
+    and the K1 launches of the call."""
+    import torch
+    from ealv_tpu_torch import control as tc
+    from ealv_tpu_torch.ops import footprint_and_spread
+
+    states = PLANNER_STATES[dyn_name]
+    d = len(states)
+    if dyn_name == "single":
+        dyn = tc.SingleIntegrator(d, d, 0.1, device=dev)
+    else:
+        dyn = tc.make_dynamics(states, 0.1, use_magnitude=dyn_name == "speed", device=dev)
+    n = dyn.num_states
+    rng = np.random.default_rng(7)
+    lim = np.array([[-0.75, 0.75] if c in "rpw" else [-1.0, 1.0] for c in states])
+    ctrl = np.array([[-0.5, 0.5] if c in "rp" else [-1.25, 1.25] for c in states])
+    x0 = np.zeros(n)
+    x0[:d] = rng.uniform(-0.5, 0.5, d)
+    if "r" in states:
+        x0[states.index("r")] = 0.4
+    hist = np.zeros((M, n))
+    hist[:, :d] = np.clip(np.cumsum(rng.normal(0.0, 0.05, (M, d)), 0) + x0[:d],
+                          lim[:, 0] * 0.9, lim[:, 1] * 0.9)
+    if n > d:
+        hist[:, d: 2 * d] = rng.normal(0.0, 0.1, (M, d))
+    if n > 2 * d:
+        hist[:, 2 * d:] = np.abs(hist[:, d: 2 * d])
+    u0 = rng.normal(0.0, 0.2, (H, d))
+    mu = rng.uniform(lim[:, 0] * 0.6, lim[:, 1] * 0.6)
+    var = rng.uniform(0.05, 0.1, d)
+    samples = rng.uniform(lim[:, 0] * 1.15, lim[:, 1] * 1.15, (N, d))
+    if mode.get("sample_near_current_loc"):
+        n_near = N - int(N * 0.9)
+        samples[-n_near:] = rng.normal(0.0, 0.2, (n_near, d)) + x0[:d]
+    hist_idx = rng.permutation(M)
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    mu_t, var_t = t(mu), t(var)
+    cfg = tc.KlergConfig(horizon=H, num_target_samples=N, num_traj_samples=M, R=0.5,
+                         std=0.05, **mode)
+    planner = tc.KlergPlanner(cfg, dyn, tc.make_policy(policy, dyn, H),
+                              lambda _c, s: torch.exp(-0.5 * ((s - mu_t) ** 2 / var_t).sum(-1)),
+                              states, explr_locs=list(range(d)), device=dev)
+    barrier, _ = tc.setup_barrier(states, t(lim), t(ctrl), list(range(d)))
+    if dyn_name == "single":  # its state holds the positions alone
+        barrier = barrier.truncate(d)
+    ps = planner.init_state(t(x0), t(lim), barrier, buffer_capacity=256, explr_lim_scale=1.15)
+    for h in hist:
+        ps.memory.push(t(h))
+    ps = dataclasses.replace(ps, u=t(u0))
+    before = footprint_and_spread.launches
+    ps, info = planner.plan(ps, None, samples=t(samples),
+                            hist_idx=torch.as_tensor(hist_idx, device=dev))
+    launches = footprint_and_spread.launches - before
+    s = ps.dyn
+    for k in range(H):
+        s = dyn.step(s, ps.u[k])
+    return ps.u.cpu(), info["cost"].cpu(), s.R.cpu(), launches
+
+
+def phase_planner_agreement():
+    """Every dynamics model, policy and mode of the planner: one toy call
+    on the card and on the CPU with the same fed draws (f32, TF32 off);
+    plan and cost at rtol 1e-3, atol 1e-4, R at atol 1e-5 and orthonormal
+    to 1e-5 on both; 13 K1 launches per call on the card in every mode."""
+    import torch
+    worst = {"u": 0.0, "cost": 0.0, "R": 0.0, "RtR": 0.0}
+    for dyn_name, policy, mode in PLANNER_CASES:
+        what = f"{dyn_name} / {policy} / {mode or 'default'}"
+        u_c, cost_c, R_c, _ = _toy_plan(dyn_name, policy, mode, "cpu")
+        u_g, cost_g, R_g, launches = _toy_plan(dyn_name, policy, mode, "cuda")
+        torch.testing.assert_close(u_g, u_c, rtol=1e-3, atol=1e-4, msg=lambda m: f"{what}: u {m}")
+        torch.testing.assert_close(cost_g, cost_c, rtol=1e-3, atol=0.0,
+                                   msg=lambda m: f"{what}: cost {m}")
+        torch.testing.assert_close(R_g, R_c, rtol=0.0, atol=1e-5, msg=lambda m: f"{what}: R {m}")
+        rtr = max(float((R.T @ R - torch.eye(3)).abs().max()) for R in (R_c, R_g))
+        if rtr > 1e-5:
+            raise RuntimeError(f"{what}: R off orthonormal by {rtr:.2e}")
+        if launches != 13:
+            raise RuntimeError(f"{what}: {launches} K1 launches in one plan, expected 13")
+        if float(u_c.abs().max()) == 0.0:
+            raise RuntimeError(f"{what}: the plan is all zeros")
+        for key, err in (("u", _max_err([u_g], [u_c])), ("cost", float((cost_g - cost_c).abs())),
+                         ("R", _max_err([R_g], [R_c])), ("RtR", rtr)):
+            worst[key] = max(worst[key], err)
+    print(f"[agreement] planner, {len(PLANNER_CASES)} toy calls (4 dynamics x 4 policies, 5 "
+          f"modes on the roll model), cuda vs cpu with fed draws: max|du| {worst['u']:.3e}, "
+          f"max|dcost| {worst['cost']:.3e}, max|dR| {worst['R']:.3e}, max|R^T R - I| "
+          f"{worst['RtR']:.3e}; 13 K1 launches per call on the card in every mode")
+
+
 def _train_draws(cfg, n_filled, rng, dev):
     import torch
     from ealv_tpu_torch.runtime import TrainDraws
@@ -540,15 +662,18 @@ def phase_trainer_production(n_filled=200, rounds=2):
     return on_ms, off_ms
 
 
-def phase_main_path(n_warm=6, n_timed=24):
+def phase_main_path(states="xyw", n_warm=6, n_timed=24):
+    """The tick path at production size over ``states``: warm ticks, then
+    timed ones with exactly 13 K1 launches each; then three ticks (one
+    trainer call) and one plan_step (sync and plan) under torch.profiler,
+    for the device's busy time and the number of device intervals beside
+    the host clock. Returns (launches, ms/tick, peak MiB)."""
     import torch
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.runtime import Experiment
     from ealv_tpu_torch.ops import footprint_and_spread
 
-    cfg = ExperimentConfig(states="xyw", num_target_samples=2000,
-                           num_traj_samples=3000, image_dim=(180, 180, 3),
-                           batch_size=64, num_learning_opt=25)
+    cfg = ExperimentConfig(**{**PRODUCTION, "states": states})
     exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     es = exp.init(seed=0)
@@ -577,12 +702,24 @@ def phase_main_path(n_warm=6, n_timed=24):
         raise RuntimeError("parameters or the replay ring left the card")
     if es.buf.y.dtype != torch.bfloat16 or es.buf.size != n_warm + n_timed:
         raise RuntimeError(f"replay ring {es.buf.y.dtype}, size {es.buf.size}")
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[main path] {n_timed} ticks after {n_warm} warm: {dt * 1e3:.2f} ms/tick "
-          f"= {1.0 / dt:.2f} Hz | last loss {float(trained[-1]):.4f} | ergodic cost "
+    R = es.pstate.dyn.R
+    rtr = float((R.T @ R - torch.eye(3, device=R.device)).abs().max())
+    if not rtr < 1e-5:
+        raise RuntimeError(f"the planner's R is off orthonormal by {rtr}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[main path {states}] {n_timed} ticks after {n_warm} warm: {dt * 1e3:.2f} "
+          f"ms/tick = {1.0 / dt:.2f} Hz | last loss {float(trained[-1]):.4f} | ergodic cost "
           f"{float(costs[-1]):.4f} | learning_ind {es.learning_ind} | "
-          f"K1 launches {launches} (13/tick) | peak memory {peak / 2**20:.1f} MiB")
-    return launches
+          f"K1 launches {launches} (13/tick) | planner |R^T R - I| {rtr:.1e} | "
+          f"peak memory {peak:.1f} MiB")
+    for what, call in (("3 ticks (one trainer call)", lambda: exp.run_chunk(es, 3)),
+                       ("1 plan_step (sync + plan)",
+                        lambda: exp.plan_step(es, exp._measured_robot_state(es.env)))):
+        wall, busy, _, _, n = _profiled_call(call)
+        print(f"[main path {states}] profiled {what}: host {wall:.2f} ms; device busy "
+              f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle) in {n} kernel and copy "
+              f"intervals")
+    return launches, dt * 1e3, peak
 
 
 def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
@@ -690,15 +827,19 @@ def main() -> int:
     k2 = phase_adam(dev)
     k3 = phase_wgrad(dev)
     phase_agreement()
+    phase_planner_agreement()
     phase_trainer_agreement()
     phase_trainer_production()
-    k1_launches = phase_main_path()
+    k1_launches, xyw_ms, xyw_peak = phase_main_path("xyw", n_warm=6, n_timed=24)
+    k1_6dof, rpw_ms, rpw_peak = phase_main_path("xyzrpw", n_warm=6, n_timed=12)
+    print(f"[main paths] xyw {xyw_ms:.2f} ms/tick, peak {xyw_peak:.1f} MiB | xyzrpw "
+          f"{rpw_ms:.2f} ms/tick, peak {rpw_peak:.1f} MiB ({rpw_ms / xyw_ms:.2f}x the time)")
     _, k2_launches, k3_launches = phase_learning_path()
     print(json.dumps({"kernels": [
         {"name": "footprint_and_spread", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/footprint.cu",
          "replaces": "ealv_tpu/ops/pallas_kernels.py:55",
-         "launches": k1_launches, **k1},
+         "launches": k1_launches, "launches_xyzrpw": k1_6dof, **k1},
         {"name": "adam_apply", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/adam.cu",
          "replaces": "ealv_tpu/ops/pallas_adam.py:55",

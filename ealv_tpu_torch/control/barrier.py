@@ -1,12 +1,21 @@
-"""Workspace barrier with an analytic gradient (port of
-``BarrierFunction`` and ``setup_barrier`` of
-``ealv_tpu/control/barrier.py``). States may carry leading batch dims."""
+"""Workspace barriers with analytic gradients (port of
+``ealv_tpu/control/barrier.py``): the polynomial box barrier, the tilt-cone
+barrier stacked on it, and the disabled barrier, all with the same API.
+States may carry leading batch dims; ``update_lims`` and ``truncate``
+return new barriers."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+def _buffered(b_lim, b_buff):
+    b_lim = b_lim.float().clone()
+    b_lim[:, 0] += b_buff
+    b_lim[:, 1] -= b_buff
+    return b_lim
 
 
 @dataclasses.dataclass
@@ -20,13 +29,19 @@ class BarrierFunction:
 
     @classmethod
     def create(cls, b_lim, barr_weight, power, b_buff: float = 0.1):
-        b_lim = b_lim.float().clone()
-        b_lim[:, 0] += b_buff
-        b_lim[:, 1] -= b_buff
+        b_lim = _buffered(b_lim, b_buff)
         n = b_lim.shape[0]
         as_vec = lambda v: torch.as_tensor(v, dtype=torch.float32,
                                            device=b_lim.device).expand(n).clone()
         return cls(b_lim=b_lim, barr_weight=as_vec(barr_weight), power=as_vec(power))
+
+    def update_lims(self, b_lim, b_buff: float = 0.1) -> "BarrierFunction":
+        return dataclasses.replace(self, b_lim=_buffered(b_lim, b_buff))
+
+    def truncate(self, n: int) -> "BarrierFunction":
+        """Keep only the first n limit rows (e.g. the position rows)."""
+        return dataclasses.replace(self, b_lim=self.b_lim[:n],
+                                   barr_weight=self.barr_weight[:n], power=self.power[:n])
 
     def _terms(self, x):
         n = self.b_lim.shape[0]
@@ -60,6 +75,74 @@ class BarrierFunction:
         return self.barr(X)
 
 
+@dataclasses.dataclass
+class TiltBarrierFunction:
+    """Cone constraint on the end effector's tilt, arccos(cos r cos p),
+    penalized where it drops to ``tilt_lim`` or below (the camera must stay
+    pointed down within a cone), stacked on an inner barrier. ``r_idx`` and
+    ``p_idx`` locate roll and pitch in the state; ``angle_scale`` and
+    ``angle_shift`` map planner coordinates to real angles."""
+
+    inner: BarrierFunction
+    r_idx: int = 0
+    p_idx: int = 1
+    tilt_lim: float = 2.45
+    power: float = 4.0
+    weight: float = 10.0
+    angle_scale: tuple = (1.0, 1.0)
+    angle_shift: tuple = (0.0, 0.0)
+
+    def _tilt(self, x):
+        r = x[..., self.r_idx] * self.angle_scale[0] + self.angle_shift[0]
+        p = x[..., self.p_idx] * self.angle_scale[1] + self.angle_shift[1]
+        tilt = torch.arccos(torch.clamp(torch.cos(r) * torch.cos(p), -1.0, 1.0))
+        return tilt, r, p
+
+    def barr(self, x):
+        tilt, _, _ = self._tilt(x)
+        active = (tilt <= self.tilt_lim).float()
+        return active * self.weight * (tilt - self.tilt_lim) ** self.power + self.inner.barr(x)
+
+    def dbarr(self, x):
+        tilt, r, p = self._tilt(x)
+        active = (tilt <= self.tilt_lim).float()
+        coeff = active * self.power * self.weight * (tilt - self.tilt_lim) ** (self.power - 1)
+        denom = torch.sqrt(torch.clamp(1.0 - torch.cos(p) ** 2 * torch.cos(r) ** 2, min=1e-9))
+        g = torch.zeros_like(x)
+        g[..., self.r_idx] += coeff * torch.sin(r) * torch.cos(p) / denom * self.angle_scale[0]
+        g[..., self.p_idx] += coeff * torch.sin(p) * torch.cos(r) / denom * self.angle_scale[1]
+        return g + self.inner.dbarr(x)
+
+    def batch(self, X):
+        return self.barr(X)
+
+    def update_lims(self, b_lim, b_buff: float = 0.1) -> "TiltBarrierFunction":
+        return dataclasses.replace(self, inner=self.inner.update_lims(b_lim, b_buff))
+
+    def truncate(self, n: int) -> "TiltBarrierFunction":
+        return dataclasses.replace(self, inner=self.inner.truncate(n))
+
+
+@dataclasses.dataclass
+class NoBarrier:
+    """The disabled barrier."""
+
+    def barr(self, x):
+        return x.new_zeros(x.shape[:-1])
+
+    def dbarr(self, x):
+        return torch.zeros_like(x)
+
+    def batch(self, X):
+        return self.barr(X)
+
+    def update_lims(self, b_lim, b_buff: float = 0.1) -> "NoBarrier":
+        return self
+
+    def truncate(self, n: int) -> "NoBarrier":
+        return self
+
+
 def setup_barrier(states: str, robot_lim, robot_ctrl_lim, non_vel_locs,
                   use_barrier: bool = True, position_barrier: bool = True,
                   velocity_barrier: bool = True, barr_weight: float = 5.0,
@@ -70,7 +153,7 @@ def setup_barrier(states: str, robot_lim, robot_ctrl_lim, non_vel_locs,
     robot_lim = robot_lim.float()
     barr_lim = torch.cat([robot_lim[list(non_vel_locs)], robot_ctrl_lim.float()], 0)
     if not use_barrier:
-        raise NotImplementedError("NoBarrier is not ported yet")
+        return NoBarrier(), barr_lim
     n = len(states)
     if position_barrier and not velocity_barrier:
         weights = [barr_weight] * n + [0.0] * n

@@ -7,7 +7,10 @@ with ``torch.where`` on the masks: no ``.item()``, ``bool(tensor)`` or
 ``.cpu()`` inside a planner call, so the device is never waited on and the
 number of K1 launches per call is fixed (13 at the default config: the
 target spread, the base footprint, the initial cost, and two per inner
-iteration).
+iteration). ``full_cost`` costs its H one-slot substitutions as one
+batch through the plain psi matrix, as the line search costs its windows,
+so it adds no K1 launch. Models whose linearization depends on the state
+(``dyn.state_dependent``) are linearized at every step of the horizon.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..ops import (
 )
 from ..data.replay import TrajMemory
 from .dynamics import rk4_step, DynState
-from .policies import RollPolicy
+from .policies import BarrierPushPolicy, RollPolicy, ZeroPolicy
 from .target_dists import prior_dist as make_prior
 
 
@@ -79,14 +82,6 @@ class KlergPlanner:
 
     def __init__(self, cfg: KlergConfig, dyn, policy, pdf_fn: Callable,
                  states: str, explr_locs, prior_dist=None, device="cuda"):
-        if cfg.full_cost or cfg.fixed_lam or not cfg.ctrl_app_search:
-            raise NotImplementedError("only the default line-search application "
-                                      "(ctrl_app_search, no full_cost/fixed_lam) "
-                                      "is ported")
-        if cfg.add_recent_history or cfg.sample_near_current_loc:
-            raise NotImplementedError("the extra sampling modes are not ported yet")
-        if not isinstance(policy, RollPolicy):
-            raise NotImplementedError("only the Roll policy is ported")
         self.cfg = cfg
         self.dyn = dyn
         self.policy = policy
@@ -123,14 +118,30 @@ class KlergPlanner:
             memory=TrajMemory.create(buffer_capacity, self.dyn.num_states, x0.device),
             lims=lims, barrier=barrier, last_plan=self._rollout(dyn0, u0), gen=gen)
 
+    def update_lims(self, pstate: PlannerState, idx, lims, robot_ctrl_lim=None):
+        """Set the sampling limits of the explored dims ``idx``; with
+        ``robot_ctrl_lim`` the barrier takes [new position lims; control
+        lims] too."""
+        new_lims = pstate.lims.clone()
+        new_lims[idx] = torch.as_tensor(lims, dtype=torch.float32, device=new_lims.device)
+        barrier = pstate.barrier
+        if robot_ctrl_lim is not None:
+            n_pos = self.dyn.num_actions
+            barrier = barrier.update_lims(torch.cat([new_lims[:n_pos],
+                                                     robot_ctrl_lim.float()], 0))
+        return dataclasses.replace(pstate, lims=new_lims, barrier=barrier)
+
     # ------------------------------------------------------------------
     def _traj_states(self, dyn0: DynState, u):
-        """(..., H, n) post-step states of plan(s) u (..., H, m)."""
-        x = dyn0.x.expand(*u.shape[:-2], dyn0.x.shape[0])
+        """(..., H, n) post-step states of plan(s) u (..., H, m); the whole
+        state, R included, is carried through the steps."""
+        batch = u.shape[:-2]
+        s = DynState(x=dyn0.x.expand(*batch, *dyn0.x.shape),
+                     R=dyn0.R.expand(*batch, *dyn0.R.shape))
         xs = []
         for t in range(u.shape[-2]):
-            x = self.dyn.step_x(x, u[..., t, :])
-            xs.append(x)
+            s = self.dyn.step(s, u[..., t, :])
+            xs.append(s.x)
         return torch.stack(xs, -2)
 
     def _rollout(self, dyn0: DynState, u):
@@ -157,21 +168,28 @@ class KlergPlanner:
         return d_kl + barrier.batch(trajs).sum(-1)
 
     def _forward(self, pstate: PlannerState, u, idx: int):
-        """Forward pass collecting linearizations. Returns (u_eff (H, m),
-        pre-step states (H, n), A (H, n, n), B (H, n, m), dbarr (H, n),
-        dmu (H, m, n))."""
+        """Forward pass collecting linearizations at the pre-step states.
+        Returns (u_eff (H, m), pre-step states (H, n), A (H, n, n),
+        B (H, n, m), dbarr (H, n), dmu (H, m, n)). BarrierPush ignores the
+        nominal controls on the first iteration."""
+        if idx == 0 and isinstance(self.policy, BarrierPushPolicy):
+            u = torch.zeros_like(u)
         s = pstate.dyn
-        u_eff, xs = [], []
+        u_eff, xs, Rs = [], [], []
         for t in range(u.shape[0]):
             ut = self.policy.act(s.x, u[t])
             u_eff.append(ut)
             xs.append(s.x)
+            Rs.append(s.R)
             s = self.dyn.step(s, ut)
         u_eff, xs = torch.stack(u_eff), torch.stack(xs)
-        H = u.shape[0]
-        A, B = self.dyn.get_lin(pstate.dyn, None)
-        A = A.expand(H, *A.shape)
-        B = B.expand(H, *B.shape)
+        H, n = xs.shape
+        if self.dyn.state_dependent:
+            A, B = self.dyn.get_lin(DynState(x=xs, R=torch.stack(Rs)), u_eff)
+        else:
+            A, B = self.dyn.get_lin(pstate.dyn, None)
+        A = A.expand(H, n, n)
+        B = B.expand(H, n, self.dyn.num_actions)
         return (u_eff, xs, A, B, pstate.barrier.dbarr(xs),
                 self.policy.dx(xs, u_eff))
 
@@ -192,17 +210,19 @@ class KlergPlanner:
         djdlam = (Bt_rho * du).sum(-1)
         return du, djdlam
 
-    def _target_dist(self, pdf_ctx, pstate, samples, temp, use_prior: bool = False,
-                     with_aux: bool = False):
+    def _target_dist(self, pdf_ctx, pstate, samples, temp, plot: bool = False,
+                     use_prior: bool = False, with_aux: bool = False):
         """Target density at the samples: the model pdf (or the scene prior,
         or uniform) shaped by the coverage of the visited-state memory.
-        ``with_aux`` also returns {'pdf': raw model pdf, 'spread': mean
-        normalized coverage}, which the trainer's entropy schedule reuses."""
+        ``plot`` takes the model pdf and the coverage exponent whatever the
+        flags. ``with_aux`` also returns {'pdf': raw model pdf, 'spread':
+        mean normalized coverage}, which the trainer's entropy schedule
+        reuses."""
         cfg = self.cfg
         rl = self._robot_lim
         aux = {}
         outside = ((samples < rl[:, 0]) | (samples > rl[:, 1])).any(1)
-        if cfg.uniform_tdist:
+        if cfg.uniform_tdist and not plot:
             p = renormalize(torch.ones(samples.shape[0], device=samples.device))
         else:
             p = self.pdf_fn(pdf_ctx, samples)
@@ -210,7 +230,7 @@ class KlergPlanner:
             if use_prior:
                 d = self.prior_dist.means.shape[1]
                 p = renormalize(self.prior_dist.pdf(samples[:, :d]))
-        if cfg.weight_env or cfg.weight_temp:
+        if cfg.weight_env or cfg.weight_temp or plot:
             traj_all, mask = pstate.memory.get_all()
             spread = traj_spread(traj_all, samples, self.explr_locs, self.std,
                                  traj_mask=mask)
@@ -220,7 +240,7 @@ class KlergPlanner:
             aux["spread"] = torch.where(nonempty, spread.mean(), zero)
             spread = torch.where(outside, torch.ones_like(spread), spread)
             spread = torch.where(nonempty, spread, torch.zeros_like(spread))
-            if cfg.weight_env:
+            if cfg.weight_env and not plot:
                 p = p + (1.0 - spread) * p.min()
             else:
                 p = p ** spread.mean()
@@ -281,19 +301,37 @@ class KlergPlanner:
     # ------------------------------------------------------------------
     def plan(self, pstate: PlannerState, pdf_ctx, temp: float = 1.0,
              use_prior: bool = False, samples=None, hist_idx=None):
-        """One planner call. Draws the target samples and the history
-        sample from ``pstate.gen`` unless ``samples`` (N, d) and
-        ``hist_idx`` (num_traj_samples,) feed them. Returns (pstate, info)."""
+        """One planner call. Draws the target samples (uniform in the
+        limits; with ``sample_near_current_loc`` a tenth of them normal
+        around the current state) and the history sample from
+        ``pstate.gen``, unless ``samples`` (num_target_samples, d) and
+        ``hist_idx`` (num_traj_samples,) feed them. ``add_recent_history``
+        appends the last H visited states to the samples, unmasked.
+        Returns (pstate, info)."""
         cfg = self.cfg
         if samples is None:
-            lo, hi = pstate.lims[:, 0], pstate.lims[:, 1]
-            u01 = torch.rand((cfg.num_target_samples, lo.shape[0]),
-                             generator=pstate.gen, device=lo.device)
-            samples = u01 * (hi - lo) + lo
+            samples = self._draw_samples(pstate)
+        if cfg.add_recent_history:
+            recent, _ = pstate.memory.get_recent(cfg.horizon)
+            samples = torch.cat([samples, recent[:, self.explr_locs]], 0)
         traj_hist, hist_mask = pstate.memory.sample(
             cfg.num_traj_samples, pstate.gen, idx=hist_idx)
         return self.plan_with_inputs(pstate, pdf_ctx, samples, traj_hist,
                                      hist_mask, temp=temp, use_prior=use_prior)
+
+    def _draw_samples(self, pstate: PlannerState):
+        cfg = self.cfg
+        lo, hi = pstate.lims[:, 0], pstate.lims[:, 1]
+        n = cfg.num_target_samples
+        n_uniform = int(n * 0.9) if cfg.sample_near_current_loc else n
+        samples = torch.rand((n_uniform, lo.shape[0]), generator=pstate.gen,
+                             device=lo.device) * (hi - lo) + lo
+        if not cfg.sample_near_current_loc:
+            return samples
+        near = torch.randn((n - n_uniform, lo.shape[0]), generator=pstate.gen,
+                           device=lo.device) * (self.std * 4.0) \
+            + pstate.dyn.x[self.explr_locs]
+        return torch.cat([samples, near], 0)
 
     def plan_with_inputs(self, pstate: PlannerState, pdf_ctx, samples,
                          traj_hist, hist_mask, temp: float = 1.0,
@@ -301,7 +339,6 @@ class KlergPlanner:
         """The planner call after sampling: target shaping, base footprint
         and the hybrid inner loop on given (samples, history) inputs."""
         cfg = self.cfg
-        H = cfg.horizon
         dev = samples.device
         p, tdist_aux = self._target_dist(pdf_ctx, pstate, samples, temp,
                                          use_prior=use_prior, with_aux=True)
@@ -316,20 +353,17 @@ class KlergPlanner:
         last_cost = cost_fn(u)
         q_keep = renormalize(q_base)
         done = torch.zeros((), dtype=torch.bool, device=dev)
-        t = torch.arange(H, device=dev)
         for idx in range(cfg.num_iters):
             u_eff, xs, A, B, dbarr, dmu = self._forward(pstate, u, idx)
             q_iter = traj_footprint(xs, samples, self.explr_locs, self.std)
             q = renormalize(q_base + q_iter)
             du, djdlam = self._backward(samples, p, q, xs, A, B, dbarr, dmu)
             u_star = self._saturate(u_eff + cfg.alpha * du)
-            t_app = torch.argmin(djdlam)
-            u_app = u_star.index_select(0, t_app.reshape(1))[0]
-            ti, tf, ls_ok = self._line_search(cost_fn, t_app, u_app, u, idx, last_cost)
-            m = (ls_ok & (t >= ti) & (t < tf))[:, None]
-            u_new = torch.where(m, u_app[None], u_eff)
-            # a djdlam that is not negative stops the loop without updating
-            step_done = ~(djdlam.gather(0, t_app.reshape(1))[0] < 0)
+            if cfg.ctrl_app_search:
+                u_new, step_done = self._apply(cost_fn, u, u_eff, u_star, djdlam, idx,
+                                               last_cost)
+            else:
+                u_new, step_done = u_star, torch.zeros_like(done)
             cost = cost_fn(u_new)
             cost_break = (last_cost <= cost) if idx > 0 else torch.zeros_like(done)
             accept = ~done & ~step_done & ~cost_break
@@ -351,9 +385,66 @@ class KlergPlanner:
             info["tdist_spread"] = tdist_aux["spread"]
         return pstate, info
 
+    def _apply(self, cost_fn, u, u_eff, u_star, djdlam, idx: int, last_cost):
+        """Apply u_star at the slot t_app where the cost falls fastest, over
+        a fixed window (``fixed_lam``) or the line search's. ``full_cost``
+        takes t_app from the costs of the H one-slot substitutions of u_star
+        into the nominal plan, renormalized, instead of djdlam. Returns
+        (u_new, step_done); a value at t_app that is not negative stops the
+        loop without updating."""
+        cfg = self.cfg
+        H = cfg.horizon
+        t = torch.arange(H, device=u.device)
+        if cfg.full_cost:
+            slot = torch.eye(H, dtype=torch.bool, device=u.device)[:, :, None]
+            djdlam = renormalize(cost_fn(torch.where(slot, u_star[None], u[None]))) - 1.0
+        t_app = torch.argmin(djdlam)
+        u_app = u_star.index_select(0, t_app.reshape(1))[0]
+        if cfg.fixed_lam:
+            m = ((t >= t_app) & (t < t_app + cfg.lam))[:, None]
+        else:
+            # the windows are costed on the nominal plan, applied to u_eff
+            ti, tf, ls_ok = self._line_search(cost_fn, t_app, u_app, u, idx, last_cost)
+            m = (ls_ok & (t >= ti) & (t < tf))[:, None]
+        step_done = ~(djdlam.gather(0, t_app.reshape(1))[0] < 0)
+        return torch.where(m, u_app[None], u_eff), step_done
+
+    def plot_dists(self, pstate: PlannerState, pdf_ctx, samples, plot_idx,
+                   temp: float = 1.0):
+        """Smoothed plot distributions: every explored dim but ``plot_idx``
+        pinned to the current state, the shaped target and the footprint of
+        the memory plus the last plan there. Returns (pplot_samples, pplot,
+        qplot)."""
+        cur = pstate.dyn.x[self.explr_locs]
+        pplot_samples = cur.expand(samples.shape).clone()
+        pplot_samples[:, plot_idx] = samples[:, plot_idx]
+        pplot = self._target_dist(pdf_ctx, pstate, pplot_samples, temp, plot=True)
+        traj_all, mask = pstate.memory.get_all()
+        traj = torch.cat([traj_all, pstate.last_plan], 0)
+        mask = torch.cat([mask, mask.new_ones(pstate.last_plan.shape[0])], 0)
+        qplot = renormalize(traj_footprint(traj, pplot_samples, self.explr_locs,
+                                           self.std, traj_mask=mask))
+        return pplot_samples, pplot, qplot
+
+    def step(self, pstate: PlannerState, pdf_ctx, temp: float = 1.0,
+             save_update: bool = False, samples=None, hist_idx=None):
+        """Plan and apply the first control; with ``save_update`` the planner
+        syncs to the predicted state. ``samples``/``hist_idx`` feed the
+        draws as in ``plan``. Returns (pstate, explored state, velocity,
+        control, info)."""
+        pstate, info = self.plan(pstate, pdf_ctx, temp, samples=samples,
+                                 hist_idx=hist_idx)
+        ctrl = pstate.u[0]
+        dyn2 = self.dyn.step(pstate.dyn, ctrl)
+        if save_update:
+            pstate = self.save_update(dataclasses.replace(pstate, dyn=dyn2), dyn2.x)
+        m = self.dyn.num_actions
+        return pstate, dyn2.x[self.explr_locs], dyn2.x[m:], ctrl, info
+
     def save_update(self, pstate: PlannerState, full_state, save: bool = True):
         """Sync the planner to a measured state: nan guard, closest-plan-
-        point policy shift, velocity smoothing, memory push."""
+        point warm-start shift (Roll rolls the plan, Zero zeroes it, the
+        others keep it), velocity smoothing, memory push."""
         full_state = full_state.float()
         bad = torch.isnan(full_state).any()
         full_state = torch.nan_to_num(full_state)
@@ -365,11 +456,14 @@ class KlergPlanner:
         vs = self.cfg.vel_smoothing
         vel = vs * full_state[m:] + (1 - vs) * planned[m:]
         dyn_new = self.dyn.init(torch.cat([full_state[:m], vel]))
-        u_new = self.policy.shift(pstate.u, policy_idx)
+        u_new = pstate.u
+        if isinstance(self.policy, (RollPolicy, ZeroPolicy)):
+            u_new = self.policy.shift(pstate.u, -policy_idx)
 
         memory = pstate.memory
         if save:
             memory.push(dyn_new.x, skip=bad)  # a nan measurement is not pushed
-        dyn_out = DynState(x=torch.where(bad, pstate.dyn.x, dyn_new.x))
+        dyn_out = DynState(x=torch.where(bad, pstate.dyn.x, dyn_new.x),
+                           R=torch.where(bad, pstate.dyn.R, dyn_new.R))
         u_out = torch.where(bad, pstate.u, u_new)
         return dataclasses.replace(pstate, dyn=dyn_out, u=u_out, memory=memory)

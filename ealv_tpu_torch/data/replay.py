@@ -174,6 +174,12 @@ class TrajMemory:
         mask = (torch.arange(batch_size, device=self.buf.device) < self.size).float()
         return self.buf[idx], mask
 
+    def get_recent(self, k: int):
+        """The last k pushed states, newest first, as a fixed-shape (k, n)
+        plus a mask of the rows that were pushed."""
+        ks = torch.arange(k, device=self.buf.device)
+        return self.buf[(self.pos - 1 - ks) % self.capacity], (ks < self.size).float()
+
     def get_all(self):
         return self.buf, (torch.arange(self.capacity, device=self.buf.device)
                           < self.size).float()

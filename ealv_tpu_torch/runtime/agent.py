@@ -87,6 +87,13 @@ class Experiment:
         if "b" in cfg.states or cfg.states != cfg.states.lower():
             raise NotImplementedError("the port explores lower-case pose "
                                       "states without 'b'")
+        if cfg.use_magnitude:
+            raise NotImplementedError(
+                "use_magnitude=True: the JAX Experiment fails on its first tick "
+                "there (ealv_tpu/control/klerg.py:550, save_update subtracts the "
+                "measured (pos, vel) state from the speed model's wider plan), "
+                "so the port has no reference to match; the speed model is "
+                "ported at the planner level")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -102,8 +109,9 @@ class Experiment:
         self.pose_sel = torch.tensor(cfg.sel(), device=dev)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
 
-        self.dyn = make_dynamics(states, dt=cfg.dt, use_magnitude=cfg.use_magnitude,
-                                 device=dev)
+        # as in the JAX Experiment: no angle scale or shift, so an xyzrpw
+        # planner wraps its robot-coordinate roll into [0, 2pi)
+        self.dyn = make_dynamics(states, dt=cfg.dt, device=dev)
         kcfg = KlergConfig(
             horizon=cfg.horizon, num_target_samples=cfg.num_target_samples,
             num_traj_samples=cfg.num_traj_samples, dt=cfg.dt, R=cfg.R, std=cfg.std,

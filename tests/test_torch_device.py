@@ -8,9 +8,11 @@ import inspect
 import pytest
 import torch
 
-from ealv_tpu_torch.control.dynamics import DoubleIntegrator, make_dynamics
+from ealv_tpu_torch.control.dynamics import (DoubleIntegrator, DoubleIntegratorRoll,
+                                             DoubleIntegratorSpeed, SingleIntegrator,
+                                             make_dynamics)
 from ealv_tpu_torch.control.klerg import KlergPlanner
-from ealv_tpu_torch.control.target_dists import prior_dist
+from ealv_tpu_torch.control.target_dists import ExplrDist, gaussian_dist, prior_dist
 from ealv_tpu_torch.runtime import Experiment
 from ealv_tpu_torch.sim.env import SyntheticEnv
 from ealv_tpu_torch.sim.renderer import TrayScene
@@ -23,7 +25,10 @@ TRAY6 = ((0.2, 0.8), (-0.3, 0.3), (0.05, 0.5), (-3.5, 3.5), (-0.5, 0.5), (-1.0, 
 
 @pytest.mark.parametrize("fn", [Experiment.__init__, KlergPlanner.__init__,
                                 DoubleIntegrator.__init__, make_dynamics, prior_dist,
-                                TrayScene.default],
+                                TrayScene.default, SingleIntegrator.__init__,
+                                DoubleIntegratorSpeed.__init__,
+                                DoubleIntegratorRoll.__init__, gaussian_dist,
+                                ExplrDist.create],
                          ids=lambda f: f.__qualname__)
 def test_constructor_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -39,6 +44,7 @@ def test_env_defaults_to_the_card():
 DEFAULT_BUILDS = {
     "Experiment": lambda: Experiment(ExperimentConfig(**TOY)).pose_sel,
     "make_dynamics": lambda: make_dynamics("xy", dt=0.1).A,
+    "make_dynamics roll": lambda: make_dynamics("xyzrpw", dt=0.1).A,
     "prior_dist": lambda: prior_dist("xyw").means,
     "TrayScene.default": lambda: TrayScene.default().obj_xy,
     "SyntheticEnv": lambda: SyntheticEnv(tray_lim=TRAY6)._lims(),

@@ -9,6 +9,8 @@ as the reference. The JAX footprint takes its expansion form on the CPU,
 the port its direct differences, so values agree to ~1e-3 relative.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from ealv_tpu.models.cvae import init_model_state as j_init_state, update_dist a
 from ealv_tpu_torch import control as tc
 from ealv_tpu_torch.models import CVAE, init_model_state, update_dist
 from ealv_tpu_torch.utils.convert import params_from_jax
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -243,4 +246,204 @@ def test_save_update_matches_jax(frozen, gauss, nan):
     _close(t2.u, j2.u, rtol=0, atol=0)
     _close(t2.dyn.x, j2.dyn.x, rtol=1e-6, atol=1e-7)
     _close(t2.memory.buf, j2.memory.buf, rtol=1e-6, atol=1e-7)
+    assert int(t2.memory.size) == int(j2.memory.size)
+
+
+# ---------------------------------------------------------------------------
+# Every mode of the planner, step-matched through plan_with_inputs (or plan
+# with the JAX draws fed), at the tolerances above; every dynamics model and
+# policy in test_torch_planner_models.py, with the helpers below.
+STATES = {"single": "xy", "double": "xy", "speed": "xy", "roll": "xyzrpw"}
+
+
+def _dyns(dyn):
+    states = STATES[dyn]
+    if dyn == "single":
+        kw = dict(num_states=2, num_actions=2, dt=0.1)
+        return jc.SingleIntegrator(**kw), tc.SingleIntegrator(**kw, device="cpu")
+    kw = dict(dt=0.1, use_magnitude=dyn == "speed")
+    return jc.make_dynamics(states, **kw), tc.make_dynamics(states, **kw, device="cpu")
+
+
+def _scene(dyn, n_state, seed=7):
+    """Limits, start state, samples, history, initial plan and target for a
+    planner over STATES[dyn]; the roll starts positive, away from the wrap."""
+    states = STATES[dyn]
+    d = len(states)
+    rng = np.random.default_rng(seed)
+    lim = np.array([[-0.75, 0.75] if s in "rpw" else [-1.0, 1.0] for s in states], np.float32)
+    ctrl = np.array([[-0.5, 0.5] if s in "rp" else [-1.25, 1.25] for s in states], np.float32)
+    x0 = np.zeros(n_state, np.float32)
+    x0[:d] = rng.uniform(-0.5, 0.5, d)
+    if "r" in states:
+        x0[states.index("r")] = 0.4
+    samples = rng.uniform(lim[:, 0] * 1.15, lim[:, 1] * 1.15, (N, d)).astype(np.float32)
+    hist = np.zeros((M, n_state), np.float32)
+    hist[:, :d] = np.clip(np.cumsum(rng.normal(0.0, 0.05, (M, d)), 0) + x0[:d],
+                          lim[:, 0] * 0.9, lim[:, 1] * 0.9)
+    if n_state > d:
+        hist[:, d: 2 * d] = rng.normal(0.0, 0.1, (M, d))
+    if n_state > 2 * d:  # the speed model's |vel| rows
+        hist[:, 2 * d:] = np.abs(hist[:, d: 2 * d])
+    u0 = rng.normal(0.0, 0.2, (H, d)).astype(np.float32)
+    mu = rng.uniform(lim[:, 0] * 0.6, lim[:, 1] * 0.6).astype(np.float32)
+    if "r" in states:
+        mu[states.index("r")] = 0.6
+    var = rng.uniform(0.05, 0.1, d).astype(np.float32)
+    return lim, ctrl, x0, samples, hist, u0, mu, var
+
+
+def _pair(dyn, policy="Roll", **cfg_kw):
+    """(JAX planner, state), (port planner, state), scene for one model,
+    policy and config, from the same inputs; the history is pushed into
+    both memories."""
+    jdyn, tdyn = _dyns(dyn)
+    states = STATES[dyn]
+    lim, ctrl, x0, samples, hist, u0, mu, var = scene = _scene(dyn, jdyn.num_states)
+    kw = dict(horizon=H, num_target_samples=N, num_traj_samples=M, R=0.5, std=0.05, **cfg_kw)
+    locs = list(range(len(states)))
+    jpl = jc.KlergPlanner(jc.KlergConfig(**kw), jdyn, jc.make_policy(policy, jdyn, H),
+                          lambda _c, s: jnp.exp(-0.5 * jnp.sum((s - mu) ** 2 / var, -1)),
+                          states, explr_locs=locs)
+    tpl = tc.KlergPlanner(tc.KlergConfig(**kw), tdyn, tc.make_policy(policy, tdyn, H),
+                          lambda _c, s: torch.exp(-0.5 * ((s - T(mu)) ** 2 / T(var)).sum(-1)),
+                          states, explr_locs=locs, device="cpu")
+    jb, _ = jc.setup_barrier(states, jnp.asarray(lim), jnp.asarray(ctrl), locs)
+    tb, _ = tc.setup_barrier(states, T(lim), T(ctrl), locs)
+    if dyn == "single":  # its state holds the positions alone
+        jb, tb = jb.truncate(len(states)), tb.truncate(len(states))
+    jps = jpl.init_state(jnp.asarray(x0), jnp.asarray(lim), jb, buffer_capacity=256,
+                         explr_lim_scale=1.15)
+    tps = tpl.init_state(T(x0), T(lim), tb, buffer_capacity=256, explr_lim_scale=1.15)
+    for h in hist:
+        jps = jps._replace(memory=jps.memory.push(jnp.asarray(h)))
+        tps.memory.push(T(h))
+    return (jpl, jps._replace(u=jnp.asarray(u0))), (tpl, dataclasses.replace(tps, u=T(u0))), \
+        scene
+
+
+def _plan_pair(jp, tp, scene):
+    samples, hist = scene[3], scene[4]
+    return _plan_both((samples, hist), jp, tp)
+
+
+MODES = [dict(full_cost=True), dict(fixed_lam=True), dict(fixed_lam=True, lam=3),
+         dict(ctrl_app_search=False)]
+
+
+@pytest.mark.parametrize("dyn", ["double", "roll"])
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: "-".join(f"{k}={v}" for k, v in m.items()))
+def test_plan_with_inputs_every_mode(dyn, mode):
+    jp, tp, scene = _pair(dyn, **mode)
+    _check_plan(*_plan_pair(jp, tp, scene))
+
+
+def _jax_plan_draws(jpl, jps):
+    """The draws the JAX ``plan`` makes from its key: the uniform (and,
+    with sample_near_current_loc, the near-current) samples and the
+    history draw's indices."""
+    cfg = jpl.cfg
+    _, k_samp, k_hist = jax.random.split(jps.key, 3)
+    lims = jps.lims
+    n_uniform = int(cfg.num_target_samples * 0.9) if cfg.sample_near_current_loc \
+        else cfg.num_target_samples
+    samples = jax.random.uniform(k_samp, (n_uniform, lims.shape[0]),
+                                 minval=lims[:, 0], maxval=lims[:, 1])
+    if cfg.sample_near_current_loc:
+        k_loc, _ = jax.random.split(k_samp)
+        near = (jax.random.normal(k_loc, (cfg.num_target_samples - n_uniform, lims.shape[0]))
+                * (jpl.std * 4.0) + jps.dyn.x[jpl.explr_locs][None, :])
+        samples = jnp.concatenate([samples, near], 0)
+    cap = jps.memory.capacity
+    logw = jnp.where(jnp.arange(cap) < jps.memory.size, 0.0, -1e30)
+    hist_idx = jax.lax.top_k(logw + jax.random.gumbel(k_hist, (cap,)), cfg.num_traj_samples)[1]
+    return T(np.array(samples)), torch.tensor(np.asarray(hist_idx), dtype=torch.int64)
+
+
+@pytest.mark.parametrize("dyn", ["double", "roll"])
+@pytest.mark.parametrize("mode", ["add_recent_history", "sample_near_current_loc", "both"])
+def test_plan_sampling_modes_match_jax(dyn, mode):
+    """``plan`` with the JAX draws fed: the port appends the H most recent
+    visited states itself (N + H samples)."""
+    kw = dict(add_recent_history=mode != "sample_near_current_loc",
+              sample_near_current_loc=mode != "add_recent_history")
+    (jpl, jps), (tpl, tps), _ = _pair(dyn, **kw)
+    samples, hist_idx = _jax_plan_draws(jpl, jps)
+    jps2, jinfo = jax.jit(lambda ps: jpl.plan(ps, None))(jps)
+    tps2, tinfo = tpl.plan(tps, None, samples=samples, hist_idx=hist_idx)
+    n = N + (H if kw["add_recent_history"] else 0)
+    assert tinfo["samples"].shape == (n, len(STATES[dyn]))
+    _close(tinfo["samples"], jinfo["samples"], rtol=1e-6, atol=1e-6, msg="samples")
+    _check_plan(jps2, jinfo, tps2, tinfo)
+
+
+def test_forward_linearizes_every_step():
+    """The roll model's A follows the angles and R along the horizon; the
+    port's per-step (A, B, dbarr, dmu) match the reference's."""
+    (jpl, jps), (tpl, tps), _ = _pair("roll", "LQR")
+    j = jpl._forward(jps, jps.u, 1)
+    t = tpl._forward(tps, tps.u, 1)
+    for name, a, b in zip(("u_eff", "xs", "A", "B", "dbarr", "dmu"), t, j):
+        _close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+    A = t[2]
+    assert not torch.equal(A[0], A[-1])  # not linearized once
+
+
+def test_update_lims_matches_jax():
+    (jpl, jps), (tpl, tps), scene = _pair("double")
+    new = np.array([[-0.5, 0.2]], np.float32)
+    j = jpl.update_lims(jps, [1], jnp.asarray(new), robot_ctrl_lim=jnp.asarray(scene[1]))
+    t = tpl.update_lims(tps, [1], T(new), robot_ctrl_lim=T(scene[1]))
+    _close(t.lims, j.lims, rtol=0, atol=0)
+    _close(t.barrier.b_lim, j.barrier.b_lim, rtol=0, atol=0)
+    j = jpl.update_lims(jps, 0, jnp.asarray(new[0]))
+    t = tpl.update_lims(tps, 0, T(new[0]))
+    _close(t.lims, j.lims, rtol=0, atol=0)
+    _close(t.barrier.b_lim, tps.barrier.b_lim, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dyn", ["double", "roll"])
+def test_plot_dists_matches_jax(dyn):
+    (jpl, jps), (tpl, tps), scene = _pair(dyn)
+    samples = scene[3]
+    j = jpl.plot_dists(jps, None, jnp.asarray(samples), [0, 1])
+    t = tpl.plot_dists(tps, None, T(samples), [0, 1])
+    _close(t[0], j[0], rtol=0, atol=0, msg="plot samples")
+    _close(t[1], j[1], rtol=1e-3, atol=1e-6, msg="pplot")
+    _close(t[2], j[2], rtol=1e-3, atol=1e-5, msg="qplot")
+
+
+@pytest.mark.parametrize("dyn", ["double", "roll"])
+def test_step_matches_jax(dyn):
+    """Plan, apply the first control and sync to the predicted state."""
+    (jpl, jps), (tpl, tps), _ = _pair(dyn)
+    samples, hist_idx = _jax_plan_draws(jpl, jps)
+    jout = jax.jit(lambda ps: jpl.step(ps, None, save_update=True))(jps)
+    tout = tpl.step(tps, None, save_update=True, samples=samples, hist_idx=hist_idx)
+    for name, a, b in zip(("explored state", "velocity", "control"), tout[1:4], jout[1:4]):
+        _close(a, b, rtol=2e-3, atol=2e-4, msg=name)
+    _close(tout[0].u, jout[0].u, rtol=2e-3, atol=2e-4, msg="u")
+    _close(tout[0].dyn.x, jout[0].dyn.x, rtol=2e-3, atol=2e-4, msg="dyn x")
+    _close(tout[0].dyn.R, jout[0].dyn.R, rtol=1e-4, atol=1e-5, msg="dyn R")
+    assert int(tout[0].memory.size) == int(jout[0].memory.size) == M + 1
+
+
+@pytest.mark.parametrize("policy", ["Zero", "BarrierPush", "LQR"])
+@pytest.mark.parametrize("nan", [False, True])
+def test_save_update_roll_and_policies_match_jax(policy, nan):
+    """The roll model rebuilds R from the measured angles, and keeps the old
+    one for a nan measurement; Zero zeroes the warm start, the others keep
+    it."""
+    (jpl, jps), (tpl, tps), _ = _pair("roll", policy)
+    rng = np.random.default_rng(13)
+    lp = np.cumsum(rng.normal(0, 0.05, (H + 1, 12)), 0).astype(np.float32)
+    lp[:, 3] += 0.4
+    meas = lp[4] + np.float32(0.01)
+    if nan:
+        meas[5] = np.nan
+    j2 = jpl.save_update(jps._replace(last_plan=jnp.asarray(lp)), jnp.asarray(meas))
+    t2 = tpl.save_update(dataclasses.replace(tps, last_plan=T(lp)), T(meas))
+    _close(t2.u, j2.u, rtol=0, atol=0)
+    _close(t2.dyn.x, j2.dyn.x, rtol=1e-6, atol=1e-7)
+    _close(t2.dyn.R, j2.dyn.R, rtol=1e-5, atol=1e-6)
     assert int(t2.memory.size) == int(j2.memory.size)

@@ -147,3 +147,20 @@ def test_traj_memory_sample_with_jax_draw(n_push):
     idx = tm.sample_indices(4, generator=torch.Generator().manual_seed(0))
     assert len(set(idx.tolist())) == 4
     assert all(i < min(n_push, 6) for i in idx[: min(n_push, 4)].tolist())
+
+
+@pytest.mark.parametrize("n_push,k", [(0, 3), (2, 4), (5, 3), (13, 5)])
+def test_traj_memory_get_recent_matches_jax(n_push, k):
+    """The last k pushed states, newest first, before and after the ring
+    wraps, with the mask of the rows that were pushed."""
+    rng = np.random.default_rng(6)
+    jm = JTM.create(5, 3)
+    tm = TrajMemory.create(5, 3, "cpu")
+    for _ in range(n_push):
+        s = rng.uniform(-1, 1, 3).astype(np.float32)
+        jm = jm.push(jnp.array(s))
+        tm.push(torch.from_numpy(s))
+    (got, got_mask), (want, want_mask) = tm.get_recent(k), jm.get_recent(k)
+    assert got.shape == (k, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
