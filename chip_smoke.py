@@ -16,7 +16,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one (torch.optim.Adam(fused=True) for K2, cuDNN's bf16 wgrad for K3),
      beside each kernel's bound on this card;
   4. agreement: two toy-size ticks on the card and on the CPU with the same
-     weights and the same fed random draws (float32, TF32 off); one toy
+     weights and the same fed random draws (float32, TF32 off), at xyw, at
+     xywb with the force variant and the z-ensemble, and with each baseline
+     explorer (randomWalk, uniform); three toy EvalExperiment ticks toward
+     an ExplrDist target and toward a frozen CVAE's pdf, and
+     evaluate_test_set on a toy set, card against CPU; one toy
      planner call on the card and on the CPU with the same fed draws for
      every dynamics model (single, double, speed, SO(3) roll), every
      warm-start policy (Roll, Zero, BarrierPush, LQR) and every mode
@@ -33,7 +37,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      tick, bf16), trainer kernels off as in the JAX default: the xyw tick
      (double integrator), then the 6-DoF xyzrpw tick (SO(3) roll dynamics,
      linearized at every step); for each, warm ticks, then timed ticks,
-     with K1's launch count read over the timed window;
+     with K1's launch count read over the timed window; then the variant
+     tick path (xywb, learn_force, use_z_ensemble, both trainer kernels
+     on) with K1, K2 and K3 counted and the ensemble pdf held against its
+     plain decode-and-average; then the eval path: a 25-point grid test set
+     collected at 180x180, 12 EvalExperiment ticks toward a frozen
+     production CVAE (12 K1 launches a plan), evaluate_test_set over the
+     set, and baseline ticks (no K1 launch in their plan_step);
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
@@ -105,7 +115,8 @@ def _k1_bound_ms(n, t, d, mask):
 def phase_kernels(dev):
     """K1 against its plain version at the main paths' shapes and the probe
     shapes, the same bits on a repeated call; then kernel and plain times
-    at the main paths' shapes: d = 3 (xyw) and d = 6 (xyzrpw)."""
+    at the main paths' shapes: d = 3 (xyw), d = 6 (xyzrpw) and d = 4
+    (xywb)."""
     import torch
     from ealv_tpu_torch.ops import (footprint_and_spread, footprint_and_spread_reference,
                                     footprint_plan)
@@ -134,6 +145,7 @@ def phase_kernels(dev):
     # split, splits longer than one staged stretch, T = 1, d = 8
     shapes = [(2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
               (2000, 3000, 6, "tail"), (2000, 10, 6, "ones"),
+              (2000, 3000, 4, "tail"), (2000, 10, 4, "ones"),
               (2010, 3000, 6, "tail"), (2010, 10, 6, "ones"), (2010, 3000, 3, "random"),
               (700, 900, 4, "random"), (700, 900, 2, "random"),
               (700, 900, 6, "random"), (64, 100, 3, "ones"),
@@ -159,7 +171,8 @@ def phase_kernels(dev):
               f"bit-equal on repeat")
     rec = {}
     for n, t, d, mk in ((2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
-                        (2000, 3000, 6, "tail"), (2000, 10, 6, "ones")):
+                        (2000, 3000, 6, "tail"), (2000, 10, 6, "ones"),
+                        (2000, 3000, 4, "tail"), (2000, 10, 4, "ones")):
         args = case(n, t, d, mk)
         kernel = lambda: footprint_and_spread(*args)
         plain = lambda: footprint_and_spread_reference(*args)
@@ -173,7 +186,8 @@ def phase_kernels(dev):
         rec[n, t, d] = dict(ms=ms, plain_ms=plain_ms, host_ms=h_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
     out = dict(max_abs_err=max_err, **rec[2000, 3000, 3], library_ms=None, shape="2000x3000x3")
-    for key in ((2000, 10, 3), (2000, 3000, 6), (2000, 10, 6)):
+    for key in ((2000, 10, 3), (2000, 3000, 6), (2000, 10, 6), (2000, 3000, 4),
+                (2000, 10, 4)):
         tag = "x".join(map(str, key))
         out.update({f"{k}_{tag}": v for k, v in rec[key].items()})
     return out
@@ -195,9 +209,13 @@ def phase_adam(dev):
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     cfg = ExperimentConfig(**PRODUCTION)
-    prod = [tuple(p.shape) for p in CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim,
-                                         s_dim=cfg.s_dim,
-                                         hidden_dim=cfg.model_hidden()).parameters()]
+    shapes_of = lambda **kw: [tuple(p.shape) for p in CVAE(
+        img_dim=cfg.image_dim, z_dim=cfg.z_dim, hidden_dim=cfg.model_hidden(),
+        **kw).parameters()]
+    prod = shapes_of(s_dim=cfg.s_dim)
+    # the variant path's CVAE (xywb, learn_force): one more encoder input
+    # column and one more decoder output row
+    force = shapes_of(s_dim=4, learn_force=True)
     g = torch.Generator(device=dev).manual_seed(1)
 
     def state(shapes, offset=0):
@@ -209,7 +227,7 @@ def phase_adam(dev):
                 [r(s, 1e-5, torch.rand) for s in shapes], [r(s, 1e-2) for s in shapes])
 
     max_err = 0.0
-    for shapes, count, offset in ((prod, 7, 0), ([(1,)], 1, 0), ([(127,)], 1, 0),
+    for shapes, count, offset in ((prod, 7, 0), (force, 7, 0), ([(1,)], 1, 0), ([(127,)], 1, 0),
                                   ([(129,)], 3, 0),
                                   ([(1,), (127,), (129,), (4097,), (3 * 4096 + 5,)], 2, 0),
                                   ([(129,), (4097,), (3 * 4096 + 5,)], 2, 1)):
@@ -248,6 +266,12 @@ def phase_adam(dev):
         (device_ms(f), host_ms(f)) for f in (kernel, fused, fused, kernel))
     plain_ms, h_plain = device_ms(plain), host_ms(plain)
     h_step = host_ms(ours)
+    pf, mf, vf, gf = state(force)
+    n_force = sum(x.numel() for x in pf)
+    force_ms = device_ms(lambda: tad.adam_apply(pf, mf, vf, gf, 1e-3, 7))
+    force_plain = device_ms(lambda: [tad.adam_update_reference(*t, 1e-3, 7)
+                                     for t in zip(pf, mf, vf, gf)])
+    force_bound = 28 * n_force / 3.35e12 * 1e3
     bound_ms = 28 * n / 3.35e12 * 1e3  # p, m, v, g read, p, m, v written, f32
     print(f"[kernels] adam_apply 24 CVAE tensors ({n} elements), ms per step, device "
           f"(CUDA events, median of 21 x 50, in turns kernel, fused, fused, kernel): "
@@ -255,7 +279,11 @@ def phase_adam(dev):
           f"{fused_ms:.4f} / {fused2:.4f}, plain torch {plain_ms:.4f}; host clock per call: "
           f"kernel {h_ms:.4f} / {h_ms2:.4f}, FusedAdam.step {h_step:.4f}, fused {h_fused:.4f} / "
           f"{h_fused2:.4f}, plain {h_plain:.4f}; bound {bound_ms:.4f} (bytes)")
+    print(f"[kernels] adam_apply at the force variant's 24 tensors ({n_force} elements, "
+          f"xywb): device kernel {force_ms:.4f} ms per step, plain {force_plain:.4f}; "
+          f"bound {force_bound:.4f} (bytes)")
     return dict(max_abs_err=max_err, ms=(ms + ms2) / 2, plain_ms=plain_ms,
+                ms_force=force_ms, plain_ms_force=force_plain, bound_ms_force=force_bound,
                 host_ms=(h_ms + h_ms2) / 2, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=(fused_ms + fused2) / 2, library_host_ms=(h_fused + h_fused2) / 2,
                 optimizer_step_host_ms=h_step)
@@ -346,14 +374,19 @@ def phase_wgrad(dev):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=cudnn_ms)
 
 
-def _toy_draws(exp, k, rng, dev):
+def _toy_draws(cfg, k, rng, dev, lims=None):
     """Valid fed draws for tick k of a toy run without ring wrap: history
-    indices list the k+1 filled slots first; batch indices lie in them."""
+    indices list the k+1 filled slots first; batch indices lie in them;
+    planner samples in ``lims`` (default the robot limits), the entropy
+    grade's samples and a baseline's unit draws."""
     import torch
+    from ealv_tpu_torch.control import BaselineDraws
     from ealv_tpu_torch.runtime import TickDraws, TrainDraws
-    cfg = exp.cfg
-    lo, hi = exp.cfg.robot_lim[:, 0], exp.cfg.robot_lim[:, 1]
-    samples = rng.uniform(lo, hi, (cfg.num_target_samples, cfg.s_dim))
+    lims = cfg.robot_lim if lims is None else lims
+    d = lims.shape[0]
+    samples = rng.uniform(lims[:, 0], lims[:, 1], (cfg.num_target_samples, d))
+    grade = rng.uniform(cfg.robot_lim[:, 0], cfg.robot_lim[:, 1],
+                        (cfg.num_target_samples, cfg.s_dim))
     filled = rng.permutation(k + 1)
     rest = k + 1 + rng.permutation(cfg.traj_buffer_capacity - k - 1)
     hist = np.concatenate([filled, rest])[: cfg.num_traj_samples]
@@ -362,39 +395,136 @@ def _toy_draws(exp, k, rng, dev):
     train = [TrainDraws(idx=t(rng.integers(0, k + 1, (steps, B)), torch.int64),
                         idx2=t(rng.integers(0, k + 1, (steps, B)), torch.int64),
                         eps=t(rng.standard_normal((steps, B, cfg.z_dim))))]
-    return TickDraws(samples=t(samples), hist_idx=t(hist, torch.int64), train=train)
+    baseline = BaselineDraws(cands=t(rng.uniform(size=(10, cfg.s_dim))),
+                             state_u=t(rng.uniform(size=cfg.s_dim)))
+    return TickDraws(samples=t(samples), hist_idx=t(hist, torch.int64), train=train,
+                     grade_samples=[t(grade)], baseline=baseline)
 
 
-def phase_agreement():
+TOY = dict(states="xyw", num_target_samples=64, num_traj_samples=100,
+           image_dim=(24, 24, 3), batch_size=8, num_learning_opt=2, compute_dtype="float32")
+# the toy tick paths held card against CPU: the default; the brightness
+# state with the force variant and the z-ensemble; the two baselines
+AGREEMENT_TICKS = {"xyw": {}, "xywb force z-ensemble": dict(states="xywb", learn_force=True,
+                                                            use_z_ensemble=True),
+                   "randomWalk xywb": dict(states="xywb", explr_method="randomWalk"),
+                   "uniform": dict(explr_method="uniform")}
+
+
+def _agree(runs, what):
+    """Hold the card's list of outputs against the CPU's: f32 on both
+    sides; the card sums in other orders and its convs take other
+    algorithms, and one Adam step amplifies near-zero gradients. Returns
+    the largest difference."""
     import torch
-    from ealv_tpu_torch.utils.config import ExperimentConfig
-    from ealv_tpu_torch.runtime import Experiment
-
-    cfg = ExperimentConfig(states="xyw", num_target_samples=64, num_traj_samples=100,
-                           image_dim=(24, 24, 3), batch_size=8, num_learning_opt=2,
-                           compute_dtype="float32")
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        exp = Experiment(cfg, train_calls_per_tick=1, train_every=1, device=dev)
-        es = exp.init(seed=0)
-        rng = np.random.default_rng(1)
-        out = []
-        for k in range(2):
-            es, info = exp.tick(es, _toy_draws(exp, k, rng, dev))
-            out.append({"pose": es.env.pose, "u": es.pstate.u,
-                        "cost": info["ergodic_cost"], "loss": info["loss"],
-                        "beta": info["beta"], "gamma": info["gamma"]})
-        runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
-    # f32 on both sides; the card sums in other orders and its convs take
-    # other algorithms, and one Adam step amplifies near-zero gradients
+    err = 0.0
     for k, (a, b) in enumerate(zip(runs["cpu"], runs["cuda"])):
         for key in a:
             torch.testing.assert_close(b[key], a[key], rtol=1e-3, atol=1e-4,
-                                       msg=lambda m: f"tick {k} {key}: {m}")
-    print(f"[agreement] 2 toy ticks, cuda vs cpu with fed draws: pose, plan, "
-          f"ergodic cost, beta/gamma and loss agree (rtol 1e-3, atol 1e-4); "
-          f"loss {float(runs['cuda'][1]['loss']):.6f} vs "
-          f"{float(runs['cpu'][1]['loss']):.6f}")
+                                       msg=lambda m: f"{what}, step {k} {key}: {m}")
+            err = max(err, _max_err([b[key].float()], [a[key].float()]))
+    return err
+
+
+def phase_agreement():
+    """Two toy ticks of each path of AGREEMENT_TICKS on the card and on the
+    CPU with the same weights and fed draws: pose, brightness, plan (or the
+    baseline's state), cost, loss, beta, gamma and the z ring."""
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.runtime import Experiment
+
+    for what, kw in AGREEMENT_TICKS.items():
+        cfg = ExperimentConfig(**{**TOY, **kw})
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            exp = Experiment(cfg, train_calls_per_tick=1, train_every=1, device=dev)
+            es = exp.init(seed=0)
+            rng = np.random.default_rng(1)
+            out = []
+            for k in range(2):
+                es, info = exp.tick(es, _toy_draws(cfg, k, rng, dev))
+                out.append({"pose": es.env.pose, "brightness": es.env.brightness,
+                            "plan": es.pstate.x if exp.use_baseline else es.pstate.u,
+                            "cost": info["ergodic_cost"], "loss": info["loss"],
+                            "beta": info["beta"], "gamma": info["gamma"],
+                            "z ring": es.mstate.z_buff})
+            runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
+        err = _agree(runs, what)
+        print(f"[agreement] 2 toy ticks ({what}), cuda vs cpu with fed draws: pose, "
+              f"brightness, plan, ergodic cost, beta/gamma, loss and z ring agree (rtol 1e-3, "
+              f"atol 1e-4), max|diff| {err:.3e}; loss {float(runs['cuda'][1]['loss']):.6f} "
+              f"vs {float(runs['cpu'][1]['loss']):.6f}")
+
+
+def _eval_target(kind, d, dev, img=(24, 24, 3), compute_dtype="float32", seed=0):
+    """(pdf_fn, ctx) of an injected target over d explored states: an
+    ExplrDist mixture of three pushes, or a frozen CVAE (weights from
+    ``seed``) seeded with one random sample, its uncertainty as the pdf."""
+    import torch
+    from ealv_tpu_torch.control import ExplrDist
+    from ealv_tpu_torch.models import CVAE, init_model_state, update_dist
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    if kind == "explr":
+        dist = ExplrDist.create(8, d, device=dev)
+        for _ in range(3):
+            dist = dist.push(t(rng.uniform(-0.6, 0.6, d)), t(rng.uniform(0.02, 0.08, d)))
+        return (lambda ctx, s: ctx.pdf(s)), dist
+    model = CVAE(img_dim=img, s_dim=d, compute_dtype=getattr(torch, compute_dtype))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    ms, _ = update_dist(model, init_model_state(model, dev), t(rng.uniform(-1, 1, d)),
+                        t(rng.uniform(0, 1, img)))
+    return (lambda ctx, s: ctx[0].pdf(ctx[1], s)), (model, ms)
+
+
+def phase_eval_agreement():
+    """Three toy EvalExperiment ticks toward an ExplrDist target and toward
+    a frozen CVAE's pdf, card against CPU with fed draws; then
+    evaluate_test_set on a toy set."""
+    import torch
+    from ealv_tpu_torch.models import CVAE
+    from ealv_tpu_torch.runtime import EvalExperiment, evaluate_test_set
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(**TOY)
+    for kind in ("explr", "cvae"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            fn, ctx = _eval_target(kind, cfg.s_dim, dev)
+            ev_exp = EvalExperiment(cfg, fn, device=dev)
+            ev = ev_exp.init([0.45, 0.03, 0.35, 3.14, 0.0, 0.2], seed=2)
+            rng = np.random.default_rng(5)
+            out = []
+            for k in range(3):
+                draws = _toy_draws(cfg, k, rng, dev, lims=ev.pstate.lims.cpu().numpy())
+                ev, obs = ev_exp.tick(ev, ctx, draws)
+                out.append({"pose": ev.env.pose, "robot_state": obs["robot_state"],
+                            "plan": ev.pstate.u, "cost": obs["cost"]})
+            runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
+        err = _agree(runs, f"eval {kind}")
+        print(f"[agreement] 3 toy EvalExperiment ticks ({kind} target), cuda vs cpu with fed "
+              f"draws: pose, robot state, plan and cost agree (rtol 1e-3, atol 1e-4), "
+              f"max|diff| {err:.3e}")
+    rng = np.random.default_rng(6)
+    poses = rng.uniform(-1, 1, (9, 3)).astype(np.float32)
+    images = rng.uniform(0, 1, (9, 24, 24, 3)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = CVAE(img_dim=(24, 24, 3), s_dim=3)
+        model.reset_parameters(torch.Generator().manual_seed(4))
+        got[dev] = evaluate_test_set(model.to(dev), poses, images)
+    err = 0.0
+    for key in ("recon_mse", "recon_nll", "z_mu", "z_logvar", "img_pred"):
+        np.testing.assert_allclose(got["cuda"][key], got["cpu"][key], rtol=1e-3, atol=1e-4,
+                                   err_msg=key)
+        err = max(err, float(np.abs(got["cuda"][key] - got["cpu"][key]).max()))
+    if got["cuda"]["active_units"] != got["cpu"]["active_units"]:
+        raise RuntimeError(f"active units {got['cuda']['active_units']} vs "
+                           f"{got['cpu']['active_units']}")
+    print(f"[agreement] evaluate_test_set on 9 toy samples, cuda vs cpu: MSE, NLL, latents "
+          f"and images agree (rtol 1e-3, atol 1e-4), max|diff| {err:.3e}; mean NLL "
+          f"{got['cuda']['mean_nll']:.5f} vs {got['cpu']['mean_nll']:.5f}")
 
 
 # the planner agreement phase: (dynamics, policy, config flags) on a toy
@@ -722,6 +852,194 @@ def phase_main_path(states="xyw", n_warm=6, n_timed=24):
     return launches, dt * 1e3, peak
 
 
+def _ensemble_plain(model, mstate, samples):
+    """The ensemble pdf's plain version: one decode per ring latent, the
+    logvars averaged over the ring, then the pdf's exp and max."""
+    import dataclasses as dc
+    import torch
+    from ealv_tpu_torch.models.cvae import LOGVAR_LIMS
+    with torch.no_grad():
+        logvar = torch.stack([model.decode_samples(dc.replace(mstate, z=z), samples)[0]
+                              for z in mstate.z_buff]).mean(0)
+    return torch.exp(logvar.clamp(*LOGVAR_LIMS)).amax(1)
+
+
+def phase_variant_path(n_warm=6, n_timed=12):
+    """The experiment's options together at production width: states
+    "xywb" (the brightness state), the force variant, the z-ensemble target
+    (5 x 2000 decoder rows a plan) and both trainer kernels on; warm ticks,
+    then timed ones with K1, K2 and K3 counted (13 K1 launches a tick and
+    one per trainer call, whose entropy grade takes a fresh plain decode
+    under the ensemble; 25 K2 and 75 K3 a trainer call). Then the ensemble
+    pdf at 2000 samples against its plain decode-and-average, in the bf16
+    model and in an f32 copy, and both timed. Returns (ms/tick, peak MiB,
+    (K1, K2, K3 launches))."""
+    import torch
+    from ealv_tpu_torch.ops import adam as tad, footprint_and_spread, wgrad as twg
+    from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.utils.timing import device_ms, host_ms
+
+    cfg = ExperimentConfig(**{**PRODUCTION, "states": "xywb"}, learn_force=True,
+                           use_z_ensemble=True, fast_encoder_grads="pallas")
+    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+    exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
+    torch.cuda.reset_peak_memory_stats()
+    es = exp.init(seed=0)
+    for _ in range(n_warm):
+        es, _ = exp.tick(es)
+    torch.cuda.synchronize()
+    footprint_and_spread.launches = tad.adam_apply.launches = 0
+    twg.conv_wgrad_direct.launches = 0
+    calls0 = es.learning_ind
+    t0 = time.perf_counter()
+    es, infos = exp.run_chunk(es, n_timed)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    k1, k2, k3 = (footprint_and_spread.launches, tad.adam_apply.launches,
+                  twg.conv_wgrad_direct.launches)
+    calls = es.learning_ind - calls0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if calls <= 0:
+        raise RuntimeError("the variant path made no trainer call in the timed ticks")
+    if (k1, k2, k3) != (13 * n_timed + calls, 25 * calls, 75 * calls):
+        raise RuntimeError(f"variant path: {calls} trainer calls in {n_timed} ticks made "
+                           f"K1 {k1}, K2 {k2}, K3 {k3} launches; expected "
+                           f"{13 * n_timed + calls}, {25 * calls}, {75 * calls}")
+    losses, costs = infos["loss"].cpu(), infos["ergodic_cost"].cpu()
+    if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()):
+        raise RuntimeError(f"non-finite losses {losses} or costs {costs}")
+    b = es.env.brightness
+    if not (torch.isfinite(b) and es.buf.x.shape[1] == 4 and es.model.learn_force):
+        raise RuntimeError(f"brightness {b}, ring width {es.buf.x.shape[1]}")
+    if float(es.mstate.z_buff.abs().amin(1).min()) == 0.0:
+        raise RuntimeError("the z ring is not full after the warm and timed ticks")
+    print(f"[variant path] xywb, learn_force, use_z_ensemble, K2 and K3 on: {n_timed} ticks "
+          f"after {n_warm} warm: {dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz | {calls} trainer "
+          f"calls | K1 {k1} (13/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} (75/call) | last "
+          f"loss {float(losses[losses != 0][-1]):.4f} | brightness {float(b):.4f} | peak "
+          f"memory {peak:.1f} MiB")
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lo, hi = exp.robot_lim[:, 0], exp.robot_lim[:, 1]
+    samples = torch.rand((cfg.num_target_samples, 4), generator=g, device="cuda") \
+        * (hi - lo) + lo
+    model, ms = es.model, es.mstate
+    f32 = exp.make_model().cuda()
+    f32.compute_dtype = torch.float32
+    f32.load_state_dict(model.state_dict())
+    for name, m, tol in (("bf16", model, dict(rtol=3e-2, atol=1e-6)),
+                         ("f32", f32, dict(rtol=1e-4, atol=1e-6))):
+        ens = lambda: m.pdf(ms, samples, use_z_ensemble=True)
+        plain = lambda: _ensemble_plain(m, ms, samples)
+        got, want = ens(), plain()
+        torch.testing.assert_close(got, want, **tol, msg=lambda e: f"ensemble pdf {name}: {e}")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ens()
+        torch.cuda.synchronize()
+        transient = (torch.cuda.max_memory_allocated() - base) / 2**20
+        err, e_ms, p_ms = (float((got - want).abs().max()), device_ms(ens, reps=11, inner=10),
+                           device_ms(plain, reps=11, inner=10))
+        h_ms = host_ms(ens, inner=10)
+        single_ms = device_ms(lambda: m.pdf(ms, samples), reps=11, inner=10)
+        print(f"[variant path] ensemble pdf at 2000 samples ({name} model): max|ensemble-plain| "
+              f"{err:.3e} (rtol {tol['rtol']}); device ms: 10,000-row batch {e_ms:.4f}, five "
+              f"2000-row decodes {p_ms:.4f}, one 2000-row decode (no ensemble) {single_ms:.4f}; "
+              f"host clock {h_ms:.4f} ms; transient memory {transient:.1f} MiB")
+    return dt * 1e3, peak, (k1, k2, k3)
+
+
+def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
+    """The evaluation runtime at production size: a 25-point grid test set
+    collected at 180x180 with the port's collector on the card, then 12
+    timed EvalExperiment ticks (after 2 warm) toward a frozen production
+    CVAE's pdf (weights from seed 0, seeded with the set's first sample),
+    12 K1 launches a plan; evaluate_test_set over the set; and baseline
+    ticks, whose plan_step makes no K1 launch (a trainer call makes one,
+    for its entropy grade). Returns (ms per eval tick, launches per plan)."""
+    import torch
+    from ealv_tpu_torch.models import CVAE, init_model_state, update_dist
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime import EvalExperiment, Experiment, evaluate_test_set
+    from ealv_tpu_torch.scripts.collect_test_set import collect
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.utils.states import ws_conversion
+
+    cfg = ExperimentConfig(**PRODUCTION)
+    t0 = time.perf_counter()
+    poses, images, forces = collect("grid", n_points, img=cfg.image_dim[0], device="cuda")
+    collect_s = time.perf_counter() - t0
+    if images.shape != (n_points, *cfg.image_dim) or not np.isfinite(images).all():
+        raise RuntimeError(f"test set images {images.shape}")
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    poses_r = ws_conversion(t(poses[:, cfg.sel()]), t(cfg.tray_lim), t(cfg.robot_lim))
+    model = CVAE(img_dim=cfg.image_dim, s_dim=cfg.s_dim, hidden_dim=cfg.model_hidden(),
+                 compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.cuda()
+    ms, _ = update_dist(model, init_model_state(model, "cuda"), poses_r[0], t(images[0]))
+    ctx = (model, ms)
+    ev_exp = EvalExperiment(cfg, lambda c, s: c[0].pdf(c[1], s), device="cuda")
+    ev = ev_exp.init(seed=0)
+    for _ in range(n_warm):
+        ev, _ = ev_exp.tick(ev, ctx)
+    torch.cuda.synchronize()
+    footprint_and_spread.launches = 0
+    t0 = time.perf_counter()
+    costs = []
+    for _ in range(n_timed):
+        ev, obs = ev_exp.tick(ev, ctx)
+        costs.append(obs["cost"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    per_plan = footprint_and_spread.launches / n_timed
+    if footprint_and_spread.launches != 12 * n_timed:
+        raise RuntimeError(f"eval path: {footprint_and_spread.launches} K1 launches in "
+                           f"{n_timed} ticks, expected {12 * n_timed}")
+    costs = torch.stack(costs).cpu()
+    if not torch.isfinite(costs).all() or obs["image"].shape != cfg.image_dim:
+        raise RuntimeError(f"eval costs {costs}, image {tuple(obs['image'].shape)}")
+    t0 = time.perf_counter()
+    met = evaluate_test_set(model, poses_r, images, forces)
+    eval_s = time.perf_counter() - t0
+    if not (np.isfinite(met["recon_nll"]).all() and met["img_pred"].shape == images.shape):
+        raise RuntimeError(f"evaluate_test_set: {met['recon_nll']}")
+    print(f"[eval path] {n_points}-point grid test set at {cfg.image_dim[0]}x"
+          f"{cfg.image_dim[1]} collected in {collect_s:.2f} s | {n_timed} EvalExperiment ticks "
+          f"after {n_warm} warm, frozen production CVAE (bf16, seed 0) as the target: "
+          f"{dt * 1e3:.2f} ms/tick | K1 {per_plan:.0f} per plan | last cost "
+          f"{float(costs[-1]):.4f} | evaluate_test_set over the set in {eval_s:.3f} s: mean "
+          f"MSE {met['mean_mse']:.5f}, mean NLL {met['mean_nll']:.5f}, active units "
+          f"{met['active_units']}")
+
+    for method in ("randomWalk", "uniform"):
+        exp = Experiment(ExperimentConfig(**{**PRODUCTION, "states": "xywb"},
+                                          explr_method=method),
+                         train_calls_per_tick=1, train_every=3, device="cuda")
+        es = exp.init(seed=0)
+        footprint_and_spread.launches = 0
+        for _ in range(3):
+            exp.plan_step(es, exp._measured_robot_state(es.env))
+        planned = footprint_and_spread.launches
+        calls0 = es.learning_ind
+        t0 = time.perf_counter()
+        es, infos = exp.run_chunk(es, 6)
+        torch.cuda.synchronize()
+        b_ms = (time.perf_counter() - t0) / 6 * 1e3
+        calls = es.learning_ind - calls0
+        ticked = footprint_and_spread.launches - planned
+        if planned != 0 or ticked != calls or calls <= 0:
+            raise RuntimeError(f"{method}: {planned} K1 launches in 3 plan_steps (expected "
+                               f"0), {ticked} in 6 ticks with {calls} trainer calls")
+        if not torch.isfinite(infos["loss"]).all():
+            raise RuntimeError(f"{method}: losses {infos['loss']}")
+        print(f"[eval path] baseline {method} at xywb, production size: 0 K1 launches in 3 "
+              f"plan_steps; {ticked} in 6 ticks = one per trainer call ({calls}, the entropy "
+              f"grade); {b_ms:.2f} ms/tick (the first ticks, cold)")
+    return dt * 1e3, per_plan
+
+
 def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
     """The learning path at production size through the port's run entry,
     with both trainer kernels on; the postexplr checkpoint is reloaded into
@@ -827,27 +1145,33 @@ def main() -> int:
     k2 = phase_adam(dev)
     k3 = phase_wgrad(dev)
     phase_agreement()
+    phase_eval_agreement()
     phase_planner_agreement()
     phase_trainer_agreement()
     phase_trainer_production()
     k1_launches, xyw_ms, xyw_peak = phase_main_path("xyw", n_warm=6, n_timed=24)
     k1_6dof, rpw_ms, rpw_peak = phase_main_path("xyzrpw", n_warm=6, n_timed=12)
+    var_ms, var_peak, (k1_var, k2_var, k3_var) = phase_variant_path()
+    eval_ms, eval_per_plan = phase_eval_path()
     print(f"[main paths] xyw {xyw_ms:.2f} ms/tick, peak {xyw_peak:.1f} MiB | xyzrpw "
-          f"{rpw_ms:.2f} ms/tick, peak {rpw_peak:.1f} MiB ({rpw_ms / xyw_ms:.2f}x the time)")
+          f"{rpw_ms:.2f} ms/tick, peak {rpw_peak:.1f} MiB ({rpw_ms / xyw_ms:.2f}x the time) | "
+          f"xywb force z-ensemble {var_ms:.2f} ms/tick, peak {var_peak:.1f} MiB | eval "
+          f"{eval_ms:.2f} ms/tick ({eval_per_plan:.0f} K1 launches a plan)")
     _, k2_launches, k3_launches = phase_learning_path()
     print(json.dumps({"kernels": [
         {"name": "footprint_and_spread", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/footprint.cu",
          "replaces": "ealv_tpu/ops/pallas_kernels.py:55",
-         "launches": k1_launches, "launches_xyzrpw": k1_6dof, **k1},
+         "launches": k1_launches, "launches_xyzrpw": k1_6dof, "launches_variant": k1_var,
+         "launches_eval_per_plan": eval_per_plan, **k1},
         {"name": "adam_apply", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/adam.cu",
          "replaces": "ealv_tpu/ops/pallas_adam.py:55",
-         "launches": k2_launches, **k2},
+         "launches": k2_launches, "launches_variant": k2_var, **k2},
         {"name": "conv_wgrad_direct", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/wgrad.cu",
          "replaces": "ealv_tpu/ops/pallas_wgrad.py:115",
-         "launches": k3_launches, **k3}]}))
+         "launches": k3_launches, "launches_variant": k3_var, **k3}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,3 +5,4 @@ from .policies import RollPolicy, ZeroPolicy, BarrierPushPolicy, LQRPolicy, make
 from .klerg import KlergConfig, KlergPlanner, PlannerState
 from .target_dists import (GaussianMixtureDist, gaussian_dist, prior_dist, UniformDist,
                            ExplrDist)
+from .baselines import BaselineController, BaselineDraws, BaselineState

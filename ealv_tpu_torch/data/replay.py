@@ -15,6 +15,7 @@ differ from JAX's, the law is the same.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -87,6 +88,35 @@ class ReplayBuffer:
         self.explr_ind = torch.where(ok, torch.full_like(self.explr_ind, explr_ind),
                                      self.explr_ind)
         return self
+
+    def get_hyperparams(self):
+        """(explr_ind, mean beta, mean gamma) over the filled part of the
+        hyperparameter ring."""
+        mask = torch.arange(self.beta.shape[0], device=self.beta.device) < self.beta_size
+        n = self.beta_size.clamp(min=1)
+        zero = torch.zeros_like(self.beta)
+        return (self.explr_ind, torch.where(mask, self.beta, zero).sum() / n,
+                torch.where(mask, self.gamma, zero).sum() / n)
+
+    def get_xi(self):
+        """Mean over max of the filled slots' image variances (clamped below
+        at exp(-10)), times 10."""
+        v = torch.where(self.valid_mask() > 0, self.y_var.clamp(min=math.exp(-10.0)),
+                        torch.zeros_like(self.y_var))
+        return v.sum() / max(self.size, 1) / v.max().clamp(min=1e-30) * 10.0
+
+    def get_last(self):
+        """(x, y, force) of the newest push."""
+        i = (self.pos - 1) % self.capacity
+        return self.x[i], self.y[i], self.force[i]
+
+    def sample(self, batch_size: int, weighted: bool = False,
+               generator: torch.Generator | None = None, idx=None):
+        """(x, y, force, idx) of a ``sample_indices`` draw, or of the fed
+        indices ``idx``."""
+        if idx is None:
+            idx = self.sample_indices(batch_size, weighted, generator)
+        return self.x[idx], self.y[idx], self.force[idx], idx
 
     def valid_mask(self):
         return (torch.arange(self.capacity, device=self.x.device) < self.size).float()

@@ -4,7 +4,8 @@ Only the default ``conv_transpose`` decoder is built. The module keeps the
 reference torch key layout (``img_encoder.{2i}``, ``encode.{2i}``,
 ``decode.{2i}``, ``img_decoder.{2i+1}``), so
 ``ealv_tpu/utils/torch_import.py::convert_state_dict`` reads its
-``state_dict`` as it is. Public tensors keep the JAX layouts: images are
+``state_dict`` as it is, the force variant's (``learn_force``) included.
+Public tensors keep the JAX layouts: images are
 NHWC ``(B, H, W, C)``; internally the convs run NCHW and the conv features
 flatten in (C, h, w) order.
 
@@ -31,26 +32,32 @@ LOGVAR_LIMS = (-10.0, 2.0)
 
 @dataclasses.dataclass
 class ModelState:
-    """Target-distribution state: the latest sample and its latent."""
+    """Target-distribution state: the latest sample, its latent and the
+    ring of the last ``z_mem`` latents (newest in row 0) that the
+    z-ensemble decodes under."""
 
     seed_x: torch.Tensor  # (s_dim,)
     seed_y: torch.Tensor  # (H, W, C) f32
+    seed_force: torch.Tensor  # (1,)
     z: torch.Tensor  # (z_dim,)
+    z_buff: torch.Tensor  # (z_mem, z_dim)
     initialized: torch.Tensor  # () bool
 
 
 class CVAE(nn.Module):
-    """Image conditioned on pose.
+    """Image (and, with ``learn_force``, contact force) conditioned on pose.
 
-    encoder: conv(img) -> flatten -> MLP([feat, pose]) -> (mu, logvar)
-    decoder: MLP([z, pose]) -> [y_logvar | img_feat] -> conv_transpose -> image
+    encoder: conv(img) -> flatten -> MLP([feat, (force,) pose]) -> (mu, logvar)
+    decoder: MLP([z, pose]) -> [y_logvar | (force_pred |) img_feat]
+             -> conv_transpose(img_feat) -> image
+    The force shares the image's logvar (the "combo var").
     """
 
     def __init__(self, img_dim, z_dim: int = 16, s_dim: int = 2,
                  hidden_dim=(512, 256), cnn_kernels=(3, 3, 5),
                  cnn_strides=(2, 2, 3), cnn_channels=(10, 10, 20),
                  y_logvar_dim: int = 1, learn_force: bool = False,
-                 dx: bool = False, compute_dtype=torch.float32,
+                 dx: bool = False, z_mem: int = 5, compute_dtype=torch.float32,
                  decoder_mode: str = "conv_transpose",
                  fast_encoder_grads=False, lane_pad: int = 0):
         super().__init__()
@@ -62,13 +69,14 @@ class CVAE(nn.Module):
                                       "the port builds only False and 'pallas'")
         if lane_pad:
             raise NotImplementedError("lane_pad is not ported")
-        if learn_force:
-            raise NotImplementedError("learn_force is not ported yet")
         self.img_dim = tuple(img_dim)
         self.z_dim = z_dim
         self.s_dim = s_dim
         self.y_logvar_dim = y_logvar_dim
+        self.learn_force = learn_force
+        self.force_dim = 1 if learn_force else 0
         self.dx = dx
+        self.z_mem = z_mem
         self.compute_dtype = compute_dtype
         self.fast_encoder_grads = fast_encoder_grads
         (h, w), dims = conv_output_dims(self.img_dim[:2], cnn_kernels, cnn_strides)
@@ -82,9 +90,10 @@ class CVAE(nn.Module):
                 enc.append(nn.ReLU())
             enc.append(nn.Conv2d(in_ch[i], c, k, stride=s))
         self.img_encoder = nn.Sequential(*enc)
-        self.encode = self._mlp([self.feat_dim + s_dim, *hidden_dim, 2 * z_dim])
+        self.encode = self._mlp([self.feat_dim + self.force_dim + s_dim, *hidden_dim,
+                                 2 * z_dim])
         self.decode = self._mlp([z_dim + s_dim, *reversed(hidden_dim),
-                                 y_logvar_dim + self.feat_dim])
+                                 y_logvar_dim + self.force_dim + self.feat_dim])
         # a VALID transposed conv of a floor-divided forward conv comes up
         # `deficit` pixels short; output_padding adds them at the hi edge,
         # as the JAX decoder's (k-1, k-1+deficit) padding does
@@ -167,8 +176,11 @@ class CVAE(nn.Module):
                 h = F.relu(h)
         return h.permute(0, 2, 3, 1)
 
-    def encode_fn(self, x, y):
-        h = torch.cat([self.img_encode(y), x.to(self.compute_dtype)], 1)
+    def encode_fn(self, x, y, force=None):
+        parts = [self.img_encode(y)]
+        if self.learn_force:
+            parts.append(force.to(self.compute_dtype))
+        h = torch.cat(parts + [x.to(self.compute_dtype)], 1)
         fcs = self._layers(self.encode, nn.Linear)
         for fc in fcs[:-1]:
             h = F.relu(self._linear(fc, h))
@@ -177,24 +189,29 @@ class CVAE(nn.Module):
         return z_mu, z_logvar.clamp(*LOGVAR_LIMS)
 
     def decode_fn(self, z, x):
-        """(B, z), (B, s) -> (img_feat in the compute dtype, y_logvar f32)."""
+        """(B, z), (B, s) -> (img_feat in the compute dtype, y_logvar f32,
+        force_pred f32 (B, 1)); force_pred is zeros without ``learn_force``."""
         h = torch.cat([z, x], 1).to(self.compute_dtype)
         fcs = self._layers(self.decode, nn.Linear)
         for fc in fcs[:-1]:
             h = F.relu(self._linear(fc, h))
         out = self._linear(fcs[-1], h)
         v = self.y_logvar_dim
-        return out[:, v:], out[:, :v].float().clamp(*LOGVAR_LIMS)
+        y_logvar = out[:, :v].float().clamp(*LOGVAR_LIMS)
+        if self.learn_force:
+            return out[:, v + 1:], y_logvar, out[:, v:v + 1].float()
+        return out[:, v:], y_logvar, out.new_zeros((out.shape[0], 1), dtype=torch.float32)
 
     # ---------- public API ----------
 
-    def forward(self, x, y, x_decode=None, train: bool = False, eps=None,
+    def forward(self, x, y, force=None, x_decode=None, train: bool = False, eps=None,
                 generator: torch.Generator | None = None):
-        """Full forward pass. With ``train`` the latent is reparameterized
-        with ``eps`` (B, z_dim), or with noise drawn from ``generator``.
-        With ``x_decode`` the cross-decode at the second pose runs in the
-        same batched decoder pass (2B rows)."""
-        z_mu, z_logvar = self.encode_fn(x, y)
+        """Full forward pass; ``force`` (B, 1) feeds the encoder with
+        ``learn_force``. With ``train`` the latent is reparameterized with
+        ``eps`` (B, z_dim), or with noise drawn from ``generator``. With
+        ``x_decode`` the cross-decode at the second pose runs in the same
+        batched decoder pass (2B rows)."""
+        z_mu, z_logvar = self.encode_fn(x, y, force)
         if train:
             if eps is None:
                 eps = torch.randn(z_mu.shape, generator=generator,
@@ -206,29 +223,42 @@ class CVAE(nn.Module):
         out = dict(z_mu=z_mu, z_logvar=z_logvar, z=z)
         if x_decode is not None:
             b = x.shape[0]
-            feat, y_logvar = self.decode_fn(torch.cat([z, z], 0),
-                                            torch.cat([x_dec, x_decode], 0))
+            feat, y_logvar, force_pred = self.decode_fn(torch.cat([z, z], 0),
+                                                        torch.cat([x_dec, x_decode], 0))
             img = self.img_decode(feat)
             out.update(img_pred=img[:b], img_logvar=y_logvar[:b],
-                       img_pred_decode=img[b:], img_logvar_decode=y_logvar[b:])
+                       force_pred=force_pred[:b], force_logvar=y_logvar[:b],
+                       img_pred_decode=img[b:], img_logvar_decode=y_logvar[b:],
+                       force_pred_decode=force_pred[b:], force_logvar_decode=y_logvar[b:])
             return out
-        feat, y_logvar = self.decode_fn(z, x_dec)
-        out.update(img_pred=self.img_decode(feat), img_logvar=y_logvar)
+        feat, y_logvar, force_pred = self.decode_fn(z, x_dec)
+        out.update(img_pred=self.img_decode(feat), img_logvar=y_logvar,
+                   force_pred=force_pred, force_logvar=y_logvar)
         return out
 
-    def decode_samples(self, state: ModelState, samples):
-        """Batched decode of candidate poses with the current z seed.
-        Returns (y_logvar (N, y_logvar_dim), img_feat)."""
+    def decode_samples(self, state: ModelState, samples, use_z_ensemble: bool = False):
+        """Batched decode of candidate poses with the current z seed, or,
+        with ``use_z_ensemble``, under every latent of the ring in one batch
+        of z_mem * N rows, averaged over the ring. Returns (y_logvar (N,
+        y_logvar_dim), img_feat)."""
         x = samples - state.seed_x[None, :] if self.dx else samples
-        z = state.z[None, :].expand(x.shape[0], self.z_dim)
-        feat, y_logvar = self.decode_fn(z, x)
-        return y_logvar, feat
+        n = x.shape[0]
+        if not use_z_ensemble:
+            feat, y_logvar, _ = self.decode_fn(state.z[None, :].expand(n, self.z_dim), x)
+            return y_logvar, feat
+        zs = state.z_buff[:, None, :].expand(self.z_mem, n, self.z_dim)
+        xs = x[None].expand(self.z_mem, *x.shape)
+        feat, y_logvar, _ = self.decode_fn(zs.reshape(-1, self.z_dim),
+                                           xs.reshape(-1, x.shape[1]))
+        return (y_logvar.reshape(self.z_mem, n, -1).mean(0),
+                feat.reshape(self.z_mem, n, -1).mean(0))
 
     @torch.no_grad()
-    def pdf(self, state: ModelState, samples):
+    def pdf(self, state: ModelState, samples, use_z_ensemble: bool = False):
         """Predictive-uncertainty target: exp(y_logvar) max over channels at
-        each candidate pose; uniform before the first sample."""
-        y_logvar, _ = self.decode_samples(state, samples)
+        each candidate pose (averaged over the z ring with
+        ``use_z_ensemble``); uniform before the first sample."""
+        y_logvar, _ = self.decode_samples(state, samples, use_z_ensemble)
         var = torch.exp(y_logvar.clamp(*LOGVAR_LIMS)).amax(1)
         return torch.where(state.initialized, var, torch.ones_like(var))
 
@@ -238,19 +268,29 @@ def init_model_state(model: CVAE, device) -> ModelState:
     return ModelState(
         seed_x=torch.zeros(model.s_dim, device=device),
         seed_y=torch.zeros((h, w, c), device=device),
+        seed_force=torch.zeros(1, device=device),
         z=torch.zeros(model.z_dim, device=device),
+        z_buff=torch.zeros((model.z_mem, model.z_dim), device=device),
         initialized=torch.zeros((), dtype=torch.bool, device=device),
     )
 
 
 @torch.no_grad()
-def update_dist(model: CVAE, state: ModelState, x, y):
-    """Re-seed the target distribution from the latest sample. x (s_dim,),
-    y (H, W, C). Returns (state, forward outputs)."""
-    out = model(x[None], y[None], train=False)
+def update_dist(model: CVAE, state: ModelState, x, y, force=None):
+    """Re-seed the target distribution from the latest sample and shift its
+    latent into the z ring. x (s_dim,), y (H, W, C), force (1,); with
+    ``learn_force`` a missing force encodes as zero. Returns (state,
+    forward outputs)."""
+    force_b = None
+    if model.learn_force:
+        force_b = (force if force is not None else x.new_zeros(1))[None, :]
+    out = model(x[None], y[None], force=force_b, train=False)
+    z = out["z"][0]
     return ModelState(
         seed_x=x,
         seed_y=y.float(),  # the ring may hold bf16; the seed stays f32
-        z=out["z"][0],
+        seed_force=force if force is not None else state.seed_force,
+        z=z,
+        z_buff=torch.cat([z[None], state.z_buff[:-1]], 0),
         initialized=torch.ones((), dtype=torch.bool, device=x.device),
     ), out

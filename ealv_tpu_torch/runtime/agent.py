@@ -1,10 +1,11 @@
 """The explore-and-learn experiment (port of ``ealv_tpu/runtime/agent.py``).
 
 One ``tick`` syncs the planner to the measured state, plans with the
-KL-ergodic MPC, converts the plan to a velocity command, steps the
-synthetic env and renders the camera, pushes the sample to the replay
-ring, reseeds z, and makes the throttled trainer call. The state is
-updated in place and returned. The throttle counters (``explr_step``,
+KL-ergodic MPC (or steps a baseline explorer), converts the plan to a
+velocity command (and, with the brightness state ``b``, a brightness
+command), steps the synthetic env and renders the camera, pushes the
+sample to the replay ring, reseeds z, and makes the throttled trainer
+call. The state is updated in place and returned. The throttle counters (``explr_step``,
 ``learning_ind``) are host ints, so the throttle branches in Python and a
 tick never waits on the device. ``post_train_chunk`` is the training that
 follows exploration: trainer calls with no exploration.
@@ -17,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..utils.config import ExperimentConfig, TRAY_LIM
+from ..utils.config import ExperimentConfig, RAW_STATES, TRAY_LIM
 from ..utils.states import ws_conversion
 from ..models import CVAE
 from ..models.cvae import init_model_state, update_dist, ModelState
@@ -26,6 +27,7 @@ from ..control.klerg import KlergConfig, KlergPlanner, PlannerState
 from ..control.dynamics import make_dynamics
 from ..control.policies import make_policy
 from ..control.barrier import setup_barrier
+from ..control.baselines import BaselineController, BaselineDraws, BaselineState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
 from .trainer import TrainerStatics, TrainDraws, train_call
@@ -38,7 +40,7 @@ class ExperimentState:
     model: CVAE  # holds the parameters
     opt: torch.optim.Optimizer
     mstate: ModelState
-    pstate: PlannerState
+    pstate: PlannerState | BaselineState
     buf: ReplayBuffer
     env: EnvState
     hyper: HyperState
@@ -50,12 +52,17 @@ class ExperimentState:
 @dataclasses.dataclass
 class TickDraws:
     """One tick's random draws, fed instead of drawn (for step-matched
-    tests): planner target samples (N, d), the history draw's indices
-    (num_traj_samples,), and one ``TrainDraws`` per trainer call."""
+    tests): the planner's target samples (N, d) and history indices
+    (num_traj_samples,), or a baseline's ``BaselineDraws``; one
+    ``TrainDraws`` per trainer call; and, where the entropy grade is not
+    folded from the planner's decode, its uniform samples
+    (num_target_samples, s_dim) per trainer call."""
 
-    samples: torch.Tensor
-    hist_idx: torch.Tensor
-    train: list
+    samples: torch.Tensor | None = None
+    hist_idx: torch.Tensor | None = None
+    train: list | None = None
+    grade_samples: list | None = None
+    baseline: BaselineDraws | None = None
 
 
 @dataclasses.dataclass
@@ -68,6 +75,71 @@ class PostTrainDraws:
     train: TrainDraws
 
 
+class ExploredStates:
+    """Where the explored states sit in the env's 6-DoF pose and its
+    brightness, and their workspace limits: the brightness state ``b`` has
+    no pose slot, so it is inserted into measured states and split off
+    commands at its place ``b_pos`` in the state string."""
+
+    def __init__(self, cfg: ExperimentConfig, states: str, device):
+        sub = [cfg.states.rfind(s) for s in states]
+        t = lambda a: torch.as_tensor(a[sub], device=device)
+        self.pose_sel = torch.tensor([RAW_STATES.rfind(s) for s in states if s != "b"],
+                                     device=device)
+        self.b_pos = states.rfind("b")  # -1 without b
+        self.tray_lim, self.robot_lim = t(cfg.tray_lim), t(cfg.robot_lim)
+        self.tray_ctrl_lim, self.robot_ctrl_lim = t(cfg.tray_ctrl_lim), t(cfg.robot_ctrl_lim)
+        self.tray_full_lim = torch.cat([self.tray_lim, self.tray_ctrl_lim], 0)
+        self.robot_full_lim = torch.cat([self.robot_lim, self.robot_ctrl_lim], 0)
+
+    def _insert_b(self, v, value):
+        if self.b_pos < 0:
+            return v
+        return torch.cat([v[: self.b_pos], value.reshape(1).to(v), v[self.b_pos:]])
+
+    def start(self, tray_pose6):
+        """Robot-coordinate start position at a tray pose, brightness at
+        mid-range."""
+        b_mid = torch.tensor(sum(TRAY_LIM["b"]) / 2, device=tray_pose6.device)
+        start = self._insert_b(tray_pose6[self.pose_sel], b_mid)
+        return ws_conversion(start, self.tray_lim, self.robot_lim)
+
+    def measured(self, env: EnvState):
+        """(pose, vel) tray -> robot coords over the explored states, the
+        brightness and a zero velocity at ``b_pos``."""
+        pose = self._insert_b(env.pose[self.pose_sel], env.brightness)
+        vel = self._insert_b(env.vel[self.pose_sel], env.vel.new_zeros(()))
+        return ws_conversion(torch.cat([pose, vel]), self.tray_full_lim,
+                             self.robot_full_lim)
+
+    def command(self, x_pred, vel_pred):
+        """The predicted robot-coordinate (position, velocity) as a clipped
+        tray-frame 6-twist and, with ``b``, the brightness command (the
+        predicted position at ``b_pos`` in tray coords; else None)."""
+        vel = ws_conversion(vel_pred, self.robot_ctrl_lim, self.tray_ctrl_lim)
+        vel = torch.clamp(vel, self.tray_ctrl_lim[:, 0], self.tray_ctrl_lim[:, 1])
+        b_cmd = None
+        if self.b_pos >= 0:
+            b_cmd = ws_conversion(x_pred, self.robot_lim, self.tray_lim)[self.b_pos]
+            vel = torch.cat([vel[: self.b_pos], vel[self.b_pos + 1:]])
+        vel6 = torch.zeros(6, device=vel.device)
+        vel6[self.pose_sel] = vel
+        return vel6, b_cmd
+
+
+def reject_unported(cfg: ExperimentConfig):
+    """Raise ``NotImplementedError`` on the configurations the port has no
+    counterpart or no reference for."""
+    if cfg.sim_backend in ("arm", "arm-dynamic", "arm-dynamic-soft"):
+        raise NotImplementedError(f"sim_backend={cfg.sim_backend!r}: the kinematic arm "
+                                  "(ArmEnv) is not ported yet")
+    if cfg.states != cfg.states.lower():
+        raise NotImplementedError(
+            f"states={cfg.states!r}: velocity (upper-case) states have no limits in "
+            "the experiment's tables; the JAX ExperimentConfig fails there too "
+            "(ealv_tpu/utils/config.py:156, TRAY_LIM has no upper-case keys)")
+
+
 class Experiment:
     """Builds and runs the online-learning experiment on ``device``."""
 
@@ -76,17 +148,7 @@ class Experiment:
                  device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError("the multi-device mesh is not ported yet")
-        if "klerg" not in cfg.explr_method:
-            raise NotImplementedError(f"baseline method {cfg.explr_method!r} "
-                                      "is not ported yet")
-        if cfg.use_z_ensemble:
-            raise NotImplementedError("use_z_ensemble is not ported yet")
-        if cfg.sim_backend != "free":
-            raise NotImplementedError(f"sim_backend={cfg.sim_backend!r} is not "
-                                      "ported yet")
-        if "b" in cfg.states or cfg.states != cfg.states.lower():
-            raise NotImplementedError("the port explores lower-case pose "
-                                      "states without 'b'")
+        reject_unported(cfg)
         if cfg.use_magnitude:
             raise NotImplementedError(
                 "use_magnitude=True: the JAX Experiment fails on its first tick "
@@ -106,7 +168,7 @@ class Experiment:
         self.scene = scene
         dev = self.device
         states = cfg.states
-        self.pose_sel = torch.tensor(cfg.sel(), device=dev)
+        self.explored = ExploredStates(cfg, states, dev)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
 
         # as in the JAX Experiment: no angle scale or shift, so an xyzrpw
@@ -120,8 +182,15 @@ class Experiment:
         )
         self.planner = KlergPlanner(
             kcfg, self.dyn, make_policy("Roll", self.dyn, cfg.horizon),
-            lambda ctx, samples: ctx[0].pdf(ctx[1], samples),
+            lambda ctx, samples: ctx[0].pdf(ctx[1], samples,
+                                            use_z_ensemble=cfg.use_z_ensemble),
             states, explr_locs=list(range(len(states))), device=dev)
+        # the baseline explorers: every method that is not a *klerg one
+        self.use_baseline = "klerg" not in cfg.explr_method
+        if self.use_baseline:
+            self.baseline = BaselineController(
+                cfg.explr_method, cfg.dt, cfg.robot_lim, cfg.robot_ctrl_lim,
+                buffer_capacity=cfg.traj_buffer_capacity, device=dev)
         self.trainer = TrainerStatics(
             batch_size=cfg.batch_size, num_learning_opt=cfg.num_learning_opt,
             gamma_weight=cfg.gamma_weight, other_locs=cfg.other_locs,
@@ -130,13 +199,8 @@ class Experiment:
         self.tray6 = tuple(TRAY_LIM[s] for s in "xyzrpw")
         self.env = SyntheticEnv(tray_lim=self.tray6, dt=cfg.dt / 5.0,
                                 img_hw=cfg.image_dim[:2], device=str(dev))
-        t = lambda a: torch.as_tensor(a, device=dev)
-        self.tray_lim = t(cfg.tray_lim)
-        self.robot_lim = t(cfg.robot_lim)
-        self.tray_ctrl_lim = t(cfg.tray_ctrl_lim)
-        self.robot_ctrl_lim = t(cfg.robot_ctrl_lim)
-        self.tray_full_lim = torch.cat([self.tray_lim, self.tray_ctrl_lim], 0)
-        self.robot_full_lim = torch.cat([self.robot_lim, self.robot_ctrl_lim], 0)
+        self.robot_lim = self.explored.robot_lim
+        self.robot_ctrl_lim = self.explored.robot_ctrl_lim
 
     def make_model(self) -> CVAE:
         cfg = self.cfg
@@ -160,11 +224,14 @@ class Experiment:
         barrier, _ = setup_barrier(cfg.states, self.robot_lim,
                                    self.robot_ctrl_lim, list(range(cfg.s_dim)))
         tray_center = torch.tensor([(lo + hi) / 2 for lo, hi in self.tray6], device=dev)
-        x0r = ws_conversion(tray_center[self.pose_sel], self.tray_lim, self.robot_lim)
-        pstate = self.planner.init_state(
-            torch.cat([x0r, torch.zeros_like(x0r)]), self.robot_lim, barrier,
-            buffer_capacity=cfg.traj_buffer_capacity,
-            explr_lim_scale=cfg.explr_robot_lim_scale, seed=seed + 1)
+        x0r = self.explored.start(tray_center)
+        if self.use_baseline:
+            pstate = self.baseline.init_state(x0r, seed=seed + 1)
+        else:
+            pstate = self.planner.init_state(
+                torch.cat([x0r, torch.zeros_like(x0r)]), self.robot_lim, barrier,
+                buffer_capacity=cfg.traj_buffer_capacity,
+                explr_lim_scale=cfg.explr_robot_lim_scale, seed=seed + 1)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return ExperimentState(
@@ -178,35 +245,39 @@ class Experiment:
     # ------------------------------------------------------------------
     def _measured_robot_state(self, env: EnvState):
         """(pose, vel) tray -> robot coords over the explored states."""
-        full = torch.cat([env.pose[self.pose_sel], env.vel[self.pose_sel]])
-        return ws_conversion(full, self.tray_full_lim, self.robot_full_lim)
+        return self.explored.measured(env)
 
     def plan_step(self, es: ExperimentState, full_state, draws: TickDraws | None = None):
-        """Sync the planner to the measured state, plan, and convert the
-        predicted velocity to a tray-frame 6-twist. Returns (pstate, vel6,
+        """Sync the planner (or the baseline) to the measured state, plan
+        (or step), and convert the predicted state to a tray-frame 6-twist
+        and a brightness command. Returns (pstate, vel6, b_cmd or None,
         info)."""
         m = self.dyn.num_actions
-        pstate = self.planner.save_update(es.pstate, full_state, save=True)
-        pstate, info = self.planner.plan(
-            pstate, (es.model, es.mstate),
-            use_prior=es.explr_step < self.cfg.prior_steps,
-            samples=draws.samples if draws else None,
-            hist_idx=draws.hist_idx if draws else None)
-        vel_pred_r = self.dyn.step(pstate.dyn, pstate.u[0]).x[m:]
-        vel_tray = ws_conversion(vel_pred_r, self.robot_ctrl_lim, self.tray_ctrl_lim)
-        vel_tray = torch.clamp(vel_tray, self.tray_ctrl_lim[:, 0], self.tray_ctrl_lim[:, 1])
-        vel6 = torch.zeros(6, device=self.device)
-        vel6[self.pose_sel] = vel_tray
-        return pstate, vel6, info
+        if self.use_baseline:
+            pstate = self.baseline.save_update(es.pstate, full_state, save=True)
+            pstate, x_pred, vel_pred = self.baseline.step(
+                pstate, draws.baseline if draws else None)
+            info = {"cost": torch.zeros((), device=self.device)}
+        else:
+            pstate = self.planner.save_update(es.pstate, full_state, save=True)
+            pstate, info = self.planner.plan(
+                pstate, (es.model, es.mstate),
+                use_prior=es.explr_step < self.cfg.prior_steps,
+                samples=draws.samples if draws else None,
+                hist_idx=draws.hist_idx if draws else None)
+            x_pred = self.dyn.step(pstate.dyn, pstate.u[0]).x
+            vel_pred = x_pred[m:]
+        vel6, b_cmd = self.explored.command(x_pred[:m], vel_pred)
+        return pstate, vel6, b_cmd, info
 
     def tick(self, es: ExperimentState, draws: TickDraws | None = None):
         """One exploration step plus throttled learning. Returns (es,
         tick_info); ``es`` is updated in place."""
         full_state = self._measured_robot_state(es.env)
-        pstate, vel6, info = self.plan_step(es, full_state, draws)
+        pstate, vel6, b_cmd, info = self.plan_step(es, full_state, draws)
         env = es.env
         for _ in range(self.cfg.data_to_ctrl_rate):
-            env = self.env.step_vel(env, vel6)
+            env = self.env.step_vel(env, vel6, b_cmd)
         _, _, force, img = self.env.observe(env)
         robot_state = self._measured_robot_state(env)[: self.cfg.s_dim]
         es.env = env
@@ -223,8 +294,14 @@ class Experiment:
         if cfg.image_dim[2] == 1 and img.shape[-1] != 1:
             img = img.mean(-1, keepdim=True)
         es.buf.push(robot_state, img, force)
-        es.mstate, _ = update_dist(es.model, es.mstate, robot_state, img)
+        es.mstate, _ = update_dist(es.model, es.mstate, robot_state, img,
+                                   force if cfg.learn_force else None)
         es.pstate = pstate
+        # the grade folds the planner's own decode only where that decode is
+        # the plain pdf: not under the z-ensemble, and a baseline decodes none
+        fold = (cfg.hyper_from_planner and not self.use_baseline
+                and not cfg.use_z_ensemble
+                and "tdist_pdf" in info and "tdist_spread" in info)
 
         metrics = None
         for i in range(self.train_calls_per_tick):
@@ -237,14 +314,15 @@ class Experiment:
                 # a skipped call reports zero metrics and pushes no grade
                 metrics = None
                 continue
-            if cfg.hyper_from_planner and "tdist_pdf" in info and "tdist_spread" in info:
+            if fold:
                 # reuse the planner's pdf decode and coverage of this tick
                 spread = info["tdist_spread"]
                 grade = entropy_grade(info["tdist_pdf"], spread, cfg.xi)
             else:
-                grade, spread = self._grade_spread(es)
+                grade, spread = self._grade_spread(
+                    es, draws.grade_samples[i] if draws and draws.grade_samples else None)
             metrics = self._hyper_and_train(es, grade, spread,
-                                            draws.train[i] if draws else None)
+                                            draws.train[i] if draws and draws.train else None)
 
         es.explr_step += 1
         zero = torch.zeros((), device=self.device)

@@ -1,6 +1,8 @@
 """Trainer call, the learning half of the loop (port of
 ``ealv_tpu/runtime/trainer.py``): ``num_learning_opt`` Adam steps on
 weighted batches with the cross-decode loss and the latent diagnostics.
+With the force variant the sampled forces are the encoder's input and the
+force head's target, the cross-decode draw's forces its second target.
 
 ``torch.optim.Adam`` computes the same update as ``optax.adam`` (eps_root
 0). ``fused_adam=True`` swaps in ``FusedAdam``, whose step is one launch of
@@ -65,16 +67,17 @@ def train_call(statics: TrainerStatics, model: CVAE, opt, buf: ReplayBuffer,
             idx2 = (buf.sample_indices(B, weighted=False, generator=generator)
                     if statics.other_locs else None)
             eps = None
-        x, y = buf.x[idx], buf.y[idx]
-        x_dec = y2 = None
+        x, y, force = buf.x[idx], buf.y[idx], buf.force[idx]
+        x_dec = y2 = force2 = None
         if statics.other_locs:
-            x2, y2 = buf.x[idx2], buf.y[idx2]
+            x2, y2, force2 = buf.x[idx2], buf.y[idx2], buf.force[idx2]
             x_dec = x2 - x if model.dx else x2
-        out = model(x, y, x_decode=x_dec, train=not deterministic, eps=eps,
-                    generator=generator)
+        out = model(x, y, force=force if model.learn_force else None, x_decode=x_dec,
+                    train=not deterministic, eps=eps, generator=generator)
         loss, m = cvae_loss(out, y, y2=y2, beta=beta, gamma=gamma,
                             gamma_weight=statics.gamma_weight,
-                            other_locs=statics.other_locs)
+                            other_locs=statics.other_locs, force=force,
+                            force2=force2, learn_force=model.learn_force)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
@@ -93,5 +96,7 @@ def train_call(statics: TrainerStatics, model: CVAE, opt, buf: ReplayBuffer,
         }
         if statics.other_locs:
             row["rc_other"] = m["rc_other"].detach()
+        if model.learn_force:
+            row["force"] = m["force"].detach()
         rows.append(row)
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

@@ -4,6 +4,7 @@ fused, chunked path of ``scripts/run_experiment.py``).
     python -m ealv_tpu_torch.scripts.run_experiment --method entklerg --steps 300
     python -m ealv_tpu_torch.scripts.run_experiment --small --device cpu --steps 20
     python -m ealv_tpu_torch.scripts.run_experiment --steps 300 --resume
+    python -m ealv_tpu_torch.scripts.run_experiment --method randomWalk --states xywb
 
 Writes to the run dir ({out}/synth/{method}_{seed:04d}/): config.yaml,
 log.txt, metrics.npz (+ metrics_summary.json), checkpoints/step_* every
@@ -14,10 +15,12 @@ goes; the port never moves to the CPU by itself.
 Differences from the JAX script: exploration runs exactly ``--steps``
 steps (full ``--chunk`` chunks, then the rest) and post-training stops
 exactly at ``num_steps * target_learning_rate`` trainer calls, since nothing
-here is compiled for a fixed chunk length. The figures are not drawn. Options
-that are not ported (arm backends, baseline methods, the host loop, panels,
-the dashboard, the profiler, the clustering monitor, entropy slices) are
-rejected, never ignored.
+here is compiled for a fixed chunk length. The figures are not drawn. The
+force variant (``learn_force``) and the z-ensemble (``use_z_ensemble``) are
+switched on in a ``--config`` yaml, as in the JAX script. Options that are
+not ported (arm backends, the host loop, panels, the dashboard, the
+profiler, the clustering monitor, entropy slices) are rejected, never
+ignored.
 """
 
 from __future__ import annotations
@@ -48,9 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="Explore-and-learn run of the PyTorch port.")
     ap.add_argument("--method", default="entklerg",
                     choices=["entklerg", "unifklerg", "uniform", "randomWalk"],
-                    help="exploration method; the baselines (uniform, "
-                         "randomWalk) are not ported")
-    ap.add_argument("--states", default="xyw")
+                    help="exploration method: the ergodic planner (entklerg, "
+                         "unifklerg) or a baseline explorer (uniform, randomWalk)")
+    ap.add_argument("--states", default="xyw",
+                    help="explored states, a subset of 'xyzrpwb' (b: brightness)")
     ap.add_argument("--backend", default=None,
                     choices=["free", "arm", "arm-dynamic", "arm-dynamic-soft"],
                     help="simulator backend; only 'free' is ported")
@@ -89,8 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
     if args.backend not in (None, "free"):
         ap.error(f"--backend {args.backend} is not ported yet")
-    if args.method in ("uniform", "randomWalk"):
-        ap.error(f"--method {args.method} (a baseline) is not ported yet")
     for flag, on in (("--cluster-every", args.cluster_every > 0),
                      ("--host-loop", args.host_loop), ("--panel", args.panel),
                      ("--web-panel", args.web_panel >= 0),

@@ -1,7 +1,8 @@
 """Synthetic Franka-like environment (port of the ``free`` backend of
 ``ealv_tpu/sim/env.py``): velocity commands integrate the pose inside the
-tray box, the wrist camera renders, and a soft contact force rises when the
-end effector presses below an object's height."""
+tray box, pose commands low-pass toward a clipped target, the wrist camera
+renders, and a soft contact force rises when the end effector presses below
+an object's height."""
 
 from __future__ import annotations
 
@@ -62,6 +63,16 @@ class SyntheticEnv:
         pose = torch.clamp(s.pose + vel * self.dt, lims[:, 0], lims[:, 1])
         b = s.brightness if cmd_brightness is None else cmd_brightness
         return dataclasses.replace(s, pose=pose, vel=vel, brightness=b)
+
+    def step_pose(self, s: EnvState, cmd_pose, cmd_brightness=None) -> EnvState:
+        """Pose command: one low-pass step toward the clipped target; the
+        velocity is the step's finite difference."""
+        lims = self._lims()
+        target = torch.clamp(cmd_pose.float(), lims[:, 0], lims[:, 1])
+        pose = 0.7 * target + 0.3 * s.pose
+        b = s.brightness if cmd_brightness is None else cmd_brightness
+        return dataclasses.replace(s, pose=pose, vel=(pose - s.pose) / self.dt,
+                                   brightness=b)
 
     def observe(self, s: EnvState):
         """(pose, vel, force (1,), image (H, W, 3))."""

@@ -8,6 +8,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -32,6 +33,37 @@ class TrayScene(NamedTuple):
             obj_color=t([[0.95, 0.85, 0.1], [0.2, 0.7, 0.3]]),
             ground_color=t([0.45, 0.35, 0.3]),
         )
+
+    @classmethod
+    def make(cls, k: int, seed: int = 0, device="cuda"):
+        """K objects on a jittered ring inside the tray (so every pair stays
+        apart) with distinct colours, radii and heights; drawn with numpy
+        from ``seed``, the same scene as the JAX package's ``make``."""
+        rng = np.random.default_rng(seed)
+        cx, cy, r0 = 0.475, 0.0, 0.065
+        ang = 2 * np.pi * (np.arange(k) / k) + rng.uniform(-0.2, 0.2, k)
+        xy = np.stack([cx + r0 * np.cos(ang), cy + r0 * np.sin(ang)], 1)
+        hues = np.linspace(0.0, 1.0, k, endpoint=False)
+        colors = np.stack([0.5 + 0.45 * np.cos(2 * np.pi * (hues + s))
+                           for s in (0.0, 1 / 3, 2 / 3)], 1)
+        t = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
+        return cls(
+            obj_xy=t(xy),
+            obj_radius=t(0.026 + 0.012 * rng.random(k)),
+            obj_height=t(0.21 + 0.05 * rng.random(k)),
+            obj_color=t(colors),
+            ground_color=t([0.45, 0.35, 0.3]),
+        )
+
+    def move_objects(self, tray_lim_xy, generator: torch.Generator | None = None,
+                     xy=None):
+        """Place the objects uniformly in ``tray_lim_xy`` (2, 2), drawn from
+        ``generator`` unless ``xy`` (K, 2) feeds the draw in [0, 1)."""
+        if xy is None:
+            xy = torch.rand(self.obj_xy.shape, generator=generator,
+                            device=self.obj_xy.device)
+        lo, hi = tray_lim_xy[:, 0], tray_lim_xy[:, 1]
+        return self._replace(obj_xy=xy * (hi - lo) + lo)
 
 
 def _radiance(scene: TrayScene, u, v):

@@ -11,7 +11,8 @@ same weights:
     (k-1, k-1+deficit) padding is the port's output_padding)
   - the conv features flatten (h, w, C) in JAX and (C, h, w) here, so the
     feature columns of ``enc_fc0`` and the feature rows of ``dec_out`` are
-    permuted.
+    permuted. The force variant's extra encoder input column (after the
+    features) and decoder output row (after the logvars) stay in place.
 
 ``opt_state_from_jax`` carries an optax ``ScaleByAdamState`` or the JAX
 package's ``PallasAdamState`` (count, mu, nu) over to the port's
@@ -45,6 +46,7 @@ def params_from_jax(params, model) -> dict:
     c_last, h, w = model.inner_shape
     perm = _feat_perm((h, w), c_last)
     v = model.y_logvar_dim
+    nf = model.force_dim
     sd = {}
 
     convs = [i for i, m in enumerate(model.img_encoder) if isinstance(m, nn.Conv2d)]
@@ -57,7 +59,7 @@ def params_from_jax(params, model) -> dict:
         name = f"enc_fc{j}" if j < len(fcs) - 1 else "enc_out"
         W = a(p[name]["kernel"]).T  # (out, in), columns in JAX order
         if j == 0:
-            col_perm = np.concatenate([perm, model.feat_dim + np.arange(model.s_dim)])
+            col_perm = np.concatenate([perm, model.feat_dim + np.arange(nf + model.s_dim)])
             Wt = np.empty_like(W)
             Wt[:, col_perm] = W
             W = Wt
@@ -69,7 +71,7 @@ def params_from_jax(params, model) -> dict:
         name = f"dec_fc{j}" if j < len(fcs) - 1 else "dec_out"
         W, b = a(p[name]["kernel"]).T, a(p[name]["bias"])
         if j == len(fcs) - 1:
-            row_perm = np.concatenate([np.arange(v), v + perm])
+            row_perm = np.concatenate([np.arange(v + nf), v + nf + perm])
             Wt, bt = np.empty_like(W), np.empty_like(b)
             Wt[row_perm], bt[row_perm] = W, b
             W, b = Wt, bt

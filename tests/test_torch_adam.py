@@ -188,12 +188,15 @@ def test_trainer_switch_follows_the_jax_user_flow():
 RAGGED = [1, 3, 4, 5, 127, 129, 4097, 3 * 4096 + 5]
 
 
-def _cvae_sizes():
+def _cvae_sizes(force=False):
+    """The production CVAE's parameter sizes; with ``force`` the variant
+    at states "xywb" with learn_force (one more encoder input column, one
+    more decoder output row)."""
     from ealv_tpu_torch.models import CVAE
     from ealv_tpu_torch.utils.config import ExperimentConfig
-    cfg = ExperimentConfig()
+    cfg = ExperimentConfig(states="xywb" if force else "xyw")
     model = CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim, s_dim=cfg.s_dim,
-                 hidden_dim=cfg.model_hidden())
+                 hidden_dim=cfg.model_hidden(), learn_force=force)
     return [p.numel() for p in model.parameters()]
 
 
@@ -230,13 +233,14 @@ def _kernel_writes(plan):
     return counts
 
 
-@pytest.mark.parametrize("sizes", [[n] for n in RAGGED] + [RAGGED, "cvae"],
-                         ids=lambda s: "cvae" if s == "cvae" else "-".join(map(str, s)))
+@pytest.mark.parametrize("sizes", [[n] for n in RAGGED] + [RAGGED, "cvae", "cvae-force"],
+                         ids=lambda s: s if isinstance(s, str) else "-".join(map(str, s)))
 @pytest.mark.parametrize("aligned", ["all", "none", "alternate"])
 def test_plan_updates_every_element_once(sizes, aligned):
     """Every element of every tensor is written by exactly one thread,
     through the float4 path and its scalar tail or the scalar path."""
-    sizes = _cvae_sizes() if sizes == "cvae" else sizes
+    if isinstance(sizes, str):
+        sizes = _cvae_sizes(force=sizes == "cvae-force")
     vec = {"all": [True] * len(sizes), "none": [False] * len(sizes),
            "alternate": [i % 2 == 0 for i in range(len(sizes))]}[aligned]
     plan = tad.adam_plan(sizes, vec)
@@ -245,11 +249,16 @@ def test_plan_updates_every_element_once(sizes, aligned):
         assert c.size == n and (c == 1).all()
 
 
-def test_cvae_plan_is_one_launch_of_float4_blocks():
-    sizes = _cvae_sizes()
-    assert len(sizes) == 24 and sum(sizes) == 4309220
+# the force variant at xywb: two more encoder input columns (the force and
+# b, 2 x 512), one more decoder input column (b, 256) and one more decoder
+# output row with its bias (the force head, 512 + 1)
+@pytest.mark.parametrize("force,total,blocks", [(False, 4309220, 1070),
+                                                (True, 4309220 + 1024 + 256 + 513, 1070)])
+def test_cvae_plan_is_one_launch_of_float4_blocks(force, total, blocks):
+    sizes = _cvae_sizes(force)
+    assert len(sizes) == 24 and sum(sizes) == total
     plan = tad.adam_plan(sizes, [True] * 24)
-    assert plan.blocks == 1070 and len(sizes) <= tad.ADAM_MAX_TENSORS
+    assert plan.blocks == blocks and len(sizes) <= tad.ADAM_MAX_TENSORS
 
 
 def _lists(shapes, seed=0):

@@ -46,7 +46,7 @@ def _inputs(n, t, d, mask_kind, dev, seed=0):
 @pytest.mark.parametrize("n,t,d,mask_kind", [
     (700, 900, 4, "random"), (700, 900, 2, "random"), (700, 900, 6, "random"),
     (300, 500, 3, "zero"), (2000, 10, 3, "ones"), (2000, 3000, 3, "random"),
-    (1, 1, 8, "ones"),
+    (2000, 3000, 4, "random"), (2000, 10, 4, "ones"), (1, 1, 8, "ones"),
     # T-splits cut unevenly: a T that S does not divide, more splits than
     # points per split, splits longer than one staged stretch, T = 1, d = 8
     (2000, 3001, 3, "random"), (3, 6400, 2, "random"), (33, 80000, 5, "random"),
@@ -109,10 +109,12 @@ def test_other_dtypes_and_shapes_raise(cuda):
 ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
 
 
-def production_param_shapes():
-    cfg = ExperimentConfig()
+def production_param_shapes(force=False):
+    """The production CVAE's parameter shapes; with ``force`` the force
+    variant's at states "xywb"."""
+    cfg = ExperimentConfig(states="xywb" if force else "xyw")
     model = CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim, s_dim=cfg.s_dim,
-                 hidden_dim=cfg.model_hidden())
+                 hidden_dim=cfg.model_hidden(), learn_force=force)
     return [tuple(p.shape) for p in model.parameters()]
 
 
@@ -150,6 +152,13 @@ def test_adam_kernel_matches_plain_at_production_shapes(cuda):
     shapes = production_param_shapes()
     assert len(shapes) == 24
     _adam_check(shapes, cuda, count=7, launches=1)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_matches_plain_at_the_force_variant_shapes(cuda):
+    """The force variant's 24 tensors: one more encoder input column and
+    one more decoder output row move the float4/scalar-tail split."""
+    _adam_check(production_param_shapes(force=True), cuda, count=7, launches=1)
 
 
 @pytest.mark.cuda

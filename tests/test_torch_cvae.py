@@ -181,7 +181,8 @@ def test_forward_and_loss_match_jax_bf16():
 @pytest.mark.parametrize("kwargs", [dict(decoder_mode="subpixel"),
                                     dict(decoder_mode="resize_conv"),
                                     dict(lane_pad=8), dict(fast_encoder_grads="s2d"),
-                                    dict(learn_force=True)])
+                                    dict(fast_encoder_grads="im2col"),
+                                    dict(fast_encoder_grads=True)])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         CVAE(img_dim=(24, 24, 3), **kwargs)

@@ -11,9 +11,11 @@ import torch
 from ealv_tpu_torch.control.dynamics import (DoubleIntegrator, DoubleIntegratorRoll,
                                              DoubleIntegratorSpeed, SingleIntegrator,
                                              make_dynamics)
+from ealv_tpu_torch.control.baselines import BaselineController
 from ealv_tpu_torch.control.klerg import KlergPlanner
 from ealv_tpu_torch.control.target_dists import ExplrDist, gaussian_dist, prior_dist
-from ealv_tpu_torch.runtime import Experiment
+from ealv_tpu_torch.runtime import EvalExperiment, Experiment
+from ealv_tpu_torch.scripts.collect_test_set import collect
 from ealv_tpu_torch.sim.env import SyntheticEnv
 from ealv_tpu_torch.sim.renderer import TrayScene
 from ealv_tpu_torch.utils.config import ExperimentConfig
@@ -28,7 +30,8 @@ TRAY6 = ((0.2, 0.8), (-0.3, 0.3), (0.05, 0.5), (-3.5, 3.5), (-0.5, 0.5), (-1.0, 
                                 TrayScene.default, SingleIntegrator.__init__,
                                 DoubleIntegratorSpeed.__init__,
                                 DoubleIntegratorRoll.__init__, gaussian_dist,
-                                ExplrDist.create],
+                                ExplrDist.create, BaselineController.__init__,
+                                TrayScene.make, EvalExperiment.__init__, collect],
                          ids=lambda f: f.__qualname__)
 def test_constructor_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -42,12 +45,17 @@ def test_env_defaults_to_the_card():
 
 # each builds its first tensor on the default device
 DEFAULT_BUILDS = {
-    "Experiment": lambda: Experiment(ExperimentConfig(**TOY)).pose_sel,
+    "Experiment": lambda: Experiment(ExperimentConfig(**TOY)).explored.pose_sel,
     "make_dynamics": lambda: make_dynamics("xy", dt=0.1).A,
     "make_dynamics roll": lambda: make_dynamics("xyzrpw", dt=0.1).A,
     "prior_dist": lambda: prior_dist("xyw").means,
     "TrayScene.default": lambda: TrayScene.default().obj_xy,
     "SyntheticEnv": lambda: SyntheticEnv(tray_lim=TRAY6)._lims(),
+    "TrayScene.make": lambda: TrayScene.make(3).obj_xy,
+    "BaselineController": lambda: BaselineController("uniform", 0.2, ((-1, 1),),
+                                                     ((-1, 1),)).lims,
+    "EvalExperiment": lambda: EvalExperiment(ExperimentConfig(**TOY),
+                                             lambda c, s: s[:, 0]).explored.pose_sel,
 }
 
 
@@ -64,5 +72,5 @@ def test_default_device_is_the_card_or_raises(name):
 
 def test_explicit_cpu_runs_on_the_cpu():
     exp = Experiment(ExperimentConfig(**TOY), device="cpu")
-    assert exp.device.type == "cpu" and exp.pose_sel.device.type == "cpu"
+    assert exp.device.type == "cpu" and exp.explored.pose_sel.device.type == "cpu"
     assert exp.planner.std.device.type == "cpu"

@@ -60,7 +60,9 @@ def _experiments():
                          learning_ind=jnp.int32(3))
     es_t.mstate = ModelState(seed_x=torch.tensor(np.asarray(ms.seed_x)),
                              seed_y=torch.tensor(np.asarray(ms.seed_y)),
+                             seed_force=torch.tensor(np.asarray(ms.seed_force)),
                              z=torch.tensor(np.asarray(ms.z)),
+                             z_buff=torch.tensor(np.asarray(ms.z_buff)),
                              initialized=torch.tensor(True))
     es_t.explr_step, es_t.learning_ind = N_FILLED, 3
     return exp_j, es_j, exp_t, es_t

@@ -164,3 +164,39 @@ def test_traj_memory_get_recent_matches_jax(n_push, k):
     assert got.shape == (k, 3)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+
+
+@pytest.mark.parametrize("cap,n_push,n_hyper", [(6, 0, 0), (6, 4, 3), (6, 11, 7), (7, 23, 2)])
+def test_getters_match_jax(cap, n_push, n_hyper):
+    """get_hyperparams (means over the filled hyperparameter ring, one
+    non-finite push dropped), get_xi and get_last, before and after the
+    rings wrap."""
+    jb, tb = _pair(cap, n_push, seed=7)
+    rng = np.random.default_rng(8)
+    for i in range(n_hyper):
+        g, s = rng.uniform(0, 1, 2).astype(np.float32)
+        if i == 1:
+            g = np.float32(np.nan)
+        jb = jb.update_hyperparams(i, jnp.float32(g), jnp.float32(s))
+        tb.update_hyperparams(i, torch.tensor(g), torch.tensor(s))
+    for got, want, what in zip(tb.get_hyperparams(), jb.get_hyperparams(),
+                               ("explr_ind", "beta", "gamma")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, err_msg=what)
+    np.testing.assert_allclose(tb.get_xi().numpy(), np.asarray(jb.get_xi()), rtol=1e-6)
+    for got, want, what in zip(tb.get_last(), jb.get_last(), ("x", "y", "force")):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=what)
+
+
+def test_sample_with_fed_and_own_draws():
+    """sample() returns the rows of the JAX draw's indices when fed them,
+    and of its own valid, distinct draw otherwise."""
+    jb, tb = _pair(8, 6, seed=9)
+    key = jax.random.PRNGKey(2)
+    jx, jy, jf, jidx = jb.sample(key, 4, weighted=True)
+    x, y, f, idx = tb.sample(4, weighted=True,
+                             idx=torch.tensor(np.asarray(jidx), dtype=torch.int64))
+    for got, want, what in ((x, jx, "x"), (y, jy, "y"), (f, jf, "force")):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=what)
+    x, y, f, idx = tb.sample(4, generator=torch.Generator().manual_seed(0))
+    assert len(set(idx.tolist())) == 4 and int(idx.max()) < 6
+    assert torch.equal(x, tb.x[idx]) and torch.equal(f, tb.force[idx])

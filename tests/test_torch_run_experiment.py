@@ -64,7 +64,7 @@ def test_resume_continues_from_the_latest_step(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--backend", "arm"], ["--backend", "arm-dynamic"], ["--backend", "arm-dynamic-soft"],
-    ["--method", "uniform"], ["--method", "randomWalk"], ["--host-loop"], ["--panel"],
+    ["--host-loop"], ["--panel"],
     ["--web-panel", "0"], ["--dash-every", "5"], ["--profile"], ["--cluster-every", "5"],
     ["--entropy-slices"]])
 def test_unported_options_are_rejected(tmp_path, flags):
@@ -72,6 +72,34 @@ def test_unported_options_are_rejected(tmp_path, flags):
         cli.main([*SMALL, "--steps", "2", "--out", str(tmp_path), *flags])
     assert e.value.code == 2
     assert not os.listdir(tmp_path)  # rejected before the run dir is made
+
+
+@pytest.mark.parametrize("flags,config", [
+    (["--method", "uniform"], None), (["--method", "randomWalk", "--states", "xywb"], None),
+    (["--states", "xywb"], "learn_force: true\nuse_z_ensemble: true\n")])
+def test_baselines_and_variants_run(tmp_path, flags, config):
+    """A baseline explorer, the brightness state, and the force variant
+    with the z-ensemble from a --config yaml: 3 steps and post-training to
+    9 trainer calls, finite losses, the options in the written config."""
+    out = str(tmp_path / "run")
+    extra = []
+    if config:
+        path = tmp_path / "cfg.yaml"
+        path.write_text(config)
+        extra = ["--config", str(path)]
+    es = cli.main([*SMALL, "--steps", "3", "--out", out, *flags, *extra])
+    assert es.explr_step == 3 and es.learning_ind == 9
+    method = flags[flags.index("--method") + 1] if "--method" in flags else "entklerg"
+    d = os.path.join(out, "synth", f"{method}_0000")
+    m = np.load(os.path.join(d, "metrics.npz"))
+    assert np.isfinite(m["loss"]).all() and m["loss"].shape == (3 + 9 - 2,)
+    cfg = open(os.path.join(d, "config.yaml")).read()
+    assert f"explr_method: {method}" in cfg
+    if config:
+        assert "learn_force: true" in cfg and "use_z_ensemble: true" in cfg
+        assert es.model.learn_force and int(es.mstate.z_buff.abs().sum() > 0)
+    if "xywb" in flags:
+        assert "states: xywb" in cfg and es.buf.x.shape[1] == 4
 
 
 def test_cuda_device_without_a_card_is_rejected(tmp_path):

@@ -25,6 +25,7 @@ from ealv_tpu.utils.config import ExperimentConfig as JConfig
 from ealv_tpu_torch.runtime import Experiment, TickDraws
 from ealv_tpu_torch.utils.config import ExperimentConfig
 from ealv_tpu_torch.utils.convert import params_from_jax
+from test_torch_baselines import jax_draws as jax_baseline_draws
 from test_torch_trainer import jax_train_draws, one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -37,8 +38,23 @@ TOY = dict(states="xyw", num_target_samples=64, num_traj_samples=100,
 
 def _jax_tick_draws(exp, es, es_after):
     """The random draws of one JAX tick from ``es`` (``es_after`` is the
-    state the tick returned: its replay ring is the one the trainer read)."""
-    n_hist = exp.cfg.num_traj_samples
+    state the tick returned: its replay ring is the one the trainer read):
+    the planner's or the baseline's, the trainer's, and the entropy grade's
+    uniform samples."""
+    cfg = exp.cfg
+    _, k_train, k_hp = jax.random.split(es.key, 3)
+    train = [jax_train_draws(exp.model, es.params, es_after.buf,
+                             jax.random.fold_in(k_train, 0), cfg.num_learning_opt,
+                             cfg.batch_size)]
+    grade = jax.random.uniform(jax.random.fold_in(k_hp, 0),
+                               (cfg.num_target_samples, cfg.s_dim),
+                               minval=exp.robot_lim[:, 0], maxval=exp.robot_lim[:, 1])
+    grade = [torch.tensor(np.asarray(grade))]
+    if exp.use_baseline:
+        ps = exp.baseline.save_update(es.pstate, exp._measured_robot_state(es.env))
+        return TickDraws(train=train, grade_samples=grade,
+                         baseline=jax_baseline_draws(exp.baseline, ps))
+    n_hist = cfg.num_traj_samples
 
     @jax.jit
     def planner_draws(es):
@@ -57,13 +73,9 @@ def _jax_tick_draws(exp, es, es_after):
 
     samples, hist_idx, got, want = planner_draws(es)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    _, k_train, _ = jax.random.split(es.key, 3)
-    train = [jax_train_draws(exp.model, es.params, es_after.buf,
-                             jax.random.fold_in(k_train, 0), exp.cfg.num_learning_opt,
-                             exp.cfg.batch_size)]
     return TickDraws(samples=torch.tensor(np.asarray(samples)),
                      hist_idx=torch.tensor(np.asarray(hist_idx), dtype=torch.int64),
-                     train=train)
+                     train=train, grade_samples=grade)
 
 
 def _close(a, b, rtol, atol, what):
@@ -90,6 +102,24 @@ def test_two_ticks_step_matched_xyzrpw():
     _two_ticks_step_matched({**TOY, "states": "xyzrpw"}, check_R=True)
 
 
+def test_two_ticks_step_matched_xywb_force_ensemble():
+    """The experiment's options together: the brightness state b (its
+    command drives the env's brightness), the force variant (forces into
+    the ring, the reseed and the trainer) and the z-ensemble target; the
+    entropy grade then comes from a fresh plain decode, not the planner's.
+    Tolerances of test_two_ticks_step_matched; brightness and the z ring at
+    1e-4."""
+    _two_ticks_step_matched({**TOY, "states": "xywb", "learn_force": True,
+                             "use_z_ensemble": True})
+
+
+@pytest.mark.parametrize("method,states", [("randomWalk", "xywb"), ("uniform", "xyw")])
+def test_two_baseline_ticks_step_matched(method, states):
+    """The baseline explorers in the tick, from the JAX keys' draws: the
+    baseline's state at 1e-5, the rest as in test_two_ticks_step_matched."""
+    _two_ticks_step_matched({**TOY, "states": states, "explr_method": method})
+
+
 def _two_ticks_step_matched(toy, check_R=False):
     cfg_j = JConfig(**toy, compute_dtype="float32")
     cfg_t = ExperimentConfig(**toy, compute_dtype="float32")
@@ -109,8 +139,16 @@ def _two_ticks_step_matched(toy, check_R=False):
         _close(es_t.env.pose, es_j.env.pose, 1e-4, 1e-5, f"tick {k} env pose")
         _close(es_t.buf.x[slot], es_j.buf.x[slot], 1e-4, 1e-4, f"tick {k} pushed pose")
         _close(es_t.buf.y[slot], es_j.buf.y[slot], 1e-4, 1e-4, f"tick {k} pushed image")
-        _close(es_t.pstate.u, es_j.pstate.u, 2e-3, 2e-4, f"tick {k} plan u")
+        if exp_t.use_baseline:
+            _close(es_t.pstate.x, es_j.pstate.x, 1e-5, 1e-6, f"tick {k} baseline x")
+            _close(es_t.pstate.last_vel, es_j.pstate.last_vel, 1e-5, 1e-6,
+                   f"tick {k} baseline vel")
+        else:
+            _close(es_t.pstate.u, es_j.pstate.u, 2e-3, 2e-4, f"tick {k} plan u")
         _close(info_t["ergodic_cost"], info_j["ergodic_cost"], 2e-3, 0, f"tick {k} cost")
+        _close(es_t.env.brightness, es_j.env.brightness, 1e-4, 1e-5, f"tick {k} brightness")
+        _close(es_t.buf.force[slot], es_j.buf.force[slot], 1e-4, 1e-5, f"tick {k} force")
+        _close(es_t.mstate.z_buff, es_j.mstate.z_buff, 1e-4, 1e-5, f"tick {k} z ring")
         for key in ("beta", "gamma", "loss"):
             _close(info_t[key], info_j[key], 1e-3, 1e-6, f"tick {k} {key}")
         if check_R:
@@ -157,12 +195,21 @@ def test_standalone_entropy_schedule_path():
     assert int(es.buf.beta_size) == 3
 
 
-@pytest.mark.parametrize("kwargs", [dict(sim_backend="arm"), dict(explr_method="uniform"),
-                                    dict(use_z_ensemble=True), dict(states="xyb"),
-                                    dict(use_magnitude=True)])
-def test_unported_configurations_raise(kwargs):
-    """use_magnitude=True has no reference to match: the JAX Experiment
-    fails on its first tick there, and the message says so."""
-    match = "klerg.py:550" if "use_magnitude" in kwargs else None
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(sim_backend="arm"), "ArmEnv"), (dict(sim_backend="arm-dynamic-soft"), "ArmEnv"),
+    (dict(use_magnitude=True), "klerg.py:550"), (dict(states="xyXY"), "config.py:156"),
+    (dict(mesh=object()), "mesh")])
+def test_unported_configurations_raise(kwargs, match):
+    """use_magnitude=True and velocity states have no reference to match:
+    the JAX Experiment fails on its first tick (use_magnitude) or in its
+    config (upper-case states), and the messages say so."""
+    mesh = kwargs.pop("mesh", None)
     with pytest.raises(NotImplementedError, match=match):
-        Experiment(ExperimentConfig(**{**TOY, **kwargs}), device="cpu")
+        Experiment(ExperimentConfig(**{**TOY, **kwargs}), mesh=mesh, device="cpu")
+
+
+def test_upper_case_states_fail_in_the_reference_config():
+    """The reference quirk the port's refusal names: the JAX config has no
+    limits for velocity states."""
+    with pytest.raises(KeyError):
+        JConfig(**{**TOY, "states": "xyXY"}).tray_lim

@@ -48,7 +48,8 @@ def one_torch_thread():
 
 
 def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True):
-    """The draws JAX ``train_call`` makes from ``key`` (other_locs on)."""
+    """The draws JAX ``train_call`` makes from ``key`` (other_locs on; the
+    force variant's encoder reads the batch's forces)."""
 
     @jax.jit
     def one(p, buf, k):
@@ -56,6 +57,7 @@ def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True):
         i1 = buf.sample_indices(k_b, batch, weighted=weighted)
         i2 = buf.sample_indices(k_b2, batch, weighted=False)
         out = jm.apply(p, buf.x[i1], buf.y[i1], x_decode=buf.x[i2], train=True,
+                       force=buf.force[i1] if jm.learn_force else None,
                        rngs={"reparam": k_r})
         return i1, i2, out["z"], out["z_mu"], out["z_logvar"]
 
