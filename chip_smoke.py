@@ -9,8 +9,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      wgrad.cu) from ealv_tpu_torch/csrc, one nvcc per source, in parallel;
   3. kernels vs their plain torch versions on the card, at the main paths'
      shapes (K1 at d = 3 for the xyw tick, d = 6 for the xyzrpw tick, and
-     N = 2010 for the planner's add_recent_history samples) and the probe
-     shapes (K1's and K3's the same bits on a repeated call), then device
+     N = 2010 for the planner's add_recent_history samples, and at the
+     fingerprint capture's width, std x 0.1, where most terms underflow)
+     and the probe shapes (K1's and K3's the same bits on a repeated
+     call), then device
      times (CUDA events) and host clock per call of each kernel, its plain
      version and the one PyTorch call for the same function where there is
      one (torch.optim.Adam(fused=True) for K2, cuDNN's bf16 wgrad for K3),
@@ -20,7 +22,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      xywb with the force variant and the z-ensemble, and with each baseline
      explorer (randomWalk, uniform); three toy EvalExperiment ticks toward
      an ExplrDist target and toward a frozen CVAE's pdf, and
-     evaluate_test_set on a toy set, card against CPU; one toy
+     evaluate_test_set on a toy set, card against CPU; the fingerprint
+     stage at toy size, card against CPU within 1e-4 (find_clusters with
+     shift and kmeans, sample optimization on and off; 3-tick captures;
+     calibrate_thresholds; 3 matrix-runtime ticks over the four default
+     combinations in both seek modes; entropy slices); one toy
      planner call on the card and on the CPU with the same fed draws for
      every dynamics model (single, double, speed, SO(3) roll), every
      warm-start policy (Roll, Zero, BarrierPush, LQR) and every mode
@@ -43,7 +49,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      plain decode-and-average; then the eval path: a 25-point grid test set
      collected at 180x180, 12 EvalExperiment ticks toward a frozen
      production CVAE (12 K1 launches a plan), evaluate_test_set over the
-     set, and baseline ticks (no K1 launch in their plan_step);
+     set, and baseline ticks (no K1 launch in their plan_step); then the
+     fingerprint path (bf16, weights from seed 0, a 3-object scene):
+     find_clusters over 1000 samples, a 50-tick capture at each true
+     centre, thresholds, identify_step and update_beliefs device times,
+     and 30 identification ticks over the four combinations in each seek
+     mode, 12 K1 launches a capture or identification tick and none in
+     the clustering, matching or entropy slices;
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
@@ -190,7 +202,56 @@ def phase_kernels(dev):
                 (2000, 10, 4)):
         tag = "x".join(map(str, key))
         out.update({f"{k}_{tag}": v for k, v in rec[key].items()})
+    capture, cap_err = _k1_capture_width(dev, u)
+    out.update(capture)
+    out["max_abs_err"] = max(max_err, cap_err)
     return out
+
+
+def _k1_capture_width(dev, u):
+    """K1 at the fingerprint capture's width (the production std x 0.1,
+    where most terms of the Gaussian underflow to 0) and on a capture's
+    inputs: samples in the shrunk box around a centre; at 2000x3000x3 the
+    history sample of tick 50 (its first 50 rows valid, near the centre),
+    at 2000x10x3 the plan's 10 states; against the plain version, then
+    kernel and plain times beside the bound."""
+    import torch
+    from ealv_tpu_torch.ops import footprint_and_spread, footprint_and_spread_reference
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.utils.timing import device_ms, host_ms
+
+    width = ExperimentConfig(**PRODUCTION).std * 0.1
+    center = torch.tensor([0.3, -0.2, 0.0], device=dev)
+    out, err = {}, 0.0
+    for n, t in ((2000, 3000), (2000, 10)):
+        samples = center + 0.4 * u(n, 3)
+        traj = center + 0.1 * u(t, 3)
+        mask = (torch.arange(t, device=dev) < 50).float()
+        args = (samples, traj, torch.full((3,), width, device=dev), mask)
+        got, want = footprint_and_spread(*args), footprint_and_spread_reference(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL)
+        e = _max_err(got, want)
+        err = max(err, e)
+        psi = torch.exp(-0.5 * ((samples[:, None] - traj[None, :min(t, 50)]) ** 2
+                                / width).sum(-1))
+        tiny, zeros = float((psi < 1e-6).float().mean()), float((psi == 0).float().mean())
+        kernel = lambda: footprint_and_spread(*args)
+        plain = lambda: footprint_and_spread_reference(*args)
+        ms, plain_ms = device_ms(kernel), device_ms(plain)
+        h_ms, h_plain = host_ms(kernel), host_ms(plain)
+        bound_ms, bound_by = _k1_bound_ms(n, t, 3, args[3])
+        print(f"[kernels] footprint_and_spread {n}x{t}x3 at the capture's width (std "
+              f"{width:.6f}; of the valid terms {100 * tiny:.1f}% under 1e-6, "
+              f"{100 * zeros:.1f}% exactly 0): "
+              f"max|kernel-plain| = {e:.3e}; device kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms; host clock {h_ms:.4f} / {h_plain:.4f} ms; bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+        tag = f"{n}x{t}x3_capture"
+        out.update({f"ms_{tag}": ms, f"plain_ms_{tag}": plain_ms, f"host_ms_{tag}": h_ms,
+                    f"bound_ms_{tag}": bound_ms, f"bound_by_{tag}": bound_by})
+    return out, err
 
 
 def _max_err(got, want):
@@ -1040,6 +1101,263 @@ def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
     return dt * 1e3, per_plan
 
 
+# the fingerprint stage's toy widths (the JAX fingerprint tests' config)
+FP_TOY = dict(states="xyw", image_dim=(24, 24, 3), cnn_kernels=(3, 3), cnn_strides=(2, 2),
+              cnn_channels=(8, 8), hidden_dim=(64, 32), z_dim=8, num_target_samples=128,
+              num_traj_samples=64, traj_buffer_capacity=256, buffer_capacity=256,
+              compute_dtype="float32")
+FP_COMBOS = (("L2", False), ("KL", False), ("BC", False), ("L2", True))
+
+
+def _fp_model(cfg, dev, seed=0):
+    import torch
+    from ealv_tpu_torch.models import CVAE
+    model = CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim, s_dim=cfg.s_dim,
+                 hidden_dim=cfg.model_hidden(), cnn_kernels=cfg.cnn_kernels,
+                 cnn_strides=cfg.cnn_strides, cnn_channels=cfg.cnn_channels,
+                 compute_dtype=getattr(torch, cfg.compute_dtype))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
+
+def _fp_toy_run(dev):
+    """The fingerprint stage at toy size on ``dev`` with fed draws: every
+    output as a flat dict of CPU tensors (labels and seek choices as
+    floats)."""
+    import torch
+    from ealv_tpu_torch.data.replay import ReplayBuffer
+    from ealv_tpu_torch.fingerprint import (ClusterDraws, FingerprintBelief, FingerprintSet,
+                                            calibrate_thresholds, entropy_slices,
+                                            find_clusters)
+    from ealv_tpu_torch.fingerprint.capture import capture_fingerprint
+    from ealv_tpu_torch.fingerprint.test_runtime import FingerprintMatrixRuntime
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(**FP_TOY)
+    model = _fp_model(cfg, dev)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    # the sample optimization's 5 Adam steps send renormalize's max term to
+    # the argmax sample and pass the decoder's ReLU kinks, so a near tie or
+    # a pre-activation near 0 lets f32 noise move a sample by up to 1e-3:
+    # these 60 samples keep the argmax 1.5e-3 ahead and every pre-activation
+    # 1.4e-5 from 0 at every step (checked on the CPU)
+    rng = np.random.default_rng(104)
+    sx = t(rng.uniform(-1, 1, (3, 3)))
+    sy = t(rng.uniform(0, 1, (3, *cfg.image_dim)))
+    draws = ClusterDraws(samples=t(rng.uniform(-1, 1, (60, 3))),
+                         resample_idx=t(rng.integers(0, 60, 30), torch.int64))
+    rng = np.random.default_rng(11)
+    out = {}
+    for method in ("shift", "kmeans"):
+        for opt in (False, True):
+            res = find_clusters(model, sx, sy, cfg.robot_lim, num_pts=60, cluster_method=method,
+                                bandwidth=0.3, use_optimize_samples=opt, draws=draws)
+            tag = f"clusters {method}{' optimized' if opt else ''}"
+            out[f"{tag} points"] = torch.as_tensor(res.points)
+            out[f"{tag} means"] = torch.as_tensor(res.means, dtype=torch.float32)
+            out[f"{tag} labels"] = torch.as_tensor(res.labels).float()
+    dicts = []
+    for i, center in enumerate(([0.2, -0.3, 0.0], [-0.4, 0.3, 0.5])):
+        lims = np.asarray(center, np.float32)[:, None] + np.array([-0.4, 0.4], np.float32)
+        tick_draws = [_toy_draws(cfg, k, rng, dev, lims=lims) for k in range(3)]
+        fp = capture_fingerprint(model, cfg, np.asarray(center, np.float32), num_steps=3,
+                                 min_pose_dist=0.0, seed=i, draws=tick_draws, device=dev)
+        dicts.append(fp)
+        out.update({f"capture {i} {k}": torch.as_tensor(v) for k, v in fp.items()})
+    fps = FingerprintSet.from_lists(dicts, device=dev)
+    beliefs = {}
+    for m, e in FP_COMBOS:
+        th, cl = calibrate_thresholds(fps, m)
+        if not e:
+            out[f"calibrated {m}"] = torch.tensor([th, cl])
+        beliefs[f"{m}_error" if e else m] = [FingerprintBelief.create(
+            cfg.states, cfg.robot_lim, num_samples=20, meas_capacity=8, thresh=th, clip=cl,
+            device=dev) for _ in range(2)]
+    for mode in ("fixed", "uncertain"):
+        rt = FingerprintMatrixRuntime(cfg, model, fps, seek_mode=mode, update_tdist_step=1,
+                                      beliefs={k: list(v) for k, v in beliefs.items()},
+                                      device=dev)
+        tick_draws = [_toy_draws(cfg, k, rng, dev) for k in range(3)]
+        _, hist = rt.run(3, seed=2, draws=tick_draws)
+        for h in hist:
+            for key, v in h.items():
+                if key != "step":
+                    out[f"runtime {mode} step {h['step']} {key}"] = torch.as_tensor(
+                        np.asarray(v, np.float32))
+        for key, bs in rt.beliefs.items():
+            out[f"runtime {mode} {key} priors"] = torch.stack([b.prior.cpu() for b in bs])
+    buf = ReplayBuffer.create(16, cfg.s_dim, cfg.image_dim, dev)
+    for _ in range(8):
+        buf.push(t(rng.uniform(-1, 1, 3)), t(rng.uniform(0, 1, cfg.image_dim)))
+    for ens in (False, True):
+        sl = entropy_slices(model, buf, cfg.robot_lim, cfg.states, num_samples=60, num_seeds=4,
+                            grid_pts=4, use_z_ensemble=ens,
+                            unit_plane=t(rng.uniform(0, 1, (60, 2))),
+                            seed_idx=t(rng.permutation(8)[:4], torch.int64))
+        out[f"entropy slice ensemble={ens}"] = torch.as_tensor(sl["all"][1])
+    return out
+
+
+def phase_fingerprint_agreement():
+    """The fingerprint stage at toy size (f32, TF32 off) on the card and on
+    the CPU from the same weights and fed draws: find_clusters (shift and
+    kmeans, sample optimization on and off), two 3-tick captures,
+    calibrate_thresholds, 3 ticks of the matrix runtime over the four
+    default combinations in both seek modes with adoption at step 1, and
+    entropy slices with and without the z-ensemble. Every output within
+    1e-4 (cluster labels and the adopted objects equal)."""
+    import torch
+    runs = {dev: _fp_toy_run(dev) for dev in ("cpu", "cuda")}
+    err, n, bad = 0.0, 0, []
+    for key, a in runs["cpu"].items():
+        b = runs["cuda"][key]
+        if a.shape != b.shape:
+            bad.append(f"{key}: shape {tuple(b.shape)} on the card, {tuple(a.shape)} on the CPU")
+        elif "labels" in key or "seek_k" in key:
+            if not torch.equal(a, b):
+                bad.append(f"{key}: {b.tolist()} vs {a.tolist()}")
+        elif not (torch.isfinite(a[~torch.isnan(a)]).all()
+                  and torch.equal(torch.isnan(a), torch.isnan(b))):
+            bad.append(f"{key}: non-finite values or NaNs in other places")
+        else:
+            e = float((a - b).abs().nan_to_num(nan=0.0).max()) if a.numel() else 0.0
+            if e >= 1e-4:
+                bad.append(f"{key}: max|cuda-cpu| {e:.3e}")
+            err, n = max(err, e), n + 1
+    if bad:
+        raise RuntimeError("fingerprint agreement failed: " + "; ".join(bad))
+    print(f"[agreement] fingerprint stage at toy size, cuda vs cpu with fed draws: "
+          f"find_clusters over 60 samples (shift, kmeans; optimized and not), two 3-tick "
+          f"captures, "
+          f"calibrate_thresholds, 3 matrix-runtime ticks x 4 combinations x 2 seek modes, "
+          f"entropy slices: {n} outputs within 1e-4, max|diff| {err:.3e}; labels and adopted "
+          f"objects equal")
+    return err
+
+
+def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
+    """The fingerprint stage at production size (bf16, weights from seed 0,
+    ``TrayScene.make(3, seed=0)``): find_clusters over 1000 samples seeded
+    by six images of the port's grid collector; a 50-tick sphere capture at
+    each true centre (12 K1 launches a tick); FingerprintSet and thresholds
+    for L2, KL and BC; device times of one identify_step and of one
+    update_beliefs per combination; the matrix runtime over the four
+    combinations for 30 ticks with adoption at step 10, fixed and then
+    uncertain (12 K1 launches a tick); entropy slices; none of the
+    clustering, matching or slices launches K1. Returns the launch counts
+    and times."""
+    import torch
+    from ealv_tpu_torch.data.replay import ReplayBuffer
+    from ealv_tpu_torch.fingerprint import (FingerprintBelief, FingerprintSet,
+                                            calibrate_thresholds, entropy_slices,
+                                            find_clusters, identify_step, update_beliefs)
+    from ealv_tpu_torch.fingerprint.capture import capture_fingerprint
+    from ealv_tpu_torch.fingerprint.test_runtime import FingerprintMatrixRuntime
+    from ealv_tpu_torch.ops import footprint_and_spread as k1
+    from ealv_tpu_torch.scripts.collect_test_set import collect
+    from ealv_tpu_torch.sim import TrayScene
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.utils.timing import device_ms
+
+    cfg = ExperimentConfig(**PRODUCTION)
+    dev = "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    model = _fp_model(cfg, dev)
+    scene = TrayScene.make(3, seed=0, device=dev)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    tl, rl = cfg.tray_lim, cfg.robot_lim
+    poses, images, _ = collect("grid", 6, img=cfg.image_dim[0], device=dev)
+    seeds_x = t((poses[:, cfg.sel()] - tl[:, 0]) / (tl[:, 1] - tl[:, 0])
+                * (rl[:, 1] - rl[:, 0]) + rl[:, 0])
+    seeds_y = t(images)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    launches = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        k1.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[name] = k1.launches
+        return result, time.perf_counter() - t0
+
+    res, cluster_s = timed("find_clusters", lambda: find_clusters(
+        model, seeds_x, seeds_y, rl, num_pts=1000, generator=gen))
+    truth = []
+    for xy in scene.obj_xy.cpu().numpy():
+        full = np.zeros(cfg.s_dim, np.float32)
+        full[:2] = xy
+        truth.append((full - tl[:, 0]) / (tl[:, 1] - tl[:, 0]) * (rl[:, 1] - rl[:, 0])
+                     + rl[:, 0])
+    dicts, capture_s = timed("capture", lambda: [capture_fingerprint(
+        model, cfg, c.astype(np.float32), scene=scene, num_steps=n_capture, seed=i, device=dev)
+        for i, c in enumerate(truth)])
+    fps = FingerprintSet.from_lists(dicts, device=dev)
+    thresholds = {m: calibrate_thresholds(fps, m) for m in ("L2", "KL", "BC")}
+
+    obs_x, obs_y = t(dicts[0]["x"][-1]), t(dicts[0]["center_img"])
+    identify_ms = device_ms(lambda: identify_step(model, fps, obs_x, obs_y), reps=5, inner=5)
+    rl_t, tl_t = t(rl), t(tl)
+    update_ms = {}
+    for m, e in FP_COMBOS:
+        th, cl = thresholds["L2" if e else m]
+        bs = [FingerprintBelief.create(cfg.states, rl, thresh=th, clip=cl, device=dev)
+              for _ in range(len(truth))]
+        update_ms[f"{m}_error" if e else m] = device_ms(lambda: update_beliefs(
+            model, fps, bs, obs_x, obs_y, cfg.states, rl_t, tl_t, m, e), reps=5, inner=5)
+
+    runs = {}
+    for mode in ("fixed", "uncertain"):
+        rt = FingerprintMatrixRuntime(cfg, model, fps, combos=FP_COMBOS, seek_mode=mode,
+                                      update_tdist_step=adopt, scene=scene, device=dev)
+        (beliefs, hist), runs[mode] = timed(f"identify {mode}", lambda: rt.run(n_id, seed=7))
+        dists = np.stack([np.stack([h[k] for k in beliefs]) for h in hist])
+        if not (np.isfinite(dists).all() and all(torch.isfinite(b.prior).all()
+                                                 for bs in beliefs.values() for b in bs)):
+            raise RuntimeError(f"identification ({mode}): non-finite distances or beliefs")
+        errors = {k: float(v["mean_error"]) for k, v in rt.results_table(np.stack(truth)).items()}
+        share = [float((rt.seek_history[adopt:] == k).mean()) for k in range(len(truth))]
+        print(f"[fingerprint path] identification ({mode}): {n_id} ticks, 4 combinations, "
+              f"adoption at step {adopt}: {runs[mode] / n_id * 1e3:.2f} ms/tick | K1 "
+              f"{launches[f'identify {mode}']} | mean localization error "
+              f"{ {k: round(v, 3) for k, v in errors.items()} } | seek share after adoption "
+              f"{np.round(share, 2).tolist()}")
+
+    buf = ReplayBuffer.create(16, cfg.s_dim, cfg.image_dim, dev, img_dtype=torch.bfloat16)
+    for x, y in zip(seeds_x, seeds_y):
+        buf.push(x, y)
+    slices, slices_s = timed("entropy_slices", lambda: entropy_slices(
+        model, buf, rl, cfg.states, num_seeds=6, generator=gen))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    zs = np.concatenate([np.concatenate([d["z_mu"], d["z_var"]], 1) for d in dicts])
+    if not (np.isfinite(zs).all() and np.isfinite(slices["all"][1]).all()):
+        raise RuntimeError("non-finite captured latents or entropy slice")
+    want = {"find_clusters": 0, "capture": 12 * n_capture * len(truth),
+            "identify fixed": 12 * n_id, "identify uncertain": 12 * n_id, "entropy_slices": 0}
+    if launches != want:
+        raise RuntimeError(f"fingerprint path K1 launches {launches}, expected {want}")
+    capture_ms = capture_s / (n_capture * len(truth)) * 1e3
+    id_ms = (runs["fixed"] + runs["uncertain"]) / (2 * n_id) * 1e3
+    print(f"[fingerprint path] production size, bf16, 3-object scene: find_clusters over 1000 "
+          f"samples from 6 grid seeds {cluster_s:.2f} s ({len(res.means)} clusters) | "
+          f"{len(truth)} captures of {n_capture} ticks: {capture_ms:.2f} ms/tick (host clock, "
+          f"set-up included), poses kept {[len(d['x']) for d in dicts]} | thresholds "
+          f"{ {m: tuple(round(v, 4) for v in th) for m, th in thresholds.items()} } | "
+          f"identification {id_ms:.2f} ms/tick | entropy slices {slices_s:.2f} s | peak "
+          f"memory {peak:.1f} MiB")
+    print(f"[fingerprint path] device ms (CUDA events, median of 5 x 5): identify_step (K=3, "
+          f"S={fps.x.shape[1]}, {cfg.image_dim[0]}x{cfg.image_dim[1]} images) "
+          f"{identify_ms:.4f}; update_beliefs "
+          f"{ {k: round(v, 4) for k, v in update_ms.items()} } | K1 launches {launches}")
+    return dict(capture_per_tick=launches["capture"] / (n_capture * len(truth)),
+                identify_per_tick=launches["identify fixed"] / n_id,
+                find_clusters=launches["find_clusters"],
+                entropy_slices=launches["entropy_slices"], capture_ms=capture_ms,
+                identify_ms=id_ms, peak=peak)
+
+
 def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
     """The learning path at production size through the port's run entry,
     with both trainer kernels on; the postexplr checkpoint is reloaded into
@@ -1146,6 +1464,7 @@ def main() -> int:
     k3 = phase_wgrad(dev)
     phase_agreement()
     phase_eval_agreement()
+    fp_err = phase_fingerprint_agreement()
     phase_planner_agreement()
     phase_trainer_agreement()
     phase_trainer_production()
@@ -1153,17 +1472,25 @@ def main() -> int:
     k1_6dof, rpw_ms, rpw_peak = phase_main_path("xyzrpw", n_warm=6, n_timed=12)
     var_ms, var_peak, (k1_var, k2_var, k3_var) = phase_variant_path()
     eval_ms, eval_per_plan = phase_eval_path()
+    fp = phase_fingerprint_path()
     print(f"[main paths] xyw {xyw_ms:.2f} ms/tick, peak {xyw_peak:.1f} MiB | xyzrpw "
           f"{rpw_ms:.2f} ms/tick, peak {rpw_peak:.1f} MiB ({rpw_ms / xyw_ms:.2f}x the time) | "
           f"xywb force z-ensemble {var_ms:.2f} ms/tick, peak {var_peak:.1f} MiB | eval "
-          f"{eval_ms:.2f} ms/tick ({eval_per_plan:.0f} K1 launches a plan)")
+          f"{eval_ms:.2f} ms/tick ({eval_per_plan:.0f} K1 launches a plan) | fingerprint "
+          f"capture {fp['capture_ms']:.2f} and identification {fp['identify_ms']:.2f} ms/tick "
+          f"(12 K1 launches a tick on both), peak {fp['peak']:.1f} MiB; toy card-vs-CPU "
+          f"max|diff| {fp_err:.3e}")
     _, k2_launches, k3_launches = phase_learning_path()
     print(json.dumps({"kernels": [
         {"name": "footprint_and_spread", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/footprint.cu",
          "replaces": "ealv_tpu/ops/pallas_kernels.py:55",
          "launches": k1_launches, "launches_xyzrpw": k1_6dof, "launches_variant": k1_var,
-         "launches_eval_per_plan": eval_per_plan, **k1},
+         "launches_eval_per_plan": eval_per_plan,
+         "launches_capture_per_tick": fp["capture_per_tick"],
+         "launches_identify_per_tick": fp["identify_per_tick"],
+         "launches_find_clusters": fp["find_clusters"],
+         "launches_entropy_slices": fp["entropy_slices"], **k1},
         {"name": "adam_apply", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/adam.cu",
          "replaces": "ealv_tpu/ops/pallas_adam.py:55",

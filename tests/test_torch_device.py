@@ -14,6 +14,7 @@ from ealv_tpu_torch.control.dynamics import (DoubleIntegrator, DoubleIntegratorR
 from ealv_tpu_torch.control.baselines import BaselineController
 from ealv_tpu_torch.control.klerg import KlergPlanner
 from ealv_tpu_torch.control.target_dists import ExplrDist, gaussian_dist, prior_dist
+from ealv_tpu_torch.fingerprint import belief, capture, identify, io, test_runtime
 from ealv_tpu_torch.runtime import EvalExperiment, Experiment
 from ealv_tpu_torch.scripts.collect_test_set import collect
 from ealv_tpu_torch.sim.env import SyntheticEnv
@@ -31,10 +32,32 @@ TRAY6 = ((0.2, 0.8), (-0.3, 0.3), (0.05, 0.5), (-3.5, 3.5), (-0.5, 0.5), (-1.0, 
                                 DoubleIntegratorSpeed.__init__,
                                 DoubleIntegratorRoll.__init__, gaussian_dist,
                                 ExplrDist.create, BaselineController.__init__,
-                                TrayScene.make, EvalExperiment.__init__, collect],
+                                TrayScene.make, EvalExperiment.__init__, collect,
+                                belief.FingerprintBelief.create,
+                                identify.FingerprintSet.from_lists,
+                                capture.make_capture_target, capture.capture_fingerprint,
+                                capture.build_fingerprints, io.load_beliefs],
                          ids=lambda f: f.__qualname__)
 def test_constructor_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("cls", [test_runtime.FingerprintTestRuntime,
+                                 test_runtime.FingerprintMatrixRuntime],
+                         ids=lambda c: c.__name__)
+def test_runtime_defaults_to_the_card(cls):
+    field = {f.name: f for f in dataclasses.fields(cls)}["device"]
+    assert field.default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["run_fingerprint_matrix", "build_manual_fingerprints",
+                                  "capture_fingerprint_belief", "capture_ws"])
+def test_fingerprint_cli_defaults_to_the_card(name):
+    import importlib
+    mod = importlib.import_module(f"ealv_tpu_torch.scripts.{name}")
+    required = {"build_manual_fingerprints": ["--config", "c", "--ckpt", "k", "--centers", "0"],
+                "capture_fingerprint_belief": ["--beliefs", "b"]}.get(name, [])
+    assert mod.build_parser().parse_args(required).device == "cuda"
 
 
 def test_env_defaults_to_the_card():
