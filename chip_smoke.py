@@ -26,7 +26,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      stage at toy size, card against CPU within 1e-4 (find_clusters with
      shift and kmeans, sample optimization on and off; 3-tick captures;
      calibrate_thresholds; 3 matrix-runtime ticks over the four default
-     combinations in both seek modes; entropy slices); one toy
+     combinations in both seek modes; entropy slices); the kinematic arm at
+     toy size, card against CPU from the same arm state: two ticks on each
+     arm backend, and 8 host-loop steps over a SyntheticBridge on
+     arm-dynamic in each of the serial, host-pipelined and device-resident
+     modes, with a forced wedge and its escape and a pause the heartbeat
+     recovers; one toy
      planner call on the card and on the CPU with the same fed draws for
      every dynamics model (single, double, speed, SO(3) roll), every
      warm-start policy (Roll, Zero, BarrierPush, LQR) and every mode
@@ -55,7 +60,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      centre, thresholds, identify_step and update_beliefs device times,
      and 30 identification ticks over the four combinations in each seek
      mode, 12 K1 launches a capture or identification tick and none in
-     the clustering, matching or entropy slices;
+     the clustering, matching or entropy slices; then the arm: 12 ticks
+     on sim_backend="arm" (13 K1 launches a tick), then ArmEnv.step_vel
+     (with and without the drift correction), step_pose and observe alone
+     (device intervals, device ms and host ms per call; each enqueued
+     behind a spin kernel must return before the spin ends: the host
+     never waits for the device); the host loop on arm-dynamic in the
+     device-resident mode (drive_to_start with no K1 launch, then 24
+     timed steps at 13 K1 launches a plan); and the host loop over
+     NativeBridge: the controller library built from native/, its C++
+     1 kHz loop against a numpy driver, the camera rendered on the card,
+     12 absorbed steps and the loop's rate, jitter and missed deadlines;
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
@@ -1358,6 +1373,349 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
                 identify_ms=id_ms, peak=peak)
 
 
+# the arm phases: the wedge scene of tests/test_arm.py (one wide cylinder
+# reaching well into the z band; the tray's centre lies 0.055 deep in its
+# side, 27.5 N > 0.75 x 30 N) and the host loop's script: the stuck
+# tolerance raised before steps 2 and 3 (a forced wedge: no motion counts
+# as stuck, so the escape along the contact force fires), a pause before
+# step 5 that the heartbeat (timeout 0) recovers at step 6
+WEDGE = dict(obj_xy=[[0.45, 0.0], [0.95, 0.95]], obj_radius=[0.08, 0.01],
+             obj_height=[0.45, 0.01])
+HOST_MODES = {"serial": dict(pipeline=False), "host-pipelined": dict(device_fast=False),
+              "device-resident": {}}
+
+
+def _wedge_scene(dev):
+    import torch
+    from ealv_tpu_torch.sim.renderer import TrayScene
+    return TrayScene.default(dev)._replace(
+        **{k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in WEDGE.items()})
+
+
+def _arm_state_to(s, dev):
+    """An ArmState with its tensors (and its scene's) on ``dev``."""
+    import torch
+    move = lambda v: v.to(dev) if torch.is_tensor(v) else v
+    return dataclasses.replace(s, q=s.q.to(dev), qdot=s.qdot.to(dev), pose=s.pose.to(dev),
+                               vel=s.vel.to(dev), brightness=s.brightness.to(dev),
+                               scene=type(s.scene)(*map(move, s.scene)))
+
+
+def _host_script(k, runner):
+    if k == 2:
+        runner.stuck.tol = 1e9
+    if k == 4:
+        runner.stuck.tol = 1e-5
+    if k == 5:
+        runner.pause.pause()
+
+
+def phase_arm_agreement(n_host=8):
+    """The arm at toy width, card against CPU from the same weights, arm
+    state and fed draws (f32, TF32 off): two ticks on each arm backend
+    (arm-dynamic with the force variant and movable objects), then
+    ``n_host`` host-loop steps over a SyntheticBridge on arm-dynamic in the
+    wedge scene, in each of the serial, host-pipelined and device-resident
+    modes, with the forced wedge and its escape and a pause the heartbeat
+    recovers: per step the arm's joints and pose and the plan, the events
+    logged, and the absorbed samples. rtol 1e-3, atol 1e-4 (as the other
+    agreement phases). Returns the largest difference."""
+    import torch
+    from ealv_tpu_torch.hw.bridge import SyntheticBridge
+    from ealv_tpu_torch.runtime import Experiment, HostLoopRunner
+    from ealv_tpu_torch.runtime.watchdog import RecoveryHeartbeat
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    worst = 0.0
+    for backend, kw in (("arm", {}), ("arm-dynamic", dict(learn_force=True, obj_mobility=0.2)),
+                        ("arm-dynamic-soft", {})):
+        cfg = ExperimentConfig(**{**TOY, **kw, "sim_backend": backend})
+        runs, env0 = {}, None
+        for dev in ("cpu", "cuda"):
+            exp = Experiment(cfg, train_calls_per_tick=1, train_every=1, device=dev)
+            es = exp.init(seed=0)
+            env0 = es.env if env0 is None else env0
+            es.env = _arm_state_to(env0, dev)
+            rng = np.random.default_rng(1)
+            out = []
+            for k in range(2):
+                es, info = exp.tick(es, _toy_draws(cfg, k, rng, dev))
+                out.append({"q": es.env.q, "pose": es.env.pose, "objects": es.env.scene.obj_xy,
+                            "plan": es.pstate.u, "cost": info["ergodic_cost"],
+                            "force": info["force"], "loss": info["loss"], "beta": info["beta"],
+                            "gamma": info["gamma"], "z ring": es.mstate.z_buff})
+            runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
+        err = _agree(runs, f"arm ticks {backend}")
+        worst = max(worst, err)
+        print(f"[agreement] 2 toy ticks on {backend}, cuda vs cpu with fed draws: joints, pose, "
+              f"objects, plan, cost, force, loss, beta/gamma and z ring agree (rtol 1e-3, "
+              f"atol 1e-4), max|diff| {err:.3e}")
+
+    cfg = ExperimentConfig(**{**TOY, "sim_backend": "arm-dynamic"})
+    env0 = Experiment(cfg, device="cpu", scene=_wedge_scene("cpu")).init(seed=0).env
+    for mode, kw in HOST_MODES.items():
+        runs, logs = {}, {}
+        for dev in ("cpu", "cuda"):
+            exp = Experiment(cfg, train_calls_per_tick=1, train_every=1,
+                             scene=_wedge_scene(dev), device=dev)
+            es = exp.init(seed=0)
+            es.env = _arm_state_to(env0, dev)
+            bridge = SyntheticBridge(exp.env, es.env)
+            draws = {k: _toy_draws(cfg, k, np.random.default_rng(100 + k), dev)
+                     for k in range(n_host + 1)}
+            runner = HostLoopRunner(exp, bridge, draws_fn=draws.get,
+                                    heartbeat=RecoveryHeartbeat(period_s=100.0, timeout_s=0.0),
+                                    **kw)
+            if (runner._fast, runner._cmd_absorb_plan is not None) != (
+                    (mode == "device-resident",) * 2):
+                raise RuntimeError(f"{mode}: the runner took another step form")
+            out = []
+            for k in range(n_host):
+                _host_script(k, runner)
+                es = runner.step(es)
+                out.append({"q": bridge.state.q, "pose": bridge.state.pose, "plan": es.pstate.u,
+                            "explr_step": torch.tensor(float(es.explr_step))})
+            es = runner.run(es, 0)
+            n = es.buf.size
+            out.append({"ring x": es.buf.x[:n], "ring y": es.buf.y[:n].float(),
+                        "ring force": es.buf.force[:n]})
+            runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
+            logs[dev] = list(runner.events)
+        if logs["cuda"] != logs["cpu"]:
+            raise RuntimeError(f"host loop {mode}: events {logs['cuda']} on the card, "
+                               f"{logs['cpu']} on the CPU")
+        if "stuck_escape" not in logs["cuda"] or "recover" not in logs["cuda"]:
+            raise RuntimeError(f"host loop {mode}: no escape or recovery in {logs['cuda']}")
+        err = _agree(runs, f"host loop {mode}")
+        worst = max(worst, err)
+        print(f"[agreement] {n_host} toy host-loop steps, {mode}, arm-dynamic in the wedge, cuda "
+              f"vs cpu with fed draws: events {logs['cuda']} equal; joints, pose, plan and "
+              f"the absorbed samples agree (rtol 1e-3, atol 1e-4), max|diff| {err:.3e}")
+    return worst
+
+
+def phase_arm_path(n_warm=6, n_timed=12):
+    """The tick on the arm at production size (sim_backend="arm", xyw):
+    warm ticks, then timed ones with exactly 13 K1 launches each; then
+    ``ArmEnv.step_vel`` (without and with the drift correction),
+    ``step_pose`` and ``observe`` alone at the tick's state: the device
+    intervals of one call under torch.profiler, device ms by CUDA events,
+    host ms, and a check that the host never waits for the device (each
+    call enqueued behind a spin kernel returns before the spin ends).
+    Returns (launches, ms/tick, peak MiB, readings)."""
+    import torch
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.utils.timing import device_ms, host_ms
+
+    cfg = ExperimentConfig(**{**PRODUCTION, "sim_backend": "arm"})
+    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    es = exp.init(seed=0)
+    for _ in range(n_warm):
+        es, _ = exp.tick(es)
+    torch.cuda.synchronize()
+    footprint_and_spread.launches = 0
+    t0 = time.perf_counter()
+    es, infos = exp.run_chunk(es, n_timed)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    launches = footprint_and_spread.launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    losses, costs = infos["loss"].cpu(), infos["ergodic_cost"].cpu()
+    if launches != 13 * n_timed:
+        raise RuntimeError(f"arm path: K1 launched {launches} times in {n_timed} ticks, "
+                           f"expected {13 * n_timed}")
+    if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()
+            and torch.isfinite(es.env.q).all()) or es.learning_ind <= 0:
+        raise RuntimeError(f"arm path: losses {losses}, costs {costs}, q {es.env.q}")
+    if not (es.env.q.is_cuda and es.buf.y.is_cuda):
+        raise RuntimeError("arm path: the arm or the replay ring left the card")
+    print(f"[arm path] sim_backend=arm, xyw: {n_timed} ticks after {n_warm} warm: "
+          f"{dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz | last loss "
+          f"{float(losses[losses != 0][-1]):.4f} | K1 launches {launches} (13/tick) | pose "
+          f"{[round(v, 4) for v in es.env.pose.tolist()]} | peak memory {peak:.1f} MiB")
+
+    env = exp.env
+    cmd = torch.tensor([0.02, -0.01, 0.0, 0.0, 0.0, 0.1], device="cuda")
+    target = torch.tensor([0.5, 0.05, 0.32, 3.1, 0.0, 0.2], device="cuda")
+    calls = {"step_vel": lambda: env.step_vel(dataclasses.replace(es.env, count=0), cmd),
+             "step_vel with the drift correction": lambda: env.step_vel(
+                 dataclasses.replace(es.env, count=19), cmd),
+             "step_pose": lambda: env.step_pose(es.env, target),
+             "observe": lambda: env.observe(es.env)}
+    readings = {}
+    for what, call in calls.items():
+        wall, busy, _, _, n = _profiled_call(call)
+        # one call per timed window: the card's launch queue holds about a
+        # thousand launches, and a fuller one makes the host wait, so the
+        # device would be paced by the host's enqueue
+        d_ms, h_ms = device_ms(call, reps=21, inner=1), host_ms(call, inner=20)
+        # the host must not wait for the device: enqueued behind a 0.2 s
+        # spin kernel, the call returns long before the spin ends
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e9 * 0.2))
+        t0 = time.perf_counter()
+        call()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        spun = time.perf_counter() - t0
+        if n < 1000 and enqueue > 0.5 * spun:
+            raise RuntimeError(f"ArmEnv.{what}: the host waited for the device "
+                               f"({enqueue * 1e3:.1f} ms of {spun * 1e3:.1f} ms)")
+        readings[what] = dict(device_ms=d_ms, host_ms=h_ms, intervals=n, busy_ms=busy)
+        print(f"[arm path] ArmEnv.{what}: {n} device intervals a call (busy {busy:.4f} ms "
+              f"under the profiler, host {wall:.4f} ms); device {d_ms:.4f} ms by CUDA events, "
+              f"host clock {h_ms:.4f} ms; behind a spin kernel the host enqueued it in "
+              f"{enqueue * 1e3:.2f} ms of {spun * 1e3:.1f} ms"
+              + ("" if n < 1000 else " (over the launch queue: no wait check)"))
+    return launches, dt * 1e3, peak, readings
+
+
+def _count_plans(exp):
+    """Count exp.plan_step calls (a list the caller clears)."""
+    plans, plan_step = [], exp.plan_step
+
+    def counted(*a, **k):
+        plans.append(1)
+        return plan_step(*a, **k)
+
+    exp.plan_step = counted
+    return plans
+
+
+def phase_host_loop_path(n_warm=2, n_timed=24):
+    """The host loop at production size on arm-dynamic: HostLoopRunner over
+    a SyntheticBridge in the device-resident mode (command, observation,
+    absorb and plan on the card; a 13+3-float watchdog slice to pinned host
+    memory). drive_to_start (no K1 launch), warm steps, then timed ones:
+    ms/step, the events logged, and 13 K1 launches per plan (one plan a
+    step unless a stuck hit or a pause re-primes one). Returns (launches,
+    ms/step, plans)."""
+    import torch
+    from ealv_tpu_torch.hw.bridge import SyntheticBridge
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime import Experiment, HostLoopRunner
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(**{**PRODUCTION, "sim_backend": "arm-dynamic"})
+    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+    plans = _count_plans(exp)
+    es = exp.init(seed=0)
+    bridge = SyntheticBridge(exp.env, es.env)
+    runner = HostLoopRunner(exp, bridge)
+    if not (runner._fast and runner._cmd_absorb_plan is not None):
+        raise RuntimeError("host loop path: the device-resident step is not in use")
+    footprint_and_spread.launches = 0
+    t0 = time.perf_counter()
+    ok, pos = runner.drive_to_start(bridge.klerg_start_pose(), yaw_index=5)
+    seek_s = time.perf_counter() - t0
+    if footprint_and_spread.launches != 0 or plans:
+        raise RuntimeError(f"drive_to_start made {footprint_and_spread.launches} K1 launches")
+    es = runner.run(es, n_warm)
+    torch.cuda.synchronize()
+    footprint_and_spread.launches = 0
+    plans.clear()
+    n_events = len(runner.events)
+    t0 = time.perf_counter()
+    es = runner.run(es, n_timed)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    launches = footprint_and_spread.launches
+    if launches != 13 * len(plans) or len(plans) < n_timed:
+        raise RuntimeError(f"host loop path: {launches} K1 launches for {len(plans)} plans "
+                           f"in {n_timed} steps")
+    if es.explr_step != n_warm + n_timed or not (es.buf.y.is_cuda and bridge.state.q.is_cuda):
+        raise RuntimeError(f"host loop path: explr_step {es.explr_step}, or state left the card")
+    if not torch.isfinite(bridge.state.pose).all():
+        raise RuntimeError("host loop path: non-finite pose")
+    print(f"[host loop path] arm-dynamic, device-resident: drive_to_start "
+          f"{'reached' if ok else 'missed'} {np.round(pos, 3).tolist()} in {seek_s:.2f} s "
+          f"(0 K1); {n_timed} steps after {n_warm} warm: {dt * 1e3:.2f} ms/step = "
+          f"{1.0 / dt:.2f} Hz | K1 launches {launches} for {len(plans)} plans (13/plan) | "
+          f"events in the timed steps {runner.events[n_events:] or 'none'} | learning_ind "
+          f"{es.learning_ind}")
+    return launches, dt * 1e3, len(plans)
+
+
+def phase_native_bridge(n_steps=12, budget_s=60.0):
+    """The host loop over NativeBridge at production size: the controller
+    library built from native/ by hw/native.build_native, its C++ 1 kHz
+    loop against a numpy driver that integrates the commanded twist, and a
+    camera callback (in the runner's thread) that renders the tray at
+    180x180 on the card from the driver's pose. Runs until n_steps samples
+    are absorbed, within budget_s seconds (a degraded loop rate fails
+    commands and pauses the runner until the heartbeat recovers it, 0.2 s
+    later). Prints the loop's stats."""
+    import torch
+    from ealv_tpu_torch.hw.bridge import NativeBridge
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime import Experiment, HostLoopRunner
+    from ealv_tpu_torch.runtime.watchdog import RecoveryHeartbeat
+    from ealv_tpu_torch.sim.renderer import TrayScene, render_camera
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(**PRODUCTION)
+    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+    es = exp.init(seed=0)
+    scene = TrayScene.default("cuda")
+
+    class Driver:
+        """Integrates the commanded twist at 1 kHz (numpy only)."""
+
+        def __init__(self, pose):
+            self.pose, self.vel = np.asarray(pose, np.float64), np.zeros(6)
+
+        def state(self):
+            return self.pose.copy(), self.vel.copy(), np.zeros(6)
+
+        def apply_velocity(self, twist):
+            self.vel = np.asarray(twist, np.float64)
+            self.pose = self.pose + self.vel * 1e-3
+
+    drv = Driver(es.env.pose.cpu().numpy())
+
+    def camera():
+        pose = torch.as_tensor(drv.pose, dtype=torch.float32).to("cuda")
+        return render_camera(scene, pose, 1.0, cfg.image_dim[:2]), time.monotonic()
+
+    t_build = time.perf_counter()
+    bridge = NativeBridge(driver=drv, camera=camera)
+    t_build = time.perf_counter() - t_build
+    bridge.start()
+    try:
+        runner = HostLoopRunner(exp, bridge,
+                                heartbeat=RecoveryHeartbeat(period_s=5.0, timeout_s=0.2))
+        footprint_and_spread.launches = 0
+        t0, iters = time.perf_counter(), 0
+        while es.explr_step < n_steps and time.perf_counter() - t0 < budget_s:
+            es = runner.step(es)
+            iters += 1
+            if runner.pause.paused:
+                time.sleep(0.05)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bridge.stop()
+    stats = bridge.loop_stats()
+    if es.explr_step < n_steps:
+        raise RuntimeError(f"native bridge: {es.explr_step} samples in {iters} steps; events "
+                           f"{runner.events}; loop {stats}")
+    if not (es.buf.y.is_cuda and all(p.is_cuda for p in es.model.parameters())):
+        raise RuntimeError("native bridge: the run left the card")
+    if not np.isfinite(drv.pose).all() or stats["ticks"] <= 0:
+        raise RuntimeError(f"native bridge: driver pose {drv.pose}, loop {stats}")
+    print(f"[native bridge] library built/loaded in {t_build:.2f} s; {es.explr_step} samples "
+          f"in {iters} host-loop steps, {wall:.2f} s ({wall / iters * 1e3:.2f} ms/step) | K1 "
+          f"launches {footprint_and_spread.launches} | events {runner.events or 'none'} | "
+          f"loop_stats: {stats['rate_hz']:.1f} Hz over {stats['ticks']} ticks, jitter mean "
+          f"{stats['jitter_mean_s'] * 1e6:.1f} us, max {stats['jitter_max_s'] * 1e6:.1f} us, "
+          f"{stats['missed']} missed deadlines | driver pose "
+          f"{np.round(drv.pose[:3], 4).tolist()}")
+    return stats
+
+
 def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
     """The learning path at production size through the port's run entry,
     with both trainer kernels on; the postexplr checkpoint is reloaded into
@@ -1465,6 +1823,7 @@ def main() -> int:
     phase_agreement()
     phase_eval_agreement()
     fp_err = phase_fingerprint_agreement()
+    arm_err = phase_arm_agreement()
     phase_planner_agreement()
     phase_trainer_agreement()
     phase_trainer_production()
@@ -1473,13 +1832,22 @@ def main() -> int:
     var_ms, var_peak, (k1_var, k2_var, k3_var) = phase_variant_path()
     eval_ms, eval_per_plan = phase_eval_path()
     fp = phase_fingerprint_path()
+    k1_arm, arm_ms, arm_peak, step_vel = phase_arm_path()
+    k1_host, host_ms_step, host_plans = phase_host_loop_path()
+    loop = phase_native_bridge()
     print(f"[main paths] xyw {xyw_ms:.2f} ms/tick, peak {xyw_peak:.1f} MiB | xyzrpw "
           f"{rpw_ms:.2f} ms/tick, peak {rpw_peak:.1f} MiB ({rpw_ms / xyw_ms:.2f}x the time) | "
           f"xywb force z-ensemble {var_ms:.2f} ms/tick, peak {var_peak:.1f} MiB | eval "
           f"{eval_ms:.2f} ms/tick ({eval_per_plan:.0f} K1 launches a plan) | fingerprint "
           f"capture {fp['capture_ms']:.2f} and identification {fp['identify_ms']:.2f} ms/tick "
           f"(12 K1 launches a tick on both), peak {fp['peak']:.1f} MiB; toy card-vs-CPU "
-          f"max|diff| {fp_err:.3e}")
+          f"max|diff| {fp_err:.3e} | arm tick {arm_ms:.2f} ms, peak {arm_peak:.1f} MiB; "
+          f"step_vel {step_vel['step_vel']['device_ms']:.4f} ms device, "
+          f"{step_vel['step_vel']['intervals']} intervals "
+          f"({step_vel['step_vel with the drift correction']['intervals']} with the drift "
+          f"correction); "
+          f"host loop {host_ms_step:.2f} ms/step; native loop {loop['rate_hz']:.1f} Hz; toy arm "
+          f"card-vs-CPU max|diff| {arm_err:.3e}")
     _, k2_launches, k3_launches = phase_learning_path()
     print(json.dumps({"kernels": [
         {"name": "footprint_and_spread", "route": "cuda",
@@ -1490,7 +1858,8 @@ def main() -> int:
          "launches_capture_per_tick": fp["capture_per_tick"],
          "launches_identify_per_tick": fp["identify_per_tick"],
          "launches_find_clusters": fp["find_clusters"],
-         "launches_entropy_slices": fp["entropy_slices"], **k1},
+         "launches_entropy_slices": fp["entropy_slices"], "launches_arm": k1_arm,
+         "launches_host_loop": k1_host, **k1},
         {"name": "adam_apply", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/adam.cu",
          "replaces": "ealv_tpu/ops/pallas_adam.py:55",

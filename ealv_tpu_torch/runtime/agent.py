@@ -3,7 +3,8 @@
 One ``tick`` syncs the planner to the measured state, plans with the
 KL-ergodic MPC (or steps a baseline explorer), converts the plan to a
 velocity command (and, with the brightness state ``b``, a brightness
-command), steps the synthetic env and renders the camera, pushes the
+command), steps the simulator (the free-flying end effector or the arm,
+``sim/arm.py``) and renders the camera, pushes the
 sample to the replay ring, reseeds z, and makes the throttled trainer
 call. The state is updated in place and returned. The throttle counters (``explr_step``,
 ``learning_ind``) are host ints, so the throttle branches in Python and a
@@ -28,6 +29,7 @@ from ..control.dynamics import make_dynamics
 from ..control.policies import make_policy
 from ..control.barrier import setup_barrier
 from ..control.baselines import BaselineController, BaselineDraws, BaselineState
+from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
 from .trainer import TrainerStatics, TrainDraws, train_call
@@ -42,7 +44,7 @@ class ExperimentState:
     mstate: ModelState
     pstate: PlannerState | BaselineState
     buf: ReplayBuffer
-    env: EnvState
+    env: EnvState | ArmState
     hyper: HyperState
     gen: torch.Generator  # the trainer's random stream
     explr_step: int = 0
@@ -104,11 +106,16 @@ class ExploredStates:
         start = self._insert_b(tray_pose6[self.pose_sel], b_mid)
         return ws_conversion(start, self.tray_lim, self.robot_lim)
 
-    def measured(self, env: EnvState):
+    def measured(self, env: EnvState | ArmState):
         """(pose, vel) tray -> robot coords over the explored states, the
         brightness and a zero velocity at ``b_pos``."""
-        pose = self._insert_b(env.pose[self.pose_sel], env.brightness)
-        vel = self._insert_b(env.vel[self.pose_sel], env.vel.new_zeros(()))
+        return self.measured_obs(env.pose, env.vel, env.brightness)
+
+    def measured_obs(self, pose6, vel6, brightness):
+        """``measured`` from an observed pose (6,), twist (6,) and
+        brightness (), as a bridge reports them."""
+        pose = self._insert_b(pose6[self.pose_sel], brightness)
+        vel = self._insert_b(vel6[self.pose_sel], vel6.new_zeros(()))
         return ws_conversion(torch.cat([pose, vel]), self.tray_full_lim,
                              self.robot_full_lim)
 
@@ -129,10 +136,7 @@ class ExploredStates:
 
 def reject_unported(cfg: ExperimentConfig):
     """Raise ``NotImplementedError`` on the configurations the port has no
-    counterpart or no reference for."""
-    if cfg.sim_backend in ("arm", "arm-dynamic", "arm-dynamic-soft"):
-        raise NotImplementedError(f"sim_backend={cfg.sim_backend!r}: the kinematic arm "
-                                  "(ArmEnv) is not ported yet")
+    reference for."""
     if cfg.states != cfg.states.lower():
         raise NotImplementedError(
             f"states={cfg.states!r}: velocity (upper-case) states have no limits in "
@@ -197,8 +201,14 @@ class Experiment:
             lr=cfg.model_lr)
 
         self.tray6 = tuple(TRAY_LIM[s] for s in "xyzrpw")
-        self.env = SyntheticEnv(tray_lim=self.tray6, dt=cfg.dt / 5.0,
-                                img_hw=cfg.image_dim[:2], device=str(dev))
+        if cfg.sim_backend in ("arm", "arm-dynamic", "arm-dynamic-soft"):
+            self.env = ArmEnv(tray_lim=self.tray6, dt=cfg.dt / 5.0, img_hw=cfg.image_dim[:2],
+                              dynamic_contact=cfg.sim_backend.startswith("arm-dynamic"),
+                              soft_objects=cfg.sim_backend == "arm-dynamic-soft",
+                              obj_mobility=cfg.obj_mobility, device=str(dev))
+        else:
+            self.env = SyntheticEnv(tray_lim=self.tray6, dt=cfg.dt / 5.0,
+                                    img_hw=cfg.image_dim[:2], device=str(dev))
         self.robot_lim = self.explored.robot_lim
         self.robot_ctrl_lim = self.explored.robot_ctrl_lim
 
@@ -243,7 +253,7 @@ class Experiment:
             hyper=HyperState.create(dev), gen=gen)
 
     # ------------------------------------------------------------------
-    def _measured_robot_state(self, env: EnvState):
+    def _measured_robot_state(self, env: EnvState | ArmState):
         """(pose, vel) tray -> robot coords over the explored states."""
         return self.explored.measured(env)
 

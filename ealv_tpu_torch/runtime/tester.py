@@ -22,6 +22,7 @@ from ..control.klerg import KlergConfig, KlergPlanner, PlannerState
 from ..control.dynamics import make_dynamics
 from ..control.policies import make_policy
 from ..control.barrier import setup_barrier
+from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
 from .agent import ExploredStates, TickDraws, reject_unported
@@ -30,12 +31,12 @@ from .agent import ExploredStates, TickDraws, reject_unported
 @dataclasses.dataclass
 class EvalState:
     pstate: PlannerState
-    env: EnvState
+    env: EnvState | ArmState
     step: int = 0
 
 
 class EvalExperiment:
-    """Exploration-only runtime over the synthetic env on ``device``."""
+    """Exploration-only runtime over the simulator on ``device``."""
 
     def __init__(self, cfg: ExperimentConfig, pdf_fn: Callable,
                  explr_states: Optional[str] = None,
@@ -66,9 +67,11 @@ class EvalExperiment:
             kcfg, self.dyn, make_policy("Roll", self.dyn, cfg.horizon), pdf_fn,
             self.explr_states, explr_locs=list(range(len(self.explr_states))),
             device=self.device)
-        self.env = SyntheticEnv(tray_lim=tuple(TRAY_LIM[s] for s in "xyzrpw"),
-                                dt=cfg.dt / 5.0, img_hw=cfg.image_dim[:2],
-                                device=str(self.device))
+        # as in the reference, only "arm" selects the arm here; the other
+        # arm backends run the free env (ealv_tpu/runtime/tester.py:93-99)
+        env_cls = ArmEnv if cfg.sim_backend == "arm" else SyntheticEnv
+        self.env = env_cls(tray_lim=tuple(TRAY_LIM[s] for s in "xyzrpw"),
+                           dt=cfg.dt / 5.0, img_hw=cfg.image_dim[:2], device=str(self.device))
         self.scene = scene
 
     def init(self, start_tray_pose=None, seed: int = 0, shrink_center=None,

@@ -1,10 +1,12 @@
-"""Run one online-learning experiment with the PyTorch port (port of the
-fused, chunked path of ``scripts/run_experiment.py``).
+"""Run one online-learning experiment with the PyTorch port (port of
+``scripts/run_experiment.py``).
 
     python -m ealv_tpu_torch.scripts.run_experiment --method entklerg --steps 300
     python -m ealv_tpu_torch.scripts.run_experiment --small --device cpu --steps 20
     python -m ealv_tpu_torch.scripts.run_experiment --steps 300 --resume
     python -m ealv_tpu_torch.scripts.run_experiment --method randomWalk --states xywb
+    python -m ealv_tpu_torch.scripts.run_experiment --backend arm-dynamic --host-loop --panel
+    python -m ealv_tpu_torch.scripts.run_experiment --steps 300 --cluster-every 50
 
 Writes to the run dir ({out}/synth/{method}_{seed:04d}/): config.yaml,
 log.txt, metrics.npz (+ metrics_summary.json), checkpoints/step_* every
@@ -12,15 +14,25 @@ log.txt, metrics.npz (+ metrics_summary.json), checkpoints/step_* every
 post-exploration training. ``--device`` (default ``cuda``) is where the run
 goes; the port never moves to the CPU by itself.
 
+``--backend`` picks the simulator: the free-flying end effector, or the
+7-DOF arm (``arm``; ``arm-dynamic`` adds penalty contact mechanics,
+``arm-dynamic-soft`` soft objects). ``--host-loop`` drives the experiment
+through a ``SyntheticBridge`` with the robustness layer (stuck escape, goal
+seeking to the start pose, the pause/recover heartbeat, SIGINT/SIGTERM,
+saves on request) instead of stepping the env directly; ``--panel``
+attaches the stdin control panel to it. ``--cluster-every N`` runs the
+clustering monitor after the chunk that crosses each multiple of N steps
+(clusters/cluster_log.csv; a checkpoint in cluster_checkpoints/ when the
+clusters are stable).
+
 Differences from the JAX script: exploration runs exactly ``--steps``
 steps (full ``--chunk`` chunks, then the rest) and post-training stops
 exactly at ``num_steps * target_learning_rate`` trainer calls, since nothing
 here is compiled for a fixed chunk length. The figures are not drawn. The
 force variant (``learn_force``) and the z-ensemble (``use_z_ensemble``) are
 switched on in a ``--config`` yaml, as in the JAX script. Options that are
-not ported (arm backends, the host loop, panels, the dashboard, the
-profiler, the clustering monitor, entropy slices) are rejected, never
-ignored.
+not ported (the web panel, the dashboard, the profiler, entropy slices) are
+rejected, never ignored.
 """
 
 from __future__ import annotations
@@ -29,12 +41,15 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..utils.config import ExperimentConfig
-from ..runtime import Experiment, ExperimentState
+from ..runtime import Experiment, ExperimentState, HostLoopRunner
 from ..runtime.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ..runtime.metrics import MetricsLog, run_dir
+from ..runtime.panel import ControlPanel
+from ..runtime.watchdog import GracefulKiller
 
 SMALL = dict(
     image_dim=(48, 48, 3), cnn_kernels=(3, 3), cnn_strides=(2, 2),
@@ -57,7 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="explored states, a subset of 'xyzrpwb' (b: brightness)")
     ap.add_argument("--backend", default=None,
                     choices=["free", "arm", "arm-dynamic", "arm-dynamic-soft"],
-                    help="simulator backend; only 'free' is ported")
+                    help="simulator backend: 'free' (free-flying end effector), 'arm' "
+                         "(7-DOF kinematic arm with Jacobian pseudo-inverse velocity "
+                         "control, drift and joint-limit failures), 'arm-dynamic' (+ "
+                         "penalty contact mechanics), 'arm-dynamic-soft' (soft objects)")
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="runs")
@@ -79,10 +97,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "'postexplr' checkpoint (default on)")
     ap.add_argument("--no-post-train", dest="post_train", action="store_false")
     ap.add_argument("--device", default="cuda", help="torch device of the run")
+    ap.add_argument("--cluster-every", type=int, default=0,
+                    help="run the online clustering monitor every N exploration steps; "
+                         "a cluster checkpoint is saved when the clusters are stable")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="drive the experiment through a RobotBridge with the "
+                         "robustness layer (stuck escape, goal seeking, pause/recover "
+                         "heartbeat) instead of stepping the env directly")
+    ap.add_argument("--panel", action="store_true",
+                    help="attach the stdin control panel (pause/resume/save/mode "
+                         "commands) to the host loop; needs --host-loop")
     # options of the JAX script that are not ported: rejected when given
-    ap.add_argument("--cluster-every", type=int, default=0, help="not ported")
-    ap.add_argument("--host-loop", action="store_true", help="not ported")
-    ap.add_argument("--panel", action="store_true", help="not ported")
     ap.add_argument("--web-panel", type=int, default=-1, help="not ported")
     ap.add_argument("--dash-every", type=int, default=0, help="not ported")
     ap.add_argument("--profile", action="store_true", help="not ported")
@@ -91,11 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
-    if args.backend not in (None, "free"):
-        ap.error(f"--backend {args.backend} is not ported yet")
-    for flag, on in (("--cluster-every", args.cluster_every > 0),
-                     ("--host-loop", args.host_loop), ("--panel", args.panel),
-                     ("--web-panel", args.web_panel >= 0),
+    if args.panel and not args.host_loop:
+        ap.error("--panel drives the host loop: add --host-loop")
+    for flag, on in (("--web-panel", args.web_panel >= 0),
                      ("--dash-every", args.dash_every > 0),
                      ("--profile", args.profile),
                      ("--entropy-slices", args.entropy_slices)):
@@ -127,12 +150,72 @@ def _last_loss(losses) -> float:
     return float(losses[-1]) if losses.size else float("nan")
 
 
+def make_monitor(exp: Experiment, es: ExperimentState, dir_path: str | None = None):
+    """The clustering monitor over the live model ``es.model``: 600 samples
+    moved by ``optimize_samples`` under the planner's barrier, mean shift at
+    bandwidth 0.3 (the JAX script's settings)."""
+    from ..control.barrier import setup_barrier
+    from ..fingerprint.monitor import ClusteringMonitor
+    cfg = exp.cfg
+    pos_states = "".join(s for s in cfg.states if s == s.lower())
+    barrier, _ = setup_barrier(pos_states, exp.robot_lim, exp.robot_ctrl_lim[: len(pos_states)],
+                               list(range(len(pos_states))))
+    return ClusteringMonitor(model=es.model, robot_lim=cfg.robot_lim, num_pts=600,
+                             dir_path=dir_path,
+                             cluster_kwargs=dict(use_optimize_samples=True, barrier=barrier,
+                                                 bandwidth=0.3))
+
+
+def monitor_update(monitor, es: ExperimentState, seed: int, checkpoint_fn=None):
+    """One monitor pass seeded by the last six pushed samples, drawing from
+    a generator seeded with ``seed``; returns (result, stable)."""
+    n = es.buf.size
+    gen = torch.Generator(device=es.buf.x.device).manual_seed(seed)
+    return monitor.update(es.buf.x[max(0, n - 6):n], es.buf.y[max(0, n - 6):n],
+                          es.explr_step, checkpoint_fn=checkpoint_fn, generator=gen)
+
+
+def run_host_loop(exp: Experiment, args, dirp: str, ml: MetricsLog,
+                  es: ExperimentState) -> ExperimentState:
+    """Exploration through a ``SyntheticBridge`` and ``HostLoopRunner``:
+    goal-seek to the start pose, then exactly ``--steps`` steps in blocks
+    of ``--chunk``; SIGINT/SIGTERM stop it between steps, panel save
+    requests write a checkpoint. No post-training (as in the JAX script);
+    saves the final checkpoint."""
+    from ..hw.bridge import SyntheticBridge
+    ck_dir = os.path.join(dirp, "checkpoints")
+    t0 = time.time()
+    bridge = SyntheticBridge(exp.env, es.env)
+    runner = HostLoopRunner(exp, bridge, metrics=ml, killer=GracefulKiller(),
+                            save_fn=lambda s: save_checkpoint(ck_dir, s, step=s.explr_step))
+    if args.panel:
+        ControlPanel(runner.hooks()).start()
+    runner.drive_to_start(bridge.klerg_start_pose(), yaw_index=5)
+    remaining = max(0, args.steps - es.explr_step)
+    done = 0
+    while done < remaining:
+        n = min(max(1, args.chunk), remaining - done)
+        es = runner.run(es, n)
+        done += n
+        ml.progress(es.explr_step, es.learning_ind, float("nan"))
+        if runner.killer.kill_now:
+            break
+    wall = max(time.time() - t0, 1e-9)
+    ml.write_to_log(f"host-loop done: {es.explr_step} steps in {wall:.0f}s "
+                    f"({es.explr_step / wall:.2f} Hz); events: {runner.events or 'none'}")
+    ml.save()
+    save_checkpoint(ck_dir, es, step=es.explr_step)
+    return es
+
+
 def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
         es: ExperimentState | None = None) -> ExperimentState:
     """The run loop: start from ``es`` (or ``exp.init(seed)``, or the
     latest checkpoint with ``--resume``), explore in chunks with periodic
-    checkpoints, post-train to the learning-ratio target, and save the
-    final and the ``postexplr`` checkpoints. Returns the final state."""
+    checkpoints (and the clustering monitor with ``--cluster-every``),
+    post-train to the learning-ratio target, and save the final and the
+    ``postexplr`` checkpoints. With ``--host-loop`` the exploration goes
+    through ``run_host_loop`` instead. Returns the final state."""
     cfg = exp.cfg
     ck_dir = os.path.join(dirp, "checkpoints")
     if es is None:
@@ -144,9 +227,15 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
             ml.write_to_log(f"resumed from {ck} at step {es.explr_step}")
         else:
             ml.write_to_log("no checkpoint found; starting fresh")
+    if args.host_loop:
+        return run_host_loop(exp, args, dirp, ml, es)
+    monitor = None
+    if args.cluster_every > 0:
+        monitor = make_monitor(exp, es, os.path.join(dirp, "clusters"))
 
     t0 = time.time()
     start = es.explr_step
+    c = 0
     while es.explr_step < args.steps:
         before = es.explr_step
         es, infos = exp.run_chunk(es, min(args.chunk, args.steps - before))
@@ -156,6 +245,13 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
         ml.progress(es.explr_step, es.learning_ind, _last_loss(infos["loss"]))
         if es.explr_step // args.save_rate > before // args.save_rate:
             save_checkpoint(ck_dir, es, step=es.explr_step)
+        if monitor and es.explr_step // args.cluster_every > before // args.cluster_every:
+            res, stable = monitor_update(
+                monitor, es, 42 + c, checkpoint_fn=lambda step: save_checkpoint(
+                    os.path.join(dirp, "cluster_checkpoints"), es, step=step))
+            means = np.round(res.means[:, :2].astype(np.float64), 2).tolist()
+            ml.write_to_log(f"clusters @ {es.explr_step}: {means} stable={stable}")
+        c += 1
     wall = max(time.time() - t0, 1e-9)
     ml.write_to_log(f"done: {es.explr_step} steps in {wall:.0f}s "
                     f"({(es.explr_step - start) / wall:.2f} Hz)")
@@ -185,6 +281,8 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
     else:
         save_checkpoint(ck_dir, es, step=es.explr_step)
     ml.save()
+    if monitor:
+        monitor.save_log()
     return es
 
 

@@ -19,6 +19,9 @@ package's ``PallasAdamState`` (count, mu, nu) over to the port's
 optimizer: the moments are parameter-shaped trees, so they go through the
 same mapping as the parameters.
 
+``arm_state_from_jax`` carries a JAX ``ArmState`` over to the port's, so
+both simulators can continue from the same joints and scene.
+
 Values may be JAX arrays or numpy arrays; only numpy is used here.
 """
 
@@ -125,3 +128,20 @@ def opt_state_from_jax(opt_state, model, opt) -> dict:
     groups = [dict(g, step=count) if isinstance(opt, FusedAdam) else g
               for g in sd["param_groups"]]
     return {"state": state, "param_groups": groups}
+
+
+def arm_state_from_jax(state, device="cuda"):
+    """A JAX ``ArmState`` (its arrays as JAX or numpy arrays) -> the port's
+    ``ArmState`` on ``device``: the same joints, pose, twist, brightness,
+    command count and scene, so both simulators continue from one state."""
+    from ..sim.arm import ArmState
+    from ..sim.renderer import TrayScene
+
+    t = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
+    sc = state.scene
+    scene = TrayScene(obj_xy=t(sc.obj_xy), obj_radius=t(sc.obj_radius),
+                      obj_height=t(sc.obj_height), obj_color=t(sc.obj_color),
+                      ground_color=t(sc.ground_color), checker_scale=float(sc.checker_scale))
+    return ArmState(q=t(state.q), qdot=t(state.qdot), pose=t(state.pose), vel=t(state.vel),
+                    brightness=t(state.brightness), count=int(np.asarray(state.count)),
+                    scene=scene)

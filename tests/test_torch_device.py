@@ -15,8 +15,11 @@ from ealv_tpu_torch.control.baselines import BaselineController
 from ealv_tpu_torch.control.klerg import KlergPlanner
 from ealv_tpu_torch.control.target_dists import ExplrDist, gaussian_dist, prior_dist
 from ealv_tpu_torch.fingerprint import belief, capture, identify, io, test_runtime
+from ealv_tpu_torch.hw.bridge import SyntheticBridge
 from ealv_tpu_torch.runtime import EvalExperiment, Experiment
 from ealv_tpu_torch.scripts.collect_test_set import collect
+from ealv_tpu_torch.sim import arm
+from ealv_tpu_torch.sim.arm import ArmEnv
 from ealv_tpu_torch.sim.env import SyntheticEnv
 from ealv_tpu_torch.sim.renderer import TrayScene
 from ealv_tpu_torch.utils.config import ExperimentConfig
@@ -36,7 +39,7 @@ TRAY6 = ((0.2, 0.8), (-0.3, 0.3), (0.05, 0.5), (-3.5, 3.5), (-0.5, 0.5), (-1.0, 
                                 belief.FingerprintBelief.create,
                                 identify.FingerprintSet.from_lists,
                                 capture.make_capture_target, capture.capture_fingerprint,
-                                capture.build_fingerprints, io.load_beliefs],
+                                capture.build_fingerprints, io.load_beliefs, arm.home],
                          ids=lambda f: f.__qualname__)
 def test_constructor_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -60,10 +63,23 @@ def test_fingerprint_cli_defaults_to_the_card(name):
     assert mod.build_parser().parse_args(required).device == "cuda"
 
 
-def test_env_defaults_to_the_card():
-    field = {f.name: f for f in dataclasses.fields(SyntheticEnv)}["device"]
+@pytest.mark.parametrize("cls", [SyntheticEnv, ArmEnv], ids=lambda c: c.__name__)
+def test_env_defaults_to_the_card(cls):
+    field = {f.name: f for f in dataclasses.fields(cls)}["device"]
     assert field.default == "cuda"
-    assert SyntheticEnv(tray_lim=TRAY6).device == "cuda"
+    assert cls(tray_lim=TRAY6).device == "cuda"
+
+
+def test_bridge_and_runner_follow_their_env_and_experiment():
+    """SyntheticBridge keeps the env state's device and the host loop the
+    experiment's: on the CPU when they are on the CPU."""
+    from ealv_tpu_torch.runtime import HostLoopRunner
+    exp = Experiment(ExperimentConfig(**TOY, sim_backend="arm"), device="cpu")
+    es = exp.init(seed=0)
+    bridge = SyntheticBridge(exp.env, es.env)
+    assert bridge.device.type == "cpu" and es.env.q.device.type == "cpu"
+    runner = HostLoopRunner(exp, bridge)
+    assert all(t.device.type == "cpu" for t in runner._dev(es.env.pose.numpy(), 1.0))
 
 
 # each builds its first tensor on the default device
@@ -74,6 +90,12 @@ DEFAULT_BUILDS = {
     "prior_dist": lambda: prior_dist("xyw").means,
     "TrayScene.default": lambda: TrayScene.default().obj_xy,
     "SyntheticEnv": lambda: SyntheticEnv(tray_lim=TRAY6)._lims(),
+    "ArmEnv": lambda: ArmEnv(tray_lim=TRAY6)._lims,
+    "arm.home": lambda: arm.home(),
+    "SyntheticBridge": lambda: SyntheticBridge(
+        ArmEnv(tray_lim=TRAY6, img_hw=(8, 8)),
+        ArmEnv(tray_lim=TRAY6, img_hw=(8, 8)).init([0.45, 0.0, 0.3, 3.14, 0.0, 0.0],
+                                                   ik_iters=1)).state.pose,
     "TrayScene.make": lambda: TrayScene.make(3).obj_xy,
     "BaselineController": lambda: BaselineController("uniform", 0.2, ((-1, 1),),
                                                      ((-1, 1),)).lims,

@@ -3,7 +3,10 @@
 Inputs are made with numpy from a seed and fed to both sides. The JAX
 Pallas kernel runs in interpret mode on the CPU, as tests/test_kernels.py
 runs it. TF32 is off for every f32 comparison (it only exists on the card;
-the flags are set so a run on the card compares the same thing).
+the flags are set so a run on the card compares the same thing). Torch
+runs on one thread, as in the port's other test files: the plain version's
+(700, 900) reductions then run in the test's own thread, never split over
+a pool that shares the machine with the other test workers.
 """
 
 import jax
@@ -16,6 +19,7 @@ from ealv_tpu.ops import kernels as jk
 from ealv_tpu.ops.pallas_kernels import footprint_and_spread as jax_k1
 from ealv_tpu_torch.ops import footprint as tfp
 from ealv_tpu_torch.ops import kernels as tk
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

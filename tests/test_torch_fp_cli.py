@@ -1,6 +1,7 @@
 """The port's fingerprint CLIs (``ealv_tpu_torch/scripts/``), run in-process
 on the CPU: the method matrix end to end at the small config (its table
-read back by the study's parser), its refusals of what is not ported, the
+read back by the study's parser; on the arm and through the host loop in
+``test_torch_fp_cli_arm.py``), the
 manual captures from a checkpoint of the port, and the belief-peak and
 workspace photos against the JAX scripts' own outputs; ``k3_study``'s
 parser and aggregation on the JAX script's log text and its ``python -m``
@@ -74,14 +75,6 @@ def test_matrix_cli_uncertain_seek_mode(tmp_path, capsys):
     share = k3_study.parse_log(str(log))["seek_share"]
     want = [round(float((rt.seek_history == k).mean()), 2) for k in range(2)]
     assert share == want and rt.seek_history[0] == 0  # equal entropies: the first
-
-
-@pytest.mark.parametrize("flags,item", [(["--backend", "arm"], "item 13"),
-                                        (["--host-loop"], "item 16"),
-                                        (["--cluster-every", "5"], "item 16")])
-def test_matrix_cli_rejects_unported(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_fingerprint_matrix.main(["--device", "cpu", *flags])
 
 
 def test_build_manual_fingerprints_from_a_checkpoint(tmp_path, capsys):

@@ -1,11 +1,14 @@
 """The port's run entry point, ``python -m ealv_tpu_torch.scripts.run_experiment``,
 at ``--small --device cpu``: the run directory it writes, ``--resume``
-picking up the latest checkpoint, and the options it does not port being
-rejected. Port only; the run loop is called in-process through ``main``.
+picking up the latest checkpoint, the arm backends, the host loop with the
+control panel, the clustering monitor, and the options it does not port
+being rejected. Port only; the run loop is called in-process through
+``main``.
 """
 
 import json
 import os
+import signal
 
 import numpy as np
 import pytest
@@ -63,11 +66,11 @@ def test_resume_continues_from_the_latest_step(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backend", "arm"], ["--backend", "arm-dynamic"], ["--backend", "arm-dynamic-soft"],
-    ["--host-loop"], ["--panel"],
-    ["--web-panel", "0"], ["--dash-every", "5"], ["--profile"], ["--cluster-every", "5"],
-    ["--entropy-slices"]])
+    ["--web-panel", "0"], ["--dash-every", "5"], ["--profile"], ["--entropy-slices"],
+    ["--panel"]])
 def test_unported_options_are_rejected(tmp_path, flags):
+    """The options not ported yet, and the panel without the host loop it
+    drives, stop the run before its directory is made."""
     with pytest.raises(SystemExit) as e:
         cli.main([*SMALL, "--steps", "2", "--out", str(tmp_path), *flags])
     assert e.value.code == 2
@@ -100,6 +103,77 @@ def test_baselines_and_variants_run(tmp_path, flags, config):
         assert es.model.learn_force and int(es.mstate.z_buff.abs().sum() > 0)
     if "xywb" in flags:
         assert "states: xywb" in cfg and es.buf.x.shape[1] == 4
+
+
+@pytest.mark.parametrize("backend", ["arm", "arm-dynamic", "arm-dynamic-soft"])
+def test_arm_backends_run(tmp_path, backend):
+    """Each arm backend through the chunked loop: 3 steps and
+    post-training, the backend in the written config, the arm's joints in
+    the final state."""
+    out = str(tmp_path / "run")
+    es = cli.main([*SMALL, "--steps", "3", "--out", out, "--backend", backend])
+    assert es.explr_step == 3 and es.learning_ind == 9 and es.env.count == 3
+    cfg = open(os.path.join(_run_dir(out), "config.yaml")).read()
+    assert f"sim_backend: {backend}" in cfg
+    m = np.load(os.path.join(_run_dir(out), "metrics.npz"))
+    assert np.isfinite(m["loss"]).all() and np.isfinite(es.env.q.numpy()).all()
+
+
+@pytest.fixture()
+def signal_handlers():
+    """The host loop installs its SIGINT/SIGTERM handlers; put the test
+    process's back."""
+    before = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    yield
+    for s, h in before.items():
+        signal.signal(s, h)
+
+
+@pytest.mark.parametrize("backend", ["arm", "arm-dynamic", "arm-dynamic-soft"])
+def test_host_loop_with_panel_runs(tmp_path, monkeypatch, signal_handlers, backend):
+    """--host-loop --panel on each arm backend: goal seeking to the start
+    pose, exactly --steps steps through the bridge in blocks of --chunk,
+    the panel's save command served as a checkpoint, the run's events and
+    the final checkpoint; no post-training, as in the JAX script."""
+    import io
+    import sys
+    import time
+    monkeypatch.setattr(sys, "stdin", io.StringIO("save\n"))
+    out = str(tmp_path / "run")
+    orig = cli.HostLoopRunner.run
+
+    def run(self, es, n):  # let the panel's thread read its line first
+        for _ in range(1000):
+            if self.pause.save_requested or self.events.count("save"):
+                break
+            time.sleep(0.01)
+        return orig(self, es, n)
+
+    monkeypatch.setattr(cli.HostLoopRunner, "run", run)
+    es = cli.main([*SMALL, "--steps", "5", "--out", out, "--backend", backend, "--host-loop",
+                   "--panel"])
+    assert es.explr_step == 5 and es.learning_ind == 4
+    d = _run_dir(out)
+    log = open(os.path.join(d, "log.txt")).read()
+    assert "host-loop done: 5 steps" in log and "[save] checkpoint at step 1" in log
+    cks = sorted(os.listdir(os.path.join(d, "checkpoints")))
+    assert cks == ["step_0000001", "step_0000005"]
+    assert signal.getsignal(signal.SIGTERM) != signal.SIG_DFL  # the killer listens
+
+
+def test_cluster_monitor_runs(tmp_path):
+    """--cluster-every 2 over 4 steps in chunks of 2: two monitor passes
+    logged and written to clusters/cluster_log.csv."""
+    out = str(tmp_path / "run")
+    es = cli.main([*SMALL, "--steps", "4", "--out", out, "--cluster-every", "2",
+                   "--no-post-train"])
+    assert es.explr_step == 4
+    d = _run_dir(out)
+    log = open(os.path.join(d, "log.txt")).read()
+    assert log.count("clusters @ ") == 2 and "clusters @ 4:" in log
+    with open(os.path.join(d, "clusters", "cluster_log.csv")) as f:
+        rows = f.read().strip().splitlines()
+    assert rows[0].startswith("step,error") and [r.split(",")[0] for r in rows[1:]] == ["2", "4"]
 
 
 def test_cuda_device_without_a_card_is_rejected(tmp_path):

@@ -185,7 +185,7 @@ def test_k1_calls_per_plan(monkeypatch):
         assert len(calls) == 2 * want, method
 
 
-@pytest.mark.parametrize("kwargs", [dict(sim_backend="arm"), dict(states="xyXY")])
+@pytest.mark.parametrize("kwargs", [dict(states="xyXY")])
 def test_unported_eval_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError):
         EvalExperiment(ExperimentConfig(**{**TOY, **kwargs}), lambda c, s: s[:, 0],

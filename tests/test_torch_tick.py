@@ -196,7 +196,6 @@ def test_standalone_entropy_schedule_path():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(sim_backend="arm"), "ArmEnv"), (dict(sim_backend="arm-dynamic-soft"), "ArmEnv"),
     (dict(use_magnitude=True), "klerg.py:550"), (dict(states="xyXY"), "config.py:156"),
     (dict(mesh=object()), "mesh")])
 def test_unported_configurations_raise(kwargs, match):
