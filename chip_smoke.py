@@ -77,7 +77,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
      steps with a trainer call every third, post-training to 36 trainer
      calls, checkpoints every 6 steps and the postexplr checkpoint (in a
      temporary directory, removed afterwards), which is reloaded into a
-     fresh Experiment and compared tensor for tensor.
+     fresh Experiment and compared tensor for tensor;
+  7. data parallelism, the dashboard and the study CLIs: K1 at the
+     dashboard's shapes (2500 grid samples against the 3000-point memory
+     and the memory plus the 11-point plan) in phase 3; inside a one-rank
+     NCCL group (destroyed afterwards), the data-parallel trainer call at
+     the production config with K2 and K3 on, bit-equal to the plain call
+     on the same draws (25 K2 and 75 K3 launches a call, K2's table never
+     rebuilt; host ms and device busy ms beside the plain call's), and 12
+     ticks of Experiment(mesh=...) at 13 K1 launches a tick; two spawned
+     ranks on the one card over gloo (a data-parallel SGD step's averaged
+     gradients against the full batch's, the ranks bit-equal after a bf16
+     Adam call with K2 and K3 at 32 rows a rank); the dashboard's payload
+     on a warm production Experiment (2 K1 launches, one device-to-host
+     copy, no host wait before it; device and host ms); the demo, the force
+     study, the resume study at --small (bit-equal after a SIGKILL and
+     --resume), the run entry's --profile trace (it names K1's kernel) and
+     the browser panel (GET /status, POST /cmd pause).
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX.
 """
@@ -109,6 +125,8 @@ WGRAD_TOL = dict(rtol=1e-4, atol=1e-3)
 # groups); bands that do not divide OH, with several items per block; B = 1
 WGRAD_PRODUCTION = [(64, 180, 180, 3, 10, 3, 2), (64, 89, 89, 10, 10, 3, 2),
                     (64, 44, 44, 10, 20, 5, 3)]
+# the same layers at 32 rows: one rank's shard of the batch at two ranks
+WGRAD_DP = [(32,) + shape[1:] for shape in WGRAD_PRODUCTION]
 WGRAD_PROBES = [(2, 17, 17, 3, 5, 3, 2), (1, 20, 20, 4, 6, 5, 3),
                 (2, 16, 16, 2, 3, 3, 3), (1, 13, 11, 1, 2, 1, 1), (3, 9, 9, 2, 40, 3, 2),
                 (2, 13, 13, 3, 16, 3, 2), (2, 13, 13, 3, 17, 3, 2), (1, 12, 12, 2, 33, 3, 1),
@@ -143,7 +161,9 @@ def phase_kernels(dev):
     """K1 against its plain version at the main paths' shapes and the probe
     shapes, the same bits on a repeated call; then kernel and plain times
     at the main paths' shapes: d = 3 (xyw), d = 6 (xyzrpw) and d = 4
-    (xywb)."""
+    (xywb), and the dashboard payload's 50x50 grid (N = 2500) against the
+    3000-point memory (the spread) and the memory plus the 11-point plan
+    (the footprint, T = 3011)."""
     import torch
     from ealv_tpu_torch.ops import (footprint_and_spread, footprint_and_spread_reference,
                                     footprint_plan)
@@ -167,12 +187,14 @@ def phase_kernels(dev):
 
     # (n, t, d, mask): the main paths' shapes (target spread and base
     # footprint 2000x3000, horizon costs 2000x10, at d = 3 and d = 6; N =
-    # 2010 with add_recent_history), the CPU probe shapes, and T-splits cut
+    # 2010 with add_recent_history; the dashboard's 2500-point grid against
+    # 3000 and 3011 points, and 3010), the CPU probe shapes, and T-splits cut
     # unevenly: a T that S does not divide, more splits than points per
     # split, splits longer than one staged stretch, T = 1, d = 8
     shapes = [(2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
               (2000, 3000, 6, "tail"), (2000, 10, 6, "ones"),
               (2000, 3000, 4, "tail"), (2000, 10, 4, "ones"),
+              (2500, 3000, 3, "tail"), (2500, 3010, 3, "tail"), (2500, 3011, 3, "tail"),
               (2010, 3000, 6, "tail"), (2010, 10, 6, "ones"), (2010, 3000, 3, "random"),
               (700, 900, 4, "random"), (700, 900, 2, "random"),
               (700, 900, 6, "random"), (64, 100, 3, "ones"),
@@ -199,7 +221,8 @@ def phase_kernels(dev):
     rec = {}
     for n, t, d, mk in ((2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
                         (2000, 3000, 6, "tail"), (2000, 10, 6, "ones"),
-                        (2000, 3000, 4, "tail"), (2000, 10, 4, "ones")):
+                        (2000, 3000, 4, "tail"), (2000, 10, 4, "ones"),
+                        (2500, 3000, 3, "tail"), (2500, 3011, 3, "tail")):
         args = case(n, t, d, mk)
         kernel = lambda: footprint_and_spread(*args)
         plain = lambda: footprint_and_spread_reference(*args)
@@ -214,7 +237,7 @@ def phase_kernels(dev):
                             bound_by=bound_by)
     out = dict(max_abs_err=max_err, **rec[2000, 3000, 3], library_ms=None, shape="2000x3000x3")
     for key in ((2000, 10, 3), (2000, 3000, 6), (2000, 10, 6), (2000, 3000, 4),
-                (2000, 10, 4)):
+                (2000, 10, 4), (2500, 3000, 3), (2500, 3011, 3)):
         tag = "x".join(map(str, key))
         out.update({f"{k}_{tag}": v for k, v in rec[key].items()})
     capture, cap_err = _k1_capture_width(dev, u)
@@ -381,36 +404,39 @@ def _trainer_layout(x, cot, last_layer):
 
 def phase_wgrad(dev):
     """K3 against its plain version in f64 at the encoder's three production
-    layers and the probe shapes, f32 and bf16 inputs, with the first
-    layer's input a channels-last view as the CVAE gives it; the same
+    layers at 64 rows and at 32 (one rank's shard at two ranks) and the
+    probe shapes, f32 and bf16 inputs, with the first layer's input a
+    channels-last view as the CVAE gives it; the same
     values in the trainer's layouts give the same bits. Then kernel, plain
-    and cuDNN's own bf16 wgrad times at the production layers, in the
-    trainer's layouts."""
+    and cuDNN's own bf16 wgrad times at the production layers, at 64 and at
+    32 rows, in the trainer's layouts."""
     import torch
     from ealv_tpu_torch.ops import wgrad as twg
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     g = torch.Generator(device=dev).manual_seed(2)
 
+    def layer(shape, i):
+        return shape[1:] == WGRAD_PRODUCTION[i][1:]
+
     def inputs(shape, dtype):
         B, H, W, cin, cout, k, s = shape
         x = torch.randn((B, H, W, cin), generator=g, device=dev).to(dtype).permute(0, 3, 1, 2)
-        if shape != WGRAD_PRODUCTION[0]:
+        if not layer(shape, 0):
             x = x.contiguous()
         cot = torch.randn((B, cout, (H - k) // s + 1, (W - k) // s + 1), generator=g,
                           device=dev).to(dtype)
         return x, cot, k, s
 
     max_err = 0.0
-    for shape in WGRAD_PRODUCTION + WGRAD_PROBES:
+    for shape in WGRAD_PRODUCTION + WGRAD_DP + WGRAD_PROBES:
         for dtype in (torch.float32, torch.bfloat16):
             x, cot, k, s = inputs(shape, dtype)
             got = twg.conv_wgrad_direct(x, cot, k, s)
             want = twg.conv_wgrad_reference(x, cot, k, s, dtype=torch.float64)
             f32 = twg.conv_wgrad_reference(x, cot, k, s)
             again = twg.conv_wgrad_direct(x, cot, k, s)
-            laid = twg.conv_wgrad_direct(*_trainer_layout(x, cot, shape == WGRAD_PRODUCTION[2]),
-                                         k, s)
+            laid = twg.conv_wgrad_direct(*_trainer_layout(x, cot, layer(shape, 2)), k, s)
             torch.cuda.synchronize()
             torch.testing.assert_close(got.double(), want, **WGRAD_TOL)
             if not torch.equal(got, again):
@@ -425,29 +451,35 @@ def phase_wgrad(dev):
                   f"{float((f32.double() - want).abs().max()):.3e} (|dW| <= "
                   f"{float(want.abs().max()):.1f}); bit-equal on repeat and in the "
                   f"trainer's layouts")
-    ms = plain_ms = cudnn_ms = host = bound_bytes = 0.0
-    for shape in WGRAD_PRODUCTION:
-        x, cot, k, s = inputs(shape, torch.bfloat16)
-        x, cot = _trainer_layout(x, cot, shape == WGRAD_PRODUCTION[2])
-        fns = (lambda: twg.conv_wgrad_direct(x, cot, k, s),
-               lambda: twg.conv_wgrad_reference(x, cot, k, s),
-               lambda: torch.nn.grad.conv2d_weight(
-                   x, (cot.shape[1], x.shape[1], k, k), cot, stride=s))
-        t_k, t_p, t_c = (device_ms(f, inner=20) for f in fns)
-        h_k, h_p, h_c = (host_ms(f, inner=20) for f in fns)
-        ms, plain_ms, cudnn_ms, host = ms + t_k, plain_ms + t_p, cudnn_ms + t_c, host + h_k
-        # x and cot read once in bf16, dW written once in f32
-        bound_bytes += 2 * (x.numel() + cot.numel()) + 4 * cot.shape[1] * x.shape[1] * k * k
-        print(f"[kernels] conv_wgrad_direct {shape} bf16 in the trainer's layouts, ms per "
-              f"call, device (CUDA events, median of 21 x 20): kernel {t_k:.4f}, plain torch (f32 cuDNN on "
-              f"upcast inputs) {t_p:.4f}, cuDNN bf16 wgrad {t_c:.4f}; host clock per "
-              f"call: {h_k:.4f}, {h_p:.4f}, {h_c:.4f}")
-    bound_ms = bound_bytes / 3.35e12 * 1e3
-    print(f"[kernels] conv_wgrad_direct, the three encoder layers: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms per Adam step; host clock "
-          f"{host:.4f} ms; bound {bound_ms:.4f} ms ({bound_bytes / 1e6:.1f} MB, bytes)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, host_ms=host,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=cudnn_ms)
+    def times(shapes):
+        ms = plain_ms = cudnn_ms = host = bound_bytes = 0.0
+        for shape in shapes:
+            x, cot, k, s = inputs(shape, torch.bfloat16)
+            x, cot = _trainer_layout(x, cot, layer(shape, 2))
+            fns = (lambda: twg.conv_wgrad_direct(x, cot, k, s),
+                   lambda: twg.conv_wgrad_reference(x, cot, k, s),
+                   lambda: torch.nn.grad.conv2d_weight(
+                       x, (cot.shape[1], x.shape[1], k, k), cot, stride=s))
+            t_k, t_p, t_c = (device_ms(f, inner=20) for f in fns)
+            h_k, h_p, h_c = (host_ms(f, inner=20) for f in fns)
+            ms, plain_ms, cudnn_ms, host = ms + t_k, plain_ms + t_p, cudnn_ms + t_c, host + h_k
+            # x and cot read once in bf16, dW written once in f32
+            bound_bytes += 2 * (x.numel() + cot.numel()) + 4 * cot.shape[1] * x.shape[1] * k * k
+            print(f"[kernels] conv_wgrad_direct {shape} bf16 in the trainer's layouts, ms per "
+                  f"call, device (CUDA events, median of 21 x 20): kernel {t_k:.4f}, plain "
+                  f"torch (f32 cuDNN on upcast inputs) {t_p:.4f}, cuDNN bf16 wgrad {t_c:.4f}; "
+                  f"host clock per call: {h_k:.4f}, {h_p:.4f}, {h_c:.4f}")
+        bound_ms = bound_bytes / 3.35e12 * 1e3
+        print(f"[kernels] conv_wgrad_direct, the three encoder layers at {shapes[0][0]} rows: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms per "
+              f"Adam step; host clock {host:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_bytes / 1e6:.1f} MB, bytes)")
+        return dict(ms=ms, plain_ms=plain_ms, host_ms=host, bound_ms=bound_ms,
+                    bound_by="bytes", library_ms=cudnn_ms)
+
+    dp = times(WGRAD_DP)
+    return dict(max_abs_err=max_err, **times(WGRAD_PRODUCTION),
+                **{f"{key}_b32": v for key, v in dp.items()})
 
 
 def _toy_draws(cfg, k, rng, dev, lims=None):
@@ -1796,6 +1828,374 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
     return k1, k2, k3
 
 
+def _fill_ring(es, cfg, n_filled, seed=3):
+    """Push ``n_filled`` uniform random samples to the experiment's ring,
+    drawn on the card from a generator seeded with ``seed`` (every process
+    that calls this with the same seed pushes the same samples)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lo = torch.as_tensor(cfg.robot_lim[:, 0], device="cuda")
+    hi = torch.as_tensor(cfg.robot_lim[:, 1], device="cuda")
+    for _ in range(n_filled):
+        es.buf.push(torch.rand(cfg.s_dim, generator=g, device="cuda") * (hi - lo) + lo,
+                    torch.rand(cfg.image_dim, generator=g, device="cuda"))
+    return es.buf
+
+
+class _NcclGroup:
+    """A one-rank NCCL process group over the card for the phases inside
+    the ``with``, destroyed at its end so that no later phase inherits it."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        self._tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_")
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(self._tmp.name, "store"), 1), rank=0, world_size=1,
+            device_id=torch.device("cuda", 0))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        self._tmp.cleanup()
+        return False
+
+
+def phase_dp_trainer(n_filled=200, rounds=2):
+    """The data-parallel trainer call at world size 1 over NCCL, at the
+    production config with K2 and K3 on: bit-equal to the plain train_call
+    on the same weights, ring and fed draws (the all-reduce is a copy, the
+    division by 1 exact), 25 K2 and 75 K3 launches a call, K2's launch
+    table built 0 times in the timed calls; then host ms a call and the
+    device's busy ms under the profiler, beside the plain call's (the
+    difference is the collective's cost). Inside an NCCL group."""
+    import torch
+    from ealv_tpu_torch.ops import adam as tad, wgrad as twg
+    from ealv_tpu_torch.parallel import dp_train_call, make_mesh
+    from ealv_tpu_torch.runtime import train_call
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(**PRODUCTION)
+    mesh = make_mesh(device="cuda")
+    runs = {dp: _trainer_experiment(cfg, "cuda", kernels=True) for dp in (True, False)}
+    runs[False][1].buf = _fill_ring(runs[True][1], cfg, n_filled)
+    draws = _train_draws(cfg, n_filled, np.random.default_rng(4), "cuda")
+    beta, gamma = torch.tensor(0.005, device="cuda"), torch.tensor(0.5, device="cuda")
+
+    def call(dp, **kw):
+        exp, es = runs[dp]
+        if dp:
+            return dp_train_call(exp.trainer, mesh, es.model, es.opt, es.buf, beta, gamma, **kw)
+        return train_call(exp.trainer, es.model, es.opt, es.buf, beta, gamma, **kw)
+
+    k2, k3 = tad.adam_apply.launches, twg.conv_wgrad_direct.launches
+    met_dp = call(True, draws=draws)
+    k2, k3 = tad.adam_apply.launches - k2, twg.conv_wgrad_direct.launches - k3
+    met = call(False, draws=draws)
+    if (k2, k3) != (25, 75):
+        raise RuntimeError(f"the data-parallel call made {k2} K2 and {k3} K3 launches, "
+                           "expected 25 and 75")
+    differ = [name for (name, a), b in zip(runs[True][1].model.named_parameters(),
+                                           runs[False][1].model.parameters())
+              if not torch.equal(a, b)]
+    differ += [f"metric {k}" for k, v in met.items() if not torch.equal(met_dp[k], v.float())]
+    if differ:
+        raise RuntimeError(f"the world-size-1 data-parallel call differs from the plain "
+                           f"call in {len(differ)} tensors: {differ[:8]}")
+    times = {True: [], False: []}
+    builds = tad.adam_apply.builds
+    for _ in range(rounds):
+        for dp in (True, False, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(dp, generator=runs[dp][1].gen)
+            torch.cuda.synchronize()
+            times[dp].append((time.perf_counter() - t0) * 1e3)
+    builds = tad.adam_apply.builds - builds
+    if builds:
+        raise RuntimeError(f"K2's launch table was built {builds} times in the timed "
+                           "data-parallel and plain calls")
+    busy, spans = {True: [], False: []}, {True: [], False: []}
+    for dp in (True, False, False, True):
+        _, b, _, _, n = _profiled_call(lambda: call(dp, generator=runs[dp][1].gen))
+        busy[dp].append(round(b, 2))
+        spans[dp].append(n)
+    host = {dp: float(np.median(t)) for dp, t in times.items()}
+    dev = {dp: float(np.median(b)) for dp, b in busy.items()}
+    print(f"[dp trainer] world size 1 over NCCL, production, K2 + K3 on: bit-equal to the "
+          f"plain call on the same draws (25 losses, {len(met)} metrics, every parameter); "
+          f"K2 {k2} and K3 {k3} launches a call; K2's table built {builds} times in "
+          f"{100 * rounds} timed steps | host ms a call: data-parallel {host[True]:.2f}, "
+          f"plain {host[False]:.2f} (medians of {2 * rounds}, interleaved; "
+          f"{[round(x, 2) for x in times[True]]} / {[round(x, 2) for x in times[False]]}) | "
+          f"device busy ms a call: {dev[True]:.2f} / {dev[False]:.2f} (each profiled call: "
+          f"{busy[True]} / {busy[False]} ms in {spans[True]} / {spans[False]} intervals)")
+    return dict(host_ms=host[True], plain_host_ms=host[False], busy_ms=dev[True],
+                plain_busy_ms=dev[False], k2=k2, k3=k3)
+
+
+def _dp_rank(n_filled):
+    """One rank of the two-rank gloo phase on the one card: a deterministic
+    SGD step (lr 0.1) at the production widths in f32 (K3's f32 kernel at
+    32 rows a rank) and a 25-step Adam call in bf16 with K2 and K3 on. Returns
+    the SGD step's averaged gradients, the Adam call's parameters and
+    losses and its K2 / K3 launches, on the CPU."""
+    import torch
+    from ealv_tpu_torch.ops import adam as tad, cuda_build, wgrad as twg
+    from ealv_tpu_torch.parallel import dp_train_call, make_mesh
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    for source in ("adam.cu", "wgrad.cu", "footprint.cu"):
+        cuda_build.load(source)  # built by the parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device="cuda")
+    grads, sgd_params = _sgd_step(n_filled, lambda *a, **k: dp_train_call(
+        a[0], mesh, *a[1:], **k))
+    cfg = ExperimentConfig(**PRODUCTION)
+    exp, es = _trainer_experiment(cfg, "cuda", kernels=True)
+    _fill_ring(es, cfg, n_filled)
+    k2, k3 = tad.adam_apply.launches, twg.conv_wgrad_direct.launches
+    met = dp_train_call(exp.trainer, mesh, es.model, es.opt, es.buf,
+                        torch.tensor(0.005, device="cuda"), torch.tensor(0.5, device="cuda"),
+                        generator=es.gen)
+    k2, k3 = tad.adam_apply.launches - k2, twg.conv_wgrad_direct.launches - k3
+    return dict(grads=grads, sgd_params=sgd_params, loss=met["loss"].cpu(), k2=k2, k3=k3,
+                params=[p.detach().cpu() for p in es.model.parameters()])
+
+
+def _sgd_step(n_filled, train):
+    """One deterministic SGD step (lr 0.1, unweighted fed draws, f32,
+    K3 on) at the production widths through ``train`` (the plain or the
+    data-parallel call); returns the gradients it applied and the updated
+    parameters, on the CPU."""
+    import torch
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = dataclasses.replace(ExperimentConfig(**PRODUCTION), compute_dtype="float32",
+                              num_learning_opt=1)
+    exp, es = _trainer_experiment(cfg, "cuda", kernels=True)
+    _fill_ring(es, cfg, n_filled)
+    draws = _train_draws(cfg, n_filled, np.random.default_rng(5), "cuda")
+    opt = torch.optim.SGD(es.model.parameters(), lr=0.1)
+    train(exp.trainer, es.model, opt, es.buf, torch.tensor(0.0, device="cuda"),
+          torch.tensor(0.0, device="cuda"), deterministic=True, weighted=False, draws=draws)
+    params = list(es.model.parameters())
+    return [p.grad.cpu() for p in params], [p.detach().cpu() for p in params]
+
+
+def phase_dp_two_ranks(n_filled=200, timeout=600.0):
+    """Two ranks on the one card over gloo (CUDA tensors; NCCL refuses two
+    ranks on one device), spawned processes with the kernels built: the
+    data-parallel SGD step's averaged gradients equal the one-process
+    full-batch step's (the DDP contract; rtol 1e-4, atol 1e-4 x the
+    tensor's largest gradient: f32 sums over other row splits), and the
+    two ranks' updated parameters are bit-equal; a 25-step Adam call in bf16
+    with K2 and K3 on leaves both ranks bit-equal with finite losses, 25 K2
+    and 75 K3 launches a rank (K3 at 32 rows)."""
+    import torch
+    from ealv_tpu_torch.parallel._launch import run_ranks
+    from ealv_tpu_torch.runtime import train_call
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dp_rank, 2, args=(n_filled,), timeout=timeout, threads=None)
+    wall = time.perf_counter() - t0
+    full_grads, _ = _sgd_step(n_filled, train_call)
+    worst = 0.0
+    for g_dp, g in zip(ranks[0]["grads"], full_grads):
+        torch.testing.assert_close(g_dp, g, rtol=1e-4, atol=1e-4 * float(g.abs().max()))
+        worst = max(worst, float(((g_dp - g).abs() / g.abs().max().clamp(min=1e-30)).max()))
+    for what in ("sgd_params", "params"):
+        if not all(torch.equal(a, b) for a, b in zip(ranks[0][what], ranks[1][what])):
+            raise RuntimeError(f"two ranks: the ranks' {what} differ")
+    for r in ranks:
+        if (r["k2"], r["k3"]) != (25, 75) or not torch.isfinite(r["loss"]).all():
+            raise RuntimeError(f"two ranks: K2 {r['k2']}, K3 {r['k3']}, losses {r['loss']}")
+    print(f"[dp two ranks] gloo, two processes on the one card, production widths: the SGD "
+          f"step's averaged gradients vs the full batch's max|diff| / max|g| {worst:.2e} "
+          f"(rtol 1e-4, atol 1e-4 x max|g|), the ranks' parameters bit-equal; bf16 Adam "
+          f"call with K2 + K3: ranks bit-equal, K2 / K3 {ranks[0]['k2']} / {ranks[0]['k3']} "
+          f"a rank, last loss {float(ranks[0]['loss'][-1]):.4f}; {wall:.1f} s with the "
+          f"spawns")
+    return worst
+
+
+def phase_mesh_tick(xyw_ms, n_warm=6, n_timed=12):
+    """The tick at the production config over a one-rank mesh (the planner's
+    decode through sharded_pdf, the trainer through dp_train_call): 13 K1
+    launches a tick, ms/tick beside the xyw tick of the same call. Inside
+    an NCCL group."""
+    import torch
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.parallel import make_mesh
+    from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    exp = Experiment(ExperimentConfig(**PRODUCTION), train_calls_per_tick=1, train_every=3,
+                     device="cuda", mesh=make_mesh(device="cuda"))
+    es = exp.init(seed=0)
+    for _ in range(n_warm):
+        es, _ = exp.tick(es)
+    torch.cuda.synchronize()
+    footprint_and_spread.launches = 0
+    t0 = time.perf_counter()
+    es, infos = exp.run_chunk(es, n_timed)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    launches = footprint_and_spread.launches
+    losses, costs = infos["loss"].cpu(), infos["ergodic_cost"].cpu()
+    if launches != 13 * n_timed:
+        raise RuntimeError(f"mesh tick: K1 launched {launches} times in {n_timed} ticks")
+    if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()) \
+            or es.learning_ind <= 0:
+        raise RuntimeError(f"mesh tick: losses {losses}, costs {costs}")
+    print(f"[mesh tick] production, one-rank NCCL mesh: {n_timed} ticks after {n_warm} warm: "
+          f"{dt * 1e3:.2f} ms/tick (the xyw tick of this call: {xyw_ms:.2f}) | K1 launches "
+          f"{launches} (13/tick) | learning_ind {es.learning_ind}")
+    return launches, dt * 1e3
+
+
+def phase_dashboard(n_warm=6):
+    """The dashboard's payload on a warm production Experiment: 2 K1
+    launches and one device-to-host copy a payload, no host wait before the
+    copy (enqueued behind a spin kernel, the device part returns before the
+    spin ends), the frame's arrays finite and of the frame's shapes; device
+    ms a payload by CUDA events, host ms with the copy. No render: the
+    card's machine has no matplotlib."""
+    import torch
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    from ealv_tpu_torch.utils.timing import device_ms, host_ms
+    from ealv_tpu_torch.viz import LiveDashboard
+
+    cfg = ExperimentConfig(**PRODUCTION)
+    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+    es = exp.init(seed=0)
+    for _ in range(n_warm):
+        es, _ = exp.tick(es)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dash_") as tmp:
+        dash = LiveDashboard(exp, tmp)
+        torch.cuda.synchronize()
+        footprint_and_spread.launches = 0
+        pl = dash.payload(es)
+        launches = footprint_and_spread.launches
+    n = 2 * cfg.s_dim  # (position, velocity) states
+    shapes = {"image": cfg.image_dim, "img_pred": cfg.image_dim, "z_mu": (cfg.z_dim,),
+              "p": (50, 50), "q": (50, 50), "path": (cfg.traj_buffer_capacity, n),
+              "plan": (cfg.horizon + 1, n)}
+    for k, shape in shapes.items():
+        if pl[k].shape != tuple(shape) or not np.isfinite(pl[k]).all():
+            raise RuntimeError(f"payload {k}: shape {pl[k].shape}, finite "
+                               f"{np.isfinite(pl[k]).all()}")
+    if launches != 2 or not (pl["p"] > 0).all() or pl["path_mask"].sum() < n_warm:
+        raise RuntimeError(f"payload: {launches} K1 launches, p min {pl['p'].min()}, "
+                           f"{pl['path_mask'].sum()} path points")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dash.payload(es)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e.name for e in on_card if "DtoH" in e.name]
+    if len(copies) != 1:
+        raise RuntimeError(f"payload: {len(copies)} device-to-host copies: {copies}")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * 0.2))
+    t0 = time.perf_counter()
+    dash.device_payload(es)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spun = time.perf_counter() - t0
+    if len(on_card) < 1000 and enqueue > 0.5 * spun:
+        raise RuntimeError(f"payload: the host waited for the device before the copy "
+                           f"({enqueue * 1e3:.1f} ms of {spun * 1e3:.1f} ms)")
+    n_mem = cfg.traj_buffer_capacity
+    d_ms = device_ms(lambda: dash.device_payload(es), reps=11, inner=1)
+    h_ms = host_ms(lambda: dash.payload(es), inner=10)
+    print(f"[dashboard] payload at production (50x50 grid, {n_mem}-point memory + "
+          f"{cfg.horizon + 1}-point plan): K1 launches {launches} | device-to-host copies {len(copies)} | "
+          f"{len(on_card)} device intervals | device {d_ms:.4f} ms by CUDA events | host "
+          f"{h_ms:.4f} ms with the copy | enqueued behind a spin kernel in "
+          f"{enqueue * 1e3:.2f} ms of {spun * 1e3:.1f} ms")
+    return dict(launches=launches, device_ms=d_ms, host_ms=h_ms, intervals=len(on_card))
+
+
+def phase_studies():
+    """The demo and the study CLIs at short length on the card: the demo's
+    chunks, the force study's contact-rich xyz run from a start in contact
+    (contact in the ring and a finite reconstruction correlation required),
+    the resume study at --small (bit-equal final checkpoints after a
+    SIGKILL and --resume), the run entry with --profile (its trace names
+    K1's kernel), and the browser panel answering GET /status and POST /cmd
+    pause."""
+    import torch
+    import urllib.request
+    from ealv_tpu_torch.runtime import demo
+    from ealv_tpu_torch.runtime.panel import ControlHooks
+    from ealv_tpu_torch.runtime.webpanel import WebPanel
+    from ealv_tpu_torch.runtime.metrics import MetricsLog, run_dir
+    from ealv_tpu_torch.scripts import force_study, resume_study
+    from ealv_tpu_torch.scripts import run_experiment as cli
+
+    t0 = time.perf_counter()
+    dev = ["--device", "cuda"]
+    es, rate = demo.main(["--steps", "6", "--chunk", "2", *dev])
+    if es.explr_step != 6 or not rate or not es.buf.y.is_cuda:
+        raise RuntimeError(f"demo: explr_step {es.explr_step}, rate {rate}")
+    t_demo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # from the top of the first object, 3 cm below it: contact from the first
+    # step, so the ring holds pressed and free samples within a short run
+    fs = force_study.main(["--steps", "24", "--eval-samples", "16", "--start", "0.42", "-0.06",
+                           "0.35", *dev])
+    if not fs["samples"] == fs["steps"] > 0 or not fs["contact"] > 0 or not np.isfinite(
+            [fs["recon"]["corr"], fs["recon"]["mae"], fs["cross"]["mae"]]).all():
+        raise RuntimeError(f"force study: {fs}")
+    t_force = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_studies_") as tmp:
+        t0 = time.perf_counter()
+        leaves = resume_study.main(["--small", "--steps", "8", "--chunk", "2", "--save-rate",
+                                    "4", "--out", os.path.join(tmp, "resume"), *dev])
+        t_resume = time.perf_counter() - t0
+        args = cli.build_parser().parse_args(["--small", "--steps", "4", "--chunk", "2",
+                                              "--no-post-train", "--profile", "--out", tmp,
+                                              *dev])
+        dirp = run_dir(tmp, "synth", args.method, args.seed)
+        cli.run(cli.make_experiment(cli.make_config(args), args), args, dirp,
+                MetricsLog(dirp, echo=False))
+        with open(os.path.join(dirp, "profile", "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        k1 = sorted(n for n in names if "footprint_kernel" in n)
+        if not k1:
+            raise RuntimeError("--profile: the trace names no footprint_kernel")
+        log = open(os.path.join(dirp, "log.txt")).read()
+        web = WebPanel(ControlHooks(), run_dir=tmp, port=0)
+        web.start()
+        try:
+            url = f"http://127.0.0.1:{web.port}"
+            with urllib.request.urlopen(url + "/status", timeout=10) as r:
+                status = json.loads(r.read())
+            with urllib.request.urlopen(urllib.request.Request(
+                    url + "/cmd", data=b"pause"), timeout=10) as r:
+                reply = r.read().decode()
+        finally:
+            web.stop()
+    if status != {"paused": False, "manual": False, "save_pending": False} \
+            or reply != "paused" or not web.hooks.pause_mgr.paused:
+        raise RuntimeError(f"web panel: status {status}, reply {reply!r}")
+    figures = [line for line in log.splitlines() if "figures" in line]
+    print(f"[studies] demo 6 steps in {t_demo:.1f} s ({rate:.1f} steps/s after the first "
+          f"chunk) | force study {fs['steps']} steps from a start in contact in "
+          f"{t_force:.1f} s (contact in "
+          f"{fs['contact']:.0%} of the ring): recon corr "
+          f"{fs['recon']['corr']:.3f}, MAE {fs['recon']['mae']:.2f}; cross-decode corr "
+          f"{fs['cross']['corr']:.3f} | resume study at --small: {leaves} leaves bit-equal "
+          f"after SIGKILL + --resume ({t_resume:.1f} s) | --profile trace names {k1[:2]} | "
+          f"web panel /status {status}, /cmd pause -> {reply!r} | run log: {figures}")
+    return leaves
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1828,6 +2228,11 @@ def main() -> int:
     phase_trainer_agreement()
     phase_trainer_production()
     k1_launches, xyw_ms, xyw_peak = phase_main_path("xyw", n_warm=6, n_timed=24)
+    with _NcclGroup():
+        dp = phase_dp_trainer()
+        k1_mesh, mesh_ms = phase_mesh_tick(xyw_ms)
+    dp_worst = phase_dp_two_ranks()
+    dash = phase_dashboard()
     k1_6dof, rpw_ms, rpw_peak = phase_main_path("xyzrpw", n_warm=6, n_timed=12)
     var_ms, var_peak, (k1_var, k2_var, k3_var) = phase_variant_path()
     eval_ms, eval_per_plan = phase_eval_path()
@@ -1849,6 +2254,13 @@ def main() -> int:
           f"host loop {host_ms_step:.2f} ms/step; native loop {loop['rate_hz']:.1f} Hz; toy arm "
           f"card-vs-CPU max|diff| {arm_err:.3e}")
     _, k2_launches, k3_launches = phase_learning_path()
+    resume_leaves = phase_studies()
+    print(f"[parallel and dashboard] data-parallel call {dp['host_ms']:.2f} ms host, "
+          f"{dp['busy_ms']:.2f} ms busy vs plain {dp['plain_host_ms']:.2f} / "
+          f"{dp['plain_busy_ms']:.2f} | two-rank gradients max rel diff {dp_worst:.2e} | mesh "
+          f"tick {mesh_ms:.2f} ms vs xyw {xyw_ms:.2f} | payload {dash['device_ms']:.4f} ms "
+          f"device, {dash['host_ms']:.4f} ms host | resume study {resume_leaves} leaves "
+          f"bit-equal")
     print(json.dumps({"kernels": [
         {"name": "footprint_and_spread", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/footprint.cu",
@@ -1859,15 +2271,18 @@ def main() -> int:
          "launches_identify_per_tick": fp["identify_per_tick"],
          "launches_find_clusters": fp["find_clusters"],
          "launches_entropy_slices": fp["entropy_slices"], "launches_arm": k1_arm,
-         "launches_host_loop": k1_host, **k1},
+         "launches_host_loop": k1_host, "launches_mesh_tick": k1_mesh,
+         "launches_dashboard_payload": dash["launches"], **k1},
         {"name": "adam_apply", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/adam.cu",
          "replaces": "ealv_tpu/ops/pallas_adam.py:55",
-         "launches": k2_launches, "launches_variant": k2_var, **k2},
+         "launches": k2_launches, "launches_variant": k2_var,
+         "launches_dp_call": dp["k2"], **k2},
         {"name": "conv_wgrad_direct", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/wgrad.cu",
          "replaces": "ealv_tpu/ops/pallas_wgrad.py:115",
-         "launches": k3_launches, "launches_variant": k3_var, **k3}]}))
+         "launches": k3_launches, "launches_variant": k3_var,
+         "launches_dp_call": dp["k3"], **k3}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

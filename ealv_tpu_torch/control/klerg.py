@@ -90,6 +90,9 @@ class KlergPlanner:
         self.prior_dist = prior_dist if prior_dist is not None else make_prior(states, device)
         self.states = states
         self.explr_locs = list(explr_locs)
+        # index with a device tensor: a Python list index is copied to the
+        # card from pageable memory, and that copy waits for the device
+        self._explr_idx = torch.tensor(self.explr_locs, device=device)
         # velocities (upper case) get a 5x kernel width
         self.std = torch.tensor([1.0 if s == s.lower() else 5.0 for s in states],
                                 device=device) * cfg.std
@@ -153,12 +156,12 @@ class KlergPlanner:
         (K, H, m) -> (K,) through one plain psi matrix."""
         if u_test.ndim == 2:
             traj = self._traj_states(dyn0, u_test)
-            q_iter = traj_footprint(traj, samples, self.explr_locs, self.std)
+            q_iter = traj_footprint(traj, samples, self._explr_idx, self.std)
             q = cost_norm(renormalize(q_base + q_iter))
             return (p_n * torch.log(p_n / q)).sum() + barrier.batch(traj).sum()
         trajs = self._traj_states(dyn0, u_test)  # (K, H, n)
         k, h, _ = trajs.shape
-        flat = trajs.reshape(k * h, -1)[:, self.explr_locs]
+        flat = trajs.reshape(k * h, -1)[:, self._explr_idx]
         psi_m = psi_matrix(samples, flat, self.std)  # (N, K*H)
         q_iters = psi_m.reshape(-1, k, h).sum(-1).T  # (K, N)
         q = renormalize(q_base[None, :] + q_iters, dim=1)
@@ -196,7 +199,7 @@ class KlergPlanner:
     def _backward(self, samples, p, q, xs, A, B, dbarr, dmu):
         """Costate integration backwards over the horizon. Returns
         (du (H, m), djdlam (H,))."""
-        dgdx = kldiv_grad_batch(xs, samples, self.explr_locs, self.std, p / q)
+        dgdx = kldiv_grad_batch(xs, samples, self._explr_idx, self.std, p / q)
         M = (A + B @ dmu).transpose(-1, -2)  # (H, n, n)
         drive = dgdx - dbarr
         rho = torch.zeros(self.dyn.num_states, device=xs.device)
@@ -232,7 +235,7 @@ class KlergPlanner:
                 p = renormalize(self.prior_dist.pdf(samples[:, :d]))
         if cfg.weight_env or cfg.weight_temp or plot:
             traj_all, mask = pstate.memory.get_all()
-            spread = traj_spread(traj_all, samples, self.explr_locs, self.std,
+            spread = traj_spread(traj_all, samples, self._explr_idx, self.std,
                                  traj_mask=mask)
             spread = spread / spread.max().clamp(min=1e-30)
             nonempty = pstate.memory.size > 0
@@ -313,7 +316,7 @@ class KlergPlanner:
             samples = self._draw_samples(pstate)
         if cfg.add_recent_history:
             recent, _ = pstate.memory.get_recent(cfg.horizon)
-            samples = torch.cat([samples, recent[:, self.explr_locs]], 0)
+            samples = torch.cat([samples, recent[:, self._explr_idx]], 0)
         traj_hist, hist_mask = pstate.memory.sample(
             cfg.num_traj_samples, pstate.gen, idx=hist_idx)
         return self.plan_with_inputs(pstate, pdf_ctx, samples, traj_hist,
@@ -330,7 +333,7 @@ class KlergPlanner:
             return samples
         near = torch.randn((n - n_uniform, lo.shape[0]), generator=pstate.gen,
                            device=lo.device) * (self.std * 4.0) \
-            + pstate.dyn.x[self.explr_locs]
+            + pstate.dyn.x[self._explr_idx]
         return torch.cat([samples, near], 0)
 
     def plan_with_inputs(self, pstate: PlannerState, pdf_ctx, samples,
@@ -342,7 +345,7 @@ class KlergPlanner:
         dev = samples.device
         p, tdist_aux = self._target_dist(pdf_ctx, pstate, samples, temp,
                                          use_prior=use_prior, with_aux=True)
-        q_base = traj_footprint(traj_hist, samples, self.explr_locs, self.std,
+        q_base = traj_footprint(traj_hist, samples, self._explr_idx, self.std,
                                 traj_mask=hist_mask)
         p_n = cost_norm(p)
 
@@ -355,7 +358,7 @@ class KlergPlanner:
         done = torch.zeros((), dtype=torch.bool, device=dev)
         for idx in range(cfg.num_iters):
             u_eff, xs, A, B, dbarr, dmu = self._forward(pstate, u, idx)
-            q_iter = traj_footprint(xs, samples, self.explr_locs, self.std)
+            q_iter = traj_footprint(xs, samples, self._explr_idx, self.std)
             q = renormalize(q_base + q_iter)
             du, djdlam = self._backward(samples, p, q, xs, A, B, dbarr, dmu)
             u_star = self._saturate(u_eff + cfg.alpha * du)
@@ -378,7 +381,7 @@ class KlergPlanner:
         d_kl = (p_n * torch.log(p_n / q_n)).sum()
         pstate = dataclasses.replace(pstate, u=u, last_plan=last_plan)
         info = dict(samples=samples, p=p, q=q_keep, cost=d_kl,
-                    planned_traj=last_plan[:, self.explr_locs])
+                    planned_traj=last_plan[:, self._explr_idx])
         if "pdf" in tdist_aux:
             info["tdist_pdf"] = tdist_aux["pdf"]
         if "spread" in tdist_aux:
@@ -415,14 +418,14 @@ class KlergPlanner:
         pinned to the current state, the shaped target and the footprint of
         the memory plus the last plan there. Returns (pplot_samples, pplot,
         qplot)."""
-        cur = pstate.dyn.x[self.explr_locs]
+        cur = pstate.dyn.x[self._explr_idx]
         pplot_samples = cur.expand(samples.shape).clone()
         pplot_samples[:, plot_idx] = samples[:, plot_idx]
         pplot = self._target_dist(pdf_ctx, pstate, pplot_samples, temp, plot=True)
         traj_all, mask = pstate.memory.get_all()
         traj = torch.cat([traj_all, pstate.last_plan], 0)
         mask = torch.cat([mask, mask.new_ones(pstate.last_plan.shape[0])], 0)
-        qplot = renormalize(traj_footprint(traj, pplot_samples, self.explr_locs,
+        qplot = renormalize(traj_footprint(traj, pplot_samples, self._explr_idx,
                                            self.std, traj_mask=mask))
         return pplot_samples, pplot, qplot
 
@@ -439,7 +442,7 @@ class KlergPlanner:
         if save_update:
             pstate = self.save_update(dataclasses.replace(pstate, dyn=dyn2), dyn2.x)
         m = self.dyn.num_actions
-        return pstate, dyn2.x[self.explr_locs], dyn2.x[m:], ctrl, info
+        return pstate, dyn2.x[self._explr_idx], dyn2.x[m:], ctrl, info
 
     def save_update(self, pstate: PlannerState, full_state, save: bool = True):
         """Sync the planner to a measured state: nan guard, closest-plan-

@@ -150,8 +150,6 @@ class Experiment:
     def __init__(self, cfg: ExperimentConfig, train_calls_per_tick: int = 3,
                  scene: Optional[TrayScene] = None, train_every: int = 1,
                  device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("the multi-device mesh is not ported yet")
         reject_unported(cfg)
         if cfg.use_magnitude:
             raise NotImplementedError(
@@ -162,6 +160,19 @@ class Experiment:
                 "ported at the planner level")
         self.cfg = cfg
         self.device = torch.device(device)
+        # data-parallel over a parallel.Mesh: every rank runs this whole
+        # experiment from the same seed; the trainer splits each batch over
+        # the ranks and the planner's decode its samples
+        self.mesh = mesh
+        if mesh is not None:
+            n = mesh.size
+            if cfg.batch_size % n or cfg.num_target_samples % n:
+                raise ValueError(
+                    f"batch_size ({cfg.batch_size}) and num_target_samples "
+                    f"({cfg.num_target_samples}) must divide the mesh size {n}")
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh's tensors live on {mesh.device}, the "
+                                 f"experiment's on {self.device}")
         if self.device.type == "cuda":
             # float32 math runs in full float32 on the card: cuDNN would
             # otherwise run f32 convs in TF32 (matmuls are f32 by default)
@@ -185,9 +196,7 @@ class Experiment:
             vel_smoothing=0.5,  # the simulator's smoothing
         )
         self.planner = KlergPlanner(
-            kcfg, self.dyn, make_policy("Roll", self.dyn, cfg.horizon),
-            lambda ctx, samples: ctx[0].pdf(ctx[1], samples,
-                                            use_z_ensemble=cfg.use_z_ensemble),
+            kcfg, self.dyn, make_policy("Roll", self.dyn, cfg.horizon), self._pdf,
             states, explr_locs=list(range(len(states))), device=dev)
         # the baseline explorers: every method that is not a *klerg one
         self.use_baseline = "klerg" not in cfg.explr_method
@@ -212,6 +221,15 @@ class Experiment:
         self.robot_lim = self.explored.robot_lim
         self.robot_ctrl_lim = self.explored.robot_ctrl_lim
 
+    def _pdf(self, ctx, samples):
+        """The planner's target decode; over a mesh (and not under the
+        z-ensemble, as in the JAX package) each rank decodes its slice."""
+        model, mstate = ctx
+        if self.mesh is not None and not self.cfg.use_z_ensemble:
+            from ..parallel.train import sharded_pdf
+            return sharded_pdf(model, self.mesh, mstate, samples)
+        return model.pdf(mstate, samples, use_z_ensemble=self.cfg.use_z_ensemble)
+
     def make_model(self) -> CVAE:
         cfg = self.cfg
         return CVAE(
@@ -223,18 +241,21 @@ class Experiment:
             fast_encoder_grads=cfg.fast_encoder_grads, lane_pad=cfg.lane_pad)
 
     # ------------------------------------------------------------------
-    def init(self, seed: int = 0) -> ExperimentState:
+    def init(self, seed: int = 0, start_tray_pose=None) -> ExperimentState:
         """Random weights from ``seed`` (drawn on the CPU, so every device
         starts from the same model); runtime draws from device generators
-        seeded with ``seed`` (trainer) and ``seed + 1`` (planner)."""
+        seeded with ``seed`` (trainer) and ``seed + 1`` (planner). The robot
+        starts at the 6-D ``start_tray_pose`` (default: the tray's center)."""
         cfg, dev = self.cfg, self.device
         model = self.make_model()
         model.reset_parameters(torch.Generator().manual_seed(seed))
         model.to(dev)
         barrier, _ = setup_barrier(cfg.states, self.robot_lim,
                                    self.robot_ctrl_lim, list(range(cfg.s_dim)))
-        tray_center = torch.tensor([(lo + hi) / 2 for lo, hi in self.tray6], device=dev)
-        x0r = self.explored.start(tray_center)
+        if start_tray_pose is None:
+            start_tray_pose = [(lo + hi) / 2 for lo, hi in self.tray6]
+        start = torch.as_tensor(start_tray_pose, dtype=torch.float32, device=dev)
+        x0r = self.explored.start(start)
         if self.use_baseline:
             pstate = self.baseline.init_state(x0r, seed=seed + 1)
         else:
@@ -249,7 +270,7 @@ class Experiment:
             mstate=init_model_state(model, dev), pstate=pstate,
             buf=ReplayBuffer.create(cfg.buffer_capacity, cfg.s_dim, cfg.image_dim,
                                     dev, img_dtype=self.compute_dtype),
-            env=self.env.init(tray_center, scene=self.scene),
+            env=self.env.init(start, scene=self.scene),
             hyper=HyperState.create(dev), gen=gen)
 
     # ------------------------------------------------------------------
@@ -379,9 +400,15 @@ class Experiment:
             gamma_warmup_epoch=cfg.gamma_warmup_epoch)
         hyper.iter += self.trainer.num_learning_opt
         es.hyper = hyper
-        metrics = train_call(self.trainer, es.model, es.opt, es.buf,
-                             hyper.beta, hyper.gamma, generator=es.gen,
-                             draws=train_draws)
+        if self.mesh is not None:
+            from ..parallel.train import dp_train_call
+            metrics = dp_train_call(self.trainer, self.mesh, es.model, es.opt, es.buf,
+                                    hyper.beta, hyper.gamma, generator=es.gen,
+                                    draws=train_draws)
+        else:
+            metrics = train_call(self.trainer, es.model, es.opt, es.buf,
+                                 hyper.beta, hyper.gamma, generator=es.gen,
+                                 draws=train_draws)
         es.buf.update_hyperparams(es.explr_step, grade, spread)
         es.learning_ind += 1
         return metrics

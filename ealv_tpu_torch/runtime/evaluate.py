@@ -58,8 +58,26 @@ def imagined_views(model: CVAE, seed_pose, seed_image, query_poses, seed_force=N
 
 
 def eval_report(model: CVAE, test_set_path: str, dir_path: str, n_panels: int = 4):
-    """The full offline report (metrics and seed/actual/imagined figure
-    panels) needs the figure module's ``EvalPlotter``, which the port does
-    not have yet."""
-    raise NotImplementedError("eval_report draws with viz.EvalPlotter, which is not "
-                              "ported yet; evaluate_test_set and imagined_views are")
+    """The full offline report on a ``collect_test_set`` npz: the metrics of
+    ``evaluate_test_set`` and ``n_panels`` seed / actual / imagined figures
+    (``eval_{i}.png``: seeded with sample i, decoded at sample i + 1's
+    pose). The set stores tray poses; they are mapped to the default
+    config's robot coordinates, as in the JAX package. Returns the metrics."""
+    from ..utils.config import ExperimentConfig
+    from ..utils.states import ws_conversion
+    from ..viz import EvalPlotter
+
+    data = np.load(test_set_path)
+    poses, images = data["poses"], data["images"]
+    cfg = ExperimentConfig()
+    poses_r = ws_conversion(torch.as_tensor(poses[:, cfg.sel()], dtype=torch.float32),
+                            torch.as_tensor(cfg.tray_lim), torch.as_tensor(cfg.robot_lim))
+    poses_r = poses_r.numpy()
+
+    metrics = evaluate_test_set(model, poses_r, images)
+    pl = EvalPlotter(dir_path)
+    for i in range(min(n_panels, len(poses_r) - 1)):
+        imagined, _ = imagined_views(model, poses_r[i], images[i], poses_r[i + 1:i + 2])
+        pl.render(images[i], images[i + 1], imagined[0], z_mu=metrics["z_mu"][i],
+                  z_var=np.exp(metrics["z_logvar"][i]), name=f"eval_{i}.png")
+    return metrics

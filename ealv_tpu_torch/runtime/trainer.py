@@ -43,7 +43,7 @@ class TrainerStatics:
 class TrainDraws:
     """One trainer call's random draws, fed instead of drawn: batch indices
     (steps, B), cross-decode indices (steps, B) and reparam noise
-    (steps, B, z_dim)."""
+    (steps, B / num_shards, z_dim)."""
 
     idx: torch.Tensor
     idx2: torch.Tensor
@@ -53,11 +53,23 @@ class TrainDraws:
 def train_call(statics: TrainerStatics, model: CVAE, opt, buf: ReplayBuffer,
                beta, gamma, generator: torch.Generator | None = None,
                weighted: bool = True, deterministic: bool = False,
-               draws: TrainDraws | None = None):
+               draws: TrainDraws | None = None, grad_transform=None,
+               num_shards: int = 1, shard: int = 0):
     """One trainer call of ``num_learning_opt`` steps; updates ``model`` in
     place through ``opt``. ``deterministic`` decodes z = z_mu (no noise).
-    Returns the metrics, each stacked to (num_learning_opt,)."""
+    Returns the metrics, each stacked to (num_learning_opt,).
+
+    The data-parallel seams (``parallel/train.py``): ``grad_transform``
+    takes the list of gradients between ``backward`` and the optimizer step
+    and rewrites them in place (the cross-rank mean). With ``num_shards``
+    every shard draws the same global batch of ``batch_size`` indices (the
+    same generator state on every rank) and trains on its rows ``[shard *
+    bpp, (shard + 1) * bpp)``, bpp = batch_size / num_shards; the reparam
+    noise is one (bpp, z_dim) block, the same on every shard, as in the JAX
+    package. Fed ``draws`` hold global indices and one noise block a step."""
     B = statics.batch_size
+    bpp = B // num_shards
+    mine = slice(shard * bpp, (shard + 1) * bpp)
     rows = []
     for step in range(statics.num_learning_opt):
         if draws is not None:
@@ -67,6 +79,8 @@ def train_call(statics: TrainerStatics, model: CVAE, opt, buf: ReplayBuffer,
             idx2 = (buf.sample_indices(B, weighted=False, generator=generator)
                     if statics.other_locs else None)
             eps = None
+        idx = idx[mine]
+        idx2 = idx2[mine] if idx2 is not None else None
         x, y, force = buf.x[idx], buf.y[idx], buf.force[idx]
         x_dec = y2 = force2 = None
         if statics.other_locs:
@@ -80,6 +94,8 @@ def train_call(statics: TrainerStatics, model: CVAE, opt, buf: ReplayBuffer,
                             force2=force2, learn_force=model.learn_force)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if grad_transform is not None:
+            grad_transform([p.grad for p in model.parameters() if p.grad is not None])
         opt.step()
 
         thr = 0.01

@@ -7,6 +7,7 @@
     python -m ealv_tpu_torch.scripts.run_experiment --method randomWalk --states xywb
     python -m ealv_tpu_torch.scripts.run_experiment --backend arm-dynamic --host-loop --panel
     python -m ealv_tpu_torch.scripts.run_experiment --steps 300 --cluster-every 50
+    python -m ealv_tpu_torch.scripts.run_experiment --steps 300 --dash-every 25 --web-panel 8080
 
 Writes to the run dir ({out}/synth/{method}_{seed:04d}/): config.yaml,
 log.txt, metrics.npz (+ metrics_summary.json), checkpoints/step_* every
@@ -25,19 +26,33 @@ clustering monitor after the chunk that crosses each multiple of N steps
 (clusters/cluster_log.csv; a checkpoint in cluster_checkpoints/ when the
 clusters are stable).
 
+``--web-panel PORT`` serves the browser control panel (pause, resume,
+save and the other panel commands, beside the live dashboard frame) in both
+loops; the chunked loop pauses and saves between chunks. ``--dash-every N``
+redraws ``dashboard.png`` (``dashboard.html`` beside it) after the chunk
+that crosses each multiple of N steps. ``--profile`` writes a
+``torch.profiler`` trace of the second chunk (CPU and, on the card, CUDA
+activity) to ``profile/trace.json`` as a Chrome trace. ``--entropy-slices``
+draws the entropy-slice figures after the run. The end-of-run figures
+(``training.png``, ``final_view.png``) are drawn where matplotlib is
+installed; where it is not, ``log.txt`` gets one line naming them, and
+``--dash-every`` and ``--entropy-slices`` stop the run before it starts.
+
 Differences from the JAX script: exploration runs exactly ``--steps``
 steps (full ``--chunk`` chunks, then the rest) and post-training stops
 exactly at ``num_steps * target_learning_rate`` trainer calls, since nothing
-here is compiled for a fixed chunk length. The figures are not drawn. The
-force variant (``learn_force``) and the z-ensemble (``use_z_ensemble``) are
-switched on in a ``--config`` yaml, as in the JAX script. Options that are
-not ported (the web panel, the dashboard, the profiler, entropy slices) are
-rejected, never ignored.
+here is compiled for a fixed chunk length. The force variant
+(``learn_force``) and the z-ensemble (``use_z_ensemble``) are switched on
+in a ``--config`` yaml, as in the JAX script. Options the chosen loop would
+not honour (the dashboard, the profiler and the slices with
+``--host-loop``, which the JAX script ignores there) are rejected, never
+ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -48,8 +63,9 @@ from ..utils.config import ExperimentConfig
 from ..runtime import Experiment, ExperimentState, HostLoopRunner
 from ..runtime.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ..runtime.metrics import MetricsLog, run_dir
-from ..runtime.panel import ControlPanel
+from ..runtime.panel import ControlHooks, ControlPanel
 from ..runtime.watchdog import GracefulKiller
+from ..runtime.webpanel import WebPanel
 
 SMALL = dict(
     image_dim=(48, 48, 3), cnn_kernels=(3, 3), cnn_strides=(2, 2),
@@ -107,25 +123,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--panel", action="store_true",
                     help="attach the stdin control panel (pause/resume/save/mode "
                          "commands) to the host loop; needs --host-loop")
-    # options of the JAX script that are not ported: rejected when given
-    ap.add_argument("--web-panel", type=int, default=-1, help="not ported")
-    ap.add_argument("--dash-every", type=int, default=0, help="not ported")
-    ap.add_argument("--profile", action="store_true", help="not ported")
-    ap.add_argument("--entropy-slices", action="store_true", help="not ported")
+    ap.add_argument("--web-panel", type=int, default=-1, metavar="PORT",
+                    help="serve the browser control panel (pause/resume/save/mode/"
+                         "brightness + live dashboard) on this port of 127.0.0.1 (0: "
+                         "any free port); in both the chunked and the host loop")
+    ap.add_argument("--dash-every", type=int, default=0,
+                    help="redraw the live dashboard (dashboard.png / .html in the run "
+                         "dir) every N exploration steps, between chunks")
+    ap.add_argument("--profile", action="store_true",
+                    help="write a torch.profiler trace of the second chunk to "
+                         "{run_dir}/profile/trace.json (Chrome trace format)")
+    ap.add_argument("--entropy-slices", action="store_true",
+                    help="after the run, draw the entropy-slice figures (marginal "
+                         "uncertainty fields per z-range variant) into the run dir")
     return ap
 
 
-def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
+def _check_args(ap: argparse.ArgumentParser, args) -> None:
+    """Stop on options the run cannot honour, before the run dir is made."""
     if args.panel and not args.host_loop:
         ap.error("--panel drives the host loop: add --host-loop")
-    for flag, on in (("--web-panel", args.web_panel >= 0),
-                     ("--dash-every", args.dash_every > 0),
-                     ("--profile", args.profile),
-                     ("--entropy-slices", args.entropy_slices)):
-        if on:
-            ap.error(f"{flag} is not ported yet")
+    if args.web_panel > 65535:
+        ap.error(f"--web-panel {args.web_panel}: not a TCP port")
+    if args.host_loop:
+        for flag, on in (("--dash-every", args.dash_every > 0),
+                         ("--profile", args.profile),
+                         ("--entropy-slices", args.entropy_slices)):
+            if on:
+                ap.error(f"{flag} runs in the chunked loop, not with --host-loop")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error(f"--device {args.device}: torch.cuda.is_available() is False")
+    if args.dash_every > 0 or args.entropy_slices:
+        from ..viz.plotting import pyplot
+        pyplot()  # ImportError naming matplotlib where it is missing
 
 
 def make_config(args) -> ExperimentConfig:
@@ -175,6 +205,66 @@ def monitor_update(monitor, es: ExperimentState, seed: int, checkpoint_fn=None):
                           es.explr_step, checkpoint_fn=checkpoint_fn, generator=gen)
 
 
+@contextlib.contextmanager
+def _web_panel(args, hooks: ControlHooks, dirp: str, ml: MetricsLog):
+    """The browser panel over ``hooks`` while the block runs (with
+    ``--web-panel``); yields it, or None."""
+    if args.web_panel < 0:
+        yield None
+        return
+    web = WebPanel(hooks, run_dir=dirp, port=args.web_panel)
+    web.start()
+    ml.write_to_log(f"web panel: http://127.0.0.1:{web.port}/")
+    try:
+        yield web
+    finally:
+        web.stop()
+
+
+def _profiler(device: torch.device):
+    """A torch.profiler over the host and, on the card, the device."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
+
+
+def draw_figures(exp: Experiment, es: ExperimentState, dirp: str, ml: MetricsLog) -> list:
+    """The end-of-run figures: the training curves and the final camera
+    view. Where matplotlib is missing, one line in the log names them.
+    Returns the paths drawn."""
+    from ..viz import ExplorationPlotter, TrainingPlotter
+    names = ["training.png", "final_view.png"]
+    try:
+        from ..viz.plotting import pyplot
+        pyplot()
+    except ImportError:
+        ml.write_to_log(f"figures not drawn (matplotlib is not installed): {', '.join(names)}")
+        return []
+    series = {k: np.concatenate([np.atleast_1d(x) for x in v]) for k, v in ml.series.items()}
+    _, _, _, img = exp.env.observe(es.env)
+    return [TrainingPlotter(dirp).render(series, name=names[0]),
+            ExplorationPlotter(dirp, robot_lim=exp.cfg.robot_lim[:2]).render(
+                image=img, step=es.explr_step, name=names[1])]
+
+
+def draw_entropy_slices(exp: Experiment, es: ExperimentState, dirp: str, ml: MetricsLog,
+                        seed: int) -> list:
+    """The entropy-slice figures of the final model over its replay ring,
+    the draws from a generator seeded with ``seed``. Returns the paths."""
+    from ..fingerprint.entropy import entropy_slices
+    from ..viz import plot_entropy_slices
+    cfg = exp.cfg
+    gen = torch.Generator(device=es.buf.x.device).manual_seed(seed)
+    slices = entropy_slices(
+        es.model, es.buf, cfg.robot_lim, cfg.states, generator=gen,
+        lim_scale=cfg.explr_robot_lim_scale if cfg.explr_robot_lim_scale > 1 else 1.15)
+    paths = plot_entropy_slices(dirp, slices)
+    for p in paths:
+        ml.write_to_log(f"entropy slice -> {p}")
+    return paths
+
+
 def run_host_loop(exp: Experiment, args, dirp: str, ml: MetricsLog,
                   es: ExperimentState) -> ExperimentState:
     """Exploration through a ``SyntheticBridge`` and ``HostLoopRunner``:
@@ -190,16 +280,17 @@ def run_host_loop(exp: Experiment, args, dirp: str, ml: MetricsLog,
                             save_fn=lambda s: save_checkpoint(ck_dir, s, step=s.explr_step))
     if args.panel:
         ControlPanel(runner.hooks()).start()
-    runner.drive_to_start(bridge.klerg_start_pose(), yaw_index=5)
-    remaining = max(0, args.steps - es.explr_step)
-    done = 0
-    while done < remaining:
-        n = min(max(1, args.chunk), remaining - done)
-        es = runner.run(es, n)
-        done += n
-        ml.progress(es.explr_step, es.learning_ind, float("nan"))
-        if runner.killer.kill_now:
-            break
+    with _web_panel(args, runner.hooks(), dirp, ml):
+        runner.drive_to_start(bridge.klerg_start_pose(), yaw_index=5)
+        remaining = max(0, args.steps - es.explr_step)
+        done = 0
+        while done < remaining:
+            n = min(max(1, args.chunk), remaining - done)
+            es = runner.run(es, n)
+            done += n
+            ml.progress(es.explr_step, es.learning_ind, float("nan"))
+            if runner.killer.kill_now:
+                break
     wall = max(time.time() - t0, 1e-9)
     ml.write_to_log(f"host-loop done: {es.explr_step} steps in {wall:.0f}s "
                     f"({es.explr_step / wall:.2f} Hz); events: {runner.events or 'none'}")
@@ -212,10 +303,13 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
         es: ExperimentState | None = None) -> ExperimentState:
     """The run loop: start from ``es`` (or ``exp.init(seed)``, or the
     latest checkpoint with ``--resume``), explore in chunks with periodic
-    checkpoints (and the clustering monitor with ``--cluster-every``),
-    post-train to the learning-ratio target, and save the final and the
-    ``postexplr`` checkpoints. With ``--host-loop`` the exploration goes
-    through ``run_host_loop`` instead. Returns the final state."""
+    checkpoints (and the clustering monitor with ``--cluster-every``, the
+    dashboard with ``--dash-every``, the browser panel with
+    ``--web-panel``, a profiled second chunk with ``--profile``), post-train
+    to the learning-ratio target, save the final and the ``postexplr``
+    checkpoints, and draw the figures (and the entropy slices with
+    ``--entropy-slices``). With ``--host-loop`` the exploration goes through
+    ``run_host_loop`` instead. Returns the final state."""
     cfg = exp.cfg
     ck_dir = os.path.join(dirp, "checkpoints")
     if es is None:
@@ -233,25 +327,48 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
     if args.cluster_every > 0:
         monitor = make_monitor(exp, es, os.path.join(dirp, "clusters"))
 
+    dash = None
+    if args.dash_every > 0:
+        from ..viz import LiveDashboard
+        dash = LiveDashboard(exp, dirp)
+
     t0 = time.time()
     start = es.explr_step
     c = 0
-    while es.explr_step < args.steps:
-        before = es.explr_step
-        es, infos = exp.run_chunk(es, min(args.chunk, args.steps - before))
-        infos = {k: infos[k].float().cpu().numpy()
-                 for k in ("loss", "ergodic_cost", "beta", "gamma")}
-        ml.push_tick_info(infos)
-        ml.progress(es.explr_step, es.learning_ind, _last_loss(infos["loss"]))
-        if es.explr_step // args.save_rate > before // args.save_rate:
-            save_checkpoint(ck_dir, es, step=es.explr_step)
-        if monitor and es.explr_step // args.cluster_every > before // args.cluster_every:
-            res, stable = monitor_update(
-                monitor, es, 42 + c, checkpoint_fn=lambda step: save_checkpoint(
-                    os.path.join(dirp, "cluster_checkpoints"), es, step=step))
-            means = np.round(res.means[:, :2].astype(np.float64), 2).tolist()
-            ml.write_to_log(f"clusters @ {es.explr_step}: {means} stable={stable}")
-        c += 1
+    with _web_panel(args, ControlHooks(), dirp, ml) as web:
+        while es.explr_step < args.steps:
+            if web is not None:
+                while web.hooks.pause_mgr.paused:
+                    time.sleep(0.2)  # the chunked loop pauses between chunks
+                if web.hooks.pause_mgr.consume_save():
+                    save_checkpoint(ck_dir, es, step=es.explr_step)
+                    ml.write_to_log("checkpoint saved on panel request")
+            before = es.explr_step
+            profiling = args.profile and c == 1  # the second chunk: past the warm-up
+            with _profiler(exp.device) if profiling else contextlib.nullcontext() as prof:
+                es, infos = exp.run_chunk(es, min(args.chunk, args.steps - before))
+                infos = {k: infos[k].float().cpu().numpy()  # waits for the chunk
+                         for k in ("loss", "ergodic_cost", "beta", "gamma")}
+            if profiling:
+                trace = os.path.join(dirp, "profile", "trace.json")
+                os.makedirs(os.path.dirname(trace), exist_ok=True)
+                prof.export_chrome_trace(trace)
+                ml.write_to_log(f"profiler trace -> {trace}")
+            ml.push_tick_info(infos)
+            if dash and es.explr_step // args.dash_every > before // args.dash_every:
+                dash.render(es, ml.series, step=es.explr_step)
+            ml.progress(es.explr_step, es.learning_ind, _last_loss(infos["loss"]))
+            if es.explr_step // args.save_rate > before // args.save_rate:
+                save_checkpoint(ck_dir, es, step=es.explr_step)
+            if monitor and es.explr_step // args.cluster_every > before // args.cluster_every:
+                res, stable = monitor_update(
+                    monitor, es, 42 + c, checkpoint_fn=lambda step: save_checkpoint(
+                        os.path.join(dirp, "cluster_checkpoints"), es, step=step))
+                means = np.round(res.means[:, :2].astype(np.float64), 2).tolist()
+                ml.write_to_log(f"clusters @ {es.explr_step}: {means} stable={stable}")
+            c += 1
+    if args.profile and c < 2:
+        ml.write_to_log(f"no profiler trace: {c} chunk(s), the trace takes the second")
     wall = max(time.time() - t0, 1e-9)
     ml.write_to_log(f"done: {es.explr_step} steps in {wall:.0f}s "
                     f"({(es.explr_step - start) / wall:.2f} Hz)")
@@ -283,13 +400,16 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
     ml.save()
     if monitor:
         monitor.save_log()
+    draw_figures(exp, es, dirp, ml)
+    if args.entropy_slices:
+        draw_entropy_slices(exp, es, dirp, ml, args.seed)
     return es
 
 
 def main(argv=None) -> ExperimentState:
     ap = build_parser()
     args = ap.parse_args(argv)
-    _reject_unported(ap, args)
+    _check_args(ap, args)
     cfg = make_config(args)
     dirp = run_dir(args.out, "synth", args.method, args.seed)
     ml = MetricsLog(dirp)

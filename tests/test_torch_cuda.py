@@ -270,13 +270,15 @@ def test_adam_kernel_rejects_other_grads_without_copying(cuda):
 
 # ---- K3: the direct conv weight gradient ----
 
-# (B, H, W, Cin, Cout, k, s): the CVAE encoder's three layers at batch 64,
-# the probe shapes of the JAX package's tests, then the bf16 kernel's tile
+# (B, H, W, Cin, Cout, k, s): the CVAE encoder's three layers at batch 64
+# and 32, the probe shapes of the JAX package's tests, then the bf16 kernel's tile
 # edges: Cout of 16, 17, 33 and 70 (two co groups); 16 and 17 taps; 300
 # taps (two ci groups); bands that do not divide OH, with several items per
 # block; B = 1
 WGRAD_PRODUCTION = [(64, 180, 180, 3, 10, 3, 2), (64, 89, 89, 10, 10, 3, 2),
                     (64, 44, 44, 10, 20, 5, 3)]
+# the same layers at 32 rows: one rank's shard of the batch at two ranks
+WGRAD_DP = [(32,) + shape[1:] for shape in WGRAD_PRODUCTION]
 WGRAD_PROBES = [(2, 17, 17, 3, 5, 3, 2), (1, 20, 20, 4, 6, 5, 3),
                 (2, 16, 16, 2, 3, 3, 3), (1, 13, 11, 1, 2, 1, 1), (3, 9, 9, 2, 40, 3, 2),
                 (2, 13, 13, 3, 16, 3, 2), (2, 13, 13, 3, 17, 3, 2), (1, 12, 12, 2, 33, 3, 1),
@@ -306,7 +308,7 @@ def _wgrad_inputs(shape, dtype, dev, seed=0, channels_last=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", WGRAD_PRODUCTION + WGRAD_PROBES)
+@pytest.mark.parametrize("shape", WGRAD_PRODUCTION + WGRAD_DP + WGRAD_PROBES)
 def test_wgrad_kernel_matches_plain(cuda, shape, dtype):
     """Against the plain version in f64, the exact sums: the kernels' f32
     summation error over up to 507 k terms, rtol 1e-4, atol 1e-3 (cuDNN's

@@ -16,6 +16,7 @@ from ealv_tpu.models.losses import cvae_loss as j_loss
 from ealv_tpu.utils.torch_import import convert_state_dict
 from ealv_tpu_torch.models import CVAE, cvae_loss, init_model_state, update_dist
 from ealv_tpu_torch.utils.convert import params_from_jax
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

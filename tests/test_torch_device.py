@@ -63,6 +63,20 @@ def test_fingerprint_cli_defaults_to_the_card(name):
     assert mod.build_parser().parse_args(required).device == "cuda"
 
 
+@pytest.mark.parametrize("name", ["runtime.demo", "scripts.replay_run", "scripts.batch_tests",
+                                  "scripts.force_study", "scripts.resume_study"])
+def test_study_cli_defaults_to_the_card(name):
+    import importlib
+    mod = importlib.import_module(f"ealv_tpu_torch.{name}")
+    required = {"scripts.replay_run": ["--run", "r"]}.get(name, [])
+    assert mod.build_parser().parse_args(required).device == "cuda"
+
+
+def test_make_mesh_defaults_to_the_card():
+    from ealv_tpu_torch.parallel import make_mesh
+    assert inspect.signature(make_mesh).parameters["device"].default == "cuda"
+
+
 @pytest.mark.parametrize("cls", [SyntheticEnv, ArmEnv], ids=lambda c: c.__name__)
 def test_env_defaults_to_the_card(cls):
     field = {f.name: f for f in dataclasses.fields(cls)}["device"]

@@ -11,6 +11,7 @@ import torch
 
 from ealv_tpu.control import dynamics as jd
 from ealv_tpu_torch.control import dynamics as td
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 TOL = dict(rtol=1e-5, atol=1e-6)

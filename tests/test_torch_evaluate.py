@@ -83,10 +83,29 @@ def test_imagined_views_match_jax(learn_force):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5, err_msg=what)
 
 
-def test_eval_report_waits_for_the_figures():
-    _, _, tm = _models(False)
-    with pytest.raises(NotImplementedError, match="EvalPlotter"):
-        tev.eval_report(tm, "test_set.npz", "out")
+def test_eval_report_waits_for_the_figures(tmp_path):
+    """eval_report waited for the figure module; now it draws: on one npz
+    (tray poses, as the collector writes them) the port's and the JAX
+    report give the same metrics (rtol 1e-4, as above) and write the same
+    files at the same image sizes."""
+    import matplotlib.image as mpimg
+    jm, jp, tm = _models(False)
+    rng = np.random.default_rng(4)
+    poses = np.zeros((5, 6), np.float32)
+    poses[:, :3] = rng.uniform([0.3, -0.15, 0.3], [0.65, 0.15, 0.5], (5, 3))
+    path = str(tmp_path / "ts.npz")
+    np.savez(path, poses=poses, images=rng.uniform(0, 1, (5, *IMG)).astype(np.float32),
+             forces=np.zeros((5, 1), np.float32))
+    want = jev.eval_report(jm, jp, path, str(tmp_path / "jax"), n_panels=3)
+    got = tev.eval_report(tm, path, str(tmp_path / "port"), n_panels=3)
+    for k in ("recon_mse", "recon_nll", "z_mu", "z_logvar", "img_pred"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    files = sorted(os.listdir(tmp_path / "jax"))
+    assert files == sorted(os.listdir(tmp_path / "port")) == [
+        "eval_0.png", "eval_1.png", "eval_2.png"]
+    for f in files:
+        assert (mpimg.imread(str(tmp_path / "port" / f)).shape
+                == mpimg.imread(str(tmp_path / "jax" / f)).shape), f
 
 
 @pytest.mark.parametrize("n", [9, 10, 25])

@@ -11,6 +11,7 @@ import torch
 
 from ealv_tpu import control as jc
 from ealv_tpu_torch import control as tc
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -13,6 +13,7 @@ import torch
 
 from ealv_tpu.data.replay import ReplayBuffer as JRB, TrajMemory as JTM
 from ealv_tpu_torch.data.replay import ReplayBuffer, TrajMemory
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 IMG = (4, 5, 3)
 

@@ -10,6 +10,7 @@ import torch
 
 from ealv_tpu.utils import rotations as jrot
 from ealv_tpu_torch.utils import rotations as trot
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -1,8 +1,9 @@
 """The port's run entry point, ``python -m ealv_tpu_torch.scripts.run_experiment``,
 at ``--small --device cpu``: the run directory it writes, ``--resume``
 picking up the latest checkpoint, the arm backends, the host loop with the
-control panel, the clustering monitor, and the options it does not port
-being rejected. Port only; the run loop is called in-process through
+control panel, the clustering monitor, and the options it cannot honour
+being rejected (the dashboard, profiler, slice and web panel flags:
+``test_torch_studies.py``). Port only; the run loop is called in-process through
 ``main``.
 """
 
@@ -29,12 +30,14 @@ def _run_dir(out):
 def test_run_writes_its_run_directory(tmp_path):
     """4 steps with a checkpoint every 2, then post-training to 4 * 3 = 12
     trainer calls and the postexplr checkpoint, which holds the final
-    state."""
+    state; the end-of-run figures where matplotlib is installed (it is in
+    this environment)."""
     out = str(tmp_path)
     es = cli.main([*SMALL, "--steps", "4", "--save-rate", "2", "--out", out])
     d = _run_dir(out)
-    assert sorted(os.listdir(d)) == ["checkpoints", "config.yaml", "log.txt",
-                                     "metrics.npz", "metrics_summary.json"]
+    assert sorted(os.listdir(d)) == ["checkpoints", "config.yaml", "final_view.png",
+                                     "log.txt", "metrics.npz", "metrics_summary.json",
+                                     "training.png"]
     assert sorted(os.listdir(os.path.join(d, "checkpoints"))) == [
         "postexplr", "step_0000002", "step_0000004"]
     assert es.explr_step == 4 and es.learning_ind == 12
@@ -66,11 +69,14 @@ def test_resume_continues_from_the_latest_step(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--web-panel", "0"], ["--dash-every", "5"], ["--profile"], ["--entropy-slices"],
-    ["--panel"]])
+    ["--web-panel", "70000"], ["--dash-every", "5", "--host-loop"],
+    ["--profile", "--host-loop"], ["--entropy-slices", "--host-loop"], ["--panel"]])
 def test_unported_options_are_rejected(tmp_path, flags):
-    """The options not ported yet, and the panel without the host loop it
-    drives, stop the run before its directory is made."""
+    """Options the run cannot honour stop it before its directory is made:
+    a web panel port past 65535; the dashboard, the profiler and the
+    entropy slices with the host loop, whose loop has none of them (the JAX
+    script ignores them there); the panel without the host loop it
+    drives."""
     with pytest.raises(SystemExit) as e:
         cli.main([*SMALL, "--steps", "2", "--out", str(tmp_path), *flags])
     assert e.value.code == 2

@@ -10,6 +10,7 @@ import torch
 from ealv_tpu.sim import TrayScene as JScene, SyntheticEnv as JEnv, render_camera as j_render
 from ealv_tpu.utils.config import TRAY_LIM
 from ealv_tpu_torch.sim import TrayScene, SyntheticEnv, render_camera
+from test_torch_trainer import one_torch_thread  # noqa: F401
 
 TRAY6 = tuple(TRAY_LIM[s] for s in "xyzrpw")
 POSES = [

@@ -22,6 +22,7 @@ import torch
 
 from ealv_tpu.runtime import Experiment as JExperiment
 from ealv_tpu.utils.config import ExperimentConfig as JConfig
+from ealv_tpu_torch.parallel import Mesh
 from ealv_tpu_torch.runtime import Experiment, TickDraws
 from ealv_tpu_torch.utils.config import ExperimentConfig
 from ealv_tpu_torch.utils.convert import params_from_jax
@@ -36,16 +37,16 @@ TOY = dict(states="xyw", num_target_samples=64, num_traj_samples=100,
            image_dim=(24, 24, 3), batch_size=8, num_learning_opt=2)
 
 
-def _jax_tick_draws(exp, es, es_after):
+def _jax_tick_draws(exp, es, es_after, num_shards=1):
     """The random draws of one JAX tick from ``es`` (``es_after`` is the
     state the tick returned: its replay ring is the one the trainer read):
-    the planner's or the baseline's, the trainer's, and the entropy grade's
-    uniform samples."""
+    the planner's or the baseline's, the trainer's (over ``num_shards``
+    data-parallel shards), and the entropy grade's uniform samples."""
     cfg = exp.cfg
     _, k_train, k_hp = jax.random.split(es.key, 3)
     train = [jax_train_draws(exp.model, es.params, es_after.buf,
                              jax.random.fold_in(k_train, 0), cfg.num_learning_opt,
-                             cfg.batch_size)]
+                             cfg.batch_size, num_shards=num_shards)]
     grade = jax.random.uniform(jax.random.fold_in(k_hp, 0),
                                (cfg.num_target_samples, cfg.s_dim),
                                minval=exp.robot_lim[:, 0], maxval=exp.robot_lim[:, 1])
@@ -197,13 +198,16 @@ def test_standalone_entropy_schedule_path():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(use_magnitude=True), "klerg.py:550"), (dict(states="xyXY"), "config.py:156"),
-    (dict(mesh=object()), "mesh")])
+    (dict(mesh=Mesh(group=None, rank=0, size=3, device=torch.device("cpu"))), "mesh")])
 def test_unported_configurations_raise(kwargs, match):
     """use_magnitude=True and velocity states have no reference to match:
     the JAX Experiment fails on its first tick (use_magnitude) or in its
-    config (upper-case states), and the messages say so."""
+    config (upper-case states), and the messages say so. A mesh is ported:
+    one whose size divides neither the batch (8) nor the target samples (64)
+    fails the JAX Experiment's guard, a ValueError naming the mesh size."""
     mesh = kwargs.pop("mesh", None)
-    with pytest.raises(NotImplementedError, match=match):
+    exc = NotImplementedError if mesh is None else ValueError
+    with pytest.raises(exc, match=match):
         Experiment(ExperimentConfig(**{**TOY, **kwargs}), mesh=mesh, device="cpu")
 
 

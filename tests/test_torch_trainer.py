@@ -47,17 +47,21 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True):
+def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True, num_shards=1):
     """The draws JAX ``train_call`` makes from ``key`` (other_locs on; the
-    force variant's encoder reads the batch's forces)."""
+    force variant's encoder reads the batch's forces): the global indices,
+    and the reparam noise of one shard's batch / num_shards rows, which
+    every shard draws alike from the replicated key."""
+    bpp = batch // num_shards
 
     @jax.jit
     def one(p, buf, k):
         k_b, k_b2, k_r = jax.random.split(k, 3)
         i1 = buf.sample_indices(k_b, batch, weighted=weighted)
         i2 = buf.sample_indices(k_b2, batch, weighted=False)
-        out = jm.apply(p, buf.x[i1], buf.y[i1], x_decode=buf.x[i2], train=True,
-                       force=buf.force[i1] if jm.learn_force else None,
+        s1, s2 = i1[:bpp], i2[:bpp]
+        out = jm.apply(p, buf.x[s1], buf.y[s1], x_decode=buf.x[s2], train=True,
+                       force=buf.force[s1] if jm.learn_force else None,
                        rngs={"reparam": k_r})
         return i1, i2, out["z"], out["z_mu"], out["z_logvar"]
 
