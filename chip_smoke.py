@@ -71,6 +71,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      NativeBridge: the controller library built from native/, its C++
      1 kHz loop against a numpy driver, the camera rendered on the card,
      12 absorbed steps and the loop's rate, jitter and missed deadlines;
+     after the timed window of each path (xyw, xyzrpw, the variant path,
+     the arm, the eval path, the fingerprint capture and identification in
+     each seek mode) one warm tick's calls (plan_step, the env steps,
+     observe, absorb_step with the trainer call throttled out) run under
+     torch.cuda.set_sync_debug_mode("error"): no call may synchronise; on
+     xyw also the card's launch queue depth, and plan_step bisected into
+     pieces (the sync, the draws, the target decode, the base footprint,
+     the initial cost, the first inner iteration's parts), each under the
+     queue's depth, enqueued behind a spin kernel: none may wait;
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
@@ -93,7 +102,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      copy, no host wait before it; device and host ms); the demo, the force
      study, the resume study at --small (bit-equal after a SIGKILL and
      --resume), the run entry's --profile trace (it names K1's kernel) and
-     the browser panel (GET /status, POST /cmd pause).
+     the browser panel (GET /status, POST /cmd pause);
+  8. the port's ``repro planner`` table at 2 seeds x 30 steps (the
+     published spec otherwise; 13 K1 launches a step), its rows finite and
+     printed as one JSON line.
 The line before the last is the kernels' JSON record; the last line is the
 result JSON. Imports nothing of JAX.
 """
@@ -161,9 +173,12 @@ def phase_kernels(dev):
     """K1 against its plain version at the main paths' shapes and the probe
     shapes, the same bits on a repeated call; then kernel and plain times
     at the main paths' shapes: d = 3 (xyw), d = 6 (xyzrpw) and d = 4
-    (xywb), and the dashboard payload's 50x50 grid (N = 2500) against the
+    (xywb), the dashboard payload's 50x50 grid (N = 2500) against the
     3000-point memory (the spread) and the memory plus the 11-point plan
-    (the footprint, T = 3011)."""
+    (the footprint, T = 3011), and the ``repro planner`` table's 1500
+    samples at d = 4 against its 2000-slot memory (the spread), its
+    1000-point memory draw (the base footprint), both with the first 300
+    points valid as at the table's last step, and its 10-step horizon."""
     import torch
     from ealv_tpu_torch.ops import (footprint_and_spread, footprint_and_spread_reference,
                                     footprint_plan)
@@ -183,12 +198,16 @@ def phase_kernels(dev):
             mask = (torch.rand(t, generator=g, device=dev) > 0.3).float()
         elif mask_kind == "zero":
             mask.zero_()
+        elif mask_kind.startswith("first"):  # a memory ring's fill
+            mask = (torch.arange(t, device=dev) < int(mask_kind[5:])).float()
         return samples, traj, std, mask
 
     # (n, t, d, mask): the main paths' shapes (target spread and base
     # footprint 2000x3000, horizon costs 2000x10, at d = 3 and d = 6; N =
     # 2010 with add_recent_history; the dashboard's 2500-point grid against
-    # 3000 and 3011 points, and 3010), the CPU probe shapes, and T-splits cut
+    # 3000 and 3011 points, and 3010; the planner table's 1500 samples
+    # against its 2000-slot memory and 1000-point draw, filled to 0, 31 and
+    # 300 points, and its 10-step horizon), the CPU probe shapes, and T-splits cut
     # unevenly: a T that S does not divide, more splits than points per
     # split, splits longer than one staged stretch, T = 1, d = 8
     shapes = [(2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
@@ -196,6 +215,9 @@ def phase_kernels(dev):
               (2000, 3000, 4, "tail"), (2000, 10, 4, "ones"),
               (2500, 3000, 3, "tail"), (2500, 3010, 3, "tail"), (2500, 3011, 3, "tail"),
               (2010, 3000, 6, "tail"), (2010, 10, 6, "ones"), (2010, 3000, 3, "random"),
+              (1500, 2000, 4, "first31"), (1500, 1000, 4, "first31"),
+              (1500, 2000, 4, "first300"), (1500, 1000, 4, "first300"),
+              (1500, 1000, 4, "first0"), (1500, 10, 4, "ones"),
               (700, 900, 4, "random"), (700, 900, 2, "random"),
               (700, 900, 6, "random"), (64, 100, 3, "ones"),
               (2000, 3000, 3, "zero"), (1, 1, 3, "ones"), (129, 513, 7, "random"),
@@ -222,7 +244,9 @@ def phase_kernels(dev):
     for n, t, d, mk in ((2000, 3000, 3, "tail"), (2000, 10, 3, "ones"),
                         (2000, 3000, 6, "tail"), (2000, 10, 6, "ones"),
                         (2000, 3000, 4, "tail"), (2000, 10, 4, "ones"),
-                        (2500, 3000, 3, "tail"), (2500, 3011, 3, "tail")):
+                        (2500, 3000, 3, "tail"), (2500, 3011, 3, "tail"),
+                        (1500, 2000, 4, "first300"), (1500, 1000, 4, "first300"),
+                        (1500, 10, 4, "ones")):
         args = case(n, t, d, mk)
         kernel = lambda: footprint_and_spread(*args)
         plain = lambda: footprint_and_spread_reference(*args)
@@ -237,7 +261,8 @@ def phase_kernels(dev):
                             bound_by=bound_by)
     out = dict(max_abs_err=max_err, **rec[2000, 3000, 3], library_ms=None, shape="2000x3000x3")
     for key in ((2000, 10, 3), (2000, 3000, 6), (2000, 10, 6), (2000, 3000, 4),
-                (2000, 10, 4), (2500, 3000, 3), (2500, 3011, 3)):
+                (2000, 10, 4), (2500, 3000, 3), (2500, 3011, 3), (1500, 2000, 4),
+                (1500, 1000, 4), (1500, 10, 4)):
         tag = "x".join(map(str, key))
         out.update({f"{k}_{tag}": v for k, v in rec[key].items()})
     capture, cap_err = _k1_capture_width(dev, u)
@@ -828,6 +853,174 @@ def _profiled_call(call):
     return wall, busy / 1e3, summed / 1e3, averaged / 1e3, len(spans)
 
 
+def _behind_spin(call, spin_s=0.2):
+    """Enqueue ``call`` behind a ``spin_s`` spin kernel: (seconds until the
+    host got control back, seconds until the device finished). A call that
+    never waits for the device returns long before the spin ends, unless
+    it makes more launches than the card's launch queue holds (about a
+    thousand): then the host waits for room in the queue."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * spin_s))
+    t0 = time.perf_counter()
+    call()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return enqueue, time.perf_counter() - t0
+
+
+def _sync_free(path, parts):
+    """Run the calls ``parts`` [(name, call)] in order under
+    ``torch.cuda.set_sync_debug_mode("error")``, where any call that
+    synchronises with the device (a blocking copy, ``.item()``, ``nonzero``,
+    a synchronize) raises. On a failure the parts run again in "warn" mode
+    to list every synchronising call with its line in the port; then the
+    phase raises."""
+    import traceback
+    import warnings
+    import torch
+
+    def where():
+        frames = [f for f in traceback.extract_stack() if "ealv_tpu_torch" in f.filename]
+        if not frames:
+            return "outside the port"
+        f = frames[-1]
+        return f"{f.filename.split('ealv_tpu_torch')[-1].lstrip('/')}:{f.lineno} {f.line}"
+
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for name, call in parts:
+            call()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        found = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda msg, *a, **k: found.append(f"{name}: {where()}")
+            torch.cuda.set_sync_debug_mode("warn")
+            for name, call in parts:
+                call()
+        raise RuntimeError(f"{path}: synchronising calls under set_sync_debug_mode: "
+                           f"{found or e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[sync] {path}: {', '.join(n for n, _ in parts)} ran under "
+          f"torch.cuda.set_sync_debug_mode('error'); none synchronised")
+
+
+def _sync_check_catches():
+    """The sync check itself: the two per-step copies SyntheticEnv.step_vel
+    made before it built its constants once (its limits as a tensor from a
+    Python tuple, and a Python scalar written into one element of its
+    z-mask) each fail ``_sync_free``."""
+    import torch
+    mask = torch.ones(6, dtype=torch.bool, device="cuda")
+    cases = {"a tensor from a Python tuple": lambda: torch.tensor(
+                 ((0.325, 0.625),) * 6, device="cuda"),
+             "a Python scalar written into one element": lambda: mask.__setitem__(2, False)}
+    for what, call in cases.items():
+        try:
+            _sync_free(what, [(what, call)])
+        except RuntimeError as e:
+            print(f"[sync] the check catches {what}: {str(e)[:160]}")
+            continue
+        raise RuntimeError(f"the sync check missed {what}")
+
+
+def _tick_builders():
+    """``tests/test_torch_sync.py``, which builds the ticks the sync check
+    runs, for its toy checks and here: ``untrained_tick(exp, es)`` (one
+    ``Experiment.tick`` that makes no trainer call) and
+    ``fingerprint_ticks(...)`` (a capture tick, an identification tick in
+    each seek mode). It imports no JAX."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import test_torch_sync
+    return test_torch_sync
+
+
+def _plan_bisect(exp, es):
+    """Where the host waits in a production plan_step: first the card's
+    launch queue (trivial launches behind a spin kernel until one blocks),
+    then plan_step itself and each piece of it (the sync, the draws, the
+    target decode, the base footprint, the initial cost and the first
+    inner iteration's forward, footprint, backward, line search and cost)
+    enqueued behind a spin kernel, with its device intervals under the
+    profiler. A piece under the queue's depth that returns only after the
+    spin waits for the device, and fails the check."""
+    import torch
+    from ealv_tpu_torch.ops import cost_norm, renormalize, traj_footprint
+
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * 0.5))
+    depth, t_prev = None, time.perf_counter()
+    for i in range(4096):
+        x.add_(1.0)
+        t = time.perf_counter()
+        if depth is None and t - t_prev > 0.05:
+            depth = i
+        t_prev = t
+    torch.cuda.synchronize()
+    print(f"[plan bisect] the launch queue: behind a 0.5 s spin kernel the host blocked at "
+          f"launch {depth} of 4096 one-element adds")
+
+    pl, cfg, ctx = exp.planner, exp.planner.cfg, (es.model, es.mstate)
+    full = exp._measured_robot_state(es.env)
+    use_prior = es.explr_step < exp.cfg.prior_steps
+    st = {}
+    cost = lambda u: pl._cost(st["ps"].dyn, u, st["samples"], st["p_n"], st["qb"],
+                              st["ps"].barrier)
+
+    def target():
+        st["p"] = pl._target_dist(ctx, st["ps"], st["samples"], 1.0, use_prior=use_prior)
+        st["p_n"] = cost_norm(st["p"])
+
+    def footprint():
+        q_iter = traj_footprint(st["fw"][1], st["samples"], pl._explr_idx, pl.std)
+        st["q"] = renormalize(st["qb"] + q_iter)
+
+    def backward():
+        u_eff, xs, A, B, dbarr, dmu = st["fw"]
+        du, st["djdlam"] = pl._backward(st["samples"], st["p"], st["q"], xs, A, B, dbarr, dmu)
+        st["u_star"] = pl._saturate(u_eff + cfg.alpha * du)
+
+    def apply():
+        st["u_new"], _ = pl._apply(cost, st["ps"].u, st["fw"][0], st["u_star"],
+                                   st["djdlam"], 0, st["J0"])
+
+    pieces = [
+        ("plan_step", lambda: exp.plan_step(es, full)),
+        ("save_update", lambda: st.update(ps=pl.save_update(es.pstate, full, save=False))),
+        ("_draw_samples", lambda: st.update(samples=pl._draw_samples(st["ps"]))),
+        ("memory.sample", lambda: st.update(
+            hist=st["ps"].memory.sample(cfg.num_traj_samples, st["ps"].gen))),
+        ("_target_dist (pdf decode, spread)", target),
+        ("base footprint", lambda: st.update(qb=traj_footprint(
+            st["hist"][0], st["samples"], pl._explr_idx, pl.std, traj_mask=st["hist"][1]))),
+        ("initial cost", lambda: st.update(J0=cost(st["ps"].u))),
+        ("forward", lambda: st.update(fw=pl._forward(st["ps"], st["ps"].u, 0))),
+        ("iteration footprint", footprint),
+        ("backward", backward),
+        ("_apply (line search)", apply),
+        ("iteration cost", lambda: cost(st["u_new"]))]
+    rows = []
+    for name, call in pieces:
+        _, _, _, _, n = _profiled_call(call)
+        enqueue, spun = _behind_spin(call)
+        rows.append((name, n, enqueue * 1e3, spun * 1e3))
+        print(f"[plan bisect] {name}: {n} device intervals; behind a 0.2 s spin kernel the "
+              f"host enqueued it in {enqueue * 1e3:.2f} ms of {spun * 1e3:.1f} ms")
+    waits = [r for r in rows if r[1] < 1000 and r[2] > 0.5 * r[3]]
+    if waits:
+        raise RuntimeError(f"plan_step pieces under the launch queue's depth waited for "
+                           f"the device: {waits}")
+
+
 def phase_trainer_production(n_filled=200, rounds=2):
     """One production-size trainer call with the trainer kernels on and off
     from the same weights, ring and fed draws: 25 losses within the bf16
@@ -957,6 +1150,11 @@ def phase_main_path(states="xyw", n_warm=6, n_timed=24):
         print(f"[main path {states}] profiled {what}: host {wall:.2f} ms; device busy "
               f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle) in {n} kernel and copy "
               f"intervals")
+    if states == "xyw":
+        _sync_check_catches()
+    _sync_free(f"{states} tick", _tick_builders().untrained_tick(exp, es))
+    if states == "xyw":
+        _plan_bisect(exp, es)
     return launches, dt * 1e3, peak
 
 
@@ -1027,6 +1225,7 @@ def phase_variant_path(n_warm=6, n_timed=12):
           f"calls | K1 {k1} (13/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} (75/call) | last "
           f"loss {float(losses[losses != 0][-1]):.4f} | brightness {float(b):.4f} | peak "
           f"memory {peak:.1f} MiB")
+    _sync_free("xywb force z-ensemble tick", _tick_builders().untrained_tick(exp, es))
 
     g = torch.Generator(device="cuda").manual_seed(7)
     lo, hi = exp.robot_lim[:, 0], exp.robot_lim[:, 1]
@@ -1105,6 +1304,7 @@ def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
     if footprint_and_spread.launches != 12 * n_timed:
         raise RuntimeError(f"eval path: {footprint_and_spread.launches} K1 launches in "
                            f"{n_timed} ticks, expected {12 * n_timed}")
+    _sync_free("EvalExperiment tick", [("EvalExperiment.tick", lambda: ev_exp.tick(ev, ctx))])
     costs = torch.stack(costs).cpu()
     if not torch.isfinite(costs).all() or obs["image"].shape != cfg.image_dim:
         raise RuntimeError(f"eval costs {costs}, image {tuple(obs['image'].shape)}")
@@ -1371,6 +1571,10 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
               f"{ {k: round(v, 3) for k, v in errors.items()} } | seek share after adoption "
               f"{np.round(share, 2).tolist()}")
 
+    ticks = _tick_builders().fingerprint_ticks(cfg, model, scene, fps, truth[0], rl_t, tl_t,
+                                               "cuda", warm=3)
+    _sync_free("fingerprint capture and identification ticks", ticks)
+
     buf = ReplayBuffer.create(16, cfg.s_dim, cfg.image_dim, dev, img_dtype=torch.bfloat16)
     for x, y in zip(seeds_x, seeds_y):
         buf.push(x, y)
@@ -1568,6 +1772,7 @@ def phase_arm_path(n_warm=6, n_timed=12):
           f"{dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz | last loss "
           f"{float(losses[losses != 0][-1]):.4f} | K1 launches {launches} (13/tick) | pose "
           f"{[round(v, 4) for v in es.env.pose.tolist()]} | peak memory {peak:.1f} MiB")
+    _sync_free("arm tick", _tick_builders().untrained_tick(exp, es))
 
     env = exp.env
     cmd = torch.tensor([0.02, -0.01, 0.0, 0.0, 0.0, 0.1], device="cuda")
@@ -1586,13 +1791,7 @@ def phase_arm_path(n_warm=6, n_timed=12):
         d_ms, h_ms = device_ms(call, reps=21, inner=1), host_ms(call, inner=20)
         # the host must not wait for the device: enqueued behind a 0.2 s
         # spin kernel, the call returns long before the spin ends
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(2e9 * 0.2))
-        t0 = time.perf_counter()
-        call()
-        enqueue = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        spun = time.perf_counter() - t0
+        enqueue, spun = _behind_spin(call)
         if n < 1000 and enqueue > 0.5 * spun:
             raise RuntimeError(f"ArmEnv.{what}: the host waited for the device "
                                f"({enqueue * 1e3:.1f} ms of {spun * 1e3:.1f} ms)")
@@ -2100,13 +2299,7 @@ def phase_dashboard(n_warm=6):
     copies = [e.name for e in on_card if "DtoH" in e.name]
     if len(copies) != 1:
         raise RuntimeError(f"payload: {len(copies)} device-to-host copies: {copies}")
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(2e9 * 0.2))
-    t0 = time.perf_counter()
-    dash.device_payload(es)
-    enqueue = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spun = time.perf_counter() - t0
+    enqueue, spun = _behind_spin(lambda: dash.device_payload(es))
     if len(on_card) < 1000 and enqueue > 0.5 * spun:
         raise RuntimeError(f"payload: the host waited for the device before the copy "
                            f"({enqueue * 1e3:.1f} ms of {spun * 1e3:.1f} ms)")
@@ -2196,6 +2389,27 @@ def phase_studies():
     return leaves
 
 
+def phase_repro_planner(seeds=(0, 1), steps=30):
+    """The port's ``repro planner`` table at a reduced length (``seeds`` x
+    ``steps`` after one warm step a seed; the published spec otherwise:
+    1500 x 1000 samples, horizon 10), 13 K1 launches a step; the port's
+    rows finite. Prints the rows as one JSON line. Returns the launches."""
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.scripts.repro import planner_study
+
+    footprint_and_spread.launches = 0
+    rows, _ = planner_study(seeds=seeds, steps=steps, device="cuda")
+    launches = footprint_and_spread.launches
+    want = 13 * len(seeds) * (steps + 1)
+    if launches != want:
+        raise RuntimeError(f"repro planner: {launches} K1 launches, expected {want}")
+    port = [dict(seed=seed, **m) for impl, seed, m in rows if impl == "port"]
+    if len(port) != len(seeds) or not all(np.isfinite(list(r.values())).all() for r in port):
+        raise RuntimeError(f"repro planner: rows {port}")
+    print(f"[repro planner] {json.dumps(port)}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2255,6 +2469,7 @@ def main() -> int:
           f"card-vs-CPU max|diff| {arm_err:.3e}")
     _, k2_launches, k3_launches = phase_learning_path()
     resume_leaves = phase_studies()
+    k1_repro = phase_repro_planner()
     print(f"[parallel and dashboard] data-parallel call {dp['host_ms']:.2f} ms host, "
           f"{dp['busy_ms']:.2f} ms busy vs plain {dp['plain_host_ms']:.2f} / "
           f"{dp['plain_busy_ms']:.2f} | two-rank gradients max rel diff {dp_worst:.2e} | mesh "
@@ -2272,7 +2487,8 @@ def main() -> int:
          "launches_find_clusters": fp["find_clusters"],
          "launches_entropy_slices": fp["entropy_slices"], "launches_arm": k1_arm,
          "launches_host_loop": k1_host, "launches_mesh_tick": k1_mesh,
-         "launches_dashboard_payload": dash["launches"], **k1},
+         "launches_dashboard_payload": dash["launches"],
+         "launches_repro_planner": k1_repro, **k1},
         {"name": "adam_apply", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/adam.cu",
          "replaces": "ealv_tpu/ops/pallas_adam.py:55",

@@ -3,13 +3,17 @@
 
 The JAX planner is one jitted program whose fixed-trip ``lax.scan``s carry
 ``done`` masks. Here they are Python loops over the same fixed trip counts
-with ``torch.where`` on the masks: no ``.item()``, ``bool(tensor)`` or
-``.cpu()`` inside a planner call, so the device is never waited on and the
-number of K1 launches per call is fixed (13 at the default config: the
-target spread, the base footprint, the initial cost, and two per inner
-iteration). ``full_cost`` costs its H one-slot substitutions as one
-batch through the plain psi matrix, as the line search costs its windows,
-so it adds no K1 launch. Models whose linearization depends on the state
+with ``torch.where`` on the masks: no call in a planner call synchronises
+with the device (no ``.item()``, ``bool(tensor)``, ``.cpu()`` or tensor
+built from Python data; ``chip_smoke.py`` runs ``plan_step`` under
+``torch.cuda.set_sync_debug_mode("error")``), and the number of K1 launches
+per call is fixed (13 at the default config: the target spread, the base
+footprint, the initial cost, and two per inner iteration). The host still
+blocks inside a call: its about 7,700 launches at the production config
+overrun the card's launch queue (about a thousand), so the host waits for
+room while the device catches up. ``full_cost`` costs its H one-slot
+substitutions as one batch through the plain psi matrix, as the line
+search costs its windows, so it adds no K1 launch. Models whose linearization depends on the state
 (``dyn.state_dependent``) are linearized at every step of the horizon.
 """
 

@@ -68,50 +68,65 @@ def _select(beliefs_k, k):
                                       if torch.is_tensor(getattr(b0, f.name))})
 
 
+def _identification_tick(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg, combos,
+                         beliefs, seek_combo: int, seek_fp: int, update_tdist_step: int,
+                         update_every: int, ev, robot_lim, tray_lim, seek_mode: str = "fixed",
+                         draw=None):
+    """One identification tick: the explore tick toward the adopted (or,
+    before ``update_tdist_step``, a neutral) belief, then the match,
+    relative-pose composition and fusion of every combination.
+    ``seek_mode`` "fixed" adopts fingerprint ``seek_fp``'s belief,
+    "uncertain" the least-localized object's (largest belief entropy).
+    ``beliefs`` is one list of K beliefs per combination (updated in
+    place), ``robot_lim``/``tray_lim`` the config's limits on the device,
+    ``draw`` the tick's ``TickDraws``. Returns (ev, robot_state (d,), dists
+    (C, K), seek_k ())."""
+    dev = fps.x.device
+    step = ev.step
+    if seek_mode == "uncertain":
+        k_star = torch.argmax(_belief_entropies(beliefs[seek_combo]))
+        seek_b = _select(beliefs[seek_combo], k_star)
+    else:
+        k_star = torch.full((), seek_fp, dtype=torch.int64, device=dev)
+        seek_b = beliefs[seek_combo][seek_fp]
+    if step < update_tdist_step:  # not adopted yet: a neutral belief
+        seek_b = dataclasses.replace(seek_b, prior=torch.full_like(seek_b.prior, 0.5),
+                                     prior_var=torch.full_like(seek_b.prior_var, 2.0))
+    ev, obs = ev_exp.tick(ev, seek_b, draw)
+    if step % update_every == 0:
+        out, seed_y = match_forward(model, fps, obs["image"])
+        dists = []
+        for ci, (method, err) in enumerate(combos):
+            d, best = best_matches(out, seed_y, fps, method, err)
+            beliefs[ci] = fuse_matches(beliefs[ci], d, best, obs["robot_state"], fps,
+                                       cfg.states, robot_lim, tray_lim, err)
+            dists.append(d)
+        dists = torch.stack(dists)
+    else:  # skipped: the beliefs stay, the distances are NaN
+        dists = torch.full((len(combos), fps.center.shape[0]), float("nan"), device=dev)
+    return ev, obs["robot_state"], dists, k_star
+
+
 def _identification_loop(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg, combos,
                          beliefs, seek_combo: int, seek_fp: int, update_tdist_step: int,
                          update_every: int, n_steps: int, ev, seek_mode: str = "fixed",
                          draws=None):
-    """``n_steps`` identification ticks: the explore tick toward the
-    adopted (or, before ``update_tdist_step``, a neutral) belief, then the
-    match, relative-pose composition and fusion of every combination.
-    ``seek_mode`` "fixed" adopts fingerprint ``seek_fp``'s belief,
-    "uncertain" the least-localized object's (largest belief entropy).
-    ``beliefs`` is one list of K beliefs per combination; ``draws`` one
-    ``TickDraws`` a tick. Returns (ev, beliefs, outputs stacked on the
-    device: robot_state (n, d), dists (n, C, K), seek_k (n,))."""
+    """``n_steps`` identification ticks (``_identification_tick``) from
+    ``ev``; ``draws`` is one ``TickDraws`` a tick. Returns (ev, beliefs,
+    outputs stacked on the device: robot_state (n, d), dists (n, C, K),
+    seek_k (n,))."""
     beliefs = [list(bs) for bs in beliefs]
     dev = fps.x.device
     robot_lim, tray_lim = (torch.as_tensor(cfg.robot_lim, device=dev),
                            torch.as_tensor(cfg.tray_lim, device=dev))
-    k = fps.center.shape[0]
     rows = {"robot_state": [], "dists": [], "seek_k": []}
     for i in range(n_steps):
-        step = ev.step
-        if seek_mode == "uncertain":
-            k_star = torch.argmax(_belief_entropies(beliefs[seek_combo]))
-            seek_b = _select(beliefs[seek_combo], k_star)
-        else:
-            k_star = torch.full((), seek_fp, dtype=torch.int64, device=dev)
-            seek_b = beliefs[seek_combo][seek_fp]
-        if step < update_tdist_step:  # not adopted yet: a neutral belief
-            seek_b = dataclasses.replace(seek_b, prior=torch.full_like(seek_b.prior, 0.5),
-                                         prior_var=torch.full_like(seek_b.prior_var, 2.0))
-        ev, obs = ev_exp.tick(ev, seek_b, draws[i] if draws else None)
-        if step % update_every == 0:
-            out, seed_y = match_forward(model, fps, obs["image"])
-            dists = []
-            for ci, (method, err) in enumerate(combos):
-                d, best = best_matches(out, seed_y, fps, method, err)
-                beliefs[ci] = fuse_matches(beliefs[ci], d, best, obs["robot_state"], fps,
-                                           cfg.states, robot_lim, tray_lim, err)
-                dists.append(d)
-            dists = torch.stack(dists)
-        else:  # skipped: the beliefs stay, the distances are NaN
-            dists = torch.full((len(combos), k), float("nan"), device=dev)
-        rows["robot_state"].append(obs["robot_state"])
-        rows["dists"].append(dists)
-        rows["seek_k"].append(k_star)
+        ev, *row = _identification_tick(
+            ev_exp, model, fps, cfg, combos, beliefs, seek_combo, seek_fp,
+            update_tdist_step, update_every, ev, robot_lim, tray_lim, seek_mode,
+            draws[i] if draws else None)
+        for key, v in zip(rows, row):
+            rows[key].append(v)
     return ev, beliefs, {key: torch.stack(v) for key, v in rows.items()}
 
 

@@ -7,6 +7,7 @@ an object's height."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -32,8 +33,16 @@ class SyntheticEnv:
     vel_alpha: float = 0.7  # EMA toward the commanded twist
     device: str = "cuda"
 
+    # built once, on first use: a tensor made from Python data at every step
+    # would be a host-to-device copy from pageable memory, which synchronises
+    @functools.cached_property
     def _lims(self):
-        return torch.tensor(self.tray_lim, device=self.device)
+        return torch.tensor(self.tray_lim, dtype=torch.float32, device=self.device)
+
+    @functools.cached_property
+    def _free_z(self):
+        """(6,) bool: every twist axis but z, which contact may block."""
+        return torch.arange(6, device=self.device) != 2
 
     def init(self, pose0, scene: TrayScene | None = None, brightness=1.0) -> EnvState:
         return EnvState(
@@ -55,11 +64,9 @@ class SyntheticEnv:
         high force the downward z command is dropped."""
         force = self._contact_force(s.pose, s.scene)
         blocked = (force > 0.75 * self.max_force) & (cmd_vel[2] < 0)
-        keep = torch.ones(6, dtype=torch.bool, device=cmd_vel.device)
-        keep[2] = False
-        cmd_vel = torch.where(keep | ~blocked, cmd_vel, torch.zeros_like(cmd_vel))
+        cmd_vel = torch.where(self._free_z | ~blocked, cmd_vel, torch.zeros_like(cmd_vel))
         vel = self.vel_alpha * cmd_vel + (1 - self.vel_alpha) * s.vel
-        lims = self._lims()
+        lims = self._lims
         pose = torch.clamp(s.pose + vel * self.dt, lims[:, 0], lims[:, 1])
         b = s.brightness if cmd_brightness is None else cmd_brightness
         return dataclasses.replace(s, pose=pose, vel=vel, brightness=b)
@@ -67,7 +74,7 @@ class SyntheticEnv:
     def step_pose(self, s: EnvState, cmd_pose, cmd_brightness=None) -> EnvState:
         """Pose command: one low-pass step toward the clipped target; the
         velocity is the step's finite difference."""
-        lims = self._lims()
+        lims = self._lims
         target = torch.clamp(cmd_pose.float(), lims[:, 0], lims[:, 1])
         pose = 0.7 * target + 0.3 * s.pose
         b = s.brightness if cmd_brightness is None else cmd_brightness

@@ -37,7 +37,7 @@ def _inputs(n, t, d, mask_kind, dev, seed=0):
     std = np.full(d, 0.05)
     std[d // 2:] = 0.25
     mask = {"random": (rng.uniform(size=t) > 0.3) * 1.0, "zero": np.zeros(t),
-            "ones": np.ones(t)}[mask_kind]
+            "ones": np.ones(t), "first300": (np.arange(t) < 300) * 1.0}[mask_kind]
     return [torch.tensor(a, dtype=torch.float32, device=dev)
             for a in (samples, traj, std, mask)]
 
@@ -47,6 +47,9 @@ def _inputs(n, t, d, mask_kind, dev, seed=0):
     (700, 900, 4, "random"), (700, 900, 2, "random"), (700, 900, 6, "random"),
     (300, 500, 3, "zero"), (2000, 10, 3, "ones"), (2000, 3000, 3, "random"),
     (2000, 3000, 4, "random"), (2000, 10, 4, "ones"), (1, 1, 8, "ones"),
+    # the repro planner table's: 1500 samples at d = 4 against its memory
+    # ring and memory draw, 300 points filled, and its 10-step horizon
+    (1500, 2000, 4, "first300"), (1500, 1000, 4, "first300"), (1500, 10, 4, "ones"),
     # T-splits cut unevenly: a T that S does not divide, more splits than
     # points per split, splits longer than one staged stretch, T = 1, d = 8
     (2000, 3001, 3, "random"), (3, 6400, 2, "random"), (33, 80000, 5, "random"),
@@ -396,3 +399,30 @@ def test_wgrad_kernel_rejects_other_inputs(cuda):
     with pytest.raises(ValueError):
         twg.conv_wgrad_direct(x, cot[:, :, 1:], k, s)
     assert twg.conv_wgrad_direct.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["xyw", "xyzrpw", "xywb-force-ensemble", "arm", "eval",
+                                  "fingerprint"])
+def test_warm_toy_tick_never_synchronises(cuda, path):
+    """The ticks of ``test_torch_sync.py`` (one ``Experiment.tick`` that
+    makes no trainer call; an EvalExperiment tick; a capture tick and an
+    identification tick in each seek mode) at toy size under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that makes the
+    host wait for the card raises."""
+    from test_torch_sync import eval_parts, fingerprint_parts, tick_parts
+    parts = {"xyw": lambda: tick_parts(cuda),
+             "xyzrpw": lambda: tick_parts(cuda, states="xyzrpw"),
+             "xywb-force-ensemble": lambda: tick_parts(cuda, states="xywb", learn_force=True,
+                                                       use_z_ensemble=True),
+             "arm": lambda: tick_parts(cuda, sim_backend="arm"),
+             "eval": lambda: eval_parts(cuda),
+             "fingerprint": lambda: fingerprint_parts(cuda)}[path]()
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for _, call in parts:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -103,7 +103,7 @@ DEFAULT_BUILDS = {
     "make_dynamics roll": lambda: make_dynamics("xyzrpw", dt=0.1).A,
     "prior_dist": lambda: prior_dist("xyw").means,
     "TrayScene.default": lambda: TrayScene.default().obj_xy,
-    "SyntheticEnv": lambda: SyntheticEnv(tray_lim=TRAY6)._lims(),
+    "SyntheticEnv": lambda: SyntheticEnv(tray_lim=TRAY6)._lims,
     "ArmEnv": lambda: ArmEnv(tray_lim=TRAY6)._lims,
     "arm.home": lambda: arm.home(),
     "SyntheticBridge": lambda: SyntheticBridge(
