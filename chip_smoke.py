@@ -1655,7 +1655,8 @@ def phase_arm_agreement(n_host=8):
     modes, with the forced wedge and its escape and a pause the heartbeat
     recovers: per step the arm's joints and pose and the plan, the events
     logged, and the absorbed samples. rtol 1e-3, atol 1e-4 (as the other
-    agreement phases). Returns the largest difference."""
+    agreement phases). Then the long-run ticks (``_arm_long_agreement``).
+    Returns the largest difference."""
     import torch
     from ealv_tpu_torch.hw.bridge import SyntheticBridge
     from ealv_tpu_torch.runtime import Experiment, HostLoopRunner
@@ -1727,6 +1728,106 @@ def phase_arm_agreement(n_host=8):
         print(f"[agreement] {n_host} toy host-loop steps, {mode}, arm-dynamic in the wedge, cuda "
               f"vs cpu with fed draws: events {logs['cuda']} equal; joints, pose, plan and "
               f"the absorbed samples agree (rtol 1e-3, atol 1e-4), max|diff| {err:.3e}")
+    return max(worst, _arm_long_agreement())
+
+
+# the long runs of tests/test_torch_arm_long.py: 128-slot rings that wrap, a
+# trainer call every third tick; on arm-dynamic, xyz with the force variant
+# and movable objects on the force study's wide, tall cylinders, from a
+# start 5 cm into the first one, where the contact guard blocks (25 N)
+ARM_LONG = dict(buffer_capacity=128, traj_buffer_capacity=128)
+ARM_LONG_CASES = {"arm": dict(states="xyw", sim_backend="arm"),
+                  "arm-dynamic": dict(states="xyz", sim_backend="arm-dynamic",
+                                      learn_force=True, obj_mobility=0.2)}
+CONTACT_SCENE = dict(obj_radius=[0.07, 0.06], obj_height=[0.38, 0.42])
+CONTACT_START = (0.42, -0.06, 0.33)
+
+
+def _arm_long_agreement(n_run=140, n_ticks=4, devs=("cpu", "cuda")):
+    """The ticks the re-synchronised CPU tests hold against the JAX package
+    (tests/test_torch_arm_long.py), card against CPU: a toy run of
+    ``n_run`` ticks on the CPU (its own draws; the rings wrap at 128) is
+    checkpointed at its start and its end, each checkpoint is loaded on
+    both devices (``runtime/checkpoint.py``), and ``n_ticks`` ticks with
+    fed draws follow (one trainer call among them), on "arm" and
+    "arm-dynamic". Per tick the joints, pose, objects, plan, cost, force,
+    loss, beta/gamma and the pushed sample; rtol 1e-3, atol 1e-4 (as the
+    other agreement phases). Returns the largest difference."""
+    import torch
+    from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+    from ealv_tpu_torch.sim.renderer import TrayScene
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    worst = 0.0
+    for backend, kw in ARM_LONG_CASES.items():
+        cfg = ExperimentConfig(**{**TOY, **ARM_LONG, **kw})
+        dynamic = backend.startswith("arm-dynamic")
+
+        def make(dev):
+            scene = None
+            if dynamic:
+                scene = TrayScene.default(dev)._replace(**{
+                    k: torch.tensor(v, device=dev) for k, v in CONTACT_SCENE.items()})
+            exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, scene=scene,
+                             device=dev)
+            start = [(lo + hi) / 2 for lo, hi in exp.tray6]
+            if dynamic:
+                start[:3] = CONTACT_START
+            return exp, exp.init(seed=0, start_tray_pose=start)
+
+        def save(es, path, dev):
+            """A checkpoint of ``es`` to restore on ``dev``: a CPU
+            generator's state does not fit a CUDA generator, so the random
+            streams saved are fresh ones of ``dev`` (the ticks' draws are
+            fed)."""
+            gens = es.gen, es.pstate.gen
+            es.gen, es.pstate.gen = torch.Generator(device=dev), torch.Generator(device=dev)
+            try:
+                return save_checkpoint(path, es)
+            finally:
+                es.gen, es.pstate.gen = gens
+
+        exp, es = make(devs[0])
+        with tempfile.TemporaryDirectory(prefix="arm_long_") as tmp:
+            paths = {"start": {d: save(es, os.path.join(tmp, f"start_{i}"), d)
+                               for i, d in enumerate(devs)}}
+            es, _ = exp.run_chunk(es, n_run)
+            if es.buf.total <= cfg.buffer_capacity:
+                raise RuntimeError(f"{backend}: the replay ring never wrapped")
+            paths[f"tick {n_run}"] = {d: save(es, os.path.join(tmp, f"long_{i}"), d)
+                                      for i, d in enumerate(devs)}
+            for label, path in paths.items():
+                runs = {}
+                for name, dev in zip(("cpu", "cuda"), devs):
+                    exp_d, es_d = make(dev)
+                    es_d = load_checkpoint(path[dev], es_d)
+                    rng = np.random.default_rng(7)
+                    out = []
+                    for _ in range(n_ticks):
+                        k = min(es_d.explr_step, cfg.buffer_capacity - 1)
+                        es_d, info = exp_d.tick(es_d, _toy_draws(cfg, k, rng, dev))
+                        slot = (es_d.buf.pos - 1) % es_d.buf.capacity
+                        out.append({"q": es_d.env.q, "pose": es_d.env.pose,
+                                    "objects": es_d.env.scene.obj_xy, "plan": es_d.pstate.u,
+                                    "cost": info["ergodic_cost"], "force": info["force"],
+                                    "loss": info["loss"], "beta": info["beta"],
+                                    "gamma": info["gamma"], "pushed x": es_d.buf.x[slot],
+                                    "pushed y": es_d.buf.y[slot]})
+                    if not any(float(o["loss"]) != 0.0 for o in out):
+                        raise RuntimeError(f"{backend} from {label}: no trainer call")
+                    runs[name] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
+                force = max(float(o["force"].max()) for o in runs["cpu"])
+                if dynamic and label == "start" and force <= 0.75 * 30.0:
+                    raise RuntimeError(f"{backend} from its start: {force:.1f} N, the guard "
+                                       "does not block")
+                err = _agree(runs, f"arm ticks {backend} from {label}")
+                worst = max(worst, err)
+                print(f"[agreement] {n_ticks} toy ticks on {backend} from the CPU run's "
+                      f"checkpoint at {label} (rings {es.buf.total} pushes into 128 slots at "
+                      f"the end; force up to {force:.1f} N), cuda vs cpu with fed draws: "
+                      f"joints, pose, objects, plan, cost, force, loss, beta/gamma and the "
+                      f"pushed sample agree (rtol 1e-3, atol 1e-4), max|diff| {err:.3e}")
     return worst
 
 

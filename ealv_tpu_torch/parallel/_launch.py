@@ -28,6 +28,10 @@ def _rank_main(fn, rank, world_size, out_dir, threads, args):
             "gloo", store=dist.FileStore(os.path.join(out_dir, "store"), world_size),
             rank=rank, world_size=world_size)
         try:
+            # Every rank has joined before any may leave: a rank that
+            # destroys the group while a peer still connects its mesh makes
+            # that peer fail with "Connection closed by peer".
+            dist.barrier()
             result["value"] = fn(*args)
         finally:
             dist.destroy_process_group()

@@ -21,11 +21,18 @@ same mapping as the parameters.
 
 ``arm_state_from_jax`` carries a JAX ``ArmState`` over to the port's, so
 both simulators can continue from the same joints and scene.
+``experiment_state_from_jax`` carries a whole JAX ``ExperimentState`` over
+(weights, Adam moments, rings, planner, z ring, env, schedules), so the
+port's tick can start from any state a JAX run visits;
+``planner_state_from_jax`` and ``env_state_from_jax`` carry its planner
+and env alone (as an evaluation runtime's state holds them).
 
 Values may be JAX arrays or numpy arrays; only numpy is used here.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -135,13 +142,102 @@ def arm_state_from_jax(state, device="cuda"):
     ``ArmState`` on ``device``: the same joints, pose, twist, brightness,
     command count and scene, so both simulators continue from one state."""
     from ..sim.arm import ArmState
-    from ..sim.renderer import TrayScene
 
     t = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
-    sc = state.scene
-    scene = TrayScene(obj_xy=t(sc.obj_xy), obj_radius=t(sc.obj_radius),
-                      obj_height=t(sc.obj_height), obj_color=t(sc.obj_color),
-                      ground_color=t(sc.ground_color), checker_scale=float(sc.checker_scale))
+    scene = scene_from_jax(state.scene, device)
     return ArmState(q=t(state.q), qdot=t(state.qdot), pose=t(state.pose), vel=t(state.vel),
                     brightness=t(state.brightness), count=int(np.asarray(state.count)),
                     scene=scene)
+
+
+def scene_from_jax(sc, device="cuda"):
+    """A JAX ``TrayScene`` -> the port's on ``device``."""
+    from ..sim.renderer import TrayScene
+
+    t = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
+    return TrayScene(obj_xy=t(sc.obj_xy), obj_radius=t(sc.obj_radius),
+                     obj_height=t(sc.obj_height), obj_color=t(sc.obj_color),
+                     ground_color=t(sc.ground_color), checker_scale=float(sc.checker_scale))
+
+
+def _memory_from_jax(mem, device):
+    from ..data.replay import TrajMemory
+
+    i = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int64, device=device)
+    return TrajMemory(buf=torch.tensor(np.asarray(mem.buf, np.float32), device=device),
+                      pos=i(mem.pos), size=i(mem.size))
+
+
+def env_state_from_jax(env, device="cuda"):
+    """A JAX env state, the free env's ``EnvState`` or an ``ArmState``,
+    -> the port's on ``device``."""
+    from ..sim.env import EnvState
+
+    if hasattr(env, "q"):
+        return arm_state_from_jax(env, device)
+    t = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
+    return EnvState(pose=t(env.pose), vel=t(env.vel), brightness=t(env.brightness),
+                    scene=scene_from_jax(env.scene, device))
+
+
+def planner_state_from_jax(ps, like):
+    """A JAX ``PlannerState`` (or baseline ``BaselineState``) -> the port's,
+    with the random stream of ``like``, a port state of the same planner."""
+    from ..control.barrier import BarrierFunction
+    from ..control.dynamics import DynState
+
+    dev = like.memory.buf.device
+    t = lambda v: torch.tensor(np.asarray(v, np.float32), device=dev)
+    memory = _memory_from_jax(ps.memory, dev)
+    if not hasattr(ps, "u"):
+        return dataclasses.replace(like, x=t(ps.x), last_vel=t(ps.last_vel), memory=memory)
+    b = ps.barrier
+    return dataclasses.replace(
+        like, u=t(ps.u), dyn=DynState(x=t(ps.dyn.x), R=t(ps.dyn.R)), memory=memory,
+        lims=t(ps.lims), last_plan=t(ps.last_plan),
+        barrier=BarrierFunction(b_lim=t(b.b_lim), barr_weight=t(b.barr_weight),
+                                power=t(b.power)))
+
+
+def experiment_state_from_jax(es, exp, seed: int = 0):
+    """A JAX ``ExperimentState`` (its leaves as JAX or numpy arrays) -> the
+    port's ``ExperimentState`` for ``exp``, a port ``Experiment`` of the
+    same configuration: the weights and Adam moments, the replay ring with
+    its head, fill and push counts and the hyperparameter ring, the
+    planner's (or baseline's) state with its trajectory ring, the target
+    distribution's state and z ring, the env (free or arm), beta, gamma,
+    the optimizer iterations and the step counters. The optimizer, the
+    barrier's structure and the random streams come from ``exp.init(seed)``:
+    a JAX key has no port counterpart, so draws that must match are fed."""
+    from ..models.cvae import ModelState
+    from ..runtime.schedules import HyperState
+
+    dev = exp.device
+    f32 = lambda v: torch.tensor(np.asarray(v, np.float32), device=dev)
+    i64 = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int64, device=dev)
+    out = exp.init(seed)
+    out.model.load_state_dict(params_from_jax(es.params, out.model))
+    out.opt.load_state_dict(opt_state_from_jax(es.opt_state, out.model, out.opt))
+
+    ms = es.mstate
+    out.mstate = ModelState(seed_x=f32(ms.seed_x), seed_y=f32(ms.seed_y),
+                            seed_force=f32(ms.seed_force), z=f32(ms.z),
+                            z_buff=f32(ms.z_buff),
+                            initialized=torch.tensor(bool(np.asarray(ms.initialized)),
+                                                     device=dev))
+
+    b, buf = es.buf, out.buf
+    buf.x, buf.force, buf.y_var = f32(b.x), f32(b.force), f32(b.y_var)
+    buf.y = torch.tensor(np.asarray(b.y, np.float32), device=dev).to(buf.y.dtype)
+    buf.beta, buf.gamma = f32(b.beta), f32(b.gamma)
+    buf.beta_pos, buf.beta_size, buf.explr_ind = i64(b.beta_pos), i64(b.beta_size), \
+        i64(b.explr_ind)
+    buf.pos, buf.size, buf.total = (int(np.asarray(v)) for v in (b.pos, b.size, b.total))
+
+    out.pstate = planner_state_from_jax(es.pstate, out.pstate)
+    out.env = env_state_from_jax(es.env, dev)
+    out.hyper = HyperState(beta=f32(es.hyper.beta), gamma=f32(es.hyper.gamma),
+                           iter=int(np.asarray(es.hyper.iter)))
+    out.explr_step = int(np.asarray(es.explr_step))
+    out.learning_ind = int(np.asarray(es.learning_ind))
+    return out

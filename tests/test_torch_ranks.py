@@ -100,6 +100,17 @@ def _rank_hangs():
     return dist.get_rank()
 
 
+def _rank_returns():
+    return dist.get_rank()
+
+
+@pytest.mark.parametrize("run", range(3))
+def test_run_ranks_survives_ranks_that_return_at_once(run):
+    """Ranks that return as soon as the group is up never close it under a
+    peer that is still joining (each run spawns anew)."""
+    assert run_ranks(_rank_returns, 2, timeout=60.0) == [0, 1]
+
+
 def test_run_ranks_returns_in_rank_order():
     """Each rank's value comes back in rank order; a collective sees both."""
     assert run_ranks(_rank_fails, 2, args=(-1,), timeout=60.0) == [0, 1]

@@ -8,6 +8,8 @@ plan makes (12 here: no coverage spread; 13 in the experiment's tick; 0 in
 a baseline's). f32, TF32 off; the tolerances of ``test_torch_tick.py``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,10 +37,8 @@ TOY = dict(states="xyw", num_target_samples=64, num_traj_samples=100,
            traj_buffer_capacity=200)
 
 
-def jax_plan_draws(planner, pstate, full_state, n_samples, n_hist) -> TickDraws:
-    """The samples and history indices JAX ``planner.plan`` draws after
-    ``save_update(pstate, full_state)``."""
-
+@functools.lru_cache(maxsize=None)
+def _plan_draws_fn(planner, n_samples, n_hist):
     @jax.jit
     def draws(pstate, full_state):
         ps = planner.save_update(pstate, full_state, save=True)
@@ -51,7 +51,14 @@ def jax_plan_draws(planner, pstate, full_state, n_samples, n_hist) -> TickDraws:
         hist_idx = jax.lax.top_k(logw + jax.random.gumbel(k_hist, (cap,)), n_hist)[1]
         return samples, hist_idx
 
-    samples, hist_idx = draws(pstate, full_state)
+    return draws
+
+
+def jax_plan_draws(planner, pstate, full_state, n_samples, n_hist) -> TickDraws:
+    """The samples and history indices JAX ``planner.plan`` draws after
+    ``save_update(pstate, full_state)`` (the derivation jitted once per
+    planner)."""
+    samples, hist_idx = _plan_draws_fn(planner, n_samples, n_hist)(pstate, full_state)
     return TickDraws(samples=torch.tensor(np.asarray(samples)),
                      hist_idx=torch.tensor(np.asarray(hist_idx), dtype=torch.int64))
 

@@ -10,6 +10,7 @@ port's tick (whole runs compared over seeds are in
 ``chip_smoke.py`` fails without a GPU. f32 comparisons with TF32 off.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -37,6 +38,30 @@ TOY = dict(states="xyw", num_target_samples=64, num_traj_samples=100,
            image_dim=(24, 24, 3), batch_size=8, num_learning_opt=2)
 
 
+@functools.lru_cache(maxsize=None)
+def _planner_draws_fn(exp):
+    """The planner's draws of a JAX tick from its state, jitted once per
+    experiment, with the history draw the JAX planner makes itself."""
+    n_hist = exp.cfg.num_traj_samples
+
+    @jax.jit
+    def planner_draws(es):
+        ps = exp.planner.save_update(es.pstate, exp._measured_robot_state(es.env),
+                                     save=True)
+        _, k_samp, k_hist = jax.random.split(ps.key, 3)
+        lims = ps.lims
+        samples = jax.random.uniform(k_samp, (exp.cfg.num_target_samples, lims.shape[0]),
+                                     minval=lims[:, 0], maxval=lims[:, 1])
+        cap = ps.memory.capacity
+        logw = jnp.where(jnp.arange(cap) < ps.memory.size, 0.0, -1e30)
+        hist_idx = jax.lax.top_k(logw + jax.random.gumbel(k_hist, (cap,)), n_hist)[1]
+        # self-check: these indices give the JAX planner's own history draw
+        return samples, hist_idx, ps.memory.buf[hist_idx], \
+            ps.memory.sample(k_hist, n_hist)[0]
+
+    return planner_draws
+
+
 def _jax_tick_draws(exp, es, es_after, num_shards=1):
     """The random draws of one JAX tick from ``es`` (``es_after`` is the
     state the tick returned: its replay ring is the one the trainer read):
@@ -55,24 +80,7 @@ def _jax_tick_draws(exp, es, es_after, num_shards=1):
         ps = exp.baseline.save_update(es.pstate, exp._measured_robot_state(es.env))
         return TickDraws(train=train, grade_samples=grade,
                          baseline=jax_baseline_draws(exp.baseline, ps))
-    n_hist = cfg.num_traj_samples
-
-    @jax.jit
-    def planner_draws(es):
-        ps = exp.planner.save_update(es.pstate, exp._measured_robot_state(es.env),
-                                     save=True)
-        _, k_samp, k_hist = jax.random.split(ps.key, 3)
-        lims = ps.lims
-        samples = jax.random.uniform(k_samp, (exp.cfg.num_target_samples, lims.shape[0]),
-                                     minval=lims[:, 0], maxval=lims[:, 1])
-        cap = ps.memory.capacity
-        logw = jnp.where(jnp.arange(cap) < ps.memory.size, 0.0, -1e30)
-        hist_idx = jax.lax.top_k(logw + jax.random.gumbel(k_hist, (cap,)), n_hist)[1]
-        # self-check: these indices give the JAX planner's own history draw
-        return samples, hist_idx, ps.memory.buf[hist_idx], \
-            ps.memory.sample(k_hist, n_hist)[0]
-
-    samples, hist_idx, got, want = planner_draws(es)
+    samples, hist_idx, got, want = _planner_draws_fn(exp)(es)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     return TickDraws(samples=torch.tensor(np.asarray(samples)),
                      hist_idx=torch.tensor(np.asarray(hist_idx), dtype=torch.int64),

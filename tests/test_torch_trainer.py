@@ -14,6 +14,8 @@ rounding (|g| > 1e-4 max|g| of its tensor) and within 2 * lr * steps
 everywhere.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,13 +49,8 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True, num_shards=1):
-    """The draws JAX ``train_call`` makes from ``key`` (other_locs on; the
-    force variant's encoder reads the batch's forces): the global indices,
-    and the reparam noise of one shard's batch / num_shards rows, which
-    every shard draws alike from the replicated key."""
-    bpp = batch // num_shards
-
+@functools.lru_cache(maxsize=None)
+def _train_draw_fn(jm, batch, weighted, bpp):
     @jax.jit
     def one(p, buf, k):
         k_b, k_b2, k_r = jax.random.split(k, 3)
@@ -65,6 +62,15 @@ def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True, num_shards=1)
                        rngs={"reparam": k_r})
         return i1, i2, out["z"], out["z_mu"], out["z_logvar"]
 
+    return one
+
+
+def jax_train_draws(jm, jp, buf, key, steps, batch, weighted=True, num_shards=1):
+    """The draws JAX ``train_call`` makes from ``key`` (other_locs on; the
+    force variant's encoder reads the batch's forces): the global indices,
+    and the reparam noise of one shard's batch / num_shards rows, which
+    every shard draws alike from the replicated key."""
+    one = _train_draw_fn(jm, batch, weighted, batch // num_shards)
     idx, idx2, eps = [], [], []
     for k in jax.random.split(key, steps):
         i1, i2, z, z_mu, z_logvar = map(np.asarray, one(jp, buf, k))
