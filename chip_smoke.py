@@ -42,13 +42,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      production-size trainer call on the card with the kernels on vs off,
      from the same weights and draws, ms per trainer call on and off (K2's
      launch cache must hit on every step), and the device's busy time in
-     profiled calls;
+     profiled calls; the captured trainer call (runtime/graphs.py) against
+     the eager one, kernels on and off: three calls on fed draws (an eager
+     call, a capture and its replay, a replay) bit for bit where two eager
+     calls agree, then host ms, busy ms and intervals eager against
+     captured, the capture's seconds and memory, the optimizer per
+     captured call, and the busy time of an eager call by kernel name,
+     kernels on against off;
   5. the tick paths at production size (180x180x3 images, 2000 target
      samples, 3000 trajectory points, batch 64, 25 Adam steps every third
-     tick, bf16), trainer kernels off as in the JAX default: the xyw tick
+     tick, bf16), trainer kernels off as in the JAX default, the planner
+     and trainer calls captured as CUDA graphs (the eager ticks of xyw,
+     xyzrpw, the variant path and the arm timed beside them, and the
+     kernel counts read as the wrappers' eager launches plus each graph's
+     recorded launches times its replays): the xyw tick
      (double integrator), then the 6-DoF xyzrpw tick (SO(3) roll dynamics,
      linearized at every step); for each, warm ticks, then timed ticks,
-     with K1's launch count read over the timed window; then the variant
+     with K1's launch count read over the timed window, the captured
+     plan_step against the eager one bit for bit on 3 ticks, and a
+     profiled plan_step captured and eager; then the variant
      tick path (xywb, learn_force, use_z_ensemble, both trainer kernels
      on) with K1, K2 and K3 counted and the ensemble pdf held against its
      plain decode-and-average; then the eval path: a 25-point grid test set
@@ -75,7 +87,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the arm, the eval path, the fingerprint capture and identification in
      each seek mode) one warm tick's calls (plan_step, the env steps,
      observe, absorb_step with the trainer call throttled out) run under
-     torch.cuda.set_sync_debug_mode("error"): no call may synchronise; on
+     torch.cuda.set_sync_debug_mode("error"): no call may synchronise (on
+     xyw, xyzrpw, the variant path and the arm also a tick whose trainer
+     call replays its graph); on
      xyw also the card's launch queue depth, and plan_step bisected into
      pieces (the sync, the draws, the target decode, the base footprint,
      the initial cost, the first inner iteration's parts), each under the
@@ -374,9 +388,27 @@ def phase_adam(dev):
         print(f"[kernels] adam_apply {len(shapes)} tensors, {n} elements, step {count}"
               f"{', offset 4 B (scalar path)' if offset else ''}: "
               f"max|kernel-plain| = {err:.3e}")
+    # the step count on the card, as FusedAdam keeps it: the kernel's
+    # one-thread prologue advances it, the update reads it
+    p, m, v, gr = state(prod)
+    want = [[x.clone() for x in xs] for xs in (p, m, v)]
+    count = torch.full((), 6, dtype=torch.int32, device=dev)
+    tad.adam_apply(p, m, v, gr, 1e-3, count)
+    for i in range(len(prod)):
+        tad.adam_update_reference(want[0][i], want[1][i], want[2][i], gr[i], 1e-3, 7)
+    for got, ref in zip((p, m, v), want):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, **ADAM_TOL)
+    if int(count) != 7:
+        raise RuntimeError(f"the Adam kernel advanced its count from 6 to {int(count)}")
+    err = max(_max_err(got, ref) for got, ref in zip((p, m, v), want))
+    max_err = max(max_err, err)
+    print(f"[kernels] adam_apply 24 CVAE tensors with the step count on the card (6 -> 7, "
+          f"advanced by the kernel's prologue): max|kernel-plain| = {err:.3e}")
     p, m, v, gr = state(prod)
     n = sum(x.numel() for x in p)
-    kernel = lambda: tad.adam_apply(p, m, v, gr, 1e-3, 7)
+    count = torch.full((), 6, dtype=torch.int32, device=dev)
+    kernel = lambda: tad.adam_apply(p, m, v, gr, 1e-3, count)
     plain = lambda: [tad.adam_update_reference(*t, 1e-3, 7) for t in zip(p, m, v, gr)]
     optimizers = []
     for make in (lambda ps: torch.optim.Adam(ps, lr=1e-3, fused=True), tad.FusedAdam):
@@ -390,6 +422,22 @@ def phase_adam(dev):
         (device_ms(f), host_ms(f)) for f in (kernel, fused, fused, kernel))
     plain_ms, h_plain = device_ms(plain), host_ms(plain)
     h_step = host_ms(ours)
+    # the stock optimizer per step at the same tensors: the trainer's
+    # foreach path eager and capturable (the card's default, runtime/
+    # trainer.py), the fused one, and K2's FusedAdam.step
+    stock = {}
+    for name, kw in (("foreach", dict(foreach=True)),
+                     ("foreach, capturable", dict(foreach=True, capturable=True)),
+                     ("fused", dict(fused=True)),
+                     ("fused, capturable", dict(fused=True, capturable=True))):
+        params = [x.clone().requires_grad_() for x in p]
+        for q, d in zip(params, gr):
+            q.grad = d.clone()
+        step = torch.optim.Adam(params, lr=1e-3, **kw).step
+        stock[name] = (device_ms(step), host_ms(step))
+    stock["FusedAdam (K2)"] = (device_ms(ours), h_step)
+    print("[kernels] optimizer step over the 24 CVAE tensors, device ms (CUDA events) / host "
+          "ms: " + "; ".join(f"{k} {d:.4f} / {h:.4f}" for k, (d, h) in stock.items()))
     pf, mf, vf, gf = state(force)
     n_force = sum(x.numel() for x in pf)
     force_ms = device_ms(lambda: tad.adam_apply(pf, mf, vf, gf, 1e-3, 7))
@@ -410,7 +458,8 @@ def phase_adam(dev):
                 ms_force=force_ms, plain_ms_force=force_plain, bound_ms_force=force_bound,
                 host_ms=(h_ms + h_ms2) / 2, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=(fused_ms + fused2) / 2, library_host_ms=(h_fused + h_fused2) / 2,
-                optimizer_step_host_ms=h_step)
+                optimizer_step_host_ms=h_step,
+                stock_step_ms={k: d for k, (d, _) in stock.items()})
 
 
 def _trainer_layout(x, cot, last_layer):
@@ -825,13 +874,27 @@ def phase_trainer_agreement():
           f"atol 1e-4); max|param diff| {perr:.3e}")
 
 
-def _profiled_call(call):
+def _device_events(prof, annotations=False):
+    """The device rows of a profile: kernels, copies and memsets, and with
+    ``annotations`` also the ranges that torch puts on the device's
+    timeline for a ``record_function`` (``Optimizer.step#Adam.step``),
+    which span the gaps between their kernels and are no device work."""
+    import torch
+    on_card = torch.autograd.DeviceType.CUDA
+    ranges = {e.name for e in prof.events()
+              if e.device_type != on_card and getattr(e, "is_user_annotation", False)}
+    return [e for e in prof.events() if e.device_type == on_card and (
+        annotations or not (getattr(e, "is_user_annotation", False) or e.name in ranges))]
+
+
+def _profiled_call(call, annotations=False):
     """One call under torch.profiler, ending in a synchronize: its host
     clock; the device's busy time, the union of its kernels' and copies'
-    intervals; the plain sum of those intervals (more than the union only
-    if some overlapped); the sum of ``self_device_time_total`` over
-    ``key_averages()``'s device rows (a second reading of the same
-    intervals); and the number of intervals. All in ms but the count."""
+    intervals (with ``annotations``, of the ``record_function`` ranges on
+    the device's timeline too); the plain sum of those intervals (more
+    than the union only if some overlapped); the sum of their durations
+    per name (a second reading of the same intervals); and the number of
+    intervals. All in ms but the count."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -840,17 +903,17 @@ def _profiled_call(call):
         call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    on_card = torch.autograd.DeviceType.CUDA
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == on_card)
+    events = _device_events(prof, annotations)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy, end = busy + b - max(a, end), b
     summed = sum(b - a for a, b in spans)
-    averaged = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == on_card)
-    return wall, busy / 1e3, summed / 1e3, averaged / 1e3, len(spans)
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return wall, busy / 1e3, summed / 1e3, sum(per_name.values()) / 1e3, len(spans)
 
 
 def _behind_spin(call, spin_s=0.2):
@@ -1093,18 +1156,266 @@ def phase_trainer_production(n_filled=200, rounds=2):
     return on_ms, off_ms
 
 
+def _by_kernel(call):
+    """Device ms per name in one call under torch.profiler: (kernels and
+    copies, the ``record_function`` ranges on the device's timeline)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    work = {id(e) for e in _device_events(prof)}
+    out = ({}, {})
+    for e in _device_events(prof, annotations=True):
+        d = out[0] if id(e) in work else out[1]
+        d[e.name] = d.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def _pool_mib(graph):
+    """The MiB of the memory segments in a captured call's private pool,
+    from ``torch.cuda.memory_snapshot()``; None where the snapshot does not
+    name segments' pools."""
+    import torch
+    pool = tuple(graph.graph.graph.pool())
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segs):
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg.get("segment_pool_id", ())) == pool) / 2**20
+
+
+def _timed(call):
+    """Host ms of one call that ends in a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_trainer_graphs(n_filled=200, rounds=2):
+    """The captured trainer call (``runtime/graphs.py``) against the eager
+    one at production size, with the trainer kernels on and off. Three
+    experiments from seed 0 share one ring; two run the eager call, one the
+    TrainerGraph (an eager call, a capture and its replay, a replay), each
+    on the same fed draws: the captured call's metrics and parameters must
+    equal the eager one's bit for bit where the two eager calls agree bit
+    for bit, and stay within their spread where they do not. Then, on the
+    generator's draws, host ms and device busy ms per call, eager against
+    captured in turns (eager, captured, captured, eager); the capture's
+    seconds and memory; the optimizer per captured call (stock foreach
+    capturable, fused capturable, K2's FusedAdam); and where the busy time
+    of an eager call with the kernels on and off parts, by kernel name."""
+    import torch
+    from ealv_tpu_torch.ops.adam import FusedAdam
+    from ealv_tpu_torch.runtime import train_call
+    from ealv_tpu_torch.runtime.graphs import TrainerGraph
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(**PRODUCTION)
+    betas = [torch.tensor(v, device="cuda") for v in (0.005, 0.01, 0.02)]
+    gammas = [torch.tensor(v, device="cuda") for v in (0.5, 0.25, 0.125)]
+    err = lambda a, b: max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    ring, out, by_kernel = None, {}, {}
+    for on in (True, False):
+        runs = [_trainer_experiment(cfg, "cuda", kernels=on) for _ in range(3)]
+        if ring is None:
+            ring = _fill_ring(runs[0][1], cfg, n_filled)
+        for _, es in runs:
+            es.buf = ring
+        graph = TrainerGraph()
+        rng = np.random.default_rng(11)
+        spread = captured = 0.0
+        for beta, gamma in zip(betas, gammas):
+            draws = _train_draws(cfg, n_filled, rng, "cuda")
+            leaves = []
+            for j, (exp, es) in enumerate(runs):
+                train = graph if j == 2 else train_call
+                met = train(exp.trainer, es.model, es.opt, es.buf, beta, gamma,
+                            generator=es.gen, draws=draws)
+                leaves.append([*met.values(), *(q.detach() for q in es.model.parameters())])
+            spread = max(spread, err(leaves[1], leaves[0]))
+            captured = max(captured, err(leaves[2], leaves[0]))
+        name = "kernels on (K2 + K3)" if on else "kernels off (torch.optim.Adam + cuDNN)"
+        if (graph.warmups, graph.captures, graph.replays) != (1, 1, 2):
+            raise RuntimeError(f"trainer graph, {name}: {graph.warmups} eager calls, "
+                               f"{graph.captures} captures, {graph.replays} replays")
+        if captured > spread:
+            raise RuntimeError(f"captured trainer call, {name}: max|captured - eager| "
+                               f"{captured:.3e} over 3 calls, two eager calls {spread:.3e}")
+        print(f"[trainer graph] {name}, production size, fed draws: an eager call, a capture "
+              f"and its replay, a replay; metrics and parameters max|captured - eager| "
+              f"{captured:.3e}, two eager experiments {spread:.3e}"
+              + (" (bit for bit)" if captured == 0.0 else ""))
+        # on the generator's draws: a new key, so one eager call and a capture
+        (exp_e, es_e), (exp_g, es_g) = runs[0], runs[2]
+        eager = lambda: train_call(exp_e.trainer, es_e.model, es_e.opt, es_e.buf, betas[0],
+                                   gammas[0], generator=es_e.gen)
+        replay = lambda: graph(exp_g.trainer, es_g.model, es_g.opt, es_g.buf, betas[0],
+                               gammas[0], generator=es_g.gen)
+        replay()
+        capture_ms = _timed(replay)
+        pool = _pool_mib(graph)
+        times = {"eager": [], "captured": []}
+        for _ in range(rounds):
+            for which, call in (("eager", eager), ("captured", replay), ("captured", replay),
+                                ("eager", eager)):
+                times[which].append(_timed(call))
+        peaks = {}
+        for which, call in (("eager", eager), ("captured", replay)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**20
+        prof = {which: _profiled_call(call)
+                for which, call in (("eager", eager), ("captured", replay))}
+        annotated = {which: _profiled_call(call, annotations=True)[1]
+                     for which, call in (("eager", eager), ("captured", replay))}
+        res = {which: dict(host_ms=float(np.median(times[which])), busy_ms=prof[which][1])
+               for which in times}
+        res.update(capture_s=graph.capture_seconds[-1], pool_mib=pool)
+        out[on] = res
+        print(f"[trainer graph] {name}, generator draws: host ms per call eager "
+              f"{res['eager']['host_ms']:.2f}, captured {res['captured']['host_ms']:.2f} "
+              f"(median of {2 * rounds}, in turns; eager {[round(x, 2) for x in times['eager']]}, "
+              f"captured {[round(x, 2) for x in times['captured']]}); profiled: eager host "
+              f"{prof['eager'][0]:.2f} ms, busy {prof['eager'][1]:.2f} ms in {prof['eager'][4]} "
+              f"intervals; captured host {prof['captured'][0]:.2f} ms, busy "
+              f"{prof['captured'][1]:.2f} ms in {prof['captured'][4]} intervals (busy with "
+              f"the profiler's ranges on the device timeline: eager {annotated['eager']:.2f}, "
+              f"captured {annotated['captured']:.2f}); capture "
+              f"{graph.capture_seconds[-1]:.3f} s (the capturing call {capture_ms:.1f} ms with "
+              f"its replay), the graph's pool "
+              f"{'not measured' if pool is None else f'{pool:.1f} MiB'}; peak allocated eager "
+              f"{peaks['eager']:.1f} MiB, captured {peaks['captured']:.1f} MiB; the capture "
+              f"recorded K2 {graph.recorded['adam_apply']} and K3 "
+              f"{graph.recorded['conv_wgrad_direct']} launches")
+        by_kernel[on] = _by_kernel(eager)
+        if not on:
+            stock = {}
+            for opt_name, make in (
+                    ("foreach, capturable (the stock default)", None),
+                    ("fused, capturable", lambda ps: torch.optim.Adam(
+                        ps, lr=exp_g.trainer.lr, fused=True, capturable=True)),
+                    ("FusedAdam (K2)", lambda ps: FusedAdam(ps, lr=exp_g.trainer.lr))):
+                if make is not None:
+                    es_g.opt = make(es_g.model.parameters())
+                    replay()
+                    replay()
+                stock[opt_name] = _profiled_call(replay)
+            print("[trainer graph] the optimizer per captured call (cuDNN wgrad), device busy "
+                  "ms / host ms: " + "; ".join(f"{k} {v[1]:.2f} / {v[0]:.2f}"
+                                               for k, v in stock.items()))
+    kernels = {on: v[0] for on, v in by_kernel.items()}
+    names = set(kernels[True]) | set(kernels[False])
+    diff = sorted(names, key=lambda k: -abs(kernels[True].get(k, 0.0) - kernels[False].get(k, 0.0)))
+    total = {on: sum(v.values()) for on, v in kernels.items()}
+    print(f"[trainer graph] device ms by kernel of an eager call, kernels on {total[True]:.2f} "
+          f"vs off {total[False]:.2f}; the largest differences: " + "; ".join(
+              f"{k[:70]} {kernels[True].get(k, 0.0):.2f} vs {kernels[False].get(k, 0.0):.2f}"
+              for k in diff[:10]) + " | the record_function ranges on the device timeline, "
+          "kernels on: " + ", ".join(f"{k} {v:.2f}" for k, v in by_kernel[True][1].items())
+          + "; off: " + ", ".join(f"{k} {v:.2f}" for k, v in by_kernel[False][1].items()))
+    return out
+
+
+def _graph_note(exp):
+    """The experiment's captured calls: eager calls, captures (seconds) and
+    replays of each."""
+    return "; ".join(
+        f"{type(g).__name__} {g.warmups} eager, {g.captures} captured "
+        f"({', '.join(f'{t:.2f}' for t in g.capture_seconds)} s), {g.replays} replays"
+        for g in exp.graphs())
+
+
+def _eager_ticks(cfg, n_warm, n_timed):
+    """ms/tick and peak MiB of the eager tick (no graphs) from
+    seed 0: ``n_warm`` warm ticks, then ``n_timed`` timed ones, K1 counted
+    (13 a tick)."""
+    import torch
+    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime import Experiment
+    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+    exp.trainer_graph = exp.planner_graph = None
+    if cfg.fast_encoder_grads:
+        exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    es = exp.init(seed=0)
+    for _ in range(n_warm):
+        exp.tick(es)
+    torch.cuda.synchronize()
+    footprint_and_spread.launches = 0
+    t0 = time.perf_counter()
+    exp.run_chunk(es, n_timed)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    k1 = footprint_and_spread.launches
+    if k1 < 13 * n_timed:
+        raise RuntimeError(f"eager ticks: K1 launched {k1} times in {n_timed} ticks")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    del exp, es
+    torch.cuda.empty_cache()
+    return dt * 1e3, peak
+
+
+def _plan_step_agreement(exp, es, n=3):
+    """The captured plan_step against the eager one on ``n`` ticks: each
+    tick, both plan from the same state (a copy of the visited-state ring,
+    the planner's generator set back to the same state), and must give the
+    same plan, rollout, command and info bit for bit; then the tick runs."""
+    import torch
+    graph = exp.planner_graph
+    replays = graph.replays
+    for i in range(n):
+        full = exp._measured_robot_state(es.env)
+        gen = es.pstate.gen
+        state = gen.get_state()
+        outs = []
+        for captured in (False, True):
+            gen.set_state(state)
+            mem = es.pstate.memory
+            memory = dataclasses.replace(mem, buf=mem.buf.clone(), pos=mem.pos.clone(),
+                                         size=mem.size.clone())
+            fork = dataclasses.replace(es, pstate=dataclasses.replace(es.pstate, memory=memory))
+            pstate, vel6, _, info = exp.plan_step(fork, full, graph=captured)
+            outs.append({"u": pstate.u, "last_plan": pstate.last_plan, "vel6": vel6,
+                         **{f"info {k}": v for k, v in info.items()}})
+        gen.set_state(state)
+        for k, v in outs[0].items():
+            if not torch.equal(v, outs[1][k]):
+                raise RuntimeError(f"captured plan_step, tick {i}: {k} differs from the eager "
+                                   f"one by {float((v - outs[1][k]).abs().max()):.3e}")
+        exp.tick(es)
+    if graph.replays - replays < 2 * n:
+        raise RuntimeError(f"the planner graph replayed {graph.replays - replays} times in "
+                           f"{n} ticks")
+    return len(outs[0])
+
+
 def phase_main_path(states="xyw", n_warm=6, n_timed=24):
-    """The tick path at production size over ``states``: warm ticks, then
-    timed ones with exactly 13 K1 launches each; then three ticks (one
-    trainer call) and one plan_step (sync and plan) under torch.profiler,
-    for the device's busy time and the number of device intervals beside
-    the host clock. Returns (launches, ms/tick, peak MiB)."""
+    """The tick path at production size over ``states``: first the eager
+    ticks (the experiment's graphs set to None) for their ms/tick; then the
+    ticks with the planner and trainer calls captured: warm ticks (which run the first
+    calls eagerly and capture the graphs), then timed ones with exactly 13
+    K1 launches each (the wrappers' eager counts plus the graphs' recorded
+    launches times their replays); the captured plan_step against the eager
+    one bit for bit on 3 ticks; three ticks (one trainer call) and one
+    plan_step, captured and eager, under torch.profiler for the device's
+    busy time and intervals beside the host clock; the sync check on a
+    tick without and a tick with a (replayed) trainer call. Returns
+    (launches, ms/tick, peak MiB, readings)."""
     import torch
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.runtime import Experiment
-    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
 
     cfg = ExperimentConfig(**{**PRODUCTION, "states": states})
+    eager_ms, eager_peak = _eager_ticks(cfg, n_warm, n_timed)
     exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     es = exp.init(seed=0)
@@ -1112,12 +1423,13 @@ def phase_main_path(states="xyw", n_warm=6, n_timed=24):
         es, _ = exp.tick(es)
     torch.cuda.synchronize()
 
-    footprint_and_spread.launches = 0
+    reset_launches(*exp.graphs())
     t0 = time.perf_counter()
     es, infos = exp.run_chunk(es, n_timed)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_timed
-    launches = footprint_and_spread.launches
+    launches = kernel_launches(*exp.graphs())["footprint_and_spread"]
+    replays = {type(g).__name__: g.replays for g in exp.graphs()}
 
     losses = infos["loss"].cpu()
     costs = infos["ergodic_cost"].cpu()
@@ -1125,37 +1437,53 @@ def phase_main_path(states="xyw", n_warm=6, n_timed=24):
     if launches != 13 * n_timed:
         raise RuntimeError(f"footprint kernel launched {launches} times in "
                            f"{n_timed} ticks, expected {13 * n_timed}")
+    if replays["PlannerGraph"] != n_timed or replays["TrainerGraph"] < 1:
+        raise RuntimeError(f"graph replays in the timed ticks: {replays}")
     if not (torch.isfinite(costs).all() and torch.isfinite(losses).all()):
         raise RuntimeError(f"non-finite costs {costs} or losses {losses}")
     if es.learning_ind <= 0 or trained.numel() == 0:
         raise RuntimeError(f"the trainer never ran (learning_ind {es.learning_ind})")
     if not all(p.is_cuda for p in es.model.parameters()) or not es.buf.y.is_cuda:
         raise RuntimeError("parameters or the replay ring left the card")
-    if es.buf.y.dtype != torch.bfloat16 or es.buf.size != n_warm + n_timed:
-        raise RuntimeError(f"replay ring {es.buf.y.dtype}, size {es.buf.size}")
+    if es.buf.y.dtype != torch.bfloat16 or int(es.buf.size) != n_warm + n_timed:
+        raise RuntimeError(f"replay ring {es.buf.y.dtype}, size {int(es.buf.size)}")
     R = es.pstate.dyn.R
     rtr = float((R.T @ R - torch.eye(3, device=R.device)).abs().max())
     if not rtr < 1e-5:
         raise RuntimeError(f"the planner's R is off orthonormal by {rtr}")
     peak = torch.cuda.max_memory_allocated() / 2**20
-    print(f"[main path {states}] {n_timed} ticks after {n_warm} warm: {dt * 1e3:.2f} "
-          f"ms/tick = {1.0 / dt:.2f} Hz | last loss {float(trained[-1]):.4f} | ergodic cost "
+    pools = {type(g).__name__: _pool_mib(g) for g in exp.graphs()}
+    print(f"[main path {states}] {n_timed} ticks after {n_warm} warm, planner and trainer "
+          f"calls captured: {dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz (eager ticks "
+          f"{eager_ms:.2f}) | last loss {float(trained[-1]):.4f} | ergodic cost "
           f"{float(costs[-1]):.4f} | learning_ind {es.learning_ind} | "
-          f"K1 launches {launches} (13/tick) | planner |R^T R - I| {rtr:.1e} | "
-          f"peak memory {peak:.1f} MiB")
+          f"K1 launches {launches} (13/tick; replays {replays}) | planner |R^T R - I| "
+          f"{rtr:.1e} | peak memory {peak:.1f} MiB (eager {eager_peak:.1f}); the graphs' pools "
+          f"{pools} MiB | {_graph_note(exp)}")
+    n_compared = _plan_step_agreement(exp, es)
+    print(f"[main path {states}] captured plan_step vs eager on 3 ticks: {n_compared} "
+          f"outputs (plan, rollout, command, info) equal bit for bit")
+    readings = dict(ms=dt * 1e3, eager_ms=eager_ms, peak=peak, eager_peak=eager_peak,
+                    pools=pools)
     for what, call in (("3 ticks (one trainer call)", lambda: exp.run_chunk(es, 3)),
-                       ("1 plan_step (sync + plan)",
-                        lambda: exp.plan_step(es, exp._measured_robot_state(es.env)))):
+                       ("1 plan_step (sync + plan), captured",
+                        lambda: exp.plan_step(es, exp._measured_robot_state(es.env))),
+                       ("1 plan_step (sync + plan), eager",
+                        lambda: exp.plan_step(es, exp._measured_robot_state(es.env),
+                                              graph=False))):
         wall, busy, _, _, n = _profiled_call(call)
+        readings[what] = dict(host_ms=wall, busy_ms=busy, intervals=n)
         print(f"[main path {states}] profiled {what}: host {wall:.2f} ms; device busy "
               f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle) in {n} kernel and copy "
               f"intervals")
     if states == "xyw":
         _sync_check_catches()
-    _sync_free(f"{states} tick", _tick_builders().untrained_tick(exp, es))
+    ticks = _tick_builders()
+    _sync_free(f"{states} tick", ticks.untrained_tick(exp, es))
+    _sync_free(f"{states} tick with a trainer call", ticks.trained_tick(exp, es))
     if states == "xyw":
         _plan_bisect(exp, es)
-    return launches, dt * 1e3, peak
+    return launches, dt * 1e3, peak, readings
 
 
 def _ensemble_plain(model, mstate, samples):
@@ -1181,13 +1509,14 @@ def phase_variant_path(n_warm=6, n_timed=12):
     model and in an f32 copy, and both timed. Returns (ms/tick, peak MiB,
     (K1, K2, K3 launches))."""
     import torch
-    from ealv_tpu_torch.ops import adam as tad, footprint_and_spread, wgrad as twg
     from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     cfg = ExperimentConfig(**{**PRODUCTION, "states": "xywb"}, learn_force=True,
                            use_z_ensemble=True, fast_encoder_grads="pallas")
+    eager_ms, eager_peak = _eager_ticks(cfg, n_warm, n_timed)
     exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
     exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
     torch.cuda.reset_peak_memory_stats()
@@ -1195,15 +1524,15 @@ def phase_variant_path(n_warm=6, n_timed=12):
     for _ in range(n_warm):
         es, _ = exp.tick(es)
     torch.cuda.synchronize()
-    footprint_and_spread.launches = tad.adam_apply.launches = 0
-    twg.conv_wgrad_direct.launches = 0
+    reset_launches(*exp.graphs())
     calls0 = es.learning_ind
     t0 = time.perf_counter()
     es, infos = exp.run_chunk(es, n_timed)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_timed
-    k1, k2, k3 = (footprint_and_spread.launches, tad.adam_apply.launches,
-                  twg.conv_wgrad_direct.launches)
+    counts = kernel_launches(*exp.graphs())
+    k1, k2, k3 = (counts["footprint_and_spread"], counts["adam_apply"],
+                  counts["conv_wgrad_direct"])
     calls = es.learning_ind - calls0
     peak = torch.cuda.max_memory_allocated() / 2**20
     if calls <= 0:
@@ -1221,11 +1550,14 @@ def phase_variant_path(n_warm=6, n_timed=12):
     if float(es.mstate.z_buff.abs().amin(1).min()) == 0.0:
         raise RuntimeError("the z ring is not full after the warm and timed ticks")
     print(f"[variant path] xywb, learn_force, use_z_ensemble, K2 and K3 on: {n_timed} ticks "
-          f"after {n_warm} warm: {dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz | {calls} trainer "
+          f"after {n_warm} warm, planner and trainer calls captured: {dt * 1e3:.2f} ms/tick = "
+          f"{1.0 / dt:.2f} Hz (eager ticks {eager_ms:.2f}) | {calls} trainer "
           f"calls | K1 {k1} (13/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} (75/call) | last "
           f"loss {float(losses[losses != 0][-1]):.4f} | brightness {float(b):.4f} | peak "
-          f"memory {peak:.1f} MiB")
-    _sync_free("xywb force z-ensemble tick", _tick_builders().untrained_tick(exp, es))
+          f"memory {peak:.1f} MiB (eager {eager_peak:.1f}) | {_graph_note(exp)}")
+    ticks = _tick_builders()
+    _sync_free("xywb force z-ensemble tick", ticks.untrained_tick(exp, es))
+    _sync_free("xywb force z-ensemble tick with a trainer call", ticks.trained_tick(exp, es))
 
     g = torch.Generator(device="cuda").manual_seed(7)
     lo, hi = exp.robot_lim[:, 0], exp.robot_lim[:, 1]
@@ -1254,7 +1586,7 @@ def phase_variant_path(n_warm=6, n_timed=12):
               f"{err:.3e} (rtol {tol['rtol']}); device ms: 10,000-row batch {e_ms:.4f}, five "
               f"2000-row decodes {p_ms:.4f}, one 2000-row decode (no ensemble) {single_ms:.4f}; "
               f"host clock {h_ms:.4f} ms; transient memory {transient:.1f} MiB")
-    return dt * 1e3, peak, (k1, k2, k3)
+    return dt * 1e3, peak, (k1, k2, k3), eager_ms
 
 
 def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
@@ -1824,7 +2156,7 @@ def _arm_long_agreement(n_run=140, n_ticks=4, devs=("cpu", "cuda")):
                 err = _agree(runs, f"arm ticks {backend} from {label}")
                 worst = max(worst, err)
                 print(f"[agreement] {n_ticks} toy ticks on {backend} from the CPU run's "
-                      f"checkpoint at {label} (rings {es.buf.total} pushes into 128 slots at "
+                      f"checkpoint at {label} (rings {int(es.buf.total)} pushes into 128 slots at "
                       f"the end; force up to {force:.1f} N), cuda vs cpu with fed draws: "
                       f"joints, pose, objects, plan, cost, force, loss, beta/gamma and the "
                       f"pushed sample agree (rtol 1e-3, atol 1e-4), max|diff| {err:.3e}")
@@ -1841,24 +2173,25 @@ def phase_arm_path(n_warm=6, n_timed=12):
     call enqueued behind a spin kernel returns before the spin ends).
     Returns (launches, ms/tick, peak MiB, readings)."""
     import torch
-    from ealv_tpu_torch.ops import footprint_and_spread
     from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     cfg = ExperimentConfig(**{**PRODUCTION, "sim_backend": "arm"})
+    eager_ms, _ = _eager_ticks(cfg, n_warm, n_timed)
     exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     es = exp.init(seed=0)
     for _ in range(n_warm):
         es, _ = exp.tick(es)
     torch.cuda.synchronize()
-    footprint_and_spread.launches = 0
+    reset_launches(*exp.graphs())
     t0 = time.perf_counter()
     es, infos = exp.run_chunk(es, n_timed)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_timed
-    launches = footprint_and_spread.launches
+    launches = kernel_launches(*exp.graphs())["footprint_and_spread"]
     peak = torch.cuda.max_memory_allocated() / 2**20
     losses, costs = infos["loss"].cpu(), infos["ergodic_cost"].cpu()
     if launches != 13 * n_timed:
@@ -1869,11 +2202,14 @@ def phase_arm_path(n_warm=6, n_timed=12):
         raise RuntimeError(f"arm path: losses {losses}, costs {costs}, q {es.env.q}")
     if not (es.env.q.is_cuda and es.buf.y.is_cuda):
         raise RuntimeError("arm path: the arm or the replay ring left the card")
-    print(f"[arm path] sim_backend=arm, xyw: {n_timed} ticks after {n_warm} warm: "
-          f"{dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz | last loss "
+    print(f"[arm path] sim_backend=arm, xyw: {n_timed} ticks after {n_warm} warm, planner "
+          f"and trainer calls captured: {dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz (eager "
+          f"ticks {eager_ms:.2f}) | last loss "
           f"{float(losses[losses != 0][-1]):.4f} | K1 launches {launches} (13/tick) | pose "
           f"{[round(v, 4) for v in es.env.pose.tolist()]} | peak memory {peak:.1f} MiB")
-    _sync_free("arm tick", _tick_builders().untrained_tick(exp, es))
+    ticks = _tick_builders()
+    _sync_free("arm tick", ticks.untrained_tick(exp, es))
+    _sync_free("arm tick with a trainer call", ticks.trained_tick(exp, es))
 
     env = exp.env
     cmd = torch.tensor([0.02, -0.01, 0.0, 0.0, 0.0, 0.1], device="cuda")
@@ -1902,7 +2238,7 @@ def phase_arm_path(n_warm=6, n_timed=12):
               f"host clock {h_ms:.4f} ms; behind a spin kernel the host enqueued it in "
               f"{enqueue * 1e3:.2f} ms of {spun * 1e3:.1f} ms"
               + ("" if n < 1000 else " (over the launch queue: no wait check)"))
-    return launches, dt * 1e3, peak, readings
+    return launches, dt * 1e3, peak, readings, eager_ms
 
 
 def _count_plans(exp):
@@ -2053,8 +2389,8 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
     with both trainer kernels on; the postexplr checkpoint is reloaded into
     a fresh Experiment and compared tensor for tensor."""
     import torch
-    from ealv_tpu_torch.ops import adam as tad, footprint_and_spread, wgrad as twg
     from ealv_tpu_torch.runtime.checkpoint import load_checkpoint, state_leaves
+    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.runtime.metrics import MetricsLog, run_dir
     from ealv_tpu_torch.scripts import run_experiment as cli
 
@@ -2076,15 +2412,14 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
         es = exp.init(seed=args.seed)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        footprint_and_spread.launches = 0
-        tad.adam_apply.launches = 0
-        twg.conv_wgrad_direct.launches = 0
+        reset_launches(*exp.graphs())
         t0 = time.perf_counter()
         es = cli.run(exp, args, dirp, ml, es=es)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        k1, k2, k3 = (footprint_and_spread.launches, tad.adam_apply.launches,
-                      twg.conv_wgrad_direct.launches)
+        counts = kernel_launches(*exp.graphs())
+        k1, k2, k3 = (counts["footprint_and_spread"], counts["adam_apply"],
+                      counts["conv_wgrad_direct"])
         peak = torch.cuda.max_memory_allocated()
 
         calls = es.learning_ind
@@ -2124,7 +2459,7 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
           f"calls = {calls} trainer calls in {wall:.1f} s (checkpoints included) | K2 "
           f"launches {k2} (25/call) | K3 calls {k3} (75/call) | K1 launches {k1} | last "
           f"loss {float(trained[-1]):.4f} | postexplr reloaded: {n_tensors} tensors "
-          f"equal | peak memory {peak / 2**20:.1f} MiB")
+          f"equal | peak memory {peak / 2**20:.1f} MiB | {_graph_note(exp)}")
     return k1, k2, k3
 
 
@@ -2542,17 +2877,18 @@ def main() -> int:
     phase_planner_agreement()
     phase_trainer_agreement()
     phase_trainer_production()
-    k1_launches, xyw_ms, xyw_peak = phase_main_path("xyw", n_warm=6, n_timed=24)
+    trainer_graphs = phase_trainer_graphs()
+    k1_launches, xyw_ms, xyw_peak, xyw = phase_main_path("xyw", n_warm=6, n_timed=24)
     with _NcclGroup():
         dp = phase_dp_trainer()
         k1_mesh, mesh_ms = phase_mesh_tick(xyw_ms)
     dp_worst = phase_dp_two_ranks()
     dash = phase_dashboard()
-    k1_6dof, rpw_ms, rpw_peak = phase_main_path("xyzrpw", n_warm=6, n_timed=12)
-    var_ms, var_peak, (k1_var, k2_var, k3_var) = phase_variant_path()
+    k1_6dof, rpw_ms, rpw_peak, rpw = phase_main_path("xyzrpw", n_warm=6, n_timed=12)
+    var_ms, var_peak, (k1_var, k2_var, k3_var), var_eager = phase_variant_path()
     eval_ms, eval_per_plan = phase_eval_path()
     fp = phase_fingerprint_path()
-    k1_arm, arm_ms, arm_peak, step_vel = phase_arm_path()
+    k1_arm, arm_ms, arm_peak, step_vel, arm_eager = phase_arm_path()
     k1_host, host_ms_step, host_plans = phase_host_loop_path()
     loop = phase_native_bridge()
     print(f"[main paths] xyw {xyw_ms:.2f} ms/tick, peak {xyw_peak:.1f} MiB | xyzrpw "
@@ -2568,6 +2904,24 @@ def main() -> int:
           f"correction); "
           f"host loop {host_ms_step:.2f} ms/step; native loop {loop['rate_hz']:.1f} Hz; toy arm "
           f"card-vs-CPU max|diff| {arm_err:.3e}")
+    plan = "1 plan_step (sync + plan), {}"
+    print("[graphs] ms/tick captured (eager): " + "; ".join(
+        f"{k} {a:.2f} ({b:.2f})" for k, a, b in (
+            ("xyw", xyw_ms, xyw["eager_ms"]), ("xyzrpw", rpw_ms, rpw["eager_ms"]),
+            ("xywb force z-ensemble K2 K3", var_ms, var_eager), ("arm", arm_ms, arm_eager)))
+        + " | plan_step host ms / busy ms / intervals, captured (eager): " + "; ".join(
+            f"{k} {r[plan.format('captured')]['host_ms']:.2f} / "
+            f"{r[plan.format('captured')]['busy_ms']:.2f} / "
+            f"{r[plan.format('captured')]['intervals']} ({r[plan.format('eager')]['host_ms']:.2f}"
+            f" / {r[plan.format('eager')]['busy_ms']:.2f} / {r[plan.format('eager')]['intervals']})"
+            for k, r in (("xyw", xyw), ("xyzrpw", rpw)))
+        + " | trainer call host ms / busy ms, captured (eager): " + "; ".join(
+            f"kernels {'on' if on else 'off'} {r['captured']['host_ms']:.2f} / "
+            f"{r['captured']['busy_ms']:.2f} ({r['eager']['host_ms']:.2f} / "
+            f"{r['eager']['busy_ms']:.2f}), capture {r['capture_s']:.3f} s, pool "
+            f"{r['pool_mib']} MiB" for on, r in trainer_graphs.items())
+        + f" | peak MiB captured (eager): xyw {xyw_peak:.1f} ({xyw['eager_peak']:.1f}), "
+          f"xyzrpw {rpw_peak:.1f} ({rpw['eager_peak']:.1f})")
     _, k2_launches, k3_launches = phase_learning_path()
     resume_leaves = phase_studies()
     k1_repro = phase_repro_planner()

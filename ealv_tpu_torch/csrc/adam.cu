@@ -8,9 +8,15 @@
 //     v <- b2 * v + (1 - b2) * g * g
 //     p <- p - lr * (m / c1) / (sqrt(v / c2) + eps)
 //
-// with c1 = 1 - b1^t and c2 = 1 - b2^t computed by the caller in f32 from a
-// host step count. The formula is the JAX package's (optax's eps_root = 0
-// form): sqrt(v / c2), not torch.optim.Adam's sqrt(v) / sqrt(c2).
+// with c1 = 1 - b1^t and c2 = 1 - b2^t computed in f32 from the step count t,
+// as pallas_adam.py:130-133 computes them. The count is an int32 on the
+// device, as the JAX optimizer state's is: a one-thread prologue kernel
+// advances it, and every thread of the update reads the advanced count
+// through a pointer. Nothing of a step's scalars is taken by value from a
+// host count, so a captured CUDA graph of a trainer call advances the count
+// and its corrections on every replay. The formula is the JAX package's
+// (optax's eps_root = 0 form): sqrt(v / c2), not torch.optim.Adam's
+// sqrt(v) / sqrt(c2).
 //
 // What bounds it on this card: 4 f32 reads and 3 f32 writes per element and
 // a handful of flops, so device-memory bandwidth: 28 B per element, 120.66 MB
@@ -55,11 +61,18 @@ struct AdamTable {
 };
 
 struct AdamScalars {
-  float lr, c1, c2, b1, b2, omb1, omb2, eps;  // omb = 1 - b, rounded once
+  float lr, b1, b2, omb1, omb2, eps;  // omb = 1 - b, rounded once
+  const int* count;                   // the post-increment step t, on the device
 };
 
+struct AdamStep {  // one step's scalars with the corrections of its count
+  float lr, c1, c2, b1, b2, omb1, omb2, eps;
+};
+
+__global__ void adam_count_kernel(int* count) { *count += 1; }
+
 __device__ __forceinline__ void adam_elem(float& p, float& m, float& v, float g,
-                                          const AdamScalars& s) {
+                                          const AdamStep& s) {
   m = s.b1 * m + s.omb1 * g;
   v = s.b2 * v + s.omb2 * g * g;
   const float mhat = m / s.c1;
@@ -68,7 +81,7 @@ __device__ __forceinline__ void adam_elem(float& p, float& m, float& v, float g,
 }
 
 __device__ __forceinline__ void adam_vec(float4& p, float4& m, float4& v,
-                                         const float4& g, const AdamScalars& s) {
+                                         const float4& g, const AdamStep& s) {
   adam_elem(p.x, m.x, v.x, g.x, s);
   adam_elem(p.y, m.y, v.y, g.y, s);
   adam_elem(p.z, m.z, v.z, g.z, s);
@@ -77,7 +90,10 @@ __device__ __forceinline__ void adam_vec(float4& p, float4& m, float4& v,
 
 __global__ void __launch_bounds__(kThreads)
     adam_multi_kernel(const __grid_constant__ AdamTable t,
-                      const AdamScalars s) {
+                      const AdamScalars sc) {
+  const float step = static_cast<float>(*sc.count);
+  const AdamStep s{sc.lr, 1.0f - powf(sc.b1, step), 1.0f - powf(sc.b2, step),
+                   sc.b1, sc.b2, sc.omb1, sc.omb2, sc.eps};
   const int b = blockIdx.x;
   int lo = 0, hi = t.n_tensors - 1;  // last tensor whose first block <= b
   while (lo < hi) {
@@ -147,19 +163,23 @@ __global__ void __launch_bounds__(kThreads)
 // 4 * n_tensors device pointers, planar: p of every tensor, then m, v and
 // g, each a contiguous f32 array of sizes[i] > 0 elements. `block_start`
 // (n_tensors + 1 ints) and `vec` (n_tensors ints) are the host plan of
-// ops/adam.py::adam_plan. Launches one kernel of block_start[n_tensors]
-// blocks on `stream` and does not synchronise. Returns the launch's
-// cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for n_tensors
-// outside 1..kMaxTensors, an empty tensor, a plan whose block counts are
-// not ceil(n / kChunk), or a float4 tensor with an array off a 16-byte
-// boundary.
+// ops/adam.py::adam_plan. `count` is a device int32, the steps taken so
+// far; with `advance` a one-thread kernel first adds one to it (the first
+// launch of an optimizer step advances it, the step's further launches
+// over more than kMaxTensors tensors read it as it is). Then launches one
+// kernel of block_start[n_tensors] blocks, all on `stream`, and does not
+// synchronise. Returns the launches' cudaError_t (0 on success); 1
+// (cudaErrorInvalidValue) for n_tensors outside 1..kMaxTensors, a null
+// count, an empty tensor, a plan whose block counts are not ceil(n /
+// kChunk), or a float4 tensor with an array off a 16-byte boundary.
 extern "C" int adam_multi_f32(const unsigned long long* ptrs,
                               const long long* sizes, const int* block_start,
-                              const int* vec, int n_tensors, float lr,
-                              float c1, float c2, float b1, float b2,
+                              const int* vec, int n_tensors, int* count,
+                              int advance, float lr, float b1, float b2,
                               float omb1, float omb2, float eps,
                               void* stream) {
-  if (n_tensors <= 0 || n_tensors > kMaxTensors || block_start[0] != 0)
+  if (n_tensors <= 0 || n_tensors > kMaxTensors || block_start[0] != 0 ||
+      count == nullptr)
     return cudaErrorInvalidValue;
   AdamTable t;
   for (int i = 0; i < n_tensors; ++i) {
@@ -180,8 +200,13 @@ extern "C" int adam_multi_f32(const unsigned long long* ptrs,
   }
   t.block_start[n_tensors] = block_start[n_tensors];
   t.n_tensors = n_tensors;
-  const AdamScalars s{lr, c1, c2, b1, b2, omb1, omb2, eps};
-  adam_multi_kernel<<<block_start[n_tensors], kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(t, s);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (advance) {
+    adam_count_kernel<<<1, 1, 0, st>>>(count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const AdamScalars s{lr, b1, b2, omb1, omb2, eps, count};
+  adam_multi_kernel<<<block_start[n_tensors], kThreads, 0, st>>>(t, s);
   return cudaGetLastError();
 }

@@ -3,13 +3,17 @@
 
 The rings are preallocated tensors updated in place: a functional update
 would copy the whole image ring (583 MB at production size in bf16) on
-every push. The replay ring's head and fill counters are host ints, since
-every push lands unconditionally; the hyperparameter ring and the
-trajectory ring are advanced under data-dependent guards (non-finite
-values, NaN measurements) and so keep their counters as device tensors,
-updated with ``torch.where`` and no host sync. Draws without replacement
-use the Gumbel top-k trick with an explicit ``torch.Generator``; its bits
-differ from JAX's, the law is the same.
+every push. Every counter (the replay ring's head, fill and push count, the
+hyperparameter ring's, the trajectory ring's) is a () int64 tensor on the
+ring's device, as in the JAX package: a push writes its row at the device
+index and advances the counters in place, so no call reads a value back and
+a captured CUDA graph that reads the rings sees each replay's counters (a
+host int would be frozen into the graph). The hyperparameter ring and the
+trajectory ring advance under data-dependent guards (non-finite values,
+NaN measurements) with ``torch.where``. Host readers take ``int()`` of a
+counter. Draws without replacement use the Gumbel top-k trick with an
+explicit ``torch.Generator``; its bits differ from JAX's, the law is the
+same.
 """
 
 from __future__ import annotations
@@ -37,9 +41,9 @@ class ReplayBuffer:
     beta_pos: torch.Tensor  # () int64
     beta_size: torch.Tensor  # () int64
     explr_ind: torch.Tensor  # () int64
-    pos: int = 0  # ring head
-    size: int = 0  # valid rows
-    total: int = 0  # total pushes
+    pos: torch.Tensor  # () int64 ring head
+    size: torch.Tensor  # () int64 valid rows
+    total: torch.Tensor  # () int64 total pushes
 
     @classmethod
     def create(cls, capacity: int, s_dim: int, img_dim, device,
@@ -56,6 +60,7 @@ class ReplayBuffer:
             beta=torch.zeros(beta_capacity, device=device),
             gamma=torch.zeros(beta_capacity, device=device),
             beta_pos=zero(), beta_size=zero(), explr_ind=zero(),
+            pos=zero(), size=zero(), total=zero(),
         )
 
     @property
@@ -63,15 +68,18 @@ class ReplayBuffer:
         return self.x.shape[0]
 
     def push(self, x, y, force=None) -> "ReplayBuffer":
-        """Write one sample at the head, in place."""
-        i = self.pos
-        self.x[i] = x
-        self.y[i] = y.to(self.y.dtype)
-        self.force[i] = force if force is not None else 0.0
-        self.y_var[i] = y.float().var(correction=0)
-        self.pos = (i + 1) % self.capacity
-        self.size = min(self.size + 1, self.capacity)
-        self.total += 1
+        """Write one sample at the head and advance the counters, in place."""
+        i = self.pos.reshape(1)
+        self.x.index_copy_(0, i, x.to(self.x.dtype).reshape(1, -1))
+        self.y.index_copy_(0, i, y.to(self.y.dtype)[None])
+        if force is None:
+            self.force.index_fill_(0, i, 0.0)
+        else:
+            self.force.index_copy_(0, i, force.to(self.force.dtype).reshape(1, 1))
+        self.y_var.index_copy_(0, i, y.float().var(correction=0).reshape(1))
+        self.pos.copy_((self.pos + 1) % self.capacity)
+        self.size.copy_((self.size + 1).clamp(max=self.capacity))
+        self.total.add_(1)
         return self
 
     def update_hyperparams(self, explr_ind: int, grade, spread) -> "ReplayBuffer":
@@ -103,12 +111,13 @@ class ReplayBuffer:
         at exp(-10)), times 10."""
         v = torch.where(self.valid_mask() > 0, self.y_var.clamp(min=math.exp(-10.0)),
                         torch.zeros_like(self.y_var))
-        return v.sum() / max(self.size, 1) / v.max().clamp(min=1e-30) * 10.0
+        return v.sum() / self.size.clamp(min=1) / v.max().clamp(min=1e-30) * 10.0
 
     def get_last(self):
         """(x, y, force) of the newest push."""
-        i = (self.pos - 1) % self.capacity
-        return self.x[i], self.y[i], self.force[i]
+        i = ((self.pos - 1) % self.capacity).reshape(1)
+        return self.x.index_select(0, i)[0], self.y.index_select(0, i)[0], \
+            self.force.index_select(0, i)[0]
 
     def sample(self, batch_size: int, weighted: bool = False,
                generator: torch.Generator | None = None, idx=None):
@@ -128,7 +137,7 @@ class ReplayBuffer:
         holds after a wrap."""
         cap = self.capacity
         slots = torch.arange(cap, device=self.x.device)
-        n = float(self.size)
+        n = self.size.float()
         age = ((self.pos - 1 - slots) % cap).float()
         rank = n - 1.0 - age  # 0 = oldest valid push, n-1 = newest
         valid = rank >= 0.0
@@ -146,7 +155,7 @@ class ReplayBuffer:
         logw = self._weights_log(weighted)
         g = _gumbel(self.capacity, generator, self.x.device)
         idx = torch.topk(logw + g, batch_size).indices
-        return idx[torch.arange(batch_size, device=idx.device) % max(self.size, 1)]
+        return idx[torch.arange(batch_size, device=idx.device) % self.size.clamp(min=1)]
 
     def get_all_x(self):
         """(x (cap, s_dim), validity mask (cap,))."""
@@ -172,16 +181,18 @@ class TrajMemory:
         return self.buf.shape[0]
 
     def push(self, state, skip=None) -> "TrajMemory":
-        """Write ``state`` at the head, unless the () bool ``skip`` holds."""
+        """Write ``state`` at the head, unless the () bool ``skip`` holds;
+        the row and the counters are written in place."""
         cap = self.capacity
-        write = torch.arange(cap, device=self.buf.device) == self.pos
+        i = self.pos.reshape(1)
+        row = state.to(self.buf.dtype)[None, :]
         step = torch.ones_like(self.pos)
         if skip is not None:
-            write = write & ~skip
+            row = torch.where(skip, self.buf.index_select(0, i), row)
             step = (~skip).long()
-        self.buf = torch.where(write[:, None], state[None, :], self.buf)
-        self.pos = (self.pos + step) % cap
-        self.size = (self.size + step).clamp(max=cap)
+        self.buf.index_copy_(0, i, row)
+        self.pos.copy_((self.pos + step) % cap)
+        self.size.copy_((self.size + step).clamp(max=cap))
         return self
 
     def sample_indices(self, batch_size: int,

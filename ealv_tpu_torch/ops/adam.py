@@ -11,8 +11,12 @@ the kernel to the plain version.
 
 The update is the JAX package's (optax's, eps_root 0):
 ``p - lr * (m / c1) / (sqrt(v / c2) + eps)`` with ``c1 = 1 - b1^t`` and
-``c2 = 1 - b2^t`` computed in f32 on the host from the int step count
-``t``, so a step reads no device value and never waits on the device.
+``c2 = 1 - b2^t`` computed in f32 from the step count ``t``. As in the JAX
+package the count lives on the device (``FusedAdam`` keeps an int32 ()
+tensor, as ``PallasAdamState.count`` is an int32 array): the kernel's
+one-thread prologue advances it and the update reads it through a pointer,
+so a step reads no value back, and a captured CUDA graph of a trainer
+call advances the count and its corrections on every replay.
 
 Host cost: the kernel's plan (``adam_plan``), the checks and the ctypes
 argument arrays are built once per tensor list and kept under a key of
@@ -50,19 +54,24 @@ _FIELDS = (torch.Tensor.numel, operator.attrgetter("dtype"), torch.Tensor.is_con
            operator.attrgetter("device"))  # of every tensor, in the cache key
 
 
-def bias_corrections(count: int, b1: float, b2: float):
+def bias_corrections(count, b1: float, b2: float):
     """(1 - b1^t, 1 - b2^t) in f32 for the post-increment step ``count``,
-    as ``pallas_adam.py`` computes them."""
+    as ``pallas_adam.py`` computes them: floats for an int count, () f32
+    tensors on its device for a count tensor."""
+    if isinstance(count, torch.Tensor):
+        t = count.float()
+        return tuple(1.0 - torch.full_like(t, b) ** t for b in (b1, b2))
     t = np.float32(count)
     one = np.float32(1.0)
     return float(one - np.float32(b1) ** t), float(one - np.float32(b2) ** t)
 
 
-def adam_update_reference(p, m, v, g, lr, count: int, b1: float = 0.9,
+def adam_update_reference(p, m, v, g, lr, count, b1: float = 0.9,
                           b2: float = 0.999, eps: float = 1e-8):
     """Plain torch K2 on one tensor, in place, in the JAX kernel's order of
-    operations. The test oracle of the kernel and the path for CPU
-    tensors. Returns (p, m, v)."""
+    operations, at the post-increment step ``count`` (an int, or a ()
+    integer tensor that is read, not advanced). The test oracle of the
+    kernel and the path for CPU tensors. Returns (p, m, v)."""
     c1, c2 = bias_corrections(count, b1, b2)
     m.mul_(b1).add_((1.0 - b1) * g)
     v.mul_(b2).add_((1.0 - b2) * g * g)
@@ -100,7 +109,8 @@ def _library():
     fn = cuda_build.load(_SOURCE).adam_multi_f32
     fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                   ctypes.c_int] + [ctypes.c_float] * 8 + [ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_float] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -171,38 +181,49 @@ def _launches(tensors):
     return hit
 
 
-def _launch(tensors, lr, count, b1, b2, eps):
+def _launch(tensors, lr, count, advance: bool, b1, b2, eps):
     dev, launches = _launches(tensors)
+    if count.dtype != torch.int32 or count.device != dev or count.numel() != 1:
+        raise TypeError(f"the Adam kernel takes its step count as one int32 on {dev}, "
+                        f"got {count.dtype} {tuple(count.shape)} on {count.device}")
     fn = _library()
-    c1, c2 = bias_corrections(count, b1, b2)
     switch = dev.index != torch.cuda.current_device()
     with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         stream = torch.cuda.current_stream().cuda_stream
-        for n_t, ptrs, sizes, starts, vec, _, _ in launches:
-            err = fn(ptrs, sizes, starts, vec, n_t, lr, c1, c2, b1, b2, 1.0 - b1,
-                     1.0 - b2, eps, stream)
+        for j, (n_t, ptrs, sizes, starts, vec, _, _) in enumerate(launches):
+            err = fn(ptrs, sizes, starts, vec, n_t, count.data_ptr(), int(advance and j == 0),
+                     lr, b1, b2, 1.0 - b1, 1.0 - b2, eps, stream)
             if err != 0:
                 raise RuntimeError(f"Adam kernel launch failed: cudaError {err}")
             adam_apply.launches += 1
 
 
-def adam_apply(params, mu, nu, grads, lr, count: int, b1: float = 0.9,
+def adam_apply(params, mu, nu, grads, lr, count, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8):
-    """One Adam step over lists of tensors, in place. ``count`` is the
-    post-increment step (the first update uses 1). CUDA f32 tensors go to
-    the kernel, one launch per ``ADAM_MAX_TENSORS`` non-empty tensors; CPU
-    tensors to the plain version. ``adam_apply.launches`` counts kernel
-    launches, ``adam_apply.builds`` the tensor lists that missed the launch
-    cache and were checked and built anew."""
+    """One Adam step over lists of tensors, in place. ``count`` is either
+    the post-increment step as an int (the first update uses 1), as the
+    JAX ``adam_update_flat`` takes it, or the steps taken so far as an
+    int32 () tensor on the tensors' device, which the call advances in
+    place before it reads it, as the JAX ``adam_apply`` advances
+    ``PallasAdamState.count``. CUDA f32 tensors go to the kernel, one
+    launch per ``ADAM_MAX_TENSORS`` non-empty tensors; CPU tensors to the
+    plain version. ``adam_apply.launches`` counts kernel launches,
+    ``adam_apply.builds`` the tensor lists that missed the launch cache and
+    were checked and built anew."""
     if not params:
         return
     if not len(params) == len(mu) == len(nu) == len(grads):
         raise ValueError(f"{len(params)} params, {len(mu)} exp_avg, {len(nu)} "
                          f"exp_avg_sq and {len(grads)} grads")
     tensors = [*params, *mu, *nu, *grads]
+    advance = isinstance(count, torch.Tensor)
     if tensors[0].is_cuda:
-        _launch(tensors, float(lr), int(count), b1, b2, eps)
+        if not advance:
+            count = torch.full((), int(count), dtype=torch.int32, device=tensors[0].device)
+        _launch(tensors, float(lr), count, advance, b1, b2, eps)
     elif all(x.device.type == "cpu" for x in tensors):
+        if advance:
+            count.add_(1)
         for p, m, v, g in zip(params, mu, nu, grads):
             adam_update_reference(p, m, v, g, lr, count, b1, b2, eps)
     else:
@@ -234,21 +255,31 @@ def adam_init(params):
 class FusedAdam(torch.optim.Optimizer):
     """Adam whose ``step`` is one ``adam_apply`` per parameter group.
 
-    The step count is a host int in each param group (``group["step"]``),
-    one for the whole group as in the JAX optimizer state; the moments are
+    The step count is an int32 () tensor on the parameters' device in each
+    param group (``group["step"]``), one for the whole group as in the JAX
+    optimizer state, advanced on the device by every step; the moments are
     ``exp_avg``/``exp_avg_sq`` per parameter, so ``state_dict`` and
-    ``load_state_dict`` carry the whole optimizer state. Each group's
-    moment lists are looked up in ``self.state`` once and kept while the
-    group's parameters with a grad stay the same tensors;
-    ``load_state_dict`` drops them."""
+    ``load_state_dict`` carry the whole optimizer state (a saved count
+    that is a host int, as older checkpoints hold, loads too; the loaded
+    count is copied into the group's own tensor). Each group's moment
+    lists are looked up in ``self.state`` once and kept while the group's
+    parameters with a grad stay the same tensors; ``load_state_dict`` drops
+    them."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, step=0))
+        for group in self.param_groups:
+            group["step"] = torch.zeros((), dtype=torch.int32,
+                                        device=group["params"][0].device)
         self._moments: dict[int, tuple[list, list, list]] = {}
 
     def load_state_dict(self, state_dict):
+        steps = [group["step"] for group in self.param_groups]
         super().load_state_dict(state_dict)
+        for group, step in zip(self.param_groups, steps):
+            step.copy_(torch.as_tensor(group["step"]))
+            group["step"] = step
         self._moments.clear()
 
     def _group_moments(self, k, params):
@@ -278,7 +309,6 @@ class FusedAdam(torch.optim.Optimizer):
                 if not params:
                     continue
             mu, nu = self._group_moments(k, params)
-            group["step"] += 1
             b1, b2 = group["betas"]
             adam_apply(params, mu, nu, grads, group["lr"], group["step"], b1, b2,
                        group["eps"])

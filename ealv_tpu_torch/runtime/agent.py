@@ -6,7 +6,9 @@ velocity command (and, with the brightness state ``b``, a brightness
 command), steps the simulator (the free-flying end effector or the arm,
 ``sim/arm.py``) and renders the camera, pushes the
 sample to the replay ring, reseeds z, and makes the throttled trainer
-call. The state is updated in place and returned. The throttle counters (``explr_step``,
+call. On the card (outside a mesh) the planner call and the trainer call
+run as captured CUDA graphs (``runtime/graphs.py``), as the JAX package
+runs each as one compiled program. The state is updated in place and returned. The throttle counters (``explr_step``,
 ``learning_ind``) are host ints, so the throttle branches in Python and a
 tick never waits on the device. ``post_train_chunk`` is the training that
 follows exploration: trainer calls with no exploration.
@@ -15,6 +17,7 @@ follows exploration: trainer calls with no exploration.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -32,6 +35,7 @@ from ..control.baselines import BaselineController, BaselineDraws, BaselineState
 from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
+from .graphs import PlannerGraph, TrainerGraph
 from .trainer import TrainerStatics, TrainDraws, train_call
 from .schedules import HyperState, hyperparam_update, entropy_grade, \
     entropy_grade_spread
@@ -184,6 +188,9 @@ class Experiment:
         dev = self.device
         states = cfg.states
         self.explored = ExploredStates(cfg, states, dev)
+        # the ring's columns as a device index, built once: a Python list
+        # index is a blocking copy from pageable memory at every use
+        self._state_idx = torch.arange(cfg.s_dim, device=dev)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
 
         # as in the JAX Experiment: no angle scale or shift, so an xyzrpw
@@ -208,6 +215,12 @@ class Experiment:
             batch_size=cfg.batch_size, num_learning_opt=cfg.num_learning_opt,
             gamma_weight=cfg.gamma_weight, other_locs=cfg.other_locs,
             lr=cfg.model_lr)
+        # the trainer call and the planner call as captured CUDA graphs: on
+        # the card, outside a mesh (the data-parallel call stays eager); with
+        # both set to None the experiment makes the eager calls
+        graphs = self.device.type == "cuda" and mesh is None
+        self.trainer_graph = TrainerGraph() if graphs else None
+        self.planner_graph = PlannerGraph() if graphs and not self.use_baseline else None
 
         self.tray6 = tuple(TRAY_LIM[s] for s in "xyzrpw")
         if cfg.sim_backend in ("arm", "arm-dynamic", "arm-dynamic-soft"):
@@ -278,11 +291,17 @@ class Experiment:
         """(pose, vel) tray -> robot coords over the explored states."""
         return self.explored.measured(env)
 
-    def plan_step(self, es: ExperimentState, full_state, draws: TickDraws | None = None):
+    def graphs(self) -> list:
+        """The experiment's captured calls (none on the CPU or over a mesh)."""
+        return [g for g in (self.trainer_graph, self.planner_graph) if g is not None]
+
+    def plan_step(self, es: ExperimentState, full_state, draws: TickDraws | None = None,
+                  graph: bool = True):
         """Sync the planner (or the baseline) to the measured state, plan
         (or step), and convert the predicted state to a tray-frame 6-twist
-        and a brightness command. Returns (pstate, vel6, b_cmd or None,
-        info)."""
+        and a brightness command. The plan runs as the captured graph where
+        the experiment has one, unless ``graph=False``. Returns (pstate,
+        vel6, b_cmd or None, info)."""
         m = self.dyn.num_actions
         if self.use_baseline:
             pstate = self.baseline.save_update(es.pstate, full_state, save=True)
@@ -291,7 +310,10 @@ class Experiment:
             info = {"cost": torch.zeros((), device=self.device)}
         else:
             pstate = self.planner.save_update(es.pstate, full_state, save=True)
-            pstate, info = self.planner.plan(
+            plan = self.planner.plan
+            if graph and self.planner_graph is not None:
+                plan = functools.partial(self.planner_graph, self.planner)
+            pstate, info = plan(
                 pstate, (es.model, es.mstate),
                 use_prior=es.explr_step < self.cfg.prior_steps,
                 samples=draws.samples if draws else None,
@@ -379,7 +401,7 @@ class Experiment:
         pdf_vals = es.model.pdf(es.mstate, samples)
         all_x, x_mask = es.buf.get_all_x()
         return entropy_grade_spread(
-            pdf_vals, all_x, x_mask, samples, list(range(cfg.s_dim)),
+            pdf_vals, all_x, x_mask, samples, self._state_idx,
             torch.full((cfg.s_dim,), cfg.std, device=self.device), cfg.xi)
 
     def _hyper_and_train(self, es: ExperimentState, grade, spread,
@@ -406,9 +428,9 @@ class Experiment:
                                     hyper.beta, hyper.gamma, generator=es.gen,
                                     draws=train_draws)
         else:
-            metrics = train_call(self.trainer, es.model, es.opt, es.buf,
-                                 hyper.beta, hyper.gamma, generator=es.gen,
-                                 draws=train_draws)
+            train = self.trainer_graph or train_call
+            metrics = train(self.trainer, es.model, es.opt, es.buf, hyper.beta, hyper.gamma,
+                            generator=es.gen, draws=train_draws)
         es.buf.update_hyperparams(es.explr_step, grade, spread)
         es.learning_ind += 1
         return metrics

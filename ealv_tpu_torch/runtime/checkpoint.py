@@ -69,18 +69,66 @@ def _to_cpu(tree):
     return tree
 
 
+# the size in bytes of a generator's state, by device type: a CPU generator
+# keeps its Mersenne Twister state, a CUDA one its Philox seed and offset
+_GENERATOR_STATE_BYTES = {5056: "cpu", 16: "cuda"}
+# the options of a torch optimizer's param group that follow the device its
+# parameters are on, not the run: kept from the optimizer loaded into
+_DEVICE_OPTIONS = ("capturable", "fused", "foreach")
+
+
+def _restore_generator(example: torch.Generator, tree, where: str):
+    """Load the saved state ``tree`` into ``example``. A random stream
+    cannot continue on another device type: a CPU generator's state and a
+    CUDA one's differ in kind and size, so such a state raises here rather
+    than inside ``set_state``."""
+    want = example.get_state()
+    if tree.dtype != want.dtype or tree.shape != want.shape:
+        saved = _GENERATOR_STATE_BYTES.get(tree.numel(), "an unknown device type")
+        raise ValueError(
+            f"{where}: the checkpoint's random stream is a {saved} generator's "
+            f"({tree.numel()} bytes of state), the state's is a {example.device.type} "
+            f"generator ({want.numel()} bytes); a random stream does not cross device "
+            f"types, so load the checkpoint into a state built on the device it was "
+            f"saved from")
+    example.set_state(tree)
+    return example
+
+
+def _restore_optimizer(example: torch.optim.Optimizer, tree):
+    """``load_state_dict``, keeping ``example``'s device options: a
+    checkpoint of a CPU run's ``torch.optim.Adam`` (not capturable) loaded
+    into a CUDA one keeps it capturable, its step counts moved to the
+    parameters' device."""
+    kept = [{k: g[k] for k in _DEVICE_OPTIONS if k in g} for g in example.param_groups]
+    example.load_state_dict(tree)
+    for group, options in zip(example.param_groups, kept):
+        group.update(options)
+        if options.get("capturable") or options.get("fused"):
+            for p in group["params"]:
+                state = example.state.get(p, {})
+                if isinstance(state.get("step"), torch.Tensor):
+                    state["step"] = state["step"].to(dtype=torch.float32, device=p.device)
+    return example
+
+
 def _restore(example, tree, where: str):
     """``example`` with its state replaced by ``tree``; modules, optimizers
     and generators are loaded in place, everything else is rebuilt."""
     if isinstance(example, torch.Tensor):
+        if (isinstance(tree, int) and not isinstance(tree, bool) and example.dim() == 0
+                and not example.is_floating_point() and example.dtype != torch.bool):
+            # an integer counter that an older checkpoint kept as a host int
+            return torch.tensor(tree, dtype=example.dtype, device=example.device)
         if tree.shape != example.shape or tree.dtype != example.dtype:
             raise ValueError(f"{where}: checkpoint has {tree.dtype} {tuple(tree.shape)}, "
                              f"the state {example.dtype} {tuple(example.shape)}")
         return tree.to(example.device)
     if isinstance(example, torch.Generator):
-        example.set_state(tree)
-        return example
-    if isinstance(example, (nn.Module, torch.optim.Optimizer)):
+        return _restore_generator(example, tree, where)
+    if isinstance(example, torch.optim.Optimizer):
+        return _restore_optimizer(example, tree)
+    if isinstance(example, nn.Module):
         example.load_state_dict(tree)
         return example
     if dataclasses.is_dataclass(example):
@@ -113,9 +161,14 @@ def load_checkpoint(path: str, example_state):
     """Restore the checkpoint at ``path`` into the structure and devices of
     ``example_state`` (e.g. a fresh ``Experiment.init``). Its model,
     optimizer and generators are loaded in place; the returned state holds
-    them."""
-    tree = torch.load(_path(path), map_location="cpu", weights_only=True)
-    return _restore(example_state, tree, "state")
+    them. Tensors move to the example's devices; random streams do not: a
+    generator's saved state loads only into a generator of the device type
+    it was saved from (a CPU generator's state and a CUDA one's differ in
+    kind), and any other raises ``ValueError``. A checkpoint that kept the
+    replay ring's counters as host ints loads into the device counters."""
+    path = _path(path)
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    return _restore(example_state, tree, f"{path}: state")
 
 
 def latest_checkpoint(base: str) -> str | None:

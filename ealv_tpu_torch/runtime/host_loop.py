@@ -33,7 +33,6 @@ each plan runs on a fork of the planner's state.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 from dataclasses import KW_ONLY, dataclass, field
 from typing import Callable, Optional
@@ -56,11 +55,14 @@ from .watchdog import (
 
 def _fork(pstate):
     """The planner's (or a baseline's) state for a plan that may go unused:
-    its trajectory ring object and random generator are copies (a push
-    replaces the ring's tensors, it never writes into them)."""
+    its trajectory ring and random generator are copies (a push writes the
+    ring's row and counters in place)."""
     gen = torch.Generator(device=pstate.gen.device)
     gen.set_state(pstate.gen.get_state())
-    return dataclasses.replace(pstate, memory=copy.copy(pstate.memory), gen=gen)
+    m = pstate.memory
+    memory = dataclasses.replace(m, **{f.name: getattr(m, f.name).clone()
+                                       for f in dataclasses.fields(m)})
+    return dataclasses.replace(pstate, memory=memory, gen=gen)
 
 
 @dataclass
@@ -157,7 +159,8 @@ class HostLoopRunner:
         exp = self.exp
         full_state = exp.explored.measured_obs(pose6, vel6, b)
         fork = dataclasses.replace(es, pstate=_fork(es.pstate))
-        pstate, vel6_cmd, b_cmd, info = exp.plan_step(fork, full_state, self._draws(es))
+        pstate, vel6_cmd, b_cmd, info = exp.plan_step(fork, full_state, self._draws(es),
+                                                      graph=False)
         tail = vel6_cmd.new_full((1,), -1.0) if b_cmd is None else b_cmd.reshape(1)
         return pstate, torch.cat([vel6_cmd, tail]), info
 

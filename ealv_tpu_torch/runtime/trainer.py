@@ -5,7 +5,9 @@ With the force variant the sampled forces are the encoder's input and the
 force head's target, the cross-decode draw's forces its second target.
 
 ``torch.optim.Adam`` computes the same update as ``optax.adam`` (eps_root
-0). ``fused_adam=True`` swaps in ``FusedAdam``, whose step is one launch of
+0); on the card it is ``capturable`` (its bias corrections from step
+counts on the device, in another order of operations than the host
+path's). ``fused_adam=True`` swaps in ``FusedAdam``, whose step is one launch of
 the multi-tensor Adam kernel K2 (``ops/adam.py``) over every parameter. As
 in the JAX package the switch is off by default; a user turns it on with
 ``dataclasses.replace(exp.trainer, fused_adam=True)`` before ``exp.init``.
@@ -34,9 +36,14 @@ class TrainerStatics:
     fused_adam: bool = False  # K2: one Adam kernel launch per step
 
     def make_optimizer(self, model: CVAE) -> torch.optim.Optimizer:
+        """``FusedAdam`` (K2) or the stock ``torch.optim.Adam``; on the card
+        the stock one is ``capturable``, its step counts on the device as
+        the JAX optimizer's count is, so that a captured trainer call
+        (``runtime/graphs.py``) advances them on every replay."""
         if self.fused_adam:
             return FusedAdam(model.parameters(), lr=self.lr)
-        return torch.optim.Adam(model.parameters(), lr=self.lr)
+        capturable = next(model.parameters()).is_cuda
+        return torch.optim.Adam(model.parameters(), lr=self.lr, capturable=capturable)
 
 
 @dataclasses.dataclass

@@ -80,7 +80,7 @@ def main(argv=None) -> dict:
     while es.explr_step < args.steps:
         es, infos = exp.run_chunk(es, min(50, args.steps - es.explr_step))
         if c % 4 == 3:
-            n = es.buf.size
+            n = int(es.buf.size)
             fr = float((es.buf.force[:n] > 0).float().mean())
             losses = infos["loss"].float().cpu().numpy()
             losses = losses[losses != 0]
@@ -90,7 +90,7 @@ def main(argv=None) -> dict:
         c += 1
     print(f"{es.explr_step} steps in {time.perf_counter() - t0:.0f}s", flush=True)
 
-    n = es.buf.size
+    n = int(es.buf.size)
     forces = es.buf.force[:n].cpu().numpy().ravel()
     print(f"buffer: {n} samples, contact {np.mean(forces > 0):.1%}, "
           f"max force {forces.max():.1f}")

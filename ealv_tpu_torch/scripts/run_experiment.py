@@ -199,7 +199,7 @@ def make_monitor(exp: Experiment, es: ExperimentState, dir_path: str | None = No
 def monitor_update(monitor, es: ExperimentState, seed: int, checkpoint_fn=None):
     """One monitor pass seeded by the last six pushed samples, drawing from
     a generator seeded with ``seed``; returns (result, stable)."""
-    n = es.buf.size
+    n = int(es.buf.size)
     gen = torch.Generator(device=es.buf.x.device).manual_seed(seed)
     return monitor.update(es.buf.x[max(0, n - 6):n], es.buf.y[max(0, n - 6):n],
                           es.explr_step, checkpoint_fn=checkpoint_fn, generator=gen)

@@ -87,7 +87,7 @@ def learn_host_loop(exp: Experiment, es, args):
         if t_steady is None:
             t_steady = time.perf_counter()
         if monitor and es.explr_step % max(args.cluster_every, 1) < block:
-            res, stable = monitor_update(monitor, es, 42 + es.buf.size)
+            res, stable = monitor_update(monitor, es, 42 + int(es.buf.size))
             means = np.round(res.means[:, :2].astype(np.float64), 2).tolist()
             print(f"clusters @ {es.explr_step}: {means} stable={stable}", flush=True)
     wall = time.perf_counter() - t0

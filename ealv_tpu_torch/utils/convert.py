@@ -232,7 +232,7 @@ def experiment_state_from_jax(es, exp, seed: int = 0):
     buf.beta, buf.gamma = f32(b.beta), f32(b.gamma)
     buf.beta_pos, buf.beta_size, buf.explr_ind = i64(b.beta_pos), i64(b.beta_size), \
         i64(b.explr_ind)
-    buf.pos, buf.size, buf.total = (int(np.asarray(v)) for v in (b.pos, b.size, b.total))
+    buf.pos, buf.size, buf.total = i64(b.pos), i64(b.size), i64(b.total)
 
     out.pstate = planner_state_from_jax(es.pstate, out.pstate)
     out.env = env_state_from_jax(es.env, dev)

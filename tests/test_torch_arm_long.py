@@ -160,7 +160,7 @@ def check_tick(run, exp_t, name):
     es_t = experiment_state_from_jax(es_j, exp_t)
     es_t, info_t = exp_t.tick(es_t, _jax_tick_draws(run.exp, es_j, es_j2))
     what = f"{name} (tick {k})"
-    slot = (es_t.buf.pos - 1) % es_t.buf.capacity
+    slot = (int(es_t.buf.pos) - 1) % es_t.buf.capacity
     assert slot == (int(es_j2.buf.pos) - 1) % es_t.buf.capacity, what
     assert (es_t.buf.size, es_t.buf.total) == (int(es_j2.buf.size), int(es_j2.buf.total)), what
     assert (es_t.explr_step, es_t.learning_ind, es_t.env.count) == (
@@ -271,7 +271,7 @@ def test_converted_free_env_state_ticks_as_jax(method):
         5, int(es.learning_ind), int(es.hyper.iter))
     es2, info = tick(es)
     es_t, info_t = exp_t.tick(es_t, _jax_tick_draws(exp_j, es, es2))
-    slot = es_t.buf.pos - 1
+    slot = int(es_t.buf.pos) - 1
     _close(es_t.env.pose, es2.env.pose, 1e-4, 1e-5, "env pose")
     _close(es_t.buf.x[slot], es2.buf.x[slot], 1e-4, 1e-4, "pushed pose")
     if method == "randomWalk":

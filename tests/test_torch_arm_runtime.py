@@ -57,7 +57,7 @@ def test_two_arm_ticks_step_matched(backend):
         es_j2, info_j = tick_j(es_j)
         es_t, info_t = exp_t.tick(es_t, _jax_tick_draws(exp_j, es_j, es_j2))
         es_j = es_j2
-        slot = es_t.buf.pos - 1
+        slot = int(es_t.buf.pos) - 1
         _close(es_t.env.q, es_j.env.q, 1e-4, 1e-4, f"tick {k} q")
         _close(es_t.env.pose, es_j.env.pose, 1e-4, 1e-5, f"tick {k} env pose")
         _close(es_t.env.scene.obj_xy, es_j.env.scene.obj_xy, 1e-5, 1e-6, f"tick {k} objects")

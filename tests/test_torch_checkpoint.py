@@ -113,3 +113,59 @@ def test_load_into_another_shape_raises(tmp_path):
                        train_calls_per_tick=1, device="cpu")
     with pytest.raises(ValueError):
         load_checkpoint(ck, other.init(seed=0))
+
+
+def test_generator_state_of_another_device_type_raises(tmp_path):
+    """A random stream does not cross device types: a saved generator state
+    of a CUDA generator's 16 bytes (its Philox seed and offset) loaded into
+    a CPU generator raises a ValueError that names the file, the field and
+    both device types, before set_state sees it."""
+    exp = tiny_experiment()
+    ck = save_checkpoint(str(tmp_path / "c"), exp.init(seed=0), step=0)
+    tree = torch.load(ck, weights_only=True)
+    assert tree["gen"].numel() == 5056  # a CPU generator's Mersenne Twister state
+    tree["gen"] = torch.zeros(16, dtype=torch.uint8)
+    torch.save(tree, ck)
+    with pytest.raises(ValueError, match="cuda generator.*cpu generator") as err:
+        load_checkpoint(ck, exp.init(seed=0))
+    assert ck in str(err.value) and "state.gen" in str(err.value)
+
+
+@pytest.mark.parametrize("fused_adam", [False, True])
+def test_checkpoint_with_host_int_counters_loads(tmp_path, fused_adam):
+    """A checkpoint written when the replay ring's head, fill and push
+    count and FusedAdam's step count were host ints loads into the device
+    counters, and the run continues as the run that saved it."""
+    exp = tiny_experiment(fused_adam)
+    es = exp.init(seed=0)
+    es, _ = exp.run_chunk(es, 2 * CHUNK)
+    ck = save_checkpoint(str(tmp_path / "c"), es, step=es.explr_step)
+    tree = torch.load(ck, weights_only=True)
+    for k in ("pos", "size", "total"):
+        tree["buf"][k] = int(tree["buf"][k])
+    if fused_adam:
+        tree["opt"]["param_groups"][0]["step"] = int(tree["opt"]["param_groups"][0]["step"])
+    torch.save(tree, ck)
+    es2 = load_checkpoint(ck, tiny_experiment(fused_adam).init(seed=0))
+    assert all(getattr(es2.buf, k).dtype == torch.int64 for k in ("pos", "size", "total"))
+    assert_states_equal(es, es2)
+    es, _ = exp.run_chunk(es, CHUNK)
+    es2, _ = exp.run_chunk(es2, CHUNK)
+    assert_states_equal(es, es2)
+
+
+def test_optimizer_keeps_its_device_options_on_load():
+    """An optimizer loaded from another device's checkpoint keeps its own
+    device options: a non-capturable Adam's state (a CPU run's) loaded into
+    a capturable one (the card's) leaves it capturable, its step counts f32
+    on the parameters' device."""
+    from ealv_tpu_torch.runtime.checkpoint import _restore
+    w = [torch.zeros(4, requires_grad=True) for _ in range(2)]
+    saved = torch.optim.Adam([w[0]], lr=1e-3)
+    w[0].grad = torch.ones(4)
+    saved.step()
+    opt = torch.optim.Adam([w[1]], lr=1e-3, capturable=True)
+    _restore(opt, saved.state_dict(), "state.opt")
+    assert opt.param_groups[0]["capturable"] is True
+    step = opt.state[w[1]]["step"]
+    assert step.dtype == torch.float32 and step.device == w[1].device and float(step) == 1.0

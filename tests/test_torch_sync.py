@@ -13,6 +13,7 @@ machine).
 """
 
 import collections
+import dataclasses
 import traceback
 
 import numpy as np
@@ -124,6 +125,26 @@ def untrained_tick(exp, es):
     return [("Experiment.tick", tick)]
 
 
+def trained_tick(exp, es):
+    """``Experiment.tick`` from ``es`` on a tick that makes a trainer call,
+    as [(name, call)]: ``es`` first ticks on past the trainer calls that
+    run eagerly or capture the experiment's trainer graph (on the card), so
+    the checked tick replays it; the call raises if it made no trainer
+    call. ``chip_smoke.py`` checks its production ticks through this."""
+    graph = exp.trainer_graph
+    while (es.explr_step % exp.train_every or es.learning_ind < 1
+           or (graph is not None and graph.key is None)):
+        exp.tick(es)
+    calls = es.learning_ind
+
+    def tick():
+        exp.tick(es)
+        if es.learning_ind != calls + 1:
+            raise RuntimeError("the checked tick made no trainer call")
+
+    return [("Experiment.tick with a trainer call", tick)]
+
+
 def tick_parts(dev, **kw):
     """A toy ``Experiment`` on ``dev`` (``TOY`` with ``kw``) after 4 ticks,
     and its next tick that makes no trainer call."""
@@ -141,6 +162,31 @@ def tick_parts(dev, **kw):
                          ids=["xyw", "xyzrpw", "xywb-force-ensemble", "arm"])
 def test_warm_tick_makes_no_round_trip(kw):
     assert _round_trips(tick_parts("cpu", **kw)) == {}
+
+
+@pytest.mark.parametrize("kw", [{}, {"states": "xywb", "learn_force": True,
+                                     "use_z_ensemble": True}],
+                         ids=["xyw", "xywb-force-ensemble"])
+def test_warm_tick_with_a_trainer_call_makes_no_round_trip(monkeypatch, kw):
+    """A tick whose trainer call runs, with the stock optimizer as the card
+    builds it (capturable; torch refuses that on the CPU, so its device
+    check admits the CPU here) and with FusedAdam: the eager call, whose
+    launches a captured trainer call replays, reads nothing back, and
+    neither does the entropy grade's fresh decode around it (the variant
+    path, whose grade is not folded from the planner's decode)."""
+    import torch.optim.adam as torch_adam
+    supported = torch_adam._get_capturable_supported_devices
+    monkeypatch.setattr(torch_adam, "_get_capturable_supported_devices",
+                        lambda *a, **k: [*supported(*a, **k), "cpu"])
+    for fused in (False, True):
+        exp = Experiment(ExperimentConfig(**{**TOY, **kw}), train_calls_per_tick=1,
+                         train_every=3, device="cpu")
+        exp.trainer = dataclasses.replace(exp.trainer, fused_adam=fused)
+        es = exp.init(seed=0)
+        if not fused:
+            es.opt = torch.optim.Adam(es.model.parameters(), lr=exp.trainer.lr,
+                                      capturable=True)
+        assert _round_trips(trained_tick(exp, es)) == {}, fused
 
 
 def eval_parts(dev):

@@ -144,7 +144,7 @@ def _two_ticks_step_matched(toy, check_R=False):
         draws = _jax_tick_draws(exp_j, es_j, es_j2)
         es_t, info_t = exp_t.tick(es_t, draws)
         es_j = es_j2
-        slot = es_t.buf.pos - 1
+        slot = int(es_t.buf.pos) - 1
         _close(es_t.env.pose, es_j.env.pose, 1e-4, 1e-5, f"tick {k} env pose")
         _close(es_t.buf.x[slot], es_j.buf.x[slot], 1e-4, 1e-4, f"tick {k} pushed pose")
         _close(es_t.buf.y[slot], es_j.buf.y[slot], 1e-4, 1e-4, f"tick {k} pushed image")
