@@ -51,16 +51,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      kernels on against off;
   5. the tick paths at production size (180x180x3 images, 2000 target
      samples, 3000 trajectory points, batch 64, 25 Adam steps every third
-     tick, bf16), trainer kernels off as in the JAX default, the planner
-     and trainer calls captured as CUDA graphs (the eager ticks of xyw,
-     xyzrpw, the variant path and the arm timed beside them, and the
-     kernel counts read as the wrappers' eager launches plus each graph's
-     recorded launches times its replays): the xyw tick
+     tick, bf16), trainer kernels off as in the JAX default, each three
+     ways in this call: whole ticks replayed as CUDA graphs (the default:
+     warm ticks until every timed tick replays its pattern's graph, then
+     timed ticks, the kernel counts read through the graphs with the
+     wrappers' eager counts at 0, and the whole run, every tick's info and
+     the final state, bit-equal to an eager experiment taking the same
+     ticks; capture seconds by pattern, the shared pool's MiB), the
+     per-call graphs (the planner and trainer calls captured, the rest of
+     the tick eager) and eager ticks, three ticks of each under
+     torch.profiler (host ms, busy ms, intervals), the two graph kinds
+     timed again in turns (medians of 4 chunks of 6 ticks): the xyw tick
      (double integrator), then the 6-DoF xyzrpw tick (SO(3) roll dynamics,
-     linearized at every step); for each, warm ticks, then timed ticks,
-     with K1's launch count read over the timed window, the captured
-     plan_step against the eager one bit for bit on 3 ticks, and a
-     profiled plan_step captured and eager; then the variant
+     linearized at every step); for each, K1's launch count over the timed
+     window, the captured plan_step against the eager one bit for bit on
+     3 ticks, and a profiled plan_step captured and eager; then the variant
      tick path (xywb, learn_force, use_z_ensemble, both trainer kernels
      on) with K1, K2 and K3 counted and the ensemble pdf held against its
      plain decode-and-average; then the eval path: a 25-point grid test set
@@ -73,7 +78,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and 30 identification ticks over the four combinations in each seek
      mode, 12 K1 launches a capture or identification tick and none in
      the clustering, matching or entropy slices; then the arm: 12 ticks
-     on sim_backend="arm" (13 K1 launches a tick), then ArmEnv.step_vel
+     on sim_backend="arm" three ways after 60 warm ticks (so that a
+     drift-correcting tick replays its graph; 13 K1 launches a tick), then
+     ArmEnv.step_vel
      (with and without the drift correction), step_pose and observe alone
      (device intervals, device ms and host ms per call; each enqueued
      behind a spin kernel must return before the spin ends: the host
@@ -88,8 +95,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each seek mode) one warm tick's calls (plan_step, the env steps,
      observe, absorb_step with the trainer call throttled out) run under
      torch.cuda.set_sync_debug_mode("error"): no call may synchronise (on
-     xyw, xyzrpw, the variant path and the arm also a tick whose trainer
-     call replays its graph); on
+     xyw, xyzrpw, the variant path and the arm a replayed tick without and
+     with a trainer call, through the tick graphs and through the per-call
+     graphs); on
      xyw also the card's launch queue depth, and plan_step bisected into
      pieces (the sync, the draws, the target decode, the base footprint,
      the initial cost, the first inner iteration's parts), each under the
@@ -99,8 +107,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
      steps with a trainer call every third, post-training to 36 trainer
      calls, checkpoints every 6 steps and the postexplr checkpoint (in a
-     temporary directory, removed afterwards), which is reloaded into a
-     fresh Experiment and compared tensor for tensor;
+     temporary directory, removed afterwards), through the tick and
+     post-training graphs, its wall time beside the same run with the
+     per-call graphs; the postexplr checkpoint is reloaded into a fresh
+     Experiment and compared tensor for tensor, and 3 post-training calls
+     from it through the post-training graph are held bit for bit against
+     the same calls made eagerly;
   7. data parallelism, the dashboard and the study CLIs: K1 at the
      dashboard's shapes (2500 grid samples against the 3000-point memory
      and the memory plus the 11-point plan) in phase 3; inside a one-rank
@@ -608,6 +620,12 @@ def _agree(runs, what):
     return err
 
 
+def _kept(row):
+    """A tick's outputs as they are now: copies, since a replayed tick
+    graph overwrites the state's tensors in place on the next tick."""
+    return {k: v.detach().clone() for k, v in row.items()}
+
+
 def phase_agreement():
     """Two toy ticks of each path of AGREEMENT_TICKS on the card and on the
     CPU with the same weights and fed draws: pose, brightness, plan (or the
@@ -625,11 +643,11 @@ def phase_agreement():
             out = []
             for k in range(2):
                 es, info = exp.tick(es, _toy_draws(cfg, k, rng, dev))
-                out.append({"pose": es.env.pose, "brightness": es.env.brightness,
+                out.append(_kept({"pose": es.env.pose, "brightness": es.env.brightness,
                             "plan": es.pstate.x if exp.use_baseline else es.pstate.u,
                             "cost": info["ergodic_cost"], "loss": info["loss"],
                             "beta": info["beta"], "gamma": info["gamma"],
-                            "z ring": es.mstate.z_buff})
+                            "z ring": es.mstate.z_buff}))
             runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
         err = _agree(runs, what)
         print(f"[agreement] 2 toy ticks ({what}), cuda vs cpu with fed draws: pose, "
@@ -1173,12 +1191,19 @@ def _by_kernel(call):
     return out
 
 
+def _pool_id(graph):
+    """The memory pool of a captured call (its graph's private pool) or of
+    a step graph (the pool its patterns' graphs share)."""
+    from ealv_tpu_torch.runtime.graphs import StepGraph
+    return tuple(graph.pool.id if isinstance(graph, StepGraph) else graph.graph.graph.pool())
+
+
 def _pool_mib(graph):
-    """The MiB of the memory segments in a captured call's private pool,
-    from ``torch.cuda.memory_snapshot()``; None where the snapshot does not
-    name segments' pools."""
+    """The MiB of the memory segments in a captured call's or step graph's
+    pool, from ``torch.cuda.memory_snapshot()``; None where the snapshot
+    does not name segments' pools."""
     import torch
-    pool = tuple(graph.graph.graph.pool())
+    pool = _pool_id(graph)
     segs = torch.cuda.memory_snapshot()
     if not any("segment_pool_id" in seg for seg in segs):
         return None
@@ -1323,44 +1348,228 @@ def phase_trainer_graphs(n_filled=200, rounds=2):
     return out
 
 
+def _pattern_name(pattern) -> str:
+    """A tick pattern (trainer calls, prior, drift corrections) in words."""
+    if pattern == ():
+        return "call"
+    do, prior, drift = pattern
+    return (f"{sum(do)} trainer call{'s' * (sum(do) != 1)}" + (", prior" if prior else "")
+            + (f", {sum(drift)} drift" if any(drift) else ""))
+
+
 def _graph_note(exp):
-    """The experiment's captured calls: eager calls, captures (seconds) and
-    replays of each."""
-    return "; ".join(
-        f"{type(g).__name__} {g.warmups} eager, {g.captures} captured "
-        f"({', '.join(f'{t:.2f}' for t in g.capture_seconds)} s), {g.replays} replays"
-        for g in exp.graphs())
+    """The experiment's captured calls and steps: eager calls, captures
+    (seconds) and replays of each, a step graph's by pattern."""
+    out = []
+    for name, g in (("trainer call", exp.trainer_graph), ("planner call", exp.planner_graph),
+                    ("tick", exp.tick_graph), ("post-training", exp.post_train_graph)):
+        if g is None or not (g.warmups or g.replays):
+            continue
+        if hasattr(g, "counts"):
+            out.append(f"{name} graphs " + ", ".join(
+                f"[{_pattern_name(p)}: {w} eager, {c} captured ("
+                f"{', '.join(f'{t:.2f}' for t in g.capture_seconds.get(p, []))} s), "
+                f"{r} replays]" for p, (w, c, r) in g.counts.items()))
+        else:
+            out.append(f"{name} graph {g.warmups} eager, {g.captures} captured "
+                       f"({', '.join(f'{t:.2f}' for t in g.capture_seconds)} s), "
+                       f"{g.replays} replays")
+    return "; ".join(out)
 
 
-def _eager_ticks(cfg, n_warm, n_timed):
-    """ms/tick and peak MiB of the eager tick (no graphs) from
-    seed 0: ``n_warm`` warm ticks, then ``n_timed`` timed ones, K1 counted
-    (13 a tick)."""
-    import torch
-    from ealv_tpu_torch.ops import footprint_and_spread
+def _experiment(cfg, mode):
+    """A production Experiment (a trainer call every third tick; K2 with
+    K3) running its ticks with tick graphs ("ticks", the default on the
+    card), the per-call graphs ("calls": the tick and post-training
+    graphs set to None) or eagerly ("eager": every graph None)."""
     from ealv_tpu_torch.runtime import Experiment
     exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
-    exp.trainer_graph = exp.planner_graph = None
     if cfg.fast_encoder_grads:
         exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    if mode != "ticks":
+        exp.tick_graph = exp.post_train_graph = None
+    if mode == "eager":
+        exp.trainer_graph = exp.planner_graph = None
+    return exp
+
+
+def _ready(exp, es, n):
+    """Every one of the next ``n`` ticks replays its pattern's tick graph:
+    the patterns follow from the host ints alone."""
+    s = dataclasses.replace(es)
+    for _ in range(n):
+        pattern = exp._tick_pattern(s)
+        if (pattern, None) not in exp.tick_graph.entries:
+            return False
+        s.explr_step += 1
+        s.learning_ind += sum(pattern[0])
+        if hasattr(s.env, "count"):
+            s.env = dataclasses.replace(s.env, count=s.env.count + exp.cfg.data_to_ctrl_rate)
+    return True
+
+
+def _stacked(infos):
+    """Per-tick info dicts and stacked chunk infos, stacked over all ticks."""
+    import torch
+    parts = [{k: v[None] for k, v in i.items()} if i["loss"].dim() == 0 else i
+             for i in infos]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _snapshot(es):
+    """The state's leaves, tensors cloned: a captured tick overwrites its
+    carry's buffers in place."""
+    import torch
+    from ealv_tpu_torch.runtime.checkpoint import state_leaves
+    return [(p, v.clone() if isinstance(v, torch.Tensor) else v) for p, v in state_leaves(es)]
+
+
+def _held_equal(what, want, got):
+    """Raise where two runs' stacked infos or state leaves differ."""
+    import torch
+    if isinstance(want, dict):
+        for k in want:
+            bad = (want[k] != got[k]).reshape(want[k].shape[0], -1).any(1).nonzero()
+            if bad.numel():
+                err = _max_err([got[k].float()], [want[k].float()])
+                raise RuntimeError(f"{what}: info {k!r} differs from tick {int(bad[0])}: "
+                                   f"max|diff| {err:.3e}")
+        return
+    for (path, a), (_, b) in zip(want, got, strict=True):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        if not same:
+            raise RuntimeError(f"{what}: {path} differs")
+
+
+def _tick_paths(cfg, n_timed, least=9):
+    """The production tick over ``cfg`` three ways in one call, each from
+    seed 0 with a trainer call every third tick:
+
+    - tick graphs: warm ticks (at least ``least``) until each of the next
+      ``n_timed`` + 3 ticks replays its pattern's graph, then ``n_timed``
+      timed ticks, every one a replay; the kernels counted through the
+      graphs, the wrappers' eager counts 0; every tick's info and the whole
+      state then held bit for bit against an eager experiment that takes
+      the same ticks (its last ``n_timed`` timed);
+    - eager: every graph set to None;
+    - the per-call graphs (the tick and post-training graphs set to
+      None): 9 warm ticks (the trainer graph captures on the seventh), then
+      ``n_timed`` timed, its kernels counted through its graphs;
+
+    then three ticks of each under torch.profiler (host ms, busy ms,
+    intervals), and the two graph kinds timed again in turns (medians of 4
+    chunks of 6 ticks each). Returns (the tick graphs' experiment, its
+    state, the per-call graphs' experiment, its state, readings)."""
+    import torch
+    from ealv_tpu_torch.runtime.graphs import kernel_counts, kernel_launches, reset_launches
+
+    out = dict(ms={}, peak={}, profile={})
+
+    def timed(exp, es, n=n_timed):
+        reset_launches(*exp.graphs())
+        calls0 = es.learning_ind
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, infos = exp.run_chunk(es, n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3, infos, es.learning_ind - calls0
+
+    def profiled(mode, exp, es):
+        wall, busy, _, _, n = _profiled_call(lambda: exp.run_chunk(es, 3))
+        out["profile"][mode] = dict(host_ms=wall, busy_ms=busy, intervals=n)
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak(base):  # the MiB a run added at its peak to what was held before it
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    # tick graphs
+    base = reset()
+    exp = _experiment(cfg, "ticks")
     es = exp.init(seed=0)
-    for _ in range(n_warm):
-        exp.tick(es)
-    torch.cuda.synchronize()
-    footprint_and_spread.launches = 0
-    t0 = time.perf_counter()
-    exp.run_chunk(es, n_timed)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    k1 = footprint_and_spread.launches
-    if k1 < 13 * n_timed:
-        raise RuntimeError(f"eager ticks: K1 launched {k1} times in {n_timed} ticks")
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    del exp, es
+    warm = []
+    while len(warm) < least or not _ready(exp, es, n_timed + 3):
+        if len(warm) > 150:
+            raise RuntimeError(f"tick graphs: not every pattern captured after 150 ticks: "
+                               f"{_graph_note(exp)}")
+        warm.append(exp.tick(es)[1])
+    out["ms"]["ticks"], infos, calls = timed(exp, es)  # replays counted from 0
+    out["peak"]["ticks"] = peak(base)
+    out["launches"], out["calls"] = kernel_launches(*exp.graphs()), calls
+    eager_counts = kernel_counts()
+    if exp.tick_graph.replays != n_timed or any(eager_counts.values()):
+        raise RuntimeError(f"tick graphs: {exp.tick_graph.replays} replays in "
+                           f"{n_timed} timed ticks, eager wrapper launches {eager_counts}")
+    run = _stacked(warm + [infos])
+    state = _snapshot(es)
+    out["infos"], out["n_warm"] = infos, len(warm)
+    out["capture_s"] = {_pattern_name(p): t for p, t in exp.tick_graph.capture_seconds.items()}
+    out["pool_mib"] = _pool_mib(exp.tick_graph)
+    profiled("ticks", exp, es)
+
+    # eager, the same ticks
+    base = reset()
+    exp_e = _experiment(cfg, "eager")
+    es_e = exp_e.init(seed=0)
+    warm_e = [exp_e.tick(es_e)[1] for _ in range(len(warm))]
+    out["ms"]["eager"], infos_e, _ = timed(exp_e, es_e)
+    out["peak"]["eager"] = peak(base)
+    _held_equal("tick graphs against eager ticks", _stacked(warm_e + [infos_e]), run)
+    _held_equal("tick graphs against eager ticks", _snapshot(es_e), state)
+    out["held"] = (len(warm) + n_timed, len(state))
+    del state, run
+    profiled("eager", exp_e, es_e)
+    del exp_e, es_e
+
+    # the per-call graphs
+    base = reset()
+    exp_c = _experiment(cfg, "calls")
+    es_c = exp_c.init(seed=0)
+    for _ in range(9):
+        exp_c.tick(es_c)
+    out["ms"]["calls"], _, _ = timed(exp_c, es_c)
+    out["peak"]["calls"] = peak(base)
+    out["launches_calls"] = kernel_launches(*exp_c.graphs())
+    out["pool_mib_calls"] = {type(g).__name__: _pool_mib(g) for g in
+                             (exp_c.trainer_graph, exp_c.planner_graph) if g is not None}
+    profiled("calls", exp_c, es_c)
+
+    # the two graph kinds in turns (tick graphs, per-call graphs, per-call
+    # graphs, tick graphs, twice), chunks of 6 ticks (two trainer calls
+    # each): single windows move 10-15% from call to call on one host
+    turns = {"ticks": [], "calls": []}
+    for mode in ("ticks", "calls", "calls", "ticks") * 2:
+        e, st = (exp, es) if mode == "ticks" else (exp_c, es_c)
+        while mode == "ticks" and not _ready(e, st, 6):
+            e.tick(st)  # untimed: a pattern's first ticks
+        turns[mode].append(timed(e, st, 6)[0])
+    out["turns"] = turns
+    out["ms_turns"] = {m: float(np.median(v)) for m, v in turns.items()}
     torch.cuda.empty_cache()
-    return dt * 1e3, peak
+    return exp, es, exp_c, es_c, out
+
+
+def _three_ways(name, r) -> str:
+    """A path's readings in one line."""
+    p = r["profile"]
+    return (f"[{name}] ms/tick: tick graphs {r['ms']['ticks']:.2f}, per-call graphs "
+            f"{r['ms']['calls']:.2f}, eager {r['ms']['eager']:.2f}; in turns (medians of 4 "
+            f"chunks of 6 ticks): tick graphs {r['ms_turns']['ticks']:.2f} "
+            f"{[round(v, 2) for v in r['turns']['ticks']]}, per-call graphs "
+            f"{r['ms_turns']['calls']:.2f} {[round(v, 2) for v in r['turns']['calls']]}"
+            f" | 3 profiled ticks, host ms "
+            f"/ busy ms / intervals: " + "; ".join(
+                f"{m} {p[m]['host_ms']:.2f} / {p[m]['busy_ms']:.2f} / {p[m]['intervals']}"
+                for m in ("ticks", "calls", "eager"))
+            + " | peak MiB above the memory held before the run: "
+            + ", ".join(f"{m} {v:.1f}" for m, v in r["peak"].items())
+            + f" | tick graphs' pool {r['pool_mib']} MiB (per-call graphs' pools "
+            f"{r['pool_mib_calls']}) | capture s by pattern {r['capture_s']} | "
+            f"{r['held'][0]} ticks ({r['n_warm']} warm) bit-equal to eager ticks, infos and "
+            f"{r['held'][1]} state leaves")
 
 
 def _plan_step_agreement(exp, es, n=3):
@@ -1397,80 +1606,57 @@ def _plan_step_agreement(exp, es, n=3):
     return len(outs[0])
 
 
-def phase_main_path(states="xyw", n_warm=6, n_timed=24):
-    """The tick path at production size over ``states``: first the eager
-    ticks (the experiment's graphs set to None) for their ms/tick; then the
-    ticks with the planner and trainer calls captured: warm ticks (which run the first
-    calls eagerly and capture the graphs), then timed ones with exactly 13
-    K1 launches each (the wrappers' eager counts plus the graphs' recorded
-    launches times their replays); the captured plan_step against the eager
-    one bit for bit on 3 ticks; three ticks (one trainer call) and one
-    plan_step, captured and eager, under torch.profiler for the device's
-    busy time and intervals beside the host clock; the sync check on a
-    tick without and a tick with a (replayed) trainer call. Returns
-    (launches, ms/tick, peak MiB, readings)."""
+def phase_main_path(states="xyw", n_timed=24):
+    """The tick path at production size over ``states``, three ways
+    (``_tick_paths``: tick graphs bit-equal to eager ticks, per-call
+    graphs, eager), 13 K1 launches a tick counted through the tick graphs;
+    then on the tick graphs' experiment the checks of the path's state; on
+    the per-call graphs' experiment the captured plan_step against the
+    eager one bit for bit on 3 ticks and one plan_step, captured and eager,
+    under torch.profiler; the sync check on a replayed
+    tick without and with a trainer call, on the tick graphs and on the
+    per-call graphs. Returns (launches, ms/tick, peak MiB, readings)."""
     import torch
     from ealv_tpu_torch.utils.config import ExperimentConfig
-    from ealv_tpu_torch.runtime import Experiment
-    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
 
     cfg = ExperimentConfig(**{**PRODUCTION, "states": states})
-    eager_ms, eager_peak = _eager_ticks(cfg, n_warm, n_timed)
-    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    es = exp.init(seed=0)
-    for _ in range(n_warm):
-        es, _ = exp.tick(es)
-    torch.cuda.synchronize()
-
-    reset_launches(*exp.graphs())
-    t0 = time.perf_counter()
-    es, infos = exp.run_chunk(es, n_timed)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    launches = kernel_launches(*exp.graphs())["footprint_and_spread"]
-    replays = {type(g).__name__: g.replays for g in exp.graphs()}
-
-    losses = infos["loss"].cpu()
-    costs = infos["ergodic_cost"].cpu()
+    exp, es, exp_c, es_c, r = _tick_paths(cfg, n_timed)
+    launches = r["launches"]["footprint_and_spread"]
+    losses = r["infos"]["loss"].cpu()
+    costs = r["infos"]["ergodic_cost"].cpu()
     trained = losses[losses != 0]
-    if launches != 13 * n_timed:
-        raise RuntimeError(f"footprint kernel launched {launches} times in "
-                           f"{n_timed} ticks, expected {13 * n_timed}")
-    if replays["PlannerGraph"] != n_timed or replays["TrainerGraph"] < 1:
-        raise RuntimeError(f"graph replays in the timed ticks: {replays}")
+    if launches != 13 * n_timed or r["launches_calls"]["footprint_and_spread"] != 13 * n_timed:
+        raise RuntimeError(f"footprint kernel launched {launches} times in {n_timed} ticks "
+                           f"through the tick graphs, {r['launches_calls']} through the "
+                           f"per-call graphs, expected {13 * n_timed}")
     if not (torch.isfinite(costs).all() and torch.isfinite(losses).all()):
         raise RuntimeError(f"non-finite costs {costs} or losses {losses}")
-    if es.learning_ind <= 0 or trained.numel() == 0:
-        raise RuntimeError(f"the trainer never ran (learning_ind {es.learning_ind})")
+    if r["calls"] <= 0 or trained.numel() == 0:
+        raise RuntimeError(f"the trainer never ran in the timed ticks ({r['calls']} calls)")
     if not all(p.is_cuda for p in es.model.parameters()) or not es.buf.y.is_cuda:
         raise RuntimeError("parameters or the replay ring left the card")
-    if es.buf.y.dtype != torch.bfloat16 or int(es.buf.size) != n_warm + n_timed:
+    if es.buf.y.dtype != torch.bfloat16 or int(es.buf.size) != es.explr_step:
         raise RuntimeError(f"replay ring {es.buf.y.dtype}, size {int(es.buf.size)}")
     R = es.pstate.dyn.R
     rtr = float((R.T @ R - torch.eye(3, device=R.device)).abs().max())
     if not rtr < 1e-5:
         raise RuntimeError(f"the planner's R is off orthonormal by {rtr}")
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    pools = {type(g).__name__: _pool_mib(g) for g in exp.graphs()}
-    print(f"[main path {states}] {n_timed} ticks after {n_warm} warm, planner and trainer "
-          f"calls captured: {dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz (eager ticks "
-          f"{eager_ms:.2f}) | last loss {float(trained[-1]):.4f} | ergodic cost "
-          f"{float(costs[-1]):.4f} | learning_ind {es.learning_ind} | "
-          f"K1 launches {launches} (13/tick; replays {replays}) | planner |R^T R - I| "
-          f"{rtr:.1e} | peak memory {peak:.1f} MiB (eager {eager_peak:.1f}); the graphs' pools "
-          f"{pools} MiB | {_graph_note(exp)}")
-    n_compared = _plan_step_agreement(exp, es)
-    print(f"[main path {states}] captured plan_step vs eager on 3 ticks: {n_compared} "
-          f"outputs (plan, rollout, command, info) equal bit for bit")
-    readings = dict(ms=dt * 1e3, eager_ms=eager_ms, peak=peak, eager_peak=eager_peak,
-                    pools=pools)
-    for what, call in (("3 ticks (one trainer call)", lambda: exp.run_chunk(es, 3)),
-                       ("1 plan_step (sync + plan), captured",
-                        lambda: exp.plan_step(es, exp._measured_robot_state(es.env))),
+    ms = r["ms"]["ticks"]
+    print(f"[main path {states}] {n_timed} timed ticks through the tick graphs: {ms:.2f} "
+          f"ms/tick = {1e3 / ms:.2f} Hz | last loss {float(trained[-1]):.4f} | ergodic cost "
+          f"{float(costs[-1]):.4f} | {r['calls']} trainer calls | K1 launches {launches} "
+          f"(13/tick, the wrappers' eager counts 0) | planner |R^T R - I| {rtr:.1e} | "
+          f"{_graph_note(exp)}")
+    print(_three_ways(f"main path {states}", r))
+    n_compared = _plan_step_agreement(exp_c, es_c)
+    print(f"[main path {states}] captured plan_step vs eager on 3 ticks (per-call graphs): "
+          f"{n_compared} outputs (plan, rollout, command, info) equal bit for bit")
+    readings = dict(r)
+    for what, call in (("1 plan_step (sync + plan), captured",
+                        lambda: exp_c.plan_step(es_c, exp_c._measured_robot_state(es_c.env))),
                        ("1 plan_step (sync + plan), eager",
-                        lambda: exp.plan_step(es, exp._measured_robot_state(es.env),
-                                              graph=False))):
+                        lambda: exp_c.plan_step(es_c, exp_c._measured_robot_state(es_c.env),
+                                                graph=False))):
         wall, busy, _, _, n = _profiled_call(call)
         readings[what] = dict(host_ms=wall, busy_ms=busy, intervals=n)
         print(f"[main path {states}] profiled {what}: host {wall:.2f} ms; device busy "
@@ -1479,11 +1665,12 @@ def phase_main_path(states="xyw", n_warm=6, n_timed=24):
     if states == "xyw":
         _sync_check_catches()
     ticks = _tick_builders()
-    _sync_free(f"{states} tick", ticks.untrained_tick(exp, es))
-    _sync_free(f"{states} tick with a trainer call", ticks.trained_tick(exp, es))
+    for mode, e, s in (("tick graphs", exp, es), ("per-call graphs", exp_c, es_c)):
+        _sync_free(f"{states} tick, {mode}", ticks.untrained_tick(e, s))
+        _sync_free(f"{states} tick with a trainer call, {mode}", ticks.trained_tick(e, s))
     if states == "xyw":
         _plan_bisect(exp, es)
-    return launches, dt * 1e3, peak, readings
+    return launches, ms, r["peak"]["ticks"], readings
 
 
 def _ensemble_plain(model, mstate, samples):
@@ -1498,50 +1685,34 @@ def _ensemble_plain(model, mstate, samples):
     return torch.exp(logvar.clamp(*LOGVAR_LIMS)).amax(1)
 
 
-def phase_variant_path(n_warm=6, n_timed=12):
+def phase_variant_path(n_timed=12):
     """The experiment's options together at production width: states
     "xywb" (the brightness state), the force variant, the z-ensemble target
-    (5 x 2000 decoder rows a plan) and both trainer kernels on; warm ticks,
-    then timed ones with K1, K2 and K3 counted (13 K1 launches a tick and
-    one per trainer call, whose entropy grade takes a fresh plain decode
-    under the ensemble; 25 K2 and 75 K3 a trainer call). Then the ensemble
-    pdf at 2000 samples against its plain decode-and-average, in the bf16
-    model and in an f32 copy, and both timed. Returns (ms/tick, peak MiB,
-    (K1, K2, K3 launches))."""
+    (5 x 2000 decoder rows a plan) and both trainer kernels on; three ways
+    (``_tick_paths``), with K1, K2 and K3 counted through the tick graphs
+    over the timed ticks (13 K1 launches a tick and one per trainer call,
+    whose entropy grade takes a fresh plain decode under the ensemble; 25
+    K2 and 75 K3 a trainer call). Then the ensemble pdf at 2000 samples
+    against its plain decode-and-average, in the bf16 model and in an f32
+    copy, and both timed. Returns (ms/tick, peak MiB, (K1, K2, K3
+    launches), readings)."""
     import torch
-    from ealv_tpu_torch.runtime import Experiment
-    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     cfg = ExperimentConfig(**{**PRODUCTION, "states": "xywb"}, learn_force=True,
                            use_z_ensemble=True, fast_encoder_grads="pallas")
-    eager_ms, eager_peak = _eager_ticks(cfg, n_warm, n_timed)
-    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
-    exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
-    torch.cuda.reset_peak_memory_stats()
-    es = exp.init(seed=0)
-    for _ in range(n_warm):
-        es, _ = exp.tick(es)
-    torch.cuda.synchronize()
-    reset_launches(*exp.graphs())
-    calls0 = es.learning_ind
-    t0 = time.perf_counter()
-    es, infos = exp.run_chunk(es, n_timed)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    counts = kernel_launches(*exp.graphs())
+    exp, es, exp_c, es_c, r = _tick_paths(cfg, n_timed)
+    counts, calls = r["launches"], r["calls"]
     k1, k2, k3 = (counts["footprint_and_spread"], counts["adam_apply"],
                   counts["conv_wgrad_direct"])
-    calls = es.learning_ind - calls0
-    peak = torch.cuda.max_memory_allocated() / 2**20
     if calls <= 0:
         raise RuntimeError("the variant path made no trainer call in the timed ticks")
     if (k1, k2, k3) != (13 * n_timed + calls, 25 * calls, 75 * calls):
         raise RuntimeError(f"variant path: {calls} trainer calls in {n_timed} ticks made "
                            f"K1 {k1}, K2 {k2}, K3 {k3} launches; expected "
                            f"{13 * n_timed + calls}, {25 * calls}, {75 * calls}")
-    losses, costs = infos["loss"].cpu(), infos["ergodic_cost"].cpu()
+    losses, costs = r["infos"]["loss"].cpu(), r["infos"]["ergodic_cost"].cpu()
     if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()):
         raise RuntimeError(f"non-finite losses {losses} or costs {costs}")
     b = es.env.brightness
@@ -1549,15 +1720,18 @@ def phase_variant_path(n_warm=6, n_timed=12):
         raise RuntimeError(f"brightness {b}, ring width {es.buf.x.shape[1]}")
     if float(es.mstate.z_buff.abs().amin(1).min()) == 0.0:
         raise RuntimeError("the z ring is not full after the warm and timed ticks")
-    print(f"[variant path] xywb, learn_force, use_z_ensemble, K2 and K3 on: {n_timed} ticks "
-          f"after {n_warm} warm, planner and trainer calls captured: {dt * 1e3:.2f} ms/tick = "
-          f"{1.0 / dt:.2f} Hz (eager ticks {eager_ms:.2f}) | {calls} trainer "
-          f"calls | K1 {k1} (13/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} (75/call) | last "
-          f"loss {float(losses[losses != 0][-1]):.4f} | brightness {float(b):.4f} | peak "
-          f"memory {peak:.1f} MiB (eager {eager_peak:.1f}) | {_graph_note(exp)}")
+    dt = r["ms"]["ticks"]
+    print(f"[variant path] xywb, learn_force, use_z_ensemble, K2 and K3 on: {n_timed} timed "
+          f"ticks through the tick graphs: {dt:.2f} ms/tick = {1e3 / dt:.2f} Hz | {calls} "
+          f"trainer calls | K1 {k1} (13/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} "
+          f"(75/call) | last loss {float(losses[losses != 0][-1]):.4f} | brightness "
+          f"{float(b):.4f} | {_graph_note(exp)}")
+    print(_three_ways("variant path", r))
     ticks = _tick_builders()
-    _sync_free("xywb force z-ensemble tick", ticks.untrained_tick(exp, es))
-    _sync_free("xywb force z-ensemble tick with a trainer call", ticks.trained_tick(exp, es))
+    for mode, e, st in (("tick graphs", exp, es), ("per-call graphs", exp_c, es_c)):
+        _sync_free(f"xywb force z-ensemble tick, {mode}", ticks.untrained_tick(e, st))
+        _sync_free(f"xywb force z-ensemble tick with a trainer call, {mode}",
+                   ticks.trained_tick(e, st))
 
     g = torch.Generator(device="cuda").manual_seed(7)
     lo, hi = exp.robot_lim[:, 0], exp.robot_lim[:, 1]
@@ -1586,7 +1760,7 @@ def phase_variant_path(n_warm=6, n_timed=12):
               f"{err:.3e} (rtol {tol['rtol']}); device ms: 10,000-row batch {e_ms:.4f}, five "
               f"2000-row decodes {p_ms:.4f}, one 2000-row decode (no ensemble) {single_ms:.4f}; "
               f"host clock {h_ms:.4f} ms; transient memory {transient:.1f} MiB")
-    return dt * 1e3, peak, (k1, k2, k3), eager_ms
+    return dt, r["peak"]["ticks"], (k1, k2, k3), r
 
 
 def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
@@ -1601,6 +1775,7 @@ def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
     from ealv_tpu_torch.models import CVAE, init_model_state, update_dist
     from ealv_tpu_torch.ops import footprint_and_spread
     from ealv_tpu_torch.runtime import EvalExperiment, Experiment, evaluate_test_set
+    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.scripts.collect_test_set import collect
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.utils.states import ws_conversion
@@ -1658,17 +1833,17 @@ def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
                                           explr_method=method),
                          train_calls_per_tick=1, train_every=3, device="cuda")
         es = exp.init(seed=0)
-        footprint_and_spread.launches = 0
+        reset_launches(*exp.graphs())
         for _ in range(3):
             exp.plan_step(es, exp._measured_robot_state(es.env))
-        planned = footprint_and_spread.launches
+        planned = kernel_launches(*exp.graphs())["footprint_and_spread"]
         calls0 = es.learning_ind
         t0 = time.perf_counter()
         es, infos = exp.run_chunk(es, 6)
         torch.cuda.synchronize()
         b_ms = (time.perf_counter() - t0) / 6 * 1e3
         calls = es.learning_ind - calls0
-        ticked = footprint_and_spread.launches - planned
+        ticked = kernel_launches(*exp.graphs())["footprint_and_spread"] - planned
         if planned != 0 or ticked != calls or calls <= 0:
             raise RuntimeError(f"{method}: {planned} K1 launches in 3 plan_steps (expected "
                                f"0), {ticked} in 6 ticks with {calls} trainer calls")
@@ -2009,10 +2184,11 @@ def phase_arm_agreement(n_host=8):
             out = []
             for k in range(2):
                 es, info = exp.tick(es, _toy_draws(cfg, k, rng, dev))
-                out.append({"q": es.env.q, "pose": es.env.pose, "objects": es.env.scene.obj_xy,
-                            "plan": es.pstate.u, "cost": info["ergodic_cost"],
-                            "force": info["force"], "loss": info["loss"], "beta": info["beta"],
-                            "gamma": info["gamma"], "z ring": es.mstate.z_buff})
+                out.append(_kept({
+                    "q": es.env.q, "pose": es.env.pose, "objects": es.env.scene.obj_xy,
+                    "plan": es.pstate.u, "cost": info["ergodic_cost"], "force": info["force"],
+                    "loss": info["loss"], "beta": info["beta"], "gamma": info["gamma"],
+                    "z ring": es.mstate.z_buff}))
             runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
         err = _agree(runs, f"arm ticks {backend}")
         worst = max(worst, err)
@@ -2140,12 +2316,12 @@ def _arm_long_agreement(n_run=140, n_ticks=4, devs=("cpu", "cuda")):
                         k = min(es_d.explr_step, cfg.buffer_capacity - 1)
                         es_d, info = exp_d.tick(es_d, _toy_draws(cfg, k, rng, dev))
                         slot = (es_d.buf.pos - 1) % es_d.buf.capacity
-                        out.append({"q": es_d.env.q, "pose": es_d.env.pose,
+                        out.append(_kept({"q": es_d.env.q, "pose": es_d.env.pose,
                                     "objects": es_d.env.scene.obj_xy, "plan": es_d.pstate.u,
                                     "cost": info["ergodic_cost"], "force": info["force"],
                                     "loss": info["loss"], "beta": info["beta"],
                                     "gamma": info["gamma"], "pushed x": es_d.buf.x[slot],
-                                    "pushed y": es_d.buf.y[slot]})
+                                    "pushed y": es_d.buf.y[slot]}))
                     if not any(float(o["loss"]) != 0.0 for o in out):
                         raise RuntimeError(f"{backend} from {label}: no trainer call")
                     runs[name] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
@@ -2163,53 +2339,47 @@ def _arm_long_agreement(n_run=140, n_ticks=4, devs=("cpu", "cuda")):
     return worst
 
 
-def phase_arm_path(n_warm=6, n_timed=12):
-    """The tick on the arm at production size (sim_backend="arm", xyw):
-    warm ticks, then timed ones with exactly 13 K1 launches each; then
-    ``ArmEnv.step_vel`` (without and with the drift correction),
-    ``step_pose`` and ``observe`` alone at the tick's state: the device
-    intervals of one call under torch.profiler, device ms by CUDA events,
-    host ms, and a check that the host never waits for the device (each
-    call enqueued behind a spin kernel returns before the spin ends).
-    Returns (launches, ms/tick, peak MiB, readings)."""
+def phase_arm_path(n_timed=12):
+    """The tick on the arm at production size (sim_backend="arm", xyw),
+    three ways (``_tick_paths``) after at least 60 warm ticks, so that the
+    tick graphs replay a drift-correcting tick (the 60th: the corrections
+    fall on every 20th command) in the run held bit-equal to the eager
+    ticks; exactly 13 K1 launches a timed tick; then ``ArmEnv.step_vel``
+    (without and with the drift correction), ``step_pose`` and ``observe``
+    alone at the tick's state: the device intervals of one call under
+    torch.profiler, device ms by CUDA events, host ms, and a check that the
+    host never waits for the device (each call enqueued behind a spin
+    kernel returns before the spin ends). Returns (launches, ms/tick, peak
+    MiB, the env calls' readings, the path's readings)."""
     import torch
-    from ealv_tpu_torch.runtime import Experiment
-    from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     cfg = ExperimentConfig(**{**PRODUCTION, "sim_backend": "arm"})
-    eager_ms, _ = _eager_ticks(cfg, n_warm, n_timed)
-    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    es = exp.init(seed=0)
-    for _ in range(n_warm):
-        es, _ = exp.tick(es)
-    torch.cuda.synchronize()
-    reset_launches(*exp.graphs())
-    t0 = time.perf_counter()
-    es, infos = exp.run_chunk(es, n_timed)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    launches = kernel_launches(*exp.graphs())["footprint_and_spread"]
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    losses, costs = infos["loss"].cpu(), infos["ergodic_cost"].cpu()
+    exp, es, exp_c, es_c, r = _tick_paths(cfg, n_timed, least=60)
+    launches = r["launches"]["footprint_and_spread"]
+    drift = {p: c for p, c in exp.tick_graph.counts.items() if any(p[2])}
     if launches != 13 * n_timed:
         raise RuntimeError(f"arm path: K1 launched {launches} times in {n_timed} ticks, "
                            f"expected {13 * n_timed}")
+    if not any(c[2] for c in drift.values()):
+        raise RuntimeError(f"arm path: no drift-correcting tick replayed: {drift}")
+    losses, costs = r["infos"]["loss"].cpu(), r["infos"]["ergodic_cost"].cpu()
     if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()
             and torch.isfinite(es.env.q).all()) or es.learning_ind <= 0:
         raise RuntimeError(f"arm path: losses {losses}, costs {costs}, q {es.env.q}")
     if not (es.env.q.is_cuda and es.buf.y.is_cuda):
         raise RuntimeError("arm path: the arm or the replay ring left the card")
-    print(f"[arm path] sim_backend=arm, xyw: {n_timed} ticks after {n_warm} warm, planner "
-          f"and trainer calls captured: {dt * 1e3:.2f} ms/tick = {1.0 / dt:.2f} Hz (eager "
-          f"ticks {eager_ms:.2f}) | last loss "
+    dt = r["ms"]["ticks"]
+    print(f"[arm path] sim_backend=arm, xyw: {n_timed} timed ticks through the tick graphs "
+          f"after {r['n_warm']} warm: {dt:.2f} ms/tick = {1e3 / dt:.2f} Hz | last loss "
           f"{float(losses[losses != 0][-1]):.4f} | K1 launches {launches} (13/tick) | pose "
-          f"{[round(v, 4) for v in es.env.pose.tolist()]} | peak memory {peak:.1f} MiB")
+          f"{[round(v, 4) for v in es.env.pose.tolist()]} | {_graph_note(exp)}")
+    print(_three_ways("arm path", r))
     ticks = _tick_builders()
-    _sync_free("arm tick", ticks.untrained_tick(exp, es))
-    _sync_free("arm tick with a trainer call", ticks.trained_tick(exp, es))
+    for mode, e, st in (("tick graphs", exp, es), ("per-call graphs", exp_c, es_c)):
+        _sync_free(f"arm tick, {mode}", ticks.untrained_tick(e, st))
+        _sync_free(f"arm tick with a trainer call, {mode}", ticks.trained_tick(e, st))
 
     env = exp.env
     cmd = torch.tensor([0.02, -0.01, 0.0, 0.0, 0.0, 0.1], device="cuda")
@@ -2238,7 +2408,7 @@ def phase_arm_path(n_warm=6, n_timed=12):
               f"host clock {h_ms:.4f} ms; behind a spin kernel the host enqueued it in "
               f"{enqueue * 1e3:.2f} ms of {spun * 1e3:.1f} ms"
               + ("" if n < 1000 else " (over the launch queue: no wait check)"))
-    return launches, dt * 1e3, peak, readings, eager_ms
+    return launches, dt, r["peak"]["ticks"], readings, r
 
 
 def _count_plans(exp):
@@ -2384,29 +2554,41 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     return stats
 
 
-def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
+def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3):
     """The learning path at production size through the port's run entry,
-    with both trainer kernels on; the postexplr checkpoint is reloaded into
-    a fresh Experiment and compared tensor for tensor."""
+    with both trainer kernels on, its ticks and post-training calls through
+    the tick and post-training graphs; its wall time beside the same run
+    with the per-call graphs (the tick and post-training graphs set to
+    None), in the same call. The postexplr checkpoint is reloaded into a
+    fresh Experiment and compared tensor for tensor; then ``n_post``
+    post-training calls from it through the post-training graph (an eager
+    call, a capture and its replay, a replay) are held bit for bit against
+    the same calls made eagerly from it."""
     import torch
     from ealv_tpu_torch.runtime.checkpoint import load_checkpoint, state_leaves
     from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.runtime.metrics import MetricsLog, run_dir
     from ealv_tpu_torch.scripts import run_experiment as cli
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    walls = {}
+    for mode in ("calls", "ticks"):  # the checked run last: its directory is read below
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         args = cli.build_parser().parse_args([
             "--steps", str(steps), "--chunk", str(chunk), "--train-every",
             str(train_every), "--save-rate", str(save_rate), "--out", tmp,
             "--device", "cuda"])
 
-        def experiment():
+        def experiment(mode="ticks"):
             cfg = dataclasses.replace(cli.make_config(args), fast_encoder_grads="pallas")
             exp = cli.make_experiment(cfg, args)
             exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
+            if mode != "ticks":
+                exp.tick_graph = exp.post_train_graph = None
+            if mode == "eager":
+                exp.trainer_graph = exp.planner_graph = None
             return exp
 
-        exp = experiment()
+        exp = experiment(mode)
         dirp = run_dir(tmp, "synth", args.method, args.seed)
         ml = MetricsLog(dirp, echo=False)
         es = exp.init(seed=args.seed)
@@ -2416,7 +2598,13 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
         t0 = time.perf_counter()
         es = cli.run(exp, args, dirp, ml, es=es)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        walls[mode] = time.perf_counter() - t0
+        if mode == "calls":
+            import shutil
+            shutil.rmtree(tmp)
+            del exp, es
+    try:
+        wall = walls["ticks"]
         counts = kernel_launches(*exp.graphs())
         k1, k2, k3 = (counts["footprint_and_spread"], counts["adam_apply"],
                       counts["conv_wgrad_direct"])
@@ -2425,16 +2613,19 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
         calls = es.learning_ind
         target = int(steps * exp.cfg.target_learning_rate)
         losses = np.concatenate([np.atleast_1d(x) for x in ml.series["loss"]])
-        n_post = losses.size - steps  # the ticks log one loss each
+        n_posted = losses.size - steps  # the ticks log one loss each
         if es.explr_step != steps or calls != target:
             raise RuntimeError(f"run ended at explr_step {es.explr_step}, "
                                f"learning_ind {calls}; expected {steps}, {target}")
         if k2 != 25 * calls or k3 != 75 * calls:
             raise RuntimeError(f"{calls} trainer calls made {k2} K2 launches and {k3} "
                                f"K3 calls; expected {25 * calls} and {75 * calls}")
-        if k1 != 13 * steps + n_post:
+        if k1 != 13 * steps + n_posted:
             raise RuntimeError(f"K1 launched {k1} times; expected 13 per tick and one "
-                               f"per post-training call, {13 * steps + n_post}")
+                               f"per post-training call, {13 * steps + n_posted}")
+        if exp.tick_graph.replays < 1 or exp.post_train_graph.replays < 1:
+            raise RuntimeError(f"the run replayed no tick or post-training graph: "
+                               f"{_graph_note(exp)}")
         trained = losses[losses != 0]
         if not np.isfinite(losses).all() or trained.size != calls:
             raise RuntimeError(f"losses {losses}")
@@ -2444,8 +2635,8 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
         if cks != ["postexplr", "step_0000006", "step_0000012"]:
             raise RuntimeError(f"checkpoints {cks}")
 
-        restored = load_checkpoint(os.path.join(dirp, "checkpoints", "postexplr"),
-                                   experiment().init(seed=args.seed + 1))
+        postexplr = os.path.join(dirp, "checkpoints", "postexplr")
+        restored = load_checkpoint(postexplr, experiment().init(seed=args.seed + 1))
         n_tensors = 0
         for (path, a), (_, b) in zip(state_leaves(es), state_leaves(restored), strict=True):
             if isinstance(a, torch.Tensor):
@@ -2454,13 +2645,34 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6):
                 n_tensors += 1
             elif a != b:
                 raise RuntimeError(f"{path}: {a!r} != {b!r}")
+        del restored, es
+        post = {}
+        for mode in ("ticks", "eager"):
+            exp_p = experiment(mode)
+            es_p = load_checkpoint(postexplr, exp_p.init(seed=args.seed + 1))
+            _, rows = exp_p.post_train_chunk(es_p, n_post)
+            post[mode] = (rows, _snapshot(es_p), exp_p)
+            del es_p
+        _held_equal("post-training through its graph against eager calls", post["eager"][0],
+                    post["ticks"][0])
+        _held_equal("post-training through its graph against eager calls", post["eager"][1],
+                    post["ticks"][1])
+        g = post["ticks"][2].post_train_graph
+        if g.counts != {(): [1, 1, n_post - 1]}:
+            raise RuntimeError(f"post-training graph: {g.counts}")
+    finally:
+        import shutil
+        shutil.rmtree(tmp)
     print(f"[learning path] run entry at production size, K2 and K3 on: {steps} steps "
-          f"(chunk {chunk}, a trainer call every {train_every}) + {n_post} post-training "
-          f"calls = {calls} trainer calls in {wall:.1f} s (checkpoints included) | K2 "
+          f"(chunk {chunk}, a trainer call every {train_every}) + {n_posted} post-training "
+          f"calls = {calls} trainer calls in {wall:.2f} s through the tick and post-training "
+          f"graphs (per-call graphs: {walls['calls']:.2f} s; checkpoints included) | K2 "
           f"launches {k2} (25/call) | K3 calls {k3} (75/call) | K1 launches {k1} | last "
           f"loss {float(trained[-1]):.4f} | postexplr reloaded: {n_tensors} tensors "
-          f"equal | peak memory {peak / 2**20:.1f} MiB | {_graph_note(exp)}")
-    return k1, k2, k3
+          f"equal | {n_post} post-training calls from it through the graph bit-equal to "
+          f"eager calls ({len(post['ticks'][1])} state leaves) | peak memory "
+          f"{peak / 2**20:.1f} MiB | {_graph_note(exp)}")
+    return k1, k2, k3, walls
 
 
 def _fill_ring(es, cfg, n_filled, seed=3):
@@ -2867,30 +3079,45 @@ def main() -> int:
     print(f"[build] {', '.join(sources)} built in parallel and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
+    start = time.perf_counter()
+
+    def stamp(what):  # the script's time by phase, against its time limit
+        print(f"[time] {what} done at {time.perf_counter() - start:.1f} s")
+
     k1 = phase_kernels(dev)
     k2 = phase_adam(dev)
     k3 = phase_wgrad(dev)
+    stamp("kernels")
     phase_agreement()
     phase_eval_agreement()
     fp_err = phase_fingerprint_agreement()
     arm_err = phase_arm_agreement()
     phase_planner_agreement()
     phase_trainer_agreement()
+    stamp("agreement")
     phase_trainer_production()
     trainer_graphs = phase_trainer_graphs()
-    k1_launches, xyw_ms, xyw_peak, xyw = phase_main_path("xyw", n_warm=6, n_timed=24)
+    stamp("trainer calls")
+    k1_launches, xyw_ms, xyw_peak, xyw = phase_main_path("xyw", n_timed=24)
+    stamp("xyw")
     with _NcclGroup():
         dp = phase_dp_trainer()
         k1_mesh, mesh_ms = phase_mesh_tick(xyw_ms)
     dp_worst = phase_dp_two_ranks()
     dash = phase_dashboard()
-    k1_6dof, rpw_ms, rpw_peak, rpw = phase_main_path("xyzrpw", n_warm=6, n_timed=12)
-    var_ms, var_peak, (k1_var, k2_var, k3_var), var_eager = phase_variant_path()
+    stamp("data parallelism and dashboard")
+    k1_6dof, rpw_ms, rpw_peak, rpw = phase_main_path("xyzrpw", n_timed=12)
+    stamp("xyzrpw")
+    var_ms, var_peak, (k1_var, k2_var, k3_var), var = phase_variant_path()
+    stamp("variant")
     eval_ms, eval_per_plan = phase_eval_path()
     fp = phase_fingerprint_path()
-    k1_arm, arm_ms, arm_peak, step_vel, arm_eager = phase_arm_path()
+    stamp("eval and fingerprint")
+    k1_arm, arm_ms, arm_peak, step_vel, arm = phase_arm_path()
+    stamp("arm")
     k1_host, host_ms_step, host_plans = phase_host_loop_path()
     loop = phase_native_bridge()
+    stamp("host loop and native bridge")
     print(f"[main paths] xyw {xyw_ms:.2f} ms/tick, peak {xyw_peak:.1f} MiB | xyzrpw "
           f"{rpw_ms:.2f} ms/tick, peak {rpw_peak:.1f} MiB ({rpw_ms / xyw_ms:.2f}x the time) | "
           f"xywb force z-ensemble {var_ms:.2f} ms/tick, peak {var_peak:.1f} MiB | eval "
@@ -2905,10 +3132,18 @@ def main() -> int:
           f"host loop {host_ms_step:.2f} ms/step; native loop {loop['rate_hz']:.1f} Hz; toy arm "
           f"card-vs-CPU max|diff| {arm_err:.3e}")
     plan = "1 plan_step (sync + plan), {}"
-    print("[graphs] ms/tick captured (eager): " + "; ".join(
-        f"{k} {a:.2f} ({b:.2f})" for k, a, b in (
-            ("xyw", xyw_ms, xyw["eager_ms"]), ("xyzrpw", rpw_ms, rpw["eager_ms"]),
-            ("xywb force z-ensemble K2 K3", var_ms, var_eager), ("arm", arm_ms, arm_eager)))
+    paths = (("xyw", xyw), ("xyzrpw", rpw), ("xywb force z-ensemble K2 K3", var), ("arm", arm))
+    print("[graphs] ms/tick, tick graphs / per-call graphs / eager: " + "; ".join(
+        f"{k} {r['ms']['ticks']:.2f} / {r['ms']['calls']:.2f} / {r['ms']['eager']:.2f}"
+        for k, r in paths)
+        + " | in turns, tick graphs / per-call graphs: " + "; ".join(
+            f"{k} {r['ms_turns']['ticks']:.2f} / {r['ms_turns']['calls']:.2f}"
+            for k, r in paths)
+        + " | 3 profiled ticks, busy ms (host ms), tick graphs / per-call graphs / eager: "
+        + "; ".join(k + " " + " / ".join(
+            f"{r['profile'][m]['busy_ms']:.2f} ({r['profile'][m]['host_ms']:.2f})"
+            for m in ("ticks", "calls", "eager")) for k, r in paths)
+        + " | tick graphs' pool MiB: " + "; ".join(f"{k} {r['pool_mib']}" for k, r in paths)
         + " | plan_step host ms / busy ms / intervals, captured (eager): " + "; ".join(
             f"{k} {r[plan.format('captured')]['host_ms']:.2f} / "
             f"{r[plan.format('captured')]['busy_ms']:.2f} / "
@@ -2919,12 +3154,13 @@ def main() -> int:
             f"kernels {'on' if on else 'off'} {r['captured']['host_ms']:.2f} / "
             f"{r['captured']['busy_ms']:.2f} ({r['eager']['host_ms']:.2f} / "
             f"{r['eager']['busy_ms']:.2f}), capture {r['capture_s']:.3f} s, pool "
-            f"{r['pool_mib']} MiB" for on, r in trainer_graphs.items())
-        + f" | peak MiB captured (eager): xyw {xyw_peak:.1f} ({xyw['eager_peak']:.1f}), "
-          f"xyzrpw {rpw_peak:.1f} ({rpw['eager_peak']:.1f})")
-    _, k2_launches, k3_launches = phase_learning_path()
+            f"{r['pool_mib']} MiB" for on, r in trainer_graphs.items()))
+    _, k2_launches, k3_launches, _ = phase_learning_path()
+    stamp("learning path")
     resume_leaves = phase_studies()
+    stamp("studies")
     k1_repro = phase_repro_planner()
+    stamp("repro planner")
     print(f"[parallel and dashboard] data-parallel call {dp['host_ms']:.2f} ms host, "
           f"{dp['busy_ms']:.2f} ms busy vs plain {dp['plain_host_ms']:.2f} / "
           f"{dp['plain_busy_ms']:.2f} | two-rank gradients max rel diff {dp_worst:.2e} | mesh "

@@ -6,7 +6,8 @@ would copy the whole image ring (583 MB at production size in bf16) on
 every push. Every counter (the replay ring's head, fill and push count, the
 hyperparameter ring's, the trajectory ring's) is a () int64 tensor on the
 ring's device, as in the JAX package: a push writes its row at the device
-index and advances the counters in place, so no call reads a value back and
+index and advances the counters in place (the hyperparameter ring's rows
+and counters too), so no call reads a value back and
 a captured CUDA graph that reads the rings sees each replay's counters (a
 host int would be frozen into the graph). The hyperparameter ring and the
 trajectory ring advance under data-dependent guards (non-finite values,
@@ -82,19 +83,22 @@ class ReplayBuffer:
         self.total.add_(1)
         return self
 
-    def update_hyperparams(self, explr_ind: int, grade, spread) -> "ReplayBuffer":
-        """Push (grade -> beta, spread -> gamma); non-finite pushes are
-        dropped."""
+    def update_hyperparams(self, explr_ind, grade, spread) -> "ReplayBuffer":
+        """Push (grade -> beta, spread -> gamma) and record the exploration
+        step ``explr_ind`` (a host int or a () device tensor, as a captured
+        step stages it), in place; non-finite pushes are dropped."""
         ok = torch.isfinite(grade) & torch.isfinite(spread)
         cap = self.beta.shape[0]
         slot = ok & (torch.arange(cap, device=self.beta.device) == self.beta_pos)
-        self.beta = torch.where(slot, grade, self.beta)
-        self.gamma = torch.where(slot, spread, self.gamma)
-        self.beta_pos = torch.where(ok, (self.beta_pos + 1) % cap, self.beta_pos)
-        self.beta_size = torch.where(ok, (self.beta_size + 1).clamp(max=cap),
-                                     self.beta_size)
-        self.explr_ind = torch.where(ok, torch.full_like(self.explr_ind, explr_ind),
-                                     self.explr_ind)
+        if not isinstance(explr_ind, torch.Tensor):
+            explr_ind = torch.full_like(self.explr_ind, explr_ind)
+        self.beta.copy_(torch.where(slot, grade, self.beta))
+        self.gamma.copy_(torch.where(slot, spread, self.gamma))
+        self.explr_ind.copy_(torch.where(ok, explr_ind.to(self.explr_ind.dtype),
+                                         self.explr_ind))
+        self.beta_size.copy_(torch.where(ok, (self.beta_size + 1).clamp(max=cap),
+                                         self.beta_size))
+        self.beta_pos.copy_(torch.where(ok, (self.beta_pos + 1) % cap, self.beta_pos))
         return self
 
     def get_hyperparams(self):

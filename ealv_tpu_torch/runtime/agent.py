@@ -6,12 +6,23 @@ velocity command (and, with the brightness state ``b``, a brightness
 command), steps the simulator (the free-flying end effector or the arm,
 ``sim/arm.py``) and renders the camera, pushes the
 sample to the replay ring, reseeds z, and makes the throttled trainer
-call. On the card (outside a mesh) the planner call and the trainer call
-run as captured CUDA graphs (``runtime/graphs.py``), as the JAX package
-runs each as one compiled program. The state is updated in place and returned. The throttle counters (``explr_step``,
-``learning_ind``) are host ints, so the throttle branches in Python and a
-tick never waits on the device. ``post_train_chunk`` is the training that
-follows exploration: trainer calls with no exploration.
+call. The state is updated in place and returned. The throttle counters
+(``explr_step``, ``learning_ind``) are host ints, so the throttle branches
+in Python and a tick never waits on the device. ``post_train_chunk`` is
+the training that follows exploration: trainer calls with no exploration.
+
+On the card (outside a mesh) a whole tick runs as a captured CUDA graph
+(``tick_graph``, a ``runtime/graphs.py`` ``StepGraph``), as the JAX
+package runs ``run_chunk`` as one ``lax.scan`` over the tick, one graph for
+each pattern of the host values the tick branches on (``_tick_pattern``:
+which trainer calls run, the prior, the arm's drift corrections); a
+post-training call likewise (``post_train_graph``). The host values the
+tick computes with (the step it records in the hyperparameter ring, the
+manual ramps) are staged into device scalars (``HostValues``). With
+``tick_graph`` and ``post_train_graph`` set to None the experiment runs
+the planner call and the trainer call as their own captured graphs
+(``planner_graph``, ``trainer_graph``) and the rest of the tick eagerly;
+with those set to None too, everything eagerly.
 """
 
 from __future__ import annotations
@@ -35,10 +46,11 @@ from ..control.baselines import BaselineController, BaselineDraws, BaselineState
 from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
-from .graphs import PlannerGraph, TrainerGraph
+from .graphs import PlannerGraph, StepGraph, TrainerGraph, _addresses, _spec, \
+    module_key, optimizer_key
 from .trainer import TrainerStatics, TrainDraws, train_call
 from .schedules import HyperState, hyperparam_update, entropy_grade, \
-    entropy_grade_spread
+    entropy_grade_spread, manual_ramp
 
 
 @dataclasses.dataclass
@@ -79,6 +91,27 @@ class PostTrainDraws:
 
     samples: torch.Tensor
     train: TrainDraws
+
+
+@dataclasses.dataclass
+class HostValues:
+    """The host values a captured tick or post-training call computes with,
+    staged into device scalars before every step (a capture would freeze a
+    host value): the exploration step the hyperparameter ring records and,
+    per trainer-call slot of the tick, the manual ramps' beta and gamma."""
+
+    explr_step: torch.Tensor  # () int64
+    beta: torch.Tensor  # (train_calls_per_tick,)
+    gamma: torch.Tensor
+
+    @classmethod
+    def create(cls, slots: int, device):
+        return cls(explr_step=torch.zeros((), dtype=torch.int64, device=device),
+                   beta=torch.zeros(slots, device=device),
+                   gamma=torch.zeros(slots, device=device))
+
+    def ramp(self, slot: int):
+        return self.beta[slot], self.gamma[slot]
 
 
 class ExploredStates:
@@ -215,12 +248,18 @@ class Experiment:
             batch_size=cfg.batch_size, num_learning_opt=cfg.num_learning_opt,
             gamma_weight=cfg.gamma_weight, other_locs=cfg.other_locs,
             lr=cfg.model_lr)
-        # the trainer call and the planner call as captured CUDA graphs: on
-        # the card, outside a mesh (the data-parallel call stays eager); with
-        # both set to None the experiment makes the eager calls
+        # captured CUDA graphs on the card, outside a mesh (the data-parallel
+        # call stays eager): the whole tick and the post-training call, one
+        # memory pool between them; the planner and trainer calls on their
+        # own for the callers outside the tick (plan_step alone, the host
+        # loop) and for an experiment whose tick_graph is set to None
         graphs = self.device.type == "cuda" and mesh is None
         self.trainer_graph = TrainerGraph() if graphs else None
         self.planner_graph = PlannerGraph() if graphs and not self.use_baseline else None
+        pool = torch.cuda.MemPool() if graphs else None
+        self.tick_graph = StepGraph(pool=pool) if graphs else None
+        self.post_train_graph = StepGraph(pool=pool) if graphs else None
+        self._host = None  # HostValues, made on the first captured step
 
         self.tray6 = tuple(TRAY_LIM[s] for s in "xyzrpw")
         if cfg.sim_backend in ("arm", "arm-dynamic", "arm-dynamic-soft"):
@@ -292,8 +331,10 @@ class Experiment:
         return self.explored.measured(env)
 
     def graphs(self) -> list:
-        """The experiment's captured calls (none on the CPU or over a mesh)."""
-        return [g for g in (self.trainer_graph, self.planner_graph) if g is not None]
+        """The experiment's captured calls and steps (none on the CPU or
+        over a mesh)."""
+        return [g for g in (self.trainer_graph, self.planner_graph, self.tick_graph,
+                            self.post_train_graph) if g is not None]
 
     def plan_step(self, es: ExperimentState, full_state, draws: TickDraws | None = None,
                   graph: bool = True):
@@ -324,20 +365,46 @@ class Experiment:
         return pstate, vel6, b_cmd, info
 
     def tick(self, es: ExperimentState, draws: TickDraws | None = None):
-        """One exploration step plus throttled learning. Returns (es,
-        tick_info); ``es`` is updated in place."""
+        """One exploration step plus throttled learning, through the tick
+        graph where the experiment has one. Returns (es, tick_info); ``es``
+        is updated in place."""
+        if self.tick_graph is None:
+            return self._tick(es, draws)
+        return self._graph_tick(es, draws)
+
+    def _tick(self, es: ExperimentState, draws: TickDraws | None = None,
+              graphs: bool = True, host: HostValues | None = None):
+        """The tick's body: its planner and trainer calls through their own
+        graphs unless ``graphs=False``; ``host`` stages the host values."""
         full_state = self._measured_robot_state(es.env)
-        pstate, vel6, b_cmd, info = self.plan_step(es, full_state, draws)
+        pstate, vel6, b_cmd, info = self.plan_step(es, full_state, draws, graph=graphs)
         env = es.env
         for _ in range(self.cfg.data_to_ctrl_rate):
             env = self.env.step_vel(env, vel6, b_cmd)
         _, _, force, img = self.env.observe(env)
         robot_state = self._measured_robot_state(env)[: self.cfg.s_dim]
         es.env = env
-        return self.absorb_step(es, pstate, info, robot_state, img, force, draws)
+        return self.absorb_step(es, pstate, info, robot_state, img, force, draws,
+                                graphs=graphs, host=host)
+
+    def _throttle(self, explr_step: int, learning_ind: int) -> tuple:
+        """Which of the tick's ``train_calls_per_tick`` trainer calls run,
+        from the host counters at the tick's start."""
+        cfg = self.cfg
+        out = []
+        for _ in range(self.train_calls_per_tick):
+            do = (learning_ind < cfg.target_learning_rate * (explr_step + 1
+                                                            - cfg.frames_before_training)
+                  and explr_step + 1 >= cfg.frames_before_training)
+            if self.train_every > 1:
+                do = do and explr_step % self.train_every == 0
+            out.append(bool(do))
+            learning_ind += do
+        return tuple(out)
 
     def absorb_step(self, es: ExperimentState, pstate, info, robot_state, img,
-                    force, draws: TickDraws | None = None):
+                    force, draws: TickDraws | None = None, graphs: bool = True,
+                    host: HostValues | None = None):
         """Push the sample, reseed the target distribution, update the
         hyperparameters and run the throttled learning."""
         cfg = self.cfg
@@ -357,12 +424,7 @@ class Experiment:
                 and "tdist_pdf" in info and "tdist_spread" in info)
 
         metrics = None
-        for i in range(self.train_calls_per_tick):
-            do = (es.learning_ind
-                  < cfg.target_learning_rate * (es.explr_step + 1 - cfg.frames_before_training)
-                  and es.explr_step + 1 >= cfg.frames_before_training)
-            if self.train_every > 1:
-                do = do and es.explr_step % self.train_every == 0
+        for i, do in enumerate(self._throttle(es.explr_step, es.learning_ind)):
             if not do:
                 # a skipped call reports zero metrics and pushes no grade
                 metrics = None
@@ -375,7 +437,8 @@ class Experiment:
                 grade, spread = self._grade_spread(
                     es, draws.grade_samples[i] if draws and draws.grade_samples else None)
             metrics = self._hyper_and_train(es, grade, spread,
-                                            draws.train[i] if draws and draws.train else None)
+                                            draws.train[i] if draws and draws.train else None,
+                                            graphs=graphs, host=host, slot=i)
 
         es.explr_step += 1
         zero = torch.zeros((), device=self.device)
@@ -405,9 +468,13 @@ class Experiment:
             torch.full((cfg.s_dim,), cfg.std, device=self.device), cfg.xi)
 
     def _hyper_and_train(self, es: ExperimentState, grade, spread,
-                         train_draws: TrainDraws | None):
-        """Update beta/gamma, make one trainer call, push (grade, spread) to
-        the hyperparameter ring and count the call. Returns the metrics."""
+                         train_draws: TrainDraws | None, graphs: bool = True,
+                         host: HostValues | None = None, slot: int = 0):
+        """Update beta/gamma, make one trainer call (through the trainer
+        graph unless ``graphs=False``), push (grade, spread) to the
+        hyperparameter ring and count the call. ``host`` stages the step
+        and the manual ramps of trainer-call ``slot``. Returns the
+        metrics."""
         cfg = self.cfg
         hyper = hyperparam_update(
             es.hyper, grade, spread,
@@ -419,7 +486,8 @@ class Experiment:
             beta_warmup_epoch=cfg.beta_warmup_epoch,
             gamma_start=cfg.gamma_start_weight, gamma_end=cfg.gamma_end_weight,
             gamma_warmup_steps=cfg.gamma_warmup_steps,
-            gamma_warmup_epoch=cfg.gamma_warmup_epoch)
+            gamma_warmup_epoch=cfg.gamma_warmup_epoch,
+            ramp=None if host is None else host.ramp(slot))
         hyper.iter += self.trainer.num_learning_opt
         es.hyper = hyper
         if self.mesh is not None:
@@ -428,31 +496,159 @@ class Experiment:
                                     hyper.beta, hyper.gamma, generator=es.gen,
                                     draws=train_draws)
         else:
-            train = self.trainer_graph or train_call
+            train = (self.trainer_graph if graphs else None) or train_call
             metrics = train(self.trainer, es.model, es.opt, es.buf, hyper.beta, hyper.gamma,
                             generator=es.gen, draws=train_draws)
-        es.buf.update_hyperparams(es.explr_step, grade, spread)
+        es.buf.update_hyperparams(es.explr_step if host is None else host.explr_step,
+                                  grade, spread)
         es.learning_ind += 1
         return metrics
 
-    def run_chunk(self, es: ExperimentState, n_steps: int):
-        """n ticks; returns (es, infos stacked over the ticks)."""
-        infos = [self.tick(es)[1] for _ in range(n_steps)]
+    def run_chunk(self, es: ExperimentState, n_steps: int,
+                  draws: list[TickDraws] | None = None):
+        """n ticks (each through the tick graph where the experiment has
+        one); ``draws`` feeds each tick's draws. Returns (es, infos stacked
+        over the ticks)."""
+        infos = [self.tick(es, draws[i] if draws else None)[1] for i in range(n_steps)]
         return es, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
 
     def post_train_chunk(self, es: ExperimentState, n_calls: int,
                          draws: list[PostTrainDraws] | None = None):
         """n trainer calls with no exploration: the post-exploration
         training phase (port of ``Experiment.post_train_chunk`` of the JAX
-        package). Each call grades the model's entropy at fresh uniform
-        samples over the frozen replay ring, updates beta/gamma and trains.
-        ``draws`` feeds each call's samples and trainer draws. Returns (es,
-        infos): the last loss, beta and gamma of each call, stacked."""
+        package), each through the post-training graph where the
+        experiment has one. Each call grades the model's entropy at fresh
+        uniform samples over the frozen replay ring, updates beta/gamma and
+        trains. ``draws`` feeds each call's samples and trainer draws.
+        Returns (es, infos): the last loss, beta and gamma of each call,
+        stacked."""
         rows = []
         for c in range(n_calls):
             d = draws[c] if draws else None
-            grade, spread = self._grade_spread(es, d.samples if d else None)
-            metrics = self._hyper_and_train(es, grade, spread, d.train if d else None)
-            rows.append({"loss": metrics["loss"][-1], "beta": es.hyper.beta,
-                         "gamma": es.hyper.gamma})
+            if self.post_train_graph is None:
+                rows.append(self._post_train_call(es, d))
+            else:
+                rows.append(self._graph_post_train(es, d))
         return es, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    def _post_train_call(self, es: ExperimentState, d: PostTrainDraws | None,
+                         graphs: bool = True, host: HostValues | None = None):
+        grade, spread = self._grade_spread(es, d.samples if d else None)
+        metrics = self._hyper_and_train(es, grade, spread, d.train if d else None,
+                                        graphs=graphs, host=host)
+        return {"loss": metrics["loss"][-1], "beta": es.hyper.beta, "gamma": es.hyper.gamma}
+
+    # ------------------------------------------------------------------
+    # the tick and the post-training call as captured steps
+    def _tick_pattern(self, es: ExperimentState) -> tuple:
+        """The host values the tick branches on: which trainer calls run,
+        whether the target is the prior, and which of its velocity commands
+        correct the arm's drift."""
+        drift = ()
+        if isinstance(es.env, ArmState) and self.env.drift_every > 0:
+            drift = tuple((es.env.count + j + 1) % self.env.drift_every == 0
+                          for j in range(self.cfg.data_to_ctrl_rate))
+        return (self._throttle(es.explr_step, es.learning_ind),
+                es.explr_step < self.cfg.prior_steps, drift)
+
+    def _stage(self, es: ExperimentState, do: tuple) -> HostValues:
+        """Fill the staged host values for a step from ``es``: the step, and
+        each running trainer call's manual ramps."""
+        cfg = self.cfg
+        if self._host is None:
+            self._host = HostValues.create(self.train_calls_per_tick, self.device)
+        host = self._host
+        host.explr_step.fill_(es.explr_step)
+        if cfg.beta_manual_ramp or cfg.gamma_manual_ramp:
+            it = es.hyper.iter
+            for slot, run in enumerate(do):
+                if not run:
+                    continue
+                host.beta[slot].fill_(manual_ramp(it, cfg.beta_start_weight,
+                                                  cfg.beta_end_weight, cfg.beta_warmup_steps,
+                                                  cfg.beta_warmup_epoch))
+                host.gamma[slot].fill_(manual_ramp(it, cfg.gamma_start_weight,
+                                                   cfg.gamma_end_weight,
+                                                   cfg.gamma_warmup_steps,
+                                                   cfg.gamma_warmup_epoch))
+                it += self.trainer.num_learning_opt
+        return host
+
+    def _base(self, es: ExperimentState, carry) -> tuple:
+        """What a captured step reads in place, by address: the model's
+        parameters and buffers, the optimizer's state, the replay ring's
+        rows and counters, the planner's (or baseline's) tensors; with the
+        generators, the trainer's statics and the carry's structure."""
+        owner = self.baseline if self.use_baseline else self.planner
+        ring = [getattr(es.buf, f.name) for f in dataclasses.fields(es.buf)]
+        return (id(self.cfg), self.trainer, id(es.gen), id(es.pstate.gen), _spec(carry),
+                module_key(es.model), optimizer_key(es.opt), _addresses(ring),
+                _addresses(v for v in vars(owner).values() if isinstance(v, torch.Tensor)))
+
+    @staticmethod
+    def _carry(es: ExperimentState) -> tuple:
+        """What a tick replaces: the planner's (or baseline's) state but its
+        generator, the env's state but the arm's host counter, the target
+        state, beta and gamma."""
+        env = es.env
+        if isinstance(env, ArmState):
+            env = dataclasses.replace(env, count=0)
+        return (dataclasses.replace(es.pstate, gen=None), env, es.mstate, es.hyper.beta,
+                es.hyper.gamma)
+
+    @staticmethod
+    def _with_carry(es: ExperimentState, carry) -> ExperimentState:
+        """A view of ``es`` holding ``carry``, with ``es``'s host ints."""
+        pstate, env, mstate, beta, gamma = carry
+        if isinstance(env, ArmState):
+            env = dataclasses.replace(env, count=es.env.count)
+        return dataclasses.replace(
+            es, pstate=dataclasses.replace(pstate, gen=es.pstate.gen), env=env,
+            mstate=mstate, hyper=dataclasses.replace(es.hyper, beta=beta, gamma=gamma))
+
+    def _graph_step(self, graph: StepGraph, es: ExperimentState, pattern, draws, run,
+                    calls: int):
+        """One step through ``graph``: the pattern's first step runs eagerly,
+        its second captures, later ones replay. ``run(view, draws)`` makes
+        the step on a view of ``es`` holding the carry and returns its out;
+        the view reads the host ints as they are now, as a capture freezes
+        them (under this pattern they give the same branches on every
+        step). Then ``es`` takes the new carry and its host ints advance by
+        the step's ``calls`` trainer calls. Returns out."""
+        carry = self._carry(es)
+        frozen = dataclasses.replace(es)
+
+        def body(carry, draws):
+            view = self._with_carry(frozen, carry)
+            out = run(view, draws)
+            return self._carry(view), out
+
+        carry, out = graph.step(lambda: self._base(es, carry), pattern, carry, draws, body,
+                                [es.gen, es.pstate.gen])
+        view = self._with_carry(es, carry)
+        es.pstate, es.env, es.mstate = view.pstate, view.env, view.mstate
+        es.hyper = dataclasses.replace(view.hyper, iter=es.hyper.iter
+                                       + calls * self.trainer.num_learning_opt)
+        es.learning_ind += calls
+        return out
+
+    def _graph_tick(self, es: ExperimentState, draws: TickDraws | None):
+        """``tick`` through the tick graph."""
+        pattern = self._tick_pattern(es)
+        host = self._stage(es, pattern[0])
+        info = self._graph_step(
+            self.tick_graph, es, pattern, draws,
+            lambda view, d: self._tick(view, d, graphs=False, host=host)[1], sum(pattern[0]))
+        if isinstance(es.env, ArmState):
+            es.env = dataclasses.replace(es.env, count=es.env.count
+                                         + self.cfg.data_to_ctrl_rate)
+        es.explr_step += 1
+        return es, info
+
+    def _graph_post_train(self, es: ExperimentState, d: PostTrainDraws | None):
+        """One post-training call through the post-training graph (one
+        pattern: the call branches on no host value)."""
+        host = self._stage(es, (True,))
+        return self._graph_step(
+            self.post_train_graph, es, (), d,
+            lambda view, d: self._post_train_call(view, d, graphs=False, host=host), 1)

@@ -38,6 +38,16 @@ makes none, leaves them as they are. Each graph records the launches its
 capture made (``recorded``; the wrappers' counts are set back, since the
 capture ran no kernel) and adds them to ``launched`` on every replay:
 ``kernel_launches`` sums the eager counts and the graphs'.
+
+``StepGraph`` goes one level up, as the reference's ``lax.scan`` over the
+tick does (``ealv_tpu/runtime/agent.py``): it captures a whole step of a
+loop (``Experiment.tick``, one post-training call) with the calls above
+run eagerly inside, one graph for each pattern of the host values the step
+branches on. Its carry (what the step replaces: the planner and env state,
+the target state, beta and gamma) stays resident in static buffers that
+the step's last kernels overwrite, so the next replay reads what the last
+one wrote; the host values it computes with are staged into device scalars
+before each replay. The patterns' graphs share one memory pool.
 """
 
 from __future__ import annotations
@@ -114,15 +124,70 @@ def _clone(tree):
     return _rebuild(tree, kind, [(k, _clone(v)) for k, v in children])
 
 
-def _copy_into(static, tree):
-    """Copy every tensor of ``tree`` into its static buffer."""
+def _extent(t: torch.Tensor) -> tuple:
+    """(device, first byte, end byte) of the memory ``t`` spans."""
+    if t.numel() == 0:
+        return t.device, 0, 0
+    span = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    return t.device, t.data_ptr(), t.data_ptr() + span * t.element_size()
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` are the same tensor: the same memory, read the same way."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.device == b.device
+                      and a.dtype == b.dtype and a.shape == b.shape
+                      and a.stride() == b.stride())
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    (da, a0, a1), (db, b0, b1) = _extent(a), _extent(b)
+    return da == db and a0 < b1 and b0 < a1
+
+
+def _tensor_pairs(static, tree, out: list) -> list:
+    """[(static tensor, the tree's tensor at its place)]."""
     if isinstance(static, torch.Tensor):
-        static.copy_(tree)
-        return
+        out.append((static, tree))
+        return out
     found = _fields(static)
     if found is not None:
         for (_, s), (_, t) in zip(found[1], _fields(tree)[1], strict=True):
-            _copy_into(s, t)
+            _tensor_pairs(s, t, out)
+    return out
+
+
+def _copy_into(static, tree):
+    """Copy every tensor of ``tree`` into its static buffer; a tensor that
+    is its static buffer is left as it is, one that partly overlaps it
+    raises."""
+    for s, t in _tensor_pairs(static, tree, []):
+        if _same(s, t):
+            continue
+        if _overlaps(s, t):
+            raise ValueError("a staged input partly overlaps its static buffer")
+        s.copy_(t)
+
+
+def _write_back(static, new) -> None:
+    """Overwrite the static carry with the step's ``new`` carry, in place
+    (inside a capture: the step's last kernels). A new value that is its
+    static buffer stays; one that partly overlaps it, or that differs from
+    it in shape or dtype, raises. A new value that reads another static
+    buffer is copied first, since the copies overwrite that buffer."""
+    pairs = []
+    for s, t in _tensor_pairs(static, new, []):
+        if not isinstance(t, torch.Tensor) or t.shape != s.shape or t.dtype != s.dtype:
+            raise ValueError(f"the step's new carry {getattr(t, 'shape', t)} does not fit "
+                             f"its static buffer {tuple(s.shape)} {s.dtype}")
+        if _same(s, t):
+            continue
+        if _overlaps(s, t):
+            raise ValueError("the step's new carry partly overlaps its static buffer")
+        pairs.append((s, t))
+    targets = [s for s, _ in pairs]
+    pairs = [(s, t.clone() if any(_overlaps(t, u) for u in targets) else t) for s, t in pairs]
+    for s, t in pairs:
+        s.copy_(t)
 
 
 def _pairs(static, tree, out: dict):
@@ -199,10 +264,28 @@ def reset_launches(*graphs) -> None:
         g.replays = 0
 
 
-class CudaGraph:
-    """One ``torch.cuda.CUDAGraph`` of a call, its generators registered."""
+def _counted_capture(graph, body, static) -> tuple:
+    """Capture ``body(static)`` into ``graph``. Returns (the kernel launches
+    the capture recorded, its seconds); the wrappers' counts are set back,
+    since a capture runs no kernel."""
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    try:
+        graph.capture(body, static)
+    finally:
+        after = kernel_counts()
+        for name, fn in KERNELS.items():
+            fn.launches = before[name]
+    return {name: after[name] - before[name] for name in KERNELS}, time.perf_counter() - t0
 
-    def __init__(self, generators):
+
+class CudaGraph:
+    """One ``torch.cuda.CUDAGraph`` of a call, its generators registered,
+    its memory from ``pool`` (a ``torch.cuda.MemPool`` shared with other
+    graphs) or a private pool."""
+
+    def __init__(self, generators, pool=None):
+        self.pool = None if pool is None else pool.id
         self.graph = torch.cuda.CUDAGraph()
         for gen in generators:
             # each replay then reads the generator's seed and offset and
@@ -223,7 +306,8 @@ class CudaGraph:
         try:
             # "thread_local": another thread's CUDA work (a bridge's camera,
             # the autograd engine's device thread) does not fail the capture
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            shared = {} if self.pool is None else {"pool": self.pool}
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local", **shared):
                 try:
                     self.out = body(static)
                 except BaseException as e:
@@ -252,7 +336,7 @@ class EagerGraph:
     its outputs. It holds the staging, the keys and the cloning to a graph's
     rules on the CPU."""
 
-    def __init__(self, generators):
+    def __init__(self, generators, pool=None):
         self.out = None
 
     def capture(self, body, static):
@@ -314,16 +398,8 @@ class _CapturedCall:
         self._drop()
         static = _clone(inputs)
         graph = self.graph_type(generators)
-        before = kernel_counts()
-        t0 = time.perf_counter()
-        try:
-            graph.capture(body, static)
-        finally:
-            after = kernel_counts()
-            for name, fn in KERNELS.items():
-                fn.launches = before[name]  # a capture runs no kernel
-        self.capture_seconds.append(time.perf_counter() - t0)
-        self.recorded = {name: after[name] - before[name] for name in KERNELS}
+        self.recorded, seconds = _counted_capture(graph, body, static)
+        self.capture_seconds.append(seconds)
         self.graph, self.static, self.key = graph, static, key
         self.captures += 1
 
@@ -384,3 +460,113 @@ class PlannerGraph(_CapturedCall):
                                 use_prior=use_prior, samples=st[2], hist_idx=st[3])
 
         return self._call(key, inputs, body, [gen])
+
+
+@dataclasses.dataclass
+class _Entry:
+    graph: object
+    draws: object  # the staged draws' static buffers
+    recorded: dict  # the kernel launches the capture recorded
+
+
+class StepGraph:
+    """One step of a loop as captured graphs, one a pattern of the host
+    values the step branches on (see the module's docstring).
+
+    ``step(base_fn, pattern, carry, draws, body, generators)`` runs
+    ``body(carry, draws) -> (new carry, out)``:
+
+    - ``base_fn()`` keys what every pattern's graph reads in place (the
+      addresses of the parameters, the optimizer's state and the rings, the
+      generators, the carry's structure); when it changes, every graph is
+      dropped. It is read again after an eager step, which may create what
+      it holds (the optimizer's moments);
+    - ``pattern`` keys the host values the step branches on (which trainer
+      calls run, ...); with the fed draws' structure it picks the graph. A
+      pattern's first step runs eagerly, its second captures and replays,
+      later ones replay;
+    - ``carry`` is staged: copied into the static carry that every
+      pattern's graph reads (a tensor that is its static buffer, as after
+      a replay, is not copied), and the graph ends by writing the new
+      carry into it. Returns (carry, out): after an eager step the body's
+      new carry, after a replay the static carry; ``out`` cloned either
+      way (out of the graph's memory, or off the static buffers that an
+      eager step's out may hold);
+    - ``draws`` (fed draws) are staged into the pattern's own buffers.
+
+    Counts: ``warmups``, ``captures`` and ``replays`` over every pattern,
+    ``counts[pattern]`` the three for each, ``capture_seconds[pattern]``;
+    ``launched`` sums the kernel launches each capture recorded over its
+    replays, as in ``_CapturedCall``. Every graph takes its memory from
+    ``pool`` (a ``torch.cuda.MemPool``, which other steps' graphs may
+    share); nothing allocated there outlives a replay but the graphs'
+    outputs, which are cloned out at once. The ``MemPool`` object keeps the
+    pool alive while its graphs are dropped and captured anew: the caching
+    allocator refuses a capture into a graph pool whose last graph is gone
+    and whose memory it has not yet released."""
+
+    def __init__(self, graph_type=CudaGraph, pool=None):
+        self.graph_type, self.pool = graph_type, pool
+        self.base = self.carry = None
+        self.entries: dict = {}
+        self.warm: set = set()
+        self.counts: dict = {}
+        self.capture_seconds: dict = {}
+        self.launched = dict.fromkeys(KERNELS, 0)
+        self.warmups = self.captures = self.replays = 0
+
+    def _rebase(self, base) -> None:
+        """Drop every graph (and the static carry) when the base changes."""
+        if base != self.base:
+            self.entries, self.warm, self.carry = {}, set(), None
+            self.base = base
+
+    def _count(self, pattern, i: int) -> None:
+        self.counts.setdefault(pattern, [0, 0, 0])[i] += 1
+
+    def step(self, base_fn, pattern, carry, draws, body, generators):
+        self._rebase(base_fn())
+        key = (pattern, _spec(draws))
+        entry = self.entries.get(key)
+        if entry is None:
+            if key not in self.warm:
+                new, out = body(carry, draws)
+                self._rebase(base_fn())
+                self.warm.add(key)
+                self.warmups += 1
+                self._count(pattern, 0)
+                # out may hold carry tensors it left as they were: after a
+                # replay those are the static buffers, which later replays
+                # overwrite
+                return new, _clone(out)
+            entry = self._capture(key, carry, draws, body, generators)
+        else:
+            _copy_into(self.carry, carry)
+            _copy_into(entry.draws, draws)
+        out = entry.graph.replay()
+        self.replays += 1
+        self._count(pattern, 2)
+        for name, n in entry.recorded.items():
+            self.launched[name] += n
+        return self.carry, _clone(out)
+
+    def _capture(self, key, carry, draws, body, generators) -> _Entry:
+        if self.carry is None:
+            self.carry = _clone(carry)
+        else:
+            _copy_into(self.carry, carry)
+        static_draws = _clone(draws)
+
+        def recorded_step(static):
+            new, out = body(*static)
+            _write_back(static[0], new)
+            return out
+
+        graph = self.graph_type(generators, self.pool)
+        recorded, seconds = _counted_capture(graph, recorded_step, (self.carry, static_draws))
+        self.capture_seconds.setdefault(key[0], []).append(seconds)
+        entry = _Entry(graph, static_draws, recorded)
+        self.entries[key] = entry
+        self.captures += 1
+        self._count(key[0], 1)
+        return entry

@@ -40,29 +40,45 @@ def entropy_grade_spread(pdf_vals, all_x, x_mask, samples, explr_idx, std,
     return entropy_grade(pdf_vals, spread, xi), spread
 
 
+def manual_ramp(it: int, start: float, end: float, warmup_steps: int,
+                warmup_epoch: int) -> float:
+    """A manual ramp's value after ``it`` optimizer iterations: from
+    ``start`` to ``end`` in ``warmup_steps`` steps of ``warmup_epoch``
+    iterations each."""
+    d = (end - start) / max(warmup_steps, 1)
+    return start + d * min(it // max(warmup_epoch, 1), warmup_steps)
+
+
 def hyperparam_update(hs: HyperState, grade, spread, *, fixed_beta=False,
                       beta_manual_ramp=False, fixed_gamma=False,
                       gamma_manual_ramp=False, other_locs=True, beta_start=0.0,
                       beta_end=0.05, beta_warmup_steps=1000, beta_warmup_epoch=10,
                       gamma_start=0.0, gamma_end=1.0, gamma_warmup_steps=1000,
-                      gamma_warmup_epoch=10) -> HyperState:
-    """Select beta/gamma for the next trainer call."""
+                      gamma_warmup_epoch=10, ramp=None) -> HyperState:
+    """Select beta/gamma for the next trainer call. ``ramp`` holds the
+    manual ramps' (beta, gamma) as () device tensors, staged by a captured
+    step in place of the values computed from ``hs.iter`` (a host int,
+    which a capture would freeze)."""
     dev = hs.beta.device
-    const = lambda v: torch.tensor(float(v), device=dev)
+    # a fill, not a copy from host memory: nothing waits, and a capture can
+    # record it
+    const = lambda v: torch.full((), float(v), device=dev)
     if fixed_beta:
         beta = const(beta_start)
     elif not beta_manual_ramp:  # entropy-based (default)
         beta = grade.float()
+    elif ramp is not None:
+        beta = ramp[0].clone()
     else:
-        d_beta = (beta_end - beta_start) / max(beta_warmup_steps, 1)
-        ramp = min(hs.iter // max(beta_warmup_epoch, 1), beta_warmup_steps)
-        beta = const(beta_start + d_beta * ramp)
+        beta = const(manual_ramp(hs.iter, beta_start, beta_end, beta_warmup_steps,
+                                 beta_warmup_epoch))
     if fixed_gamma or not other_locs:
         gamma = const(gamma_start if fixed_gamma else 0.0)
     elif not gamma_manual_ramp:  # entropy-based (default)
         gamma = spread.float()
+    elif ramp is not None:
+        gamma = ramp[1].clone()
     else:
-        d_gamma = (gamma_end - gamma_start) / max(gamma_warmup_steps, 1)
-        ramp = min(hs.iter // max(gamma_warmup_epoch, 1), gamma_warmup_steps)
-        gamma = const(gamma_start + d_gamma * ramp)
+        gamma = const(manual_ramp(hs.iter, gamma_start, gamma_end, gamma_warmup_steps,
+                                  gamma_warmup_epoch))
     return dataclasses.replace(hs, beta=beta, gamma=gamma)

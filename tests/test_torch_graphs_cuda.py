@@ -1,5 +1,6 @@
-"""The captured trainer and planner calls (``runtime/graphs.py``) against
-the eager calls on the card, at toy size.
+"""The captured trainer and planner calls and the captured tick and
+post-training call (``runtime/graphs.py``) against the eager calls on the
+card, at toy size.
 
 Every test needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so it runs on the card's machine:
@@ -9,7 +10,9 @@ neither JAX nor the JAX package, so it runs on the card's machine:
 Each test runs two experiments from the same seed, one with
 its graphs set to None (the eager calls) and one with the graphs, through
 the same calls, and compares them bit for bit: a captured call replays the
-eager call's kernels on the same inputs. cuDNN is held to deterministic
+eager call's kernels on the same inputs. The trainer and planner calls'
+own graphs are tested with the tick graphs set to None, the mode in which
+``Experiment`` runs them in its tick. cuDNN is held to deterministic
 algorithms here, so that two eager calls agree bit for bit too;
 ``chip_smoke.py`` holds the production call with cuDNN's default choice.
 """
@@ -22,9 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from ealv_tpu_torch.runtime import Experiment, TrainDraws, train_call
+from ealv_tpu_torch.control import BaselineDraws
+from ealv_tpu_torch.runtime import Experiment, PostTrainDraws, TickDraws, TrainDraws, \
+    train_call
 from ealv_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint, state_leaves
 from ealv_tpu_torch.utils.config import ExperimentConfig
+from test_torch_sync import TOY as SYNC_TOY, trained_tick
 
 TOY = dict(states="xyw", num_target_samples=64, num_traj_samples=100,
            image_dim=(24, 24, 3), batch_size=8, num_learning_opt=2, compute_dtype="float32")
@@ -42,15 +48,22 @@ def cuda():
     torch.backends.cudnn.deterministic = deterministic
 
 
-def _pair(kernels=False, **kw):
-    """The eager and the captured experiment, both from seed 0."""
+def _pair(kernels=False, ticks=False, train_every=1, drift_every=None, **kw):
+    """The eager and the captured experiment, both from seed 0: the
+    captured one runs its trainer and planner calls as their own graphs,
+    or with ``ticks`` its whole ticks and post-training calls."""
     out = []
     for graphs in (False, True):
         cfg = ExperimentConfig(**{**TOY, **kw},
                                fast_encoder_grads="pallas" if kernels else False)
-        exp = Experiment(cfg, train_calls_per_tick=1, device="cuda")
+        exp = Experiment(cfg, train_calls_per_tick=1, train_every=train_every,
+                         device="cuda")
+        if not (graphs and ticks):
+            exp.tick_graph = exp.post_train_graph = None
         if not graphs:
             exp.trainer_graph = exp.planner_graph = None
+        if drift_every is not None:
+            exp.env = dataclasses.replace(exp.env, drift_every=drift_every)
         exp.trainer = dataclasses.replace(exp.trainer, fused_adam=kernels)
         out.append((exp, exp.init(seed=0)))
     return out
@@ -220,19 +233,24 @@ def test_captured_plan_step_is_bit_equal(cuda, states):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ticks", [False, True], ids=["per-call-graphs", "tick-graph"])
 @pytest.mark.parametrize("kw", [{}, {"states": "xywb", "learn_force": True,
                                      "use_z_ensemble": True, "fast_encoder_grads": "pallas"}],
                          ids=["xyw", "xywb-force-ensemble-K3"])
-def test_warm_toy_tick_with_a_replayed_trainer_call_never_synchronises(cuda, kw):
-    """A toy tick whose planner and trainer calls replay their graphs
-    (``test_torch_sync.trained_tick``), under
-    ``torch.cuda.set_sync_debug_mode("error")``: no call of the tick makes
-    the host wait for the card."""
-    from test_torch_sync import TOY as SYNC_TOY, trained_tick
+def test_warm_toy_tick_with_a_replayed_trainer_call_never_synchronises(cuda, kw, ticks):
+    """A toy tick with a trainer call (``test_torch_sync.trained_tick``)
+    that replays its graphs (the planner's and the trainer's, or the whole
+    tick's), under ``torch.cuda.set_sync_debug_mode("error")``: no call of
+    the tick makes the host wait for the card."""
     exp = Experiment(ExperimentConfig(**{**SYNC_TOY, **kw}), train_calls_per_tick=1,
                      train_every=3, device="cuda")
+    if not ticks:
+        exp.tick_graph = exp.post_train_graph = None
     parts = trained_tick(exp, exp.init(seed=0))
-    assert exp.trainer_graph.captures == 1 and exp.planner_graph.captures == 1
+    if ticks:
+        assert exp.tick_graph.captures >= 2 and exp.trainer_graph.captures == 0
+    else:
+        assert exp.trainer_graph.captures == 1 and exp.planner_graph.captures == 1
     torch.cuda.synchronize()
     try:
         torch.cuda.set_sync_debug_mode("error")
@@ -241,3 +259,94 @@ def test_warm_toy_tick_with_a_replayed_trainer_call_never_synchronises(cuda, kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def _fed(cfg, k, rng):
+    """Valid fed draws for tick ``k`` of a toy run whose rings do not wrap
+    (as ``chip_smoke._toy_draws``): history and batch indices among the
+    filled slots, samples in the robot limits."""
+    lim = cfg.robot_lim
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device="cuda")
+    hist = np.concatenate([rng.permutation(k + 1),
+                           k + 1 + rng.permutation(cfg.traj_buffer_capacity - k - 1)])
+    steps, B = cfg.num_learning_opt, cfg.batch_size
+    train = TrainDraws(idx=t(rng.integers(0, k + 1, (steps, B)), torch.int64),
+                       idx2=t(rng.integers(0, k + 1, (steps, B)), torch.int64),
+                       eps=t(rng.standard_normal((steps, B, cfg.z_dim))))
+    grade = t(rng.uniform(lim[:, 0], lim[:, 1], (cfg.num_target_samples, cfg.s_dim)))
+    return TickDraws(samples=t(rng.uniform(lim[:, 0], lim[:, 1],
+                                           (cfg.num_target_samples, cfg.s_dim))),
+                     hist_idx=t(hist[: cfg.num_traj_samples], torch.int64), train=[train],
+                     grade_samples=[grade],
+                     baseline=BaselineDraws(cands=t(rng.uniform(size=(10, cfg.s_dim))),
+                                            state_u=t(rng.uniform(size=cfg.s_dim))))
+
+
+TICK_PATHS = {"xyw": {}, "xyzrpw": dict(states="xyzrpw"),
+              "xywb-force-ensemble-K2-K3": dict(states="xywb", learn_force=True,
+                                                use_z_ensemble=True, kernels=True),
+              "arm-drift": dict(sim_backend="arm", drift_every=2),
+              "uniform": dict(explr_method="uniform")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fed", [False, True], ids=["generator", "fed"])
+@pytest.mark.parametrize("path", list(TICK_PATHS))
+def test_captured_tick_is_bit_equal(cuda, path, fed):
+    """Ten ticks (a trainer call every third; on the arm a drift correction
+    every second command, so four patterns) through the tick graph against
+    the eager ticks, on the generators' draws or on fed draws: every tick's
+    info (compared after the last tick) and the state after every tick, bit
+    for bit; then three post-training calls. Each pattern captures once its
+    second tick comes, and the later ticks replay."""
+    (exp_e, es_e), (exp_g, es_g) = _pair(ticks=True, train_every=3, **TICK_PATHS[path])
+    rng = np.random.default_rng(3)
+    infos = ([], [])
+    for k in range(10):
+        draws = _fed(exp_e.cfg, k, rng) if fed else None
+        for (exp, es), out in zip(((exp_e, es_e), (exp_g, es_g)), infos):
+            out.append(exp.tick(es, draws)[1])
+        _assert_states_equal(es_e, es_g)
+    for k, (a, b) in enumerate(zip(*infos)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (k, key)
+    g = exp_g.tick_graph
+    assert g.captures >= 2 and g.replays >= 4 and g.warmups + g.replays == 10
+    if path == "arm-drift":
+        assert {p[2] for p in g.counts} == {(True,), (False,)}
+    rows = [exp.post_train_chunk(es, 3)[1] for exp, es in ((exp_e, es_e), (exp_g, es_g))]
+    for key in rows[0]:
+        assert torch.equal(rows[0][key], rows[1][key]), key
+    _assert_states_equal(es_e, es_g)
+    assert exp_g.post_train_graph.counts == {(): [1, 1, 2]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernels", [False, True], ids=["stock", "K2-K3"])
+def test_captured_post_training_call_is_bit_equal(cuda, kernels):
+    """Four post-training calls on fed draws over a filled ring (an eager
+    call, a capture and its replay, two replays) against the eager calls:
+    the rows after the last call and the state after each, bit for bit;
+    the capture recorded the toy call's launches (1 K1 for the grade's
+    spread; 2 K2 and 6 K3 with the kernels on)."""
+    (exp_e, es_e), (exp_g, es_g) = _pair(kernels, ticks=True)
+    for exp, es in ((exp_e, es_e), (exp_g, es_g)):
+        _fill(es, exp.cfg)
+    rng = np.random.default_rng(6)
+    lim, cfg = exp_e.cfg.robot_lim, exp_e.cfg
+    draws = [PostTrainDraws(samples=torch.tensor(
+        rng.uniform(lim[:, 0], lim[:, 1], (cfg.num_target_samples, cfg.s_dim)),
+        dtype=torch.float32, device="cuda"), train=_draws(cfg, 12, rng)) for _ in range(4)]
+    rows = ([], [])
+    for d in draws:
+        for (exp, es), out in zip(((exp_e, es_e), (exp_g, es_g)), rows):
+            out.append(exp.post_train_chunk(es, 1, [d])[1])
+        _assert_states_equal(es_e, es_g)
+    for a, b in zip(*rows):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    g = exp_g.post_train_graph
+    assert g.counts == {(): [1, 1, 3]}
+    (entry,) = g.entries.values()
+    assert entry.recorded == {"footprint_and_spread": 1, "adam_apply": 2 if kernels else 0,
+                              "conv_wgrad_direct": 6 if kernels else 0}

@@ -125,15 +125,24 @@ def untrained_tick(exp, es):
     return [("Experiment.tick", tick)]
 
 
+def _replays(exp, es) -> bool:
+    """The next tick replays captured graphs (on the card): the tick graph
+    of its pattern, or, where the experiment has no tick graph, the trainer
+    graph; always on the CPU, which has none."""
+    if exp.tick_graph is not None:
+        return (exp._tick_pattern(es), None) in exp.tick_graph.entries
+    return exp.trainer_graph is None or exp.trainer_graph.key is not None
+
+
 def trained_tick(exp, es):
     """``Experiment.tick`` from ``es`` on a tick that makes a trainer call,
-    as [(name, call)]: ``es`` first ticks on past the trainer calls that
-    run eagerly or capture the experiment's trainer graph (on the card), so
-    the checked tick replays it; the call raises if it made no trainer
-    call. ``chip_smoke.py`` checks its production ticks through this."""
-    graph = exp.trainer_graph
+    as [(name, call)]: ``es`` first ticks on past the ticks that run
+    eagerly or capture the experiment's tick graph (or, without one, its
+    trainer graph) on the card, so the checked tick replays it; the call
+    raises if it made no trainer call. ``chip_smoke.py`` checks its
+    production ticks through this."""
     while (es.explr_step % exp.train_every or es.learning_ind < 1
-           or (graph is not None and graph.key is None)):
+           or not _replays(exp, es)):
         exp.tick(es)
     calls = es.learning_ind
 
