@@ -69,15 +69,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      tick path (xywb, learn_force, use_z_ensemble, both trainer kernels
      on) with K1, K2 and K3 counted and the ensemble pdf held against its
      plain decode-and-average; then the eval path: a 25-point grid test set
-     collected at 180x180, 12 EvalExperiment ticks toward a frozen
-     production CVAE (12 K1 launches a plan), evaluate_test_set over the
-     set, and baseline ticks (no K1 launch in their plan_step); then the
-     fingerprint path (bf16, weights from seed 0, a 3-object scene):
-     find_clusters over 1000 samples, a 50-tick capture at each true
-     centre, thresholds, identify_step and update_beliefs device times,
-     and 30 identification ticks over the four combinations in each seek
-     mode, 12 K1 launches a capture or identification tick and none in
-     the clustering, matching or entropy slices; then the arm: 12 ticks
+     collected at 180x180, EvalExperiment ticks toward a frozen production
+     CVAE at xyw, xyzrpw and on the arm (60 warm ticks, so that a
+     drift-correcting tick replays), each through its tick graph and
+     eagerly in one call, in turns, 3 ticks of each profiled, every
+     observation and the state bit-equal, 12 K1 launches a plan read
+     through the graphs and none eager in the replayed chunks;
+     evaluate_test_set over the set, and baseline ticks (no K1 launch in
+     their plan_step); then the fingerprint path (bf16, weights from seed
+     0, a 3-object scene): find_clusters over 1000 samples, a 50-tick
+     capture at each true centre (through each capture's step graph), the
+     first centre's capture steps again graphed and eager in turns
+     (bit-equal, and the eager steps' fingerprint bit-equal to the public
+     capture's), thresholds, identify_step, update_beliefs, match_forward
+     and fuse_matches device times, 30 identification ticks over the four
+     combinations in each seek mode with adoption at step 10, graphed and
+     eager (histories and beliefs bit-equal), then identification ticks
+     graphed and eager in turns; 12 K1 launches a capture or
+     identification tick through the graphs and none in the clustering,
+     matching or entropy slices; then the arm: 12 ticks
      on sim_backend="arm" three ways after 60 warm ticks (so that a
      drift-correcting tick replays its graph; 13 K1 launches a tick), then
      ArmEnv.step_vel
@@ -92,7 +102,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      12 absorbed steps and the loop's rate, jitter and missed deadlines;
      after the timed window of each path (xyw, xyzrpw, the variant path,
      the arm, the eval path, the fingerprint capture and identification in
-     each seek mode) one warm tick's calls (plan_step, the env steps,
+     each seek mode; the eval and fingerprint steps replayed) one warm
+     tick's calls (plan_step, the env steps,
      observe, absorb_step with the trainer call throttled out) run under
      torch.cuda.set_sync_debug_mode("error"): no call may synchronise (on
      xyw, xyzrpw, the variant path and the arm a replayed tick without and
@@ -699,8 +710,8 @@ def phase_eval_agreement():
             for k in range(3):
                 draws = _toy_draws(cfg, k, rng, dev, lims=ev.pstate.lims.cpu().numpy())
                 ev, obs = ev_exp.tick(ev, ctx, draws)
-                out.append({"pose": ev.env.pose, "robot_state": obs["robot_state"],
-                            "plan": ev.pstate.u, "cost": obs["cost"]})
+                out.append(_kept({"pose": ev.env.pose, "robot_state": obs["robot_state"],
+                                  "plan": ev.pstate.u, "cost": obs["cost"]}))
             runs[dev] = [{k: v.detach().cpu() for k, v in o.items()} for o in out]
         err = _agree(runs, f"eval {kind}")
         print(f"[agreement] 3 toy EvalExperiment ticks ({kind} target), cuda vs cpu with fed "
@@ -1763,22 +1774,185 @@ def phase_variant_path(n_timed=12):
     return dt, r["peak"]["ticks"], (k1, k2, k3), r
 
 
-def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
-    """The evaluation runtime at production size: a 25-point grid test set
-    collected at 180x180 with the port's collector on the card, then 12
-    timed EvalExperiment ticks (after 2 warm) toward a frozen production
-    CVAE's pdf (weights from seed 0, seeded with the set's first sample),
-    12 K1 launches a plan; evaluate_test_set over the set; and baseline
-    ticks, whose plan_step makes no K1 launch (a trainer call makes one,
-    for its entropy grade). Returns (ms per eval tick, launches per plan)."""
+def _tree(tree, path=""):
+    """[(path, value)] of every tensor or array (copied) and plain value in
+    ``tree``, a generator as its state, a module by its name: a step's
+    state or outs as they are now (a replayed step overwrites its carry in
+    place)."""
+    import torch
+    from ealv_tpu_torch.runtime import graphs as tg
+    if isinstance(tree, torch.Generator):
+        return [(path, tree.get_state())]
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree.detach().clone())]
+    if isinstance(tree, np.ndarray):
+        return [(path, torch.from_numpy(tree.copy()))]
+    if isinstance(tree, torch.nn.Module):
+        return [(path, type(tree).__name__)]
+    if tg._leaf(tree):
+        return [(path, tree)]
+    return [leaf for k, v in tg._fields(tree)[1] for leaf in _tree(v, f"{path}.{k}")]
+
+
+def _tree_equal(what, want, got):
+    """Raise where two runs' leaves (``_tree``) differ, NaN equal to NaN;
+    returns the number of leaves."""
+    import torch
+    if [p for p, _ in want] != [p for p, _ in got]:
+        raise RuntimeError(f"{what}: the two runs' structures differ")
+    for (path, a), (_, b) in zip(want, got):
+        if isinstance(a, torch.Tensor):
+            same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                a.nan_to_num(), b.nan_to_num()) and torch.equal(a.isnan(), b.isnan())
+        else:
+            same = a == b
+        if not same:
+            raise RuntimeError(f"{what}: {path} differs")
+    return len(want)
+
+
+def _eval_pattern_name(pattern) -> str:
+    """An eval runtime's step pattern in words (``EvalExperiment.step``:
+    the step's kind and keys, the arm's drift correction last)."""
+    kind, *keys, drift = pattern
+    extra = {"tick": lambda: "", "capture": lambda: " first" if keys[0] else "",
+             "identify": lambda: (f" {keys[3]}, {'adopted' if keys[4] else 'neutral'}, "
+                                  f"{'update' if keys[5] else 'skip'}")}[kind]()
+    return kind + extra + (", drift" if any(drift) else "")
+
+
+def _steps_two_ways(name, make, step, n_warm, rounds=2, chunk=6, k1_per_step=12,
+                    profile=True):
+    """A step path of the eval runtime two ways in one call. ``make(graphs)``
+    builds (ev_exp, state) with the runtime's tick graph or, eager, with
+    ``tick_graph`` set to None; ``step(ev_exp, state)`` takes one step and
+    returns (state, out). Both take ``n_warm`` steps, then ``rounds`` x 4
+    chunks of ``chunk`` steps in turns (graphed, eager, eager, graphed),
+    each timed: every graphed chunk replays its graphs on every step with
+    no eager K1 launch, ``k1_per_step`` K1 launches a step read through the
+    graphs; then 3 steps of each under torch.profiler. Every out and the
+    final state are held bit for bit. Returns the readings."""
+    import torch
+    from ealv_tpu_torch.runtime.graphs import kernel_counts, reset_launches, total_launches
+
+    runs = {}
+    for mode in ("graphs", "eager"):
+        ev_exp, state = make(mode == "graphs")
+        outs = []
+        for _ in range(n_warm):
+            state, out = step(ev_exp, state)
+            outs.append(out)
+        runs[mode] = [ev_exp, state, outs]
+    g = runs["graphs"][0].tick_graph
+    turns = {"graphs": [], "eager": []}
+    per_step = {}
+    for mode in ("graphs", "eager", "eager", "graphs") * rounds:
+        run = runs[mode]
+        reset_launches()
+        replays = g.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            run[1], out = step(run[0], run[1])
+            run[2].append(out)  # a fresh tensor or a clone: no later step writes it
+        torch.cuda.synchronize()
+        turns[mode].append((time.perf_counter() - t0) / chunk * 1e3)
+        eager_k1 = kernel_counts()["footprint_and_spread"]
+        k1 = total_launches()["footprint_and_spread"]
+        if mode == "graphs" and (g.replays - replays != chunk or eager_k1 or
+                                 k1 != k1_per_step * chunk):
+            raise RuntimeError(f"{name}: {g.replays - replays} replays in a chunk of {chunk}, "
+                               f"K1 {k1} through the graphs ({eager_k1} eager)")
+        if mode == "eager" and eager_k1 != k1_per_step * chunk:
+            raise RuntimeError(f"{name}, eager: K1 {eager_k1} in {chunk} steps")
+        per_step[mode] = k1 / chunk
+    profiles = {}
+    for mode, run in runs.items() if profile else ():
+        def three(run=run):
+            for _ in range(3):
+                run[1], out = step(run[0], run[1])
+                run[2].append(out)
+        wall, busy, _, _, n = _profiled_call(three)
+        profiles[mode] = dict(host_ms=wall, busy_ms=busy, intervals=n)
+    n_out = _tree_equal(f"{name}: graphed outs against eager outs", _tree(runs["eager"][2]),
+                        _tree(runs["graphs"][2]))
+    n_state = _tree_equal(f"{name}: graphed state against eager state",
+                          _tree(runs["eager"][1]), _tree(runs["graphs"][1]))
+    return dict(
+        name=name, runs=runs, steps=len(runs["graphs"][2]), leaves=(n_out, n_state),
+        turns=turns, ms={m: float(np.median(v)) if v else None for m, v in turns.items()},
+        profile=profiles, pool_mib=_pool_mib(g), k1_per_step=per_step,
+        counts={_eval_pattern_name(p): c for p, c in g.counts.items()},
+        capture_s={_eval_pattern_name(p): [round(t, 3) for t in v]
+                   for p, v in g.capture_seconds.items()})
+
+
+def _two_ways_line(r) -> str:
+    """A ``_steps_two_ways`` path's readings in one line."""
+    p = r["profile"]
+    ms = (f"ms/step in turns (medians of {len(r['turns']['graphs'])} chunks), graphed "
+          f"{r['ms']['graphs']:.2f} {[round(v, 2) for v in r['turns']['graphs']]}, eager "
+          f"{r['ms']['eager']:.2f} {[round(v, 2) for v in r['turns']['eager']]} | "
+          if r["turns"]["graphs"] else "")
+    prof = ("3 profiled steps, host ms / busy ms / intervals: " + "; ".join(
+        f"{m} {p[m]['host_ms']:.2f} / {p[m]['busy_ms']:.2f} / {p[m]['intervals']}"
+        for m in p) + " | ") if p else ""
+    return (f"[graphs] {r['name']}: {ms}{prof}[eager, captured, replays] by pattern "
+            f"{r['counts']} | capture s "
+            f"{r['capture_s']} | pool {r['pool_mib']} MiB | {r['steps']} steps bit-equal to "
+            f"eager steps: {r['leaves'][0]} out leaves, {r['leaves'][1]} state leaves")
+
+
+def _frozen_cvae_target(cfg, poses, images):
+    """(pdf_fn, ctx) of a frozen production CVAE over ``cfg``'s states
+    (bf16, weights from seed 0) seeded with the test set's first sample."""
     import torch
     from ealv_tpu_torch.models import CVAE, init_model_state, update_dist
-    from ealv_tpu_torch.ops import footprint_and_spread
-    from ealv_tpu_torch.runtime import EvalExperiment, Experiment, evaluate_test_set
+    from ealv_tpu_torch.utils.states import ws_conversion
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    poses_r = ws_conversion(t(poses[:, cfg.sel()]), t(cfg.tray_lim), t(cfg.robot_lim))
+    model = CVAE(img_dim=cfg.image_dim, s_dim=cfg.s_dim, hidden_dim=cfg.model_hidden(),
+                 compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to("cuda")
+    ms, _ = update_dist(model, init_model_state(model, "cuda"), poses_r[0], t(images[0]))
+    return (lambda c, s: c[0].pdf(c[1], s)), (model, ms), poses_r
+
+
+def _eval_ticks(cfg, fn, ctx, name, n_warm=2, rounds=2, profile=True):
+    """EvalExperiment ticks toward ``ctx`` two ways (``_steps_two_ways``)."""
+    from ealv_tpu_torch.runtime import EvalExperiment
+
+    def make(graphs):
+        ev_exp = EvalExperiment(cfg, fn, device="cuda")
+        if not graphs:
+            ev_exp.tick_graph = None
+        return ev_exp, ev_exp.init(seed=0)
+
+    return _steps_two_ways(name, make, lambda ev_exp, ev: ev_exp.tick(ev, ctx), n_warm,
+                           rounds=rounds, profile=profile)
+
+
+def phase_eval_path(n_points=25):
+    """The evaluation runtime at production size: a 25-point grid test set
+    collected at 180x180 with the port's collector on the card; then
+    EvalExperiment ticks toward a frozen production CVAE's pdf (weights
+    from seed 0, seeded with the set's first sample) through the tick
+    graph and eagerly in one call (``_steps_two_ways``: 2 warm ticks, 4
+    chunks of 6 in turns, 3 profiled; 12 K1 launches a plan read through
+    the graphs; every observation and the state bit-equal), at xyw, at
+    xyzrpw (2 chunks, none profiled) and on the arm (60 warm ticks, so that
+    the drift correction of every 20th command replays its graph; 2
+    chunks, none profiled); a replayed tick
+    under the sync check; evaluate_test_set over the set; and baseline
+    ticks, whose plan_step makes no K1 launch (a trainer call makes one,
+    for its entropy grade). Returns (ms per graphed eval tick, launches per
+    plan)."""
+    import torch
+    from ealv_tpu_torch.runtime import Experiment, evaluate_test_set
     from ealv_tpu_torch.runtime.graphs import kernel_launches, reset_launches
     from ealv_tpu_torch.scripts.collect_test_set import collect
     from ealv_tpu_torch.utils.config import ExperimentConfig
-    from ealv_tpu_torch.utils.states import ws_conversion
 
     cfg = ExperimentConfig(**PRODUCTION)
     t0 = time.perf_counter()
@@ -1786,47 +1960,43 @@ def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
     collect_s = time.perf_counter() - t0
     if images.shape != (n_points, *cfg.image_dim) or not np.isfinite(images).all():
         raise RuntimeError(f"test set images {images.shape}")
-    t = lambda a: torch.as_tensor(a, device="cuda")
-    poses_r = ws_conversion(t(poses[:, cfg.sel()]), t(cfg.tray_lim), t(cfg.robot_lim))
-    model = CVAE(img_dim=cfg.image_dim, s_dim=cfg.s_dim, hidden_dim=cfg.model_hidden(),
-                 compute_dtype=torch.bfloat16)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    model.cuda()
-    ms, _ = update_dist(model, init_model_state(model, "cuda"), poses_r[0], t(images[0]))
-    ctx = (model, ms)
-    ev_exp = EvalExperiment(cfg, lambda c, s: c[0].pdf(c[1], s), device="cuda")
-    ev = ev_exp.init(seed=0)
-    for _ in range(n_warm):
-        ev, _ = ev_exp.tick(ev, ctx)
-    torch.cuda.synchronize()
-    footprint_and_spread.launches = 0
-    t0 = time.perf_counter()
-    costs = []
-    for _ in range(n_timed):
-        ev, obs = ev_exp.tick(ev, ctx)
-        costs.append(obs["cost"])
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    per_plan = footprint_and_spread.launches / n_timed
-    if footprint_and_spread.launches != 12 * n_timed:
-        raise RuntimeError(f"eval path: {footprint_and_spread.launches} K1 launches in "
-                           f"{n_timed} ticks, expected {12 * n_timed}")
-    _sync_free("EvalExperiment tick", [("EvalExperiment.tick", lambda: ev_exp.tick(ev, ctx))])
-    costs = torch.stack(costs).cpu()
-    if not torch.isfinite(costs).all() or obs["image"].shape != cfg.image_dim:
-        raise RuntimeError(f"eval costs {costs}, image {tuple(obs['image'].shape)}")
+    fn, ctx, poses_r = _frozen_cvae_target(cfg, poses, images)
+    model = ctx[0]
+    r = _eval_ticks(cfg, fn, ctx, "eval tick (xyw, frozen CVAE)")
+    ev_exp, ev = r["runs"]["graphs"][:2]
+    _sync_free("EvalExperiment tick", [("EvalExperiment.tick (replayed)",
+                                        lambda: ev_exp.tick(ev, ctx))])
+    obs = r["runs"]["graphs"][2]
+    costs = torch.stack([o["cost"] for o in obs]).cpu()
+    if not torch.isfinite(costs).all() or obs[-1]["image"].shape != cfg.image_dim:
+        raise RuntimeError(f"eval costs {costs}, image {tuple(obs[-1]['image'].shape)}")
+    print(_two_ways_line(r))
+    for states, kw, n_warm, rounds in (("xyzrpw", {}, 2, 1), ("xyw", {"sim_backend": "arm"},
+                                                             60, 1)):
+        c = ExperimentConfig(**{**PRODUCTION, "states": states, **kw})
+        f, x, _ = _frozen_cvae_target(c, poses, images)
+        name = f"eval tick ({states}{', arm' if kw else ''}, frozen CVAE)"
+        rr = _eval_ticks(c, f, x, name, n_warm=n_warm, rounds=rounds, profile=False)
+        if kw and rr["counts"].get("tick, drift", [0, 0, 0])[2] < 2:
+            raise RuntimeError(f"{name}: no replay of the drift-correcting tick: "
+                               f"{rr['counts']}")
+        print(_two_ways_line(rr))
+        del rr
     t0 = time.perf_counter()
     met = evaluate_test_set(model, poses_r, images, forces)
     eval_s = time.perf_counter() - t0
     if not (np.isfinite(met["recon_nll"]).all() and met["img_pred"].shape == images.shape):
         raise RuntimeError(f"evaluate_test_set: {met['recon_nll']}")
+    dt, per_plan = r["ms"]["graphs"], r["k1_per_step"]["graphs"]
     print(f"[eval path] {n_points}-point grid test set at {cfg.image_dim[0]}x"
-          f"{cfg.image_dim[1]} collected in {collect_s:.2f} s | {n_timed} EvalExperiment ticks "
-          f"after {n_warm} warm, frozen production CVAE (bf16, seed 0) as the target: "
-          f"{dt * 1e3:.2f} ms/tick | K1 {per_plan:.0f} per plan | last cost "
+          f"{cfg.image_dim[1]} collected in {collect_s:.2f} s | EvalExperiment ticks toward a "
+          f"frozen production CVAE (bf16, seed 0): {dt:.2f} ms/tick through the tick graph, "
+          f"{r['ms']['eager']:.2f} eager | K1 {per_plan:.0f} per plan through the graphs | last "
+          f"cost "
           f"{float(costs[-1]):.4f} | evaluate_test_set over the set in {eval_s:.3f} s: mean "
           f"MSE {met['mean_mse']:.5f}, mean NLL {met['mean_nll']:.5f}, active units "
           f"{met['active_units']}")
+    del r, ev_exp, ev, obs
 
     for method in ("randomWalk", "uniform"):
         exp = Experiment(ExperimentConfig(**{**PRODUCTION, "states": "xywb"},
@@ -1852,7 +2022,7 @@ def phase_eval_path(n_warm=2, n_timed=12, n_points=25):
         print(f"[eval path] baseline {method} at xywb, production size: 0 K1 launches in 3 "
               f"plan_steps; {ticked} in 6 ticks = one per trainer call ({calls}, the entropy "
               f"grade); {b_ms:.2f} ms/tick (the first ticks, cold)")
-    return dt * 1e3, per_plan
+    return dt, per_plan
 
 
 # the fingerprint stage's toy widths (the JAX fingerprint tests' config)
@@ -1993,21 +2163,30 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     """The fingerprint stage at production size (bf16, weights from seed 0,
     ``TrayScene.make(3, seed=0)``): find_clusters over 1000 samples seeded
     by six images of the port's grid collector; a 50-tick sphere capture at
-    each true centre (12 K1 launches a tick); FingerprintSet and thresholds
-    for L2, KL and BC; device times of one identify_step and of one
-    update_beliefs per combination; the matrix runtime over the four
-    combinations for 30 ticks with adoption at step 10, fixed and then
-    uncertain (12 K1 launches a tick); entropy slices; none of the
-    clustering, matching or slices launches K1. Returns the launch counts
-    and times."""
+    each true centre (12 K1 launches a tick, read through the capture's
+    step graph); the first centre's capture steps again two ways
+    (``_steps_two_ways``: through its step graph and eagerly, in turns,
+    every step bit-equal; the eager steps' fingerprint bit-equal to the
+    public capture's); FingerprintSet and thresholds for L2, KL and BC;
+    device times of one identify_step and of one update_beliefs per
+    combination; the matrix runtime over the four combinations for 30
+    ticks with adoption at step 10, fixed and then uncertain (12 K1
+    launches a tick), through its step graph and eagerly, the histories
+    and beliefs bit-equal; then identification ticks two ways in turns;
+    replayed capture and identification steps under the sync check;
+    entropy slices; none of the clustering, matching or slices launches
+    K1. Returns the launch counts and times."""
     import torch
     from ealv_tpu_torch.data.replay import ReplayBuffer
     from ealv_tpu_torch.fingerprint import (FingerprintBelief, FingerprintSet,
                                             calibrate_thresholds, entropy_slices,
                                             find_clusters, identify_step, update_beliefs)
-    from ealv_tpu_torch.fingerprint.capture import capture_fingerprint
-    from ealv_tpu_torch.fingerprint.test_runtime import FingerprintMatrixRuntime
-    from ealv_tpu_torch.ops import footprint_and_spread as k1
+    from ealv_tpu_torch.fingerprint.identify import best_matches, fuse_matches, match_forward
+    from ealv_tpu_torch.fingerprint.capture import capture_fingerprint, capture_start, \
+        capture_step, finish_capture
+    from ealv_tpu_torch.fingerprint.test_runtime import FingerprintMatrixRuntime, \
+        _identification_tick
+    from ealv_tpu_torch.runtime.graphs import reset_launches, total_launches
     from ealv_tpu_torch.scripts.collect_test_set import collect
     from ealv_tpu_torch.sim import TrayScene
     from ealv_tpu_torch.utils.config import ExperimentConfig
@@ -2028,12 +2207,14 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     launches = {}
 
     def timed(name, fn):
+        """fn() and its seconds; its K1 launches, eager and replayed by any
+        graph (a capture's step graph lives only inside the call)."""
         torch.cuda.synchronize()
-        k1.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
-        launches[name] = k1.launches
+        launches[name] = total_launches()["footprint_and_spread"]
         return result, time.perf_counter() - t0
 
     res, cluster_s = timed("find_clusters", lambda: find_clusters(
@@ -2050,6 +2231,29 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     fps = FingerprintSet.from_lists(dicts, device=dev)
     thresholds = {m: calibrate_thresholds(fps, m) for m in ("L2", "KL", "BC")}
 
+    # the first centre's capture again, two ways: its 50 steps in turns
+    def make_capture(graphs):
+        ev_exp, target, ev, ms = capture_start(model, cfg, truth[0].astype(np.float32),
+                                               scene=scene, seed=0, device=dev)
+        if not graphs:
+            ev_exp.tick_graph = None
+        return ev_exp, (ev, ms, target, 0)
+
+    def capture_one(ev_exp, state):
+        ev, ms, target, i = state
+        ev, ms, out = capture_step(ev_exp, model, target, ev, ms, first=i == 0)
+        return (ev, ms, target, i + 1), out
+
+    cap = _steps_two_ways("capture step", make_capture, capture_one, n_capture - 24)
+    eager_outs = cap["runs"]["eager"][2][:n_capture]
+    fp0 = finish_capture([o[:3] for o in eager_outs], eager_outs[0][3], truth[0])
+    _tree_equal("the public capture against the eager capture steps", _tree(fp0),
+                _tree(dicts[0]))
+    print(_two_ways_line(cap) + f"; its first {n_capture} steps' fingerprint bit-equal to the "
+          f"public capture's")
+    cap_ms = dict(cap["ms"])
+    del cap, eager_outs
+
     obs_x, obs_y = t(dicts[0]["x"][-1]), t(dicts[0]["center_img"])
     identify_ms = device_ms(lambda: identify_step(model, fps, obs_x, obs_y), reps=5, inner=5)
     rl_t, tl_t = t(rl), t(tl)
@@ -2060,12 +2264,35 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
               for _ in range(len(truth))]
         update_ms[f"{m}_error" if e else m] = device_ms(lambda: update_beliefs(
             model, fps, bs, obs_x, obs_y, cfg.states, rl_t, tl_t, m, e), reps=5, inner=5)
+    # an identification tick's parts beside the planner's: the one match
+    # forward its combinations share, and each combination's fusion
+    match_ms = device_ms(lambda: match_forward(model, fps, obs_y), reps=5, inner=5)
+    out_m, seed_y = match_forward(model, fps, obs_y)
+    fuse_ms = {}
+    for m, e in FP_COMBOS:
+        th, cl = thresholds["L2" if e else m]
+        bs = [FingerprintBelief.create(cfg.states, rl, thresh=th, clip=cl, device=dev)
+              for _ in range(len(truth))]
+        d, best = best_matches(out_m, seed_y, fps, m, e)
+        fuse_ms[f"{m}_error" if e else m] = device_ms(lambda: fuse_matches(
+            bs, d, best, obs_x, fps, cfg.states, rl_t, tl_t, e), reps=5, inner=5)
 
-    runs = {}
+    runs, id_two = {}, {}
     for mode in ("fixed", "uncertain"):
-        rt = FingerprintMatrixRuntime(cfg, model, fps, combos=FP_COMBOS, seek_mode=mode,
-                                      update_tdist_step=adopt, scene=scene, device=dev)
-        (beliefs, hist), runs[mode] = timed(f"identify {mode}", lambda: rt.run(n_id, seed=7))
+        rts = {}
+        for graphs in (True, False):
+            rt = FingerprintMatrixRuntime(cfg, model, fps, combos=FP_COMBOS, seek_mode=mode,
+                                          update_tdist_step=adopt, scene=scene, device=dev)
+            if not graphs:
+                rt._ev.tick_graph = None
+            name = f"identify {mode}" + ("" if graphs else " eager")
+            rts[graphs] = rt, *timed(name, lambda rt=rt: rt.run(n_id, seed=7))
+        (rt, (beliefs, hist), runs[mode]), (rt_e, (beliefs_e, hist_e), eager_s) = \
+            rts[True], rts[False]
+        _tree_equal(f"identification ({mode}) through its step graph against eager",
+                    _tree((hist_e, rt_e.seek_history, beliefs_e)),
+                    _tree((hist, rt.seek_history, beliefs)))
+        g = rt._ev.tick_graph
         dists = np.stack([np.stack([h[k] for k in beliefs]) for h in hist])
         if not (np.isfinite(dists).all() and all(torch.isfinite(b.prior).all()
                                                  for bs in beliefs.values() for b in bs)):
@@ -2073,10 +2300,35 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
         errors = {k: float(v["mean_error"]) for k, v in rt.results_table(np.stack(truth)).items()}
         share = [float((rt.seek_history[adopt:] == k).mean()) for k in range(len(truth))]
         print(f"[fingerprint path] identification ({mode}): {n_id} ticks, 4 combinations, "
-              f"adoption at step {adopt}: {runs[mode] / n_id * 1e3:.2f} ms/tick | K1 "
-              f"{launches[f'identify {mode}']} | mean localization error "
-              f"{ {k: round(v, 3) for k, v in errors.items()} } | seek share after adoption "
-              f"{np.round(share, 2).tolist()}")
+              f"adoption at step {adopt}: {runs[mode] / n_id * 1e3:.2f} ms/tick through the "
+              f"step graph ({eager_s / n_id * 1e3:.2f} eager; both with the set-up), history, "
+              f"adopted objects and beliefs bit-equal | [eager, captured, replays] by pattern "
+              f"{ {_eval_pattern_name(p): c for p, c in g.counts.items()} }, capture s "
+              f"{ {_eval_pattern_name(p): [round(t, 3) for t in v] for p, v in g.capture_seconds.items()} } "
+              f"| K1 {launches[f'identify {mode}']} through the graphs | mean localization "
+              f"error { {k: round(v, 3) for k, v in errors.items()} } | seek share after "
+              f"adoption {np.round(share, 2).tolist()}")
+        del rt_e, beliefs_e, hist_e, rts
+
+        # identification ticks two ways in turns, adopted from the start
+        def make_id(graphs, mode=mode):
+            rt = FingerprintMatrixRuntime(cfg, model, fps, combos=FP_COMBOS, seek_mode=mode,
+                                          update_tdist_step=0, scene=scene, device=dev)
+            if not graphs:
+                rt._ev.tick_graph = None
+            beliefs = [list(rt.beliefs[rt.combo_key(m, e)]) for m, e in FP_COMBOS]
+            return rt._ev, (rt._ev.init(seed=8), beliefs)
+
+        def identify_one(ev_exp, state, mode=mode):
+            ev, beliefs = state
+            ev, *out = _identification_tick(ev_exp, model, fps, cfg, FP_COMBOS, beliefs, 0, 0,
+                                            0, 1, ev, rl_t, tl_t, mode)
+            return (ev, beliefs), tuple(out)
+
+        id_two[mode] = _steps_two_ways(f"identification tick ({mode})", make_id,
+                                       identify_one, 2)
+        print(_two_ways_line(id_two[mode]))
+        id_two[mode].pop("runs")
 
     ticks = _tick_builders().fingerprint_ticks(cfg, model, scene, fps, truth[0], rl_t, tl_t,
                                                "cuda", warm=3)
@@ -2093,7 +2345,9 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     if not (np.isfinite(zs).all() and np.isfinite(slices["all"][1]).all()):
         raise RuntimeError("non-finite captured latents or entropy slice")
     want = {"find_clusters": 0, "capture": 12 * n_capture * len(truth),
-            "identify fixed": 12 * n_id, "identify uncertain": 12 * n_id, "entropy_slices": 0}
+            "identify fixed": 12 * n_id, "identify uncertain": 12 * n_id,
+            "identify fixed eager": 12 * n_id, "identify uncertain eager": 12 * n_id,
+            "entropy_slices": 0}
     if launches != want:
         raise RuntimeError(f"fingerprint path K1 launches {launches}, expected {want}")
     capture_ms = capture_s / (n_capture * len(truth)) * 1e3
@@ -2108,12 +2362,15 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     print(f"[fingerprint path] device ms (CUDA events, median of 5 x 5): identify_step (K=3, "
           f"S={fps.x.shape[1]}, {cfg.image_dim[0]}x{cfg.image_dim[1]} images) "
           f"{identify_ms:.4f}; update_beliefs "
-          f"{ {k: round(v, 4) for k, v in update_ms.items()} } | K1 launches {launches}")
+          f"{ {k: round(v, 4) for k, v in update_ms.items()} }; match_forward "
+          f"{match_ms:.4f}; fuse_matches { {k: round(v, 4) for k, v in fuse_ms.items()} } "
+          f"(four: {sum(fuse_ms.values()):.4f}) | K1 launches {launches}")
     return dict(capture_per_tick=launches["capture"] / (n_capture * len(truth)),
                 identify_per_tick=launches["identify fixed"] / n_id,
                 find_clusters=launches["find_clusters"],
                 entropy_slices=launches["entropy_slices"], capture_ms=capture_ms,
-                identify_ms=id_ms, peak=peak)
+                identify_ms=id_ms, peak=peak, capture_step_ms=cap_ms,
+                identify_step_ms={m: r["ms"] for m, r in id_two.items()})
 
 
 # the arm phases: the wedge scene of tests/test_arm.py (one wide cylinder

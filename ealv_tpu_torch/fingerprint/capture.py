@@ -4,14 +4,18 @@ or cone ``ExplrDist`` target with sampling limits shrunk around the centre
 and a kernel ten times narrower, recording the latent (z_mu, z_logvar) of
 every observation at poses at least ``min_pose_dist`` apart.
 
-The capture is an eager loop of ``EvalExperiment.tick`` and the latent
-encode; the latents, poses and the first image stay on the device and come
-to the host in one copy at the end. The reference renders its
-``center_img`` from a tick that starts from the same state with the same
-key as its first capture tick and throws that tick away; here the first
-capture tick's image is ``center_img``, the same image, since a second
-tick from the same state cannot be taken (the planner's memory ring and
-its generator move on in place).
+The reference runs the capture as one ``lax.scan`` of the eval tick and
+the latent encode. Here each capture step (``capture_step``) is one step
+of the capture's ``EvalExperiment``: on the card one captured CUDA graph,
+replayed from the step after its first (the capture's own
+``EvalExperiment`` compiles one graph a capture, as the reference compiles
+one ``capture`` a call). The latents, poses and the first image stay on
+the device and come to the host in one copy at the end. The reference
+renders its ``center_img`` from a tick that starts from the same state
+with the same key as its first capture tick and throws that tick away;
+here the first capture tick's image is ``center_img``, the same image,
+since a second tick from the same state cannot be taken (the planner's
+memory ring and its generator move on in place).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from ..control.target_dists import ExplrDist
 from ..models import CVAE
 from ..models.cvae import init_model_state, update_dist
+from ..runtime.graphs import inplace_key, module_key
 from ..runtime.tester import EvalExperiment
 from .clustering import ClusterResult, find_clusters
 
@@ -72,14 +77,13 @@ def make_capture_target(explr_states: str, robot_center, mode: str = "sphere",
     return dist.push(t(locs), t(vals))
 
 
-def capture_fingerprint(model: CVAE, cfg, center_robot, scene=None, num_steps: int = 50,
-                        mode: str = "sphere", min_pose_dist: float = 1e-3, seed: int = 0,
-                        explr_states: Optional[str] = None, draws=None, device="cuda"):
-    """Mini ergodic exploration around one centre (robot coords over the
-    explored states): drive there with the pose controller, then
-    ``num_steps`` ticks, encoding each observation. ``draws`` is a list of
-    one ``TickDraws`` a tick, fed to the planner. Returns the fingerprint
-    {z_mu, z_var (the logvar), x, center, center_img} as numpy."""
+def capture_start(model: CVAE, cfg, center_robot, scene=None, mode: str = "sphere",
+                  seed: int = 0, explr_states: Optional[str] = None, device="cuda"):
+    """A capture's set-up around one centre (robot coords over the explored
+    states): its ``EvalExperiment`` (kernel std x 0.1, sampling limits
+    shrunk around the centre), its target, the eval state driven to the
+    centre with the pose controller and an empty model state. Returns
+    (ev_exp, target, ev, mstate)."""
     explr_states = explr_states or cfg.states
     target = make_capture_target(explr_states, center_robot, mode, device=device)
     ev_exp = EvalExperiment(cfg, lambda ctx, samples: ctx.pdf(samples),
@@ -100,31 +104,69 @@ def capture_fingerprint(model: CVAE, cfg, center_robot, scene=None, num_steps: i
 
     ev = ev_exp.init(start_tray_pose=tray_pose6, seed=seed, shrink_center=center)
     ev = ev_exp.use_pose(ev, tray_pose6)
-    mstate = init_model_state(model, ev_exp.device)
-    zm, zv, xs = [], [], []
+    return ev_exp, target, ev, init_model_state(model, ev_exp.device)
+
+
+def capture_step(ev_exp: EvalExperiment, model: CVAE, target, ev, mstate, draw=None,
+                 first: bool = False):
+    """One capture step (``ev_exp.step``): the eval tick toward ``target``
+    (``draw``, a ``TickDraws``, feeds the planner), then the encode of its
+    observation into the model state. Returns (ev, mstate, out): out is
+    (z_mu, z_logvar, robot_state) and, on the ``first`` step, the image."""
+
+    def run(view, ms, d):
+        view, obs = ev_exp._tick(view, target, d)
+        ms, enc = update_dist(model, ms, obs["robot_state"], obs["image"])
+        out = (enc["z_mu"][0], enc["z_logvar"][0], obs["robot_state"])
+        if first:
+            out += (obs["image"],)
+        return view, ms, out
+
+    return ev_exp.step(ev, mstate, draw, run, ("capture", first), inplace_key(target),
+                       module_key(model))
+
+
+def capture_fingerprint(model: CVAE, cfg, center_robot, scene=None, num_steps: int = 50,
+                        mode: str = "sphere", min_pose_dist: float = 1e-3, seed: int = 0,
+                        explr_states: Optional[str] = None, draws=None, device="cuda"):
+    """Mini ergodic exploration around one centre (robot coords over the
+    explored states): drive there with the pose controller, then
+    ``num_steps`` capture steps, encoding each observation. ``draws`` is a
+    list of one ``TickDraws`` a tick, fed to the planner. Returns the
+    fingerprint {z_mu, z_var (the logvar), x, center, center_img} as
+    numpy."""
+    ev_exp, target, ev, mstate = capture_start(model, cfg, center_robot, scene, mode, seed,
+                                               explr_states, device)
+    rows = []
     for i in range(num_steps):
-        ev, obs = ev_exp.tick(ev, target, draws[i] if draws else None)
+        ev, mstate, out = capture_step(ev_exp, model, target, ev, mstate,
+                                       draws[i] if draws else None, first=i == 0)
+        rows.append(out[:3])
         if i == 0:
-            img0 = obs["image"]
-        _, out = update_dist(model, mstate, obs["robot_state"], obs["image"])
-        zm.append(out["z_mu"][0])
-        zv.append(out["z_logvar"][0])
-        xs.append(obs["robot_state"])
-    # one host copy of everything the capture kept
-    parts = [torch.stack(zm), torch.stack(zv), torch.stack(xs), img0]
+            img0 = out[3]
+    return finish_capture(rows, img0, center_robot, min_pose_dist)
+
+
+def finish_capture(rows, img0, center_robot, min_pose_dist: float = 1e-3):
+    """The fingerprint dict of a capture's steps: ``rows`` of (z_mu,
+    z_logvar, robot_state) and the first image, in one host copy, then the
+    greedy filter that keeps a pose only ``min_pose_dist`` from the last
+    kept one."""
+    num_steps = len(rows)
+    parts = [*(torch.stack(col) for col in zip(*rows)), img0]
     flat = torch.cat([p.float().reshape(-1) for p in parts]).cpu().numpy()
     zm, zv, xs_all, center_img = np.split(flat, np.cumsum([p.numel() for p in parts])[:-1])
     zm, zv = zm.reshape(num_steps, -1), zv.reshape(num_steps, -1)
     xs_all = xs_all.reshape(num_steps, -1)
 
-    # greedy filter: keep a pose only >= min_pose_dist from the last kept
     keep, last_pose = [], None
     for i in range(num_steps):
         if last_pose is None or np.linalg.norm(xs_all[i] - last_pose) >= min_pose_dist:
             keep.append(i)
             last_pose = xs_all[i]
     return {"z_mu": zm[keep], "z_var": zv[keep], "x": xs_all[keep],
-            "center": center, "center_img": center_img.reshape(tuple(img0.shape))}
+            "center": np.asarray(center_robot, np.float32),
+            "center_img": center_img.reshape(tuple(img0.shape))}
 
 
 def build_fingerprints(model: CVAE, cfg, seeds_x, seeds_y, scene=None, num_steps: int = 50,

@@ -6,12 +6,18 @@ combination and fingerprint; from ``update_tdist_step`` on, the explorer
 plans toward an adopted belief (seek the object).
 
 The reference runs the whole identification as one scanned device
-program; here the same body runs as an eager loop. The adoption switch is
-a host branch on the eval state's host step count. In the "uncertain" seek
-mode the adopted belief is the one of largest entropy, picked by a device
-``argmax`` with no host copy. The combinations of one observation share
-its forward: their distances come from the same K*S-row match. The history
-comes to the host in one copy at the end of ``run``.
+program; here each identification tick is one step of the runtime's
+``EvalExperiment`` (``EvalExperiment.step``): on the card one captured
+CUDA graph a pattern, whose carry is the eval state and every
+combination's beliefs. The adoption switch (``step <
+update_tdist_step``) and the update skip (``step % update_every``) are
+host branches on the eval state's host step count, so they key the
+patterns beside the arm's drift correction: a run has two to four. In the
+"uncertain" seek mode the adopted belief is the one of largest entropy,
+picked by a device ``argmax`` with no host copy. The combinations of one
+observation share its forward: their distances come from the same K*S-row
+match. The history comes to the host in one copy at the end of ``run``;
+the beliefs ``run`` returns are copies, not the graph's static buffers.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.config import ExperimentConfig
+from ..runtime.graphs import _addresses, _clone, module_key
 from ..runtime.tester import EvalExperiment
 from ..ops import renormalize
 from .belief import FingerprintBelief
@@ -72,7 +79,8 @@ def _identification_tick(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
                          beliefs, seek_combo: int, seek_fp: int, update_tdist_step: int,
                          update_every: int, ev, robot_lim, tray_lim, seek_mode: str = "fixed",
                          draw=None):
-    """One identification tick: the explore tick toward the adopted (or,
+    """One identification tick, one step of ``ev_exp`` (through its tick
+    graph where it has one): the explore tick toward the adopted (or,
     before ``update_tdist_step``, a neutral) belief, then the match,
     relative-pose composition and fusion of every combination.
     ``seek_mode`` "fixed" adopts fingerprint ``seek_fp``'s belief,
@@ -81,19 +89,40 @@ def _identification_tick(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
     place), ``robot_lim``/``tray_lim`` the config's limits on the device,
     ``draw`` the tick's ``TickDraws``. Returns (ev, robot_state (d,), dists
     (C, K), seek_k ())."""
+    adopted, update = ev.step >= update_tdist_step, ev.step % update_every == 0
+
+    def run(view, bel, d):
+        bel = [list(bs) for bs in bel]
+        view, *out = _identification_body(ev_exp, model, fps, cfg, combos, bel, seek_combo,
+                                          seek_fp, adopted, update, view, robot_lim,
+                                          tray_lim, seek_mode, d)
+        return view, bel, tuple(out)
+
+    pattern = ("identify", tuple(combos), seek_combo, seek_fp, seek_mode, adopted, update)
+    ev, new, out = ev_exp.step(ev, beliefs, draw, run, pattern, module_key(model),
+                               _addresses(fps), _addresses((robot_lim, tray_lim)))
+    beliefs[:] = [list(bs) for bs in new]
+    return (ev, *out)
+
+
+def _identification_body(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg, combos,
+                         beliefs, seek_combo: int, seek_fp: int, adopted: bool, update: bool,
+                         ev, robot_lim, tray_lim, seek_mode: str, draw):
+    """The identification tick's body (``_identification_tick``), its two
+    host branches given: ``adopted`` (else the target is a neutral belief)
+    and ``update`` (else the beliefs stay and the distances are NaN)."""
     dev = fps.x.device
-    step = ev.step
     if seek_mode == "uncertain":
         k_star = torch.argmax(_belief_entropies(beliefs[seek_combo]))
         seek_b = _select(beliefs[seek_combo], k_star)
     else:
         k_star = torch.full((), seek_fp, dtype=torch.int64, device=dev)
         seek_b = beliefs[seek_combo][seek_fp]
-    if step < update_tdist_step:  # not adopted yet: a neutral belief
+    if not adopted:
         seek_b = dataclasses.replace(seek_b, prior=torch.full_like(seek_b.prior, 0.5),
                                      prior_var=torch.full_like(seek_b.prior_var, 2.0))
-    ev, obs = ev_exp.tick(ev, seek_b, draw)
-    if step % update_every == 0:
+    ev, obs = ev_exp._tick(ev, seek_b, draw)
+    if update:
         out, seed_y = match_forward(model, fps, obs["image"])
         dists = []
         for ci, (method, err) in enumerate(combos):
@@ -102,7 +131,7 @@ def _identification_tick(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
                                        cfg.states, robot_lim, tray_lim, err)
             dists.append(d)
         dists = torch.stack(dists)
-    else:  # skipped: the beliefs stay, the distances are NaN
+    else:
         dists = torch.full((len(combos), fps.center.shape[0]), float("nan"), device=dev)
     return ev, obs["robot_state"], dists, k_star
 
@@ -114,7 +143,8 @@ def _identification_loop(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
     """``n_steps`` identification ticks (``_identification_tick``) from
     ``ev``; ``draws`` is one ``TickDraws`` a tick. Returns (ev, beliefs,
     outputs stacked on the device: robot_state (n, d), dists (n, C, K),
-    seek_k (n,))."""
+    seek_k (n,)); after replays ``ev`` and ``beliefs`` are the tick graph's
+    static buffers."""
     beliefs = [list(bs) for bs in beliefs]
     dev = fps.x.device
     robot_lim, tray_lim = (torch.as_tensor(cfg.robot_lim, device=dev),
@@ -183,7 +213,7 @@ class FingerprintTestRuntime:
         for i in range(0, n_steps, update_every):
             self.history.append({"step": i, "dists": da[i, 0], "robot_state": rs[i],
                                  "seek_k": int(sk[i])})
-        self.beliefs = beliefs[0]
+        self.beliefs = _clone(beliefs[0])
         return self.beliefs, self.history
 
     def belief_peaks(self):
@@ -249,7 +279,7 @@ class FingerprintMatrixRuntime:
             rec.update({key: da[i, ci] for ci, key in enumerate(keys)})
             self.history.append(rec)
         self.seek_history = sk
-        self.beliefs.update(zip(keys, beliefs))
+        self.beliefs.update(zip(keys, _clone(beliefs)))
         return self.beliefs, self.history
 
     def belief_peaks(self, key: str):

@@ -47,7 +47,7 @@ from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
 from .graphs import PlannerGraph, StepGraph, TrainerGraph, _addresses, _spec, \
-    module_key, optimizer_key
+    module_key, optimizer_key, run_step
 from .trainer import TrainerStatics, TrainDraws, train_call
 from .schedules import HyperState, hyperparam_update, entropy_grade, \
     entropy_grade_spread, manual_ramp
@@ -169,6 +169,50 @@ class ExploredStates:
         vel6 = torch.zeros(6, device=vel.device)
         vel6[self.pose_sel] = vel
         return vel6, b_cmd
+
+
+def sim_carry(pstate, env) -> tuple:
+    """What a captured step replaces of the planner's (or baseline's) and
+    the env's states: the planner state but its generator, the env state
+    but the arm's host counter."""
+    if isinstance(env, ArmState):
+        env = dataclasses.replace(env, count=0)
+    return dataclasses.replace(pstate, gen=None), env
+
+
+def with_sim_carry(pstate, env, carry) -> tuple:
+    """The planner and env states of ``carry`` (``sim_carry``'s) with
+    ``pstate``'s generator and ``env``'s host counter."""
+    new_pstate, new_env = carry
+    if isinstance(new_env, ArmState):
+        new_env = dataclasses.replace(new_env, count=env.count)
+    return dataclasses.replace(new_pstate, gen=pstate.gen), new_env
+
+
+def drift_key(env_model, env, n: int) -> tuple:
+    """Which of the next ``n`` velocity commands correct the arm's drift,
+    a pattern key of a captured step (the correction branches on the
+    arm's host counter); () off the arm."""
+    if not isinstance(env, ArmState) or env_model.drift_every <= 0:
+        return ()
+    return tuple((env.count + j + 1) % env_model.drift_every == 0 for j in range(n))
+
+
+def advance_env(env, n: int):
+    """``env`` after a captured step of ``n`` velocity commands: the arm's
+    host counter moves on."""
+    if isinstance(env, ArmState):
+        return dataclasses.replace(env, count=env.count + n)
+    return env
+
+
+def step_base(owner, generators, carry, *reads) -> tuple:
+    """The base key of a captured step: the planner's (or baseline's) own
+    tensors by address, the generators themselves (held, so that a new
+    generator cannot take a dead one's identity), the carry's structure,
+    and ``reads``, the keys of what else the step reads in place."""
+    return (tuple(generators), _spec(carry),
+            _addresses(v for v in vars(owner).values() if isinstance(v, torch.Tensor)), *reads)
 
 
 def reject_unported(cfg: ExperimentConfig):
@@ -544,12 +588,9 @@ class Experiment:
         """The host values the tick branches on: which trainer calls run,
         whether the target is the prior, and which of its velocity commands
         correct the arm's drift."""
-        drift = ()
-        if isinstance(es.env, ArmState) and self.env.drift_every > 0:
-            drift = tuple((es.env.count + j + 1) % self.env.drift_every == 0
-                          for j in range(self.cfg.data_to_ctrl_rate))
         return (self._throttle(es.explr_step, es.learning_ind),
-                es.explr_step < self.cfg.prior_steps, drift)
+                es.explr_step < self.cfg.prior_steps,
+                drift_key(self.env, es.env, self.cfg.data_to_ctrl_rate))
 
     def _stage(self, es: ExperimentState, do: tuple) -> HostValues:
         """Fill the staged host values for a step from ``es``: the step, and
@@ -581,51 +622,33 @@ class Experiment:
         generators, the trainer's statics and the carry's structure."""
         owner = self.baseline if self.use_baseline else self.planner
         ring = [getattr(es.buf, f.name) for f in dataclasses.fields(es.buf)]
-        return (id(self.cfg), self.trainer, id(es.gen), id(es.pstate.gen), _spec(carry),
-                module_key(es.model), optimizer_key(es.opt), _addresses(ring),
-                _addresses(v for v in vars(owner).values() if isinstance(v, torch.Tensor)))
+        return step_base(owner, (es.gen, es.pstate.gen), carry, id(self.cfg), self.trainer,
+                         module_key(es.model), optimizer_key(es.opt), _addresses(ring))
 
     @staticmethod
     def _carry(es: ExperimentState) -> tuple:
-        """What a tick replaces: the planner's (or baseline's) state but its
-        generator, the env's state but the arm's host counter, the target
-        state, beta and gamma."""
-        env = es.env
-        if isinstance(env, ArmState):
-            env = dataclasses.replace(env, count=0)
-        return (dataclasses.replace(es.pstate, gen=None), env, es.mstate, es.hyper.beta,
-                es.hyper.gamma)
+        """What a tick replaces: the planner's (or baseline's) state and
+        the env's (``sim_carry``), the target state, beta and gamma."""
+        return (*sim_carry(es.pstate, es.env), es.mstate, es.hyper.beta, es.hyper.gamma)
 
     @staticmethod
     def _with_carry(es: ExperimentState, carry) -> ExperimentState:
         """A view of ``es`` holding ``carry``, with ``es``'s host ints."""
-        pstate, env, mstate, beta, gamma = carry
-        if isinstance(env, ArmState):
-            env = dataclasses.replace(env, count=es.env.count)
-        return dataclasses.replace(
-            es, pstate=dataclasses.replace(pstate, gen=es.pstate.gen), env=env,
-            mstate=mstate, hyper=dataclasses.replace(es.hyper, beta=beta, gamma=gamma))
+        pstate, env = with_sim_carry(es.pstate, es.env, carry[:2])
+        mstate, beta, gamma = carry[2:]
+        return dataclasses.replace(es, pstate=pstate, env=env, mstate=mstate,
+                                   hyper=dataclasses.replace(es.hyper, beta=beta, gamma=gamma))
 
     def _graph_step(self, graph: StepGraph, es: ExperimentState, pattern, draws, run,
                     calls: int):
-        """One step through ``graph``: the pattern's first step runs eagerly,
-        its second captures, later ones replay. ``run(view, draws)`` makes
-        the step on a view of ``es`` holding the carry and returns its out;
-        the view reads the host ints as they are now, as a capture freezes
-        them (under this pattern they give the same branches on every
-        step). Then ``es`` takes the new carry and its host ints advance by
-        the step's ``calls`` trainer calls. Returns out."""
-        carry = self._carry(es)
-        frozen = dataclasses.replace(es)
-
-        def body(carry, draws):
-            view = self._with_carry(frozen, carry)
-            out = run(view, draws)
-            return self._carry(view), out
-
-        carry, out = graph.step(lambda: self._base(es, carry), pattern, carry, draws, body,
-                                [es.gen, es.pstate.gen])
-        view = self._with_carry(es, carry)
+        """One step through ``graph`` (``graphs.run_step``): the pattern's
+        first step runs eagerly, its second captures, later ones replay.
+        ``run(view, draws)`` makes the step on a view of ``es`` and returns
+        its out. Then ``es`` takes the new carry and its host ints advance
+        by the step's ``calls`` trainer calls. Returns out."""
+        view, out = run_step(graph, es, self._carry, self._with_carry, self._base, pattern,
+                             draws, lambda view, d: (view, run(view, d)),
+                             [es.gen, es.pstate.gen])
         es.pstate, es.env, es.mstate = view.pstate, view.env, view.mstate
         es.hyper = dataclasses.replace(view.hyper, iter=es.hyper.iter
                                        + calls * self.trainer.num_learning_opt)
@@ -639,9 +662,7 @@ class Experiment:
         info = self._graph_step(
             self.tick_graph, es, pattern, draws,
             lambda view, d: self._tick(view, d, graphs=False, host=host)[1], sum(pattern[0]))
-        if isinstance(es.env, ArmState):
-            es.env = dataclasses.replace(es.env, count=es.env.count
-                                         + self.cfg.data_to_ctrl_rate)
+        es.env = advance_env(es.env, self.cfg.data_to_ctrl_rate)
         es.explr_step += 1
         return es, info
 

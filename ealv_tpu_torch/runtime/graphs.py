@@ -41,17 +41,23 @@ capture ran no kernel) and adds them to ``launched`` on every replay:
 
 ``StepGraph`` goes one level up, as the reference's ``lax.scan`` over the
 tick does (``ealv_tpu/runtime/agent.py``): it captures a whole step of a
-loop (``Experiment.tick``, one post-training call) with the calls above
-run eagerly inside, one graph for each pattern of the host values the step
+loop (``Experiment.tick``, one post-training call, ``EvalExperiment.tick``,
+a fingerprint capture or identification step) with the calls above run
+eagerly inside, one graph for each pattern of the host values the step
 branches on. Its carry (what the step replaces: the planner and env state,
-the target state, beta and gamma) stays resident in static buffers that
-the step's last kernels overwrite, so the next replay reads what the last
-one wrote; the host values it computes with are staged into device scalars
+the target state, beta and gamma; the capture's model state; the
+identification's beliefs) stays resident in static buffers that the
+step's last kernels overwrite, so the next replay reads what the last one
+wrote; the host values it computes with are staged into device scalars
 before each replay. The patterns' graphs share one memory pool.
+``run_step`` is the step mechanics both runtimes share: the carry split
+off the runtime's state, the body on a view that holds the host values
+as they were, and the new carry joined back.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import time
@@ -66,6 +72,10 @@ from .trainer import train_call
 
 KERNELS = {"footprint_and_spread": footprint_and_spread, "adam_apply": adam_apply,
            "conv_wgrad_direct": conv_wgrad_direct}
+# the launches every graph's replays made since the last reset_launches(),
+# for a caller that cannot reach the graphs (a capture's EvalExperiment
+# lives only inside capture_fingerprint)
+_REPLAYED = dict.fromkeys(KERNELS, 0)
 
 
 def _leaf(x) -> bool:
@@ -221,6 +231,26 @@ def _addresses(tensors) -> tuple:
     return tuple(t.data_ptr() for t in tensors)
 
 
+def inplace_key(tree) -> tuple:
+    """What a step reads in place from ``tree`` (a planner's target
+    context): its structure, each module's parameters and buffers and
+    each tensor by address."""
+    modules, tensors = [], []
+
+    def walk(x):
+        if isinstance(x, nn.Module):
+            modules.append(x)
+        elif isinstance(x, torch.Tensor):
+            tensors.append(x)
+        elif not isinstance(x, torch.Generator):
+            found = _fields(x)
+            for _, child in (found[1] if found else ()):
+                walk(child)
+
+    walk(tree)
+    return _spec(tree), tuple(module_key(m) for m in modules), _addresses(tensors)
+
+
 def module_key(model: nn.Module) -> tuple:
     """A module by identity and the addresses of its parameters and
     buffers, which a graph reads in place."""
@@ -255,10 +285,28 @@ def kernel_launches(*graphs) -> dict:
     return out
 
 
+def total_launches() -> dict:
+    """Every kernel's launches since the last ``reset_launches()``: the
+    wrappers' eager counts plus what every graph's replays launched."""
+    counts = kernel_counts()
+    return {name: counts[name] + _REPLAYED[name] for name in KERNELS}
+
+
+def _replayed(launched: dict, recorded: dict) -> None:
+    """Add a replay's recorded launches to a graph's ``launched`` and to
+    the tally of every graph's."""
+    for name, n in recorded.items():
+        launched[name] += n
+        _REPLAYED[name] += n
+
+
 def reset_launches(*graphs) -> None:
-    """Set the wrappers' counts and the ``graphs``' replayed launches to 0."""
+    """Set the wrappers' counts, the tally of every graph's replayed
+    launches and the ``graphs``' own to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in KERNELS:
+        _REPLAYED[name] = 0
     for g in graphs:
         g.launched = dict.fromkeys(KERNELS, 0)
         g.replays = 0
@@ -390,8 +438,7 @@ class _CapturedCall:
             _copy_into(self.static, inputs)
         out = self.graph.replay()
         self.replays += 1
-        for name, n in self.recorded.items():
-            self.launched[name] += n
+        _replayed(self.launched, self.recorded)
         return _escape(out, _pairs(self.static, inputs, {}))
 
     def _capture(self, key, inputs, body, generators):
@@ -546,8 +593,7 @@ class StepGraph:
         out = entry.graph.replay()
         self.replays += 1
         self._count(pattern, 2)
-        for name, n in entry.recorded.items():
-            self.launched[name] += n
+        _replayed(self.launched, entry.recorded)
         return self.carry, _clone(out)
 
     def _capture(self, key, carry, draws, body, generators) -> _Entry:
@@ -570,3 +616,25 @@ class StepGraph:
         self.captures += 1
         self._count(key[0], 1)
         return entry
+
+
+def run_step(graph: StepGraph, state, split, join, base, pattern, draws, run, generators):
+    """One step of a runtime's ``state`` through ``graph``, the mechanics
+    ``Experiment`` and ``EvalExperiment`` share. ``split(state)`` is the
+    carry; ``join(state, carry)`` a view of ``state`` that holds ``carry``
+    and ``state``'s host values; ``run(view, draws)`` makes the step on a
+    view and returns (the new state, out); ``base(state, carry)`` is the
+    base key. The body reads the host values as they are now, as a capture
+    freezes them: under one pattern they give the same branches on every
+    step. Returns (a view of ``state`` holding the new carry, out); the
+    caller advances its host values."""
+    carry = split(state)
+    frozen = copy.copy(state)
+
+    def body(carry, draws):
+        new, out = run(join(frozen, carry), draws)
+        return split(new), out
+
+    carry, out = graph.step(lambda: base(state, carry), pattern, carry, draws, body,
+                            generators)
+    return join(state, carry), out

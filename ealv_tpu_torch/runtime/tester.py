@@ -8,6 +8,17 @@ pose.
 The planner's target shaping is off (``weight_temp=False``,
 ``weight_env=False``): the injected target is planned on as it is, so a
 plan makes one K1 launch fewer than the experiment's (no coverage spread).
+
+On the card a tick runs as a captured CUDA graph (``tick_graph``, a
+``runtime/graphs.py`` ``StepGraph`` in its own memory pool), as the JAX
+package runs its tick as one jitted program; so does each step that holds
+the tick (``step``: the fingerprint capture's tick and encode, the
+identification's tick, match and fusion), one graph a pattern of the host
+values the step branches on (the arm's drift correction, the step's own).
+The planner's draws come from its registered generator or are staged fed
+draws; what the step reads in place (the planner's tensors, the target
+context) keys its graphs by address. With ``tick_graph`` set to None the
+steps run eagerly.
 """
 
 from __future__ import annotations
@@ -25,7 +36,9 @@ from ..control.barrier import setup_barrier
 from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
-from .agent import ExploredStates, TickDraws, reject_unported
+from .agent import ExploredStates, TickDraws, advance_env, drift_key, reject_unported, \
+    sim_carry, step_base, with_sim_carry
+from .graphs import StepGraph, inplace_key, run_step
 
 
 @dataclasses.dataclass
@@ -73,6 +86,9 @@ class EvalExperiment:
         self.env = env_cls(tray_lim=tuple(TRAY_LIM[s] for s in "xyzrpw"),
                            dt=cfg.dt / 5.0, img_hw=cfg.image_dim[:2], device=str(self.device))
         self.scene = scene
+        # the captured steps on the card, one memory pool for their patterns
+        self.tick_graph = (StepGraph(pool=torch.cuda.MemPool())
+                           if self.device.type == "cuda" else None)
 
     def init(self, start_tray_pose=None, seed: int = 0, shrink_center=None,
              shrink_scale: float = 0.4) -> EvalState:
@@ -109,8 +125,56 @@ class EvalExperiment:
         return dataclasses.replace(ev, env=env)
 
     def tick(self, ev: EvalState, pdf_ctx, draws: TickDraws | None = None):
-        """One exploration step; ``draws`` feeds the planner's samples and
-        history indices. Returns (ev, {robot_state, image, force, cost})."""
+        """One exploration step toward ``pdf_ctx`` (through the tick graph
+        where the runtime has one; the context is read in place);
+        ``draws`` feeds the planner's samples and history indices. Returns
+        (ev, {robot_state, image, force, cost})."""
+
+        def run(view, extra, d):
+            view, obs = self._tick(view, pdf_ctx, d)
+            return view, extra, obs
+
+        ev, _, obs = self.step(ev, (), draws, run, ("tick",), inplace_key(pdf_ctx))
+        return ev, obs
+
+    def step(self, ev: EvalState, extra, draws, run, pattern: tuple, *reads):
+        """One step that holds the eval tick, through the tick graph where
+        the runtime has one (``graphs.run_step``: a pattern's first step
+        runs eagerly, its second captures, later ones replay), else
+        eagerly. ``extra`` is the step's carry beside the eval state (the
+        capture's model state, the identification's beliefs); ``run(view,
+        extra, draws)`` makes the step on a view of ``ev``, ticking through
+        ``_tick``, and returns (eval state, extra, out). ``pattern`` keys
+        the host values the step branches on (the arm's drift correction
+        is added here), ``reads`` what else it reads in place. Returns (ev,
+        extra, out): after a replay ``ev`` and ``extra`` are the graph's
+        static buffers, which the next replay overwrites; out is cloned."""
+        if self.tick_graph is None:
+            return run(ev, extra, draws)
+        gen = ev.pstate.gen
+
+        def split(state):
+            ev, extra = state
+            return (*sim_carry(ev.pstate, ev.env), extra)
+
+        def join(state, carry):
+            ev = state[0]
+            pstate, env = with_sim_carry(ev.pstate, ev.env, carry[:2])
+            return dataclasses.replace(ev, pstate=pstate, env=env), carry[2]
+
+        def body(state, d):
+            ev, extra, out = run(*state, d)
+            return (ev, extra), out
+
+        (view, extra), out = run_step(
+            self.tick_graph, (ev, extra), split, join,
+            lambda state, carry: step_base(self.planner, (gen,), carry, *reads),
+            (*pattern, drift_key(self.env, ev.env, 1)), draws, body, [gen])
+        return (dataclasses.replace(view, env=advance_env(view.env, 1), step=ev.step + 1),
+                extra, out)
+
+    def _tick(self, ev: EvalState, pdf_ctx, draws: TickDraws | None = None):
+        """The tick's body."""
         pstate = self.planner.save_update(ev.pstate, self.explored.measured(ev.env),
                                           save=True)
         pstate, info = self.planner.plan(pstate, pdf_ctx,

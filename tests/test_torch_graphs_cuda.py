@@ -1,6 +1,7 @@
-"""The captured trainer and planner calls and the captured tick and
-post-training call (``runtime/graphs.py``) against the eager calls on the
-card, at toy size.
+"""The captured trainer and planner calls, the captured tick and
+post-training call, and the eval runtime's captured steps (the eval tick,
+the fingerprint capture, the identification run) (``runtime/graphs.py``)
+against the eager calls on the card, at toy size.
 
 Every test needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so it runs on the card's machine:
@@ -350,3 +351,185 @@ def test_captured_post_training_call_is_bit_equal(cuda, kernels):
     (entry,) = g.entries.values()
     assert entry.recorded == {"footprint_and_spread": 1, "adam_apply": 2 if kernels else 0,
                               "conv_wgrad_direct": 6 if kernels else 0}
+
+
+# ------------------------------------------------------------ the eval runtime's steps
+
+def _leaves(tree, path=""):
+    """[(path, value)] of every tensor and plain value in ``tree``; a
+    generator as its state."""
+    from ealv_tpu_torch.runtime import graphs as tg
+    if isinstance(tree, torch.Generator):
+        return [(path, tree.get_state())]
+    if isinstance(tree, torch.Tensor) or tg._leaf(tree) or isinstance(tree, torch.nn.Module):
+        return [(path, tree)]
+    return [leaf for k, v in tg._fields(tree)[1] for leaf in _leaves(v, f"{path}.{k}")]
+
+
+def _bit_equal(a, b, what):
+    la, lb = _leaves(a), _leaves(b)
+    assert [p for p, _ in la] == [p for p, _ in lb], what
+    for (path, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x.nan_to_num(), y.nan_to_num()) and torch.equal(
+                x.isnan(), y.isnan()), f"{what}{path}"
+        elif not isinstance(x, torch.nn.Module):
+            assert x == y, f"{what}{path}"
+
+
+FP_TOY = dict(states="xyw", image_dim=(24, 24, 3), cnn_kernels=(3, 3), cnn_strides=(2, 2),
+              cnn_channels=(8, 8), hidden_dim=(64, 32), z_dim=8, num_target_samples=128,
+              num_traj_samples=64, traj_buffer_capacity=256, buffer_capacity=256,
+              compute_dtype="float32")
+
+
+def _fp_model(cfg):
+    from ealv_tpu_torch.models import CVAE
+    model = CVAE(img_dim=cfg.image_dim, z_dim=cfg.z_dim, s_dim=cfg.s_dim,
+                 hidden_dim=cfg.model_hidden(), cnn_kernels=cfg.cnn_kernels,
+                 cnn_strides=cfg.cnn_strides, cnn_channels=cfg.cnn_channels)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to("cuda")
+
+
+def _eval_fed(ev, cfg, k, rng):
+    lims = ev.pstate.lims.cpu().numpy()
+    hist = np.concatenate([rng.permutation(k + 1),
+                           k + 1 + rng.permutation(cfg.traj_buffer_capacity - k - 1)])
+    return TickDraws(samples=torch.tensor(rng.uniform(lims[:, 0], lims[:, 1], (
+        cfg.num_target_samples, lims.shape[0])), dtype=torch.float32, device="cuda"),
+                     hist_idx=torch.tensor(hist[: cfg.num_traj_samples], device="cuda"))
+
+
+EVAL_PATHS = {"xyw-cvae": dict(states="xyw"), "xyzrpw-explr": dict(states="xyzrpw"),
+              "arm-drift": dict(states="xyw", sim_backend="arm")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fed", [False, True], ids=["generator", "fed"])
+@pytest.mark.parametrize("path", list(EVAL_PATHS))
+def test_captured_eval_tick_is_bit_equal(cuda, path, fed):
+    """Eight EvalExperiment ticks through the tick graph against the eager
+    ticks (``tick_graph`` set to None), toward a frozen CVAE's pdf or an
+    ExplrDist, on the planner's generator or on fed draws; on the arm a
+    drift correction every second command, so the drift key flips every
+    tick and both patterns replay. Every tick's observation (compared
+    after the last) and the eval state after every tick, bit for bit."""
+    from ealv_tpu_torch.control import ExplrDist
+    from ealv_tpu_torch.models import init_model_state, update_dist
+    from ealv_tpu_torch.runtime import EvalExperiment
+    cfg = ExperimentConfig(**{**FP_TOY, **EVAL_PATHS[path]})
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    if path == "xyw-cvae":
+        model = _fp_model(cfg)
+        ms, _ = update_dist(model, init_model_state(model, "cuda"), t(rng.uniform(-1, 1, 3)),
+                            t(rng.uniform(0, 1, cfg.image_dim)))
+        fn, ctx = (lambda c, s: c[0].pdf(c[1], s)), (model, ms)
+    else:
+        ctx = ExplrDist.create(8, cfg.s_dim, device="cuda")
+        for _ in range(3):
+            ctx = ctx.push(t(rng.uniform(-0.6, 0.6, cfg.s_dim)),
+                           t(rng.uniform(0.02, 0.08, cfg.s_dim)))
+        fn = lambda c, s: c.pdf(s)
+    runs = []
+    for graphs in (False, True):
+        ev_exp = EvalExperiment(cfg, fn, device="cuda")
+        if path == "arm-drift":
+            ev_exp.env = dataclasses.replace(ev_exp.env, drift_every=2)
+        if not graphs:
+            ev_exp.tick_graph = None
+        runs.append([ev_exp, ev_exp.init(seed=2), []])
+    for k in range(8):
+        draws = _eval_fed(runs[0][1], cfg, k, rng) if fed else None
+        for run in runs:
+            run[1], obs = run[0].tick(run[1], ctx, draws)
+            run[2].append(obs)
+        _bit_equal(runs[0][1], runs[1][1], f"tick {k} ")
+    _bit_equal(runs[0][2], runs[1][2], "observations ")
+    g = runs[1][0].tick_graph
+    assert g.warmups + g.replays == 8 and g.replays >= 4
+    if path == "arm-drift":
+        assert {p[-1] for p in g.counts} == {(True,), (False,)}
+        assert all(c[2] >= 2 for c in g.counts.values())
+
+
+@pytest.mark.cuda
+def test_captured_capture_is_bit_equal(cuda):
+    """Six capture steps (the eval tick toward the sphere target, then the
+    encode) through the capture's step graph against the eager steps: every
+    step's latents, robot state and first image, the final eval state and
+    model state, bit for bit; then the public capture_fingerprint (its
+    EvalExperiment captures inside the call) against the eager steps'
+    fingerprint."""
+    from ealv_tpu_torch.fingerprint import capture as tcap
+    cfg = ExperimentConfig(**FP_TOY)
+    model = _fp_model(cfg)
+    center = np.array([0.2, -0.3, 0.1], np.float32)
+    runs = []
+    for graphs in (False, True):
+        ev_exp, target, ev, ms = tcap.capture_start(model, cfg, center, seed=1, device="cuda")
+        if not graphs:
+            ev_exp.tick_graph = None
+        outs = []
+        for i in range(6):
+            ev, ms, out = tcap.capture_step(ev_exp, model, target, ev, ms, first=i == 0)
+            outs.append(out)
+        runs.append((outs, ev, ms, ev_exp.tick_graph))
+    for what, i in (("outs ", 0), ("eval state ", 1), ("model state ", 2)):
+        _bit_equal(runs[0][i], runs[1][i], what)
+    assert runs[1][3].replays == 4
+    want = tcap.finish_capture([o[:3] for o in runs[0][0]], runs[0][0][0][3], center, 0.0)
+    got = tcap.capture_fingerprint(model, cfg, center, num_steps=6, min_pose_dist=0.0, seed=1,
+                                   device="cuda")
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("update_every", [1, 2])
+@pytest.mark.parametrize("seek_mode", ["fixed", "uncertain"])
+def test_captured_identification_run_is_bit_equal(cuda, seek_mode, update_every):
+    """Ten identification ticks of the matrix runtime over the four
+    combinations, adoption at step 3 (two to four patterns), through the
+    tick graph against the eager run: the history, the adopted objects and
+    the returned beliefs bit for bit; the returned beliefs are not the
+    graph's static buffers."""
+    from ealv_tpu_torch.fingerprint import FingerprintBelief, FingerprintSet, \
+        calibrate_thresholds
+    from ealv_tpu_torch.fingerprint.test_runtime import FingerprintMatrixRuntime
+    cfg = ExperimentConfig(**FP_TOY)
+    model = _fp_model(cfg)
+    rng = np.random.default_rng(12)
+    dicts = [{"z_mu": rng.standard_normal((s, 8)).astype(np.float32) + 2.0 * i,
+              "z_var": rng.uniform(-2.0, 0.5, (s, 8)).astype(np.float32),
+              "x": rng.uniform(-1, 1, (s, 3)).astype(np.float32),
+              "center": rng.uniform(-0.5, 0.5, 3).astype(np.float32),
+              "center_img": rng.uniform(0, 1, cfg.image_dim).astype(np.float32)}
+             for i, s in enumerate((5, 4))]
+    fps = FingerprintSet.from_lists(dicts, device="cuda")
+    combos = (("L2", False), ("KL", False), ("BC", False), ("L2", True))
+    runs = []
+    for graphs in (False, True):
+        beliefs = {}
+        for m, e in combos:
+            th, cl = calibrate_thresholds(fps, m)
+            beliefs[f"{m}_error" if e else m] = [FingerprintBelief.create(
+                cfg.states, cfg.robot_lim, num_samples=12, meas_capacity=8, thresh=th, clip=cl,
+                device="cuda") for _ in range(2)]
+        rt = FingerprintMatrixRuntime(cfg, model, fps, combos=combos, seek_mode=seek_mode,
+                                      update_tdist_step=3, beliefs=beliefs, device="cuda")
+        if not graphs:
+            rt._ev.tick_graph = None
+        runs.append((rt, *rt.run(10, seed=5, update_every=update_every)))
+    (rt_e, b_e, h_e), (rt_g, b_g, h_g) = runs
+    for a, b in zip(h_e, h_g, strict=True):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    np.testing.assert_array_equal(rt_e.seek_history, rt_g.seek_history)
+    _bit_equal(b_e, b_g, "beliefs ")
+    g = rt_g._ev.tick_graph
+    assert len(g.counts) == 2 * update_every and g.replays >= 10 - 4 * update_every
+    ptrs = lambda tree: {v.data_ptr() for _, v in _leaves(tree)
+                         if isinstance(v, torch.Tensor) and v.numel()}
+    assert not ptrs(g.carry) & ptrs(b_g)

@@ -22,10 +22,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ealv_tpu_torch.fingerprint import FingerprintSet
-from ealv_tpu_torch.fingerprint.capture import capture_fingerprint, make_capture_target
+from ealv_tpu_torch.fingerprint.capture import capture_fingerprint, capture_start, \
+    capture_step, make_capture_target
 from ealv_tpu_torch.fingerprint.test_runtime import (FingerprintMatrixRuntime,
                                                      _identification_tick)
-from ealv_tpu_torch.models import CVAE, init_model_state, update_dist
+from ealv_tpu_torch.models import CVAE
 from ealv_tpu_torch.runtime import EvalExperiment, Experiment
 from ealv_tpu_torch.sim import SyntheticEnv, TrayScene
 from ealv_tpu_torch.utils.config import TRAY_LIM, ExperimentConfig
@@ -214,25 +215,22 @@ def test_eval_tick_makes_no_round_trip():
     assert _round_trips(eval_parts("cpu")) == {}
 
 
-def fingerprint_ticks(cfg, model, scene, fps, center, robot_lim, tray_lim, dev, warm=1):
-    """A capture tick (the eval tick toward the capture target at
+def fingerprint_ticks(cfg, model, scene, fps, center, robot_lim, tray_lim, dev, warm=2):
+    """A capture step (the eval tick toward the capture target at
     ``center``, std x 0.1, then the encoding of its observation) and an
     identification tick in each seek mode (the tick toward the adopted
     belief, the match and the fusion of ``FP_COMBOS``), each after ``warm``
-    ticks, as [(name, call)]. ``chip_smoke.py`` checks its production
-    stage through this."""
+    steps, as [(name, call)]: on the card each runtime's step graph has
+    captured by then, and each call raises if its step did not replay.
+    ``chip_smoke.py`` checks its production stage through this."""
     center = np.asarray(center, np.float32)
-    cap = EvalExperiment(cfg, lambda ctx, s: ctx.pdf(s), scene=scene, kernel_std_scale=0.1,
-                         device=dev)
-    target = make_capture_target(cfg.states, center, "sphere", device=dev)
-    st = {"ev": cap.init(seed=0, shrink_center=center)}
-    mstate = init_model_state(model, dev)
+    cap, target, ev, mstate = capture_start(model, cfg, center, scene=scene, device=dev)
+    st = {"ev": ev, "mstate": mstate}
 
     def capture_tick():
-        st["ev"], obs = cap.tick(st["ev"], target)
-        update_dist(model, mstate, obs["robot_state"], obs["image"])
+        st["ev"], st["mstate"], _ = capture_step(cap, model, target, st["ev"], st["mstate"])
 
-    parts = [("capture tick", capture_tick)]
+    steps = [("capture step", cap, capture_tick)]
     for mode in ("fixed", "uncertain"):
         rt = FingerprintMatrixRuntime(cfg, model, fps, combos=FP_COMBOS, seek_mode=mode,
                                       update_tdist_step=0, scene=scene, device=dev)
@@ -244,11 +242,20 @@ def fingerprint_ticks(cfg, model, scene, fps, center, robot_lim, tray_lim, dev, 
                                                 rt.seek_combo, rt.seek_fingerprint, 0, 1,
                                                 ev["ev"], robot_lim, tray_lim, mode)
 
-        parts.append((f"identification tick ({mode})", id_tick))
-    for _, call in parts:
+        steps.append((f"identification tick ({mode})", rt._ev, id_tick))
+    for _, _, step in steps:
         for _ in range(warm):
-            call()
-    return parts
+            step()
+
+    def replayed(ev_exp, step):
+        graph = ev_exp.tick_graph
+        before = None if graph is None else graph.replays
+        step()
+        if graph is not None and graph.replays != before + 1:
+            raise RuntimeError("the checked step did not replay its graph")
+
+    return [(name, lambda ev_exp=ev_exp, step=step: replayed(ev_exp, step))
+            for name, ev_exp, step in steps]
 
 
 def fingerprint_parts(dev):
