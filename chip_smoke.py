@@ -2475,8 +2475,10 @@ def phase_arm_agreement(n_host=8):
             for k in range(n_host):
                 _host_script(k, runner)
                 es = runner.step(es)
-                out.append({"q": bridge.state.q, "pose": bridge.state.pose, "plan": es.pstate.u,
-                            "explr_step": torch.tensor(float(es.explr_step))})
+                # copies: a replayed step overwrites the state's tensors
+                out.append(_kept({"q": bridge.state.q, "pose": bridge.state.pose,
+                                  "plan": es.pstate.u,
+                                  "explr_step": torch.tensor(float(es.explr_step))}))
             es = runner.run(es, 0)
             n = es.buf.size
             out.append({"ring x": es.buf.x[:n], "ring y": es.buf.y[:n].float(),
@@ -2680,58 +2682,183 @@ def _count_plans(exp):
     return plans
 
 
-def phase_host_loop_path(n_warm=2, n_timed=24):
-    """The host loop at production size on arm-dynamic: HostLoopRunner over
+def _host_ready(runner, es, n):
+    """Each of the runner's next ``n`` steady steps (no stuck hit or pause)
+    replays its pattern's step graph: the patterns follow from the host
+    ints and the arm's command count alone."""
+    from ealv_tpu_torch.runtime.graphs import _spec
+    s, env = dataclasses.replace(es), runner.bridge.state
+    for _ in range(n):
+        pattern = runner._pattern(s, env)
+        if (pattern, _spec(((), (None, None)))) not in runner.step_graph.entries:
+            return False
+        s.learning_ind += sum(pattern[0])
+        s.explr_step += 1
+        env = dataclasses.replace(env, count=env.count + 1)
+    return True
+
+
+def _host_pattern_name(pattern) -> str:
+    """A host-loop step pattern (trainer calls, prior, drift, brightness)."""
+    do, prior, drift, b = pattern
+    return (f"{sum(do)} trainer call{'s' * (sum(do) != 1)}" + (", prior" if prior else "")
+            + (", drift" if any(drift) else "") + (", brightness" if b else ""))
+
+
+def _counted(obj, name, n: list):
+    """Count the calls of ``obj.name`` into ``n[0]``."""
+    fn = getattr(obj, name)
+
+    def counted(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+
+    setattr(obj, name, counted)
+
+
+def phase_host_loop_path(least=24, rounds=2, chunk=6):
+    """The host loop at production size on arm-dynamic, HostLoopRunner over
     a SyntheticBridge in the device-resident mode (command, observation,
     absorb and plan on the card; a 13+3-float watchdog slice to pinned host
-    memory). drive_to_start (no K1 launch), warm steps, then timed ones:
-    ms/step, the events logged, and 13 K1 launches per plan (one plan a
-    step unless a stuck hit or a pause re-primes one). Returns (launches,
-    ms/step, plans)."""
+    memory), two ways in one call: through the runner's step graph (the
+    default on the card) and eagerly (the step graph and every experiment
+    graph None), from the same seed. drive_to_start (no K1 launch), then
+    the same steps on both: warm steps (at least ``least``) until each of
+    the next ``2 rounds chunk`` + 3 steps replays its pattern's graph,
+    ``rounds`` x 4 timed chunks of ``chunk`` steps in turns (graphed,
+    eager, eager, graphed), 3 profiled steps each. In a graphed chunk every
+    step replays and makes no eager K1 launch (a primed plan after a stuck
+    hit runs the planner graph), and K1 launches 13 times a plan through
+    the replays; in an eager chunk 13 a plan. Every pending command, every
+    arm state, the events and every state leaf are held bit for bit. Then
+    a replayed step without and with a trainer call under
+    ``set_sync_debug_mode("error")``. Returns the readings."""
     import torch
     from ealv_tpu_torch.hw.bridge import SyntheticBridge
-    from ealv_tpu_torch.ops import footprint_and_spread
     from ealv_tpu_torch.runtime import Experiment, HostLoopRunner
+    from ealv_tpu_torch.runtime.graphs import kernel_counts, reset_launches, total_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
 
     cfg = ExperimentConfig(**{**PRODUCTION, "sim_backend": "arm-dynamic"})
-    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
-    plans = _count_plans(exp)
-    es = exp.init(seed=0)
-    bridge = SyntheticBridge(exp.env, es.env)
-    runner = HostLoopRunner(exp, bridge)
-    if not (runner._fast and runner._cmd_absorb_plan is not None):
-        raise RuntimeError("host loop path: the device-resident step is not in use")
-    footprint_and_spread.launches = 0
-    t0 = time.perf_counter()
-    ok, pos = runner.drive_to_start(bridge.klerg_start_pose(), yaw_index=5)
-    seek_s = time.perf_counter() - t0
-    if footprint_and_spread.launches != 0 or plans:
-        raise RuntimeError(f"drive_to_start made {footprint_and_spread.launches} K1 launches")
-    es = runner.run(es, n_warm)
-    torch.cuda.synchronize()
-    footprint_and_spread.launches = 0
-    plans.clear()
-    n_events = len(runner.events)
-    t0 = time.perf_counter()
-    es = runner.run(es, n_timed)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    launches = footprint_and_spread.launches
-    if launches != 13 * len(plans) or len(plans) < n_timed:
-        raise RuntimeError(f"host loop path: {launches} K1 launches for {len(plans)} plans "
-                           f"in {n_timed} steps")
-    if es.explr_step != n_warm + n_timed or not (es.buf.y.is_cuda and bridge.state.q.is_cuda):
-        raise RuntimeError(f"host loop path: explr_step {es.explr_step}, or state left the card")
+    runs = {}
+    for mode in ("graphs", "eager"):
+        exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+        es = exp.init(seed=0)
+        bridge = SyntheticBridge(exp.env, es.env)
+        runner = HostLoopRunner(exp, bridge)
+        if not (runner._fast and runner._cmd_absorb_plan is not None):
+            raise RuntimeError("host loop path: the device-resident step is not in use")
+        if mode == "eager":
+            runner.step_graph = exp.tick_graph = exp.post_train_graph = None
+            exp.trainer_graph = exp.planner_graph = None
+        elif runner.step_graph is None or runner.step_graph.pool is not exp.graph_pool:
+            raise RuntimeError("host loop path: no step graph in the experiment's pool")
+        primes, steps = [0], [0]
+        _counted(runner, "_plan_obs", primes)
+        _counted(runner, "_step_absorb_plan", steps)
+        reset_launches()
+        t0 = time.perf_counter()
+        ok, pos = runner.drive_to_start(bridge.klerg_start_pose(), yaw_index=5)
+        seek_s = time.perf_counter() - t0
+        if total_launches()["footprint_and_spread"] or primes[0]:
+            raise RuntimeError("drive_to_start made K1 launches or plans")
+        runs[mode] = dict(runner=runner, es=es, primes=primes, steps=steps, outs=[],
+                          seek=(ok, pos, seek_s))
+
+    def step(run):
+        run["runner"].step(run["es"])
+        pending = run["runner"]._pending
+        run["outs"].append((None if pending is None else pending[2].clone(),
+                            _tree(run["runner"].bridge.state)))
+
+    g_run = runs["graphs"]
+    g = g_run["runner"].step_graph
+    n_warm = 0
+    while n_warm < least or not _host_ready(g_run["runner"], g_run["es"],
+                                            2 * rounds * chunk + 3):
+        if n_warm > 150:
+            raise RuntimeError(f"host loop path: not every pattern captured after 150 steps: "
+                               f"{g.counts}")
+        for run in runs.values():
+            step(run)
+        n_warm += 1
+    turns = {"graphs": [], "eager": []}
+    k1 = {"graphs": [0, 0], "eager": [0, 0]}  # (launches, plans)
+    for mode in ("graphs", "eager", "eager", "graphs") * rounds:
+        run = runs[mode]
+        reset_launches()
+        replays, steps0, primes0 = g.replays, run["steps"][0], run["primes"][0]
+        warm_plans = g_run["runner"].exp.planner_graph.warmups
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            step(run)
+        torch.cuda.synchronize()
+        turns[mode].append((time.perf_counter() - t0) / chunk * 1e3)
+        plans = run["steps"][0] - steps0 + run["primes"][0] - primes0
+        launches, eager = total_launches()["footprint_and_spread"], \
+            kernel_counts()["footprint_and_spread"]
+        k1[mode][0] += launches
+        k1[mode][1] += plans
+        if mode == "graphs":
+            eager_plans = g_run["runner"].exp.planner_graph.warmups - warm_plans
+            if (g.replays - replays != chunk or launches != 13 * plans
+                    or eager != 13 * eager_plans):
+                raise RuntimeError(f"host loop path: {g.replays - replays} replays in a chunk "
+                                   f"of {chunk}, K1 {launches} through the graphs for {plans} "
+                                   f"plans, {eager} eager")
+        elif eager != 13 * plans:
+            raise RuntimeError(f"host loop path, eager: K1 {eager} for {plans} plans")
+    profiles = {}
+    for mode, run in runs.items():
+        def three(run=run):
+            for _ in range(3):
+                step(run)
+        wall, busy, _, _, n = _profiled_call(three)
+        profiles[mode] = dict(host_ms=wall, busy_ms=busy, intervals=n)
+    eager_run = runs["eager"]
+    if eager_run["runner"].events != g_run["runner"].events:
+        raise RuntimeError(f"host loop path: events {g_run['runner'].events} against eager "
+                           f"{eager_run['runner'].events}")
+    n_out = _tree_equal("host loop path: graphed commands and arm states against eager",
+                        _tree(eager_run["outs"]), _tree(g_run["outs"]))
+    n_state = _tree_equal("host loop path: graphed state against eager",
+                          _snapshot(eager_run["es"]), _snapshot(g_run["es"]))
+    es, bridge = g_run["es"], g_run["runner"].bridge
+    if not (es.buf.y.is_cuda and bridge.state.q.is_cuda):
+        raise RuntimeError("host loop path: the state left the card")
     if not torch.isfinite(bridge.state.pose).all():
         raise RuntimeError("host loop path: non-finite pose")
-    print(f"[host loop path] arm-dynamic, device-resident: drive_to_start "
+    sync = _tick_builders()
+    for trained in (False, True):
+        _sync_free(f"host-loop step (arm-dynamic, production, replayed"
+                   f"{', a trainer call' if trained else ''})",
+                   sync.host_loop_step(g_run["runner"], es, trained=trained))
+    ok, pos, seek_s = g_run["seek"]
+    r = dict(turns=turns, ms={m: float(np.median(v)) for m, v in turns.items()},
+             profile=profiles, k1=k1, pool_mib=_pool_mib(g), n_warm=n_warm,
+             counts={_host_pattern_name(p): c for p, c in g.counts.items()},
+             capture_s={_host_pattern_name(p): [round(t, 3) for t in v]
+                        for p, v in g.capture_seconds.items()},
+             steps=len(g_run["outs"]), leaves=(n_out, n_state),
+             events=g_run["runner"].events)
+    p = r["profile"]
+    print(f"[host loop path] arm-dynamic, device-resident, production: drive_to_start "
           f"{'reached' if ok else 'missed'} {np.round(pos, 3).tolist()} in {seek_s:.2f} s "
-          f"(0 K1); {n_timed} steps after {n_warm} warm: {dt * 1e3:.2f} ms/step = "
-          f"{1.0 / dt:.2f} Hz | K1 launches {launches} for {len(plans)} plans (13/plan) | "
-          f"events in the timed steps {runner.events[n_events:] or 'none'} | learning_ind "
+          f"(0 K1) | ms/step in turns (medians of {2 * rounds} chunks of {chunk} after "
+          f"{n_warm} warm), graphed {r['ms']['graphs']:.2f} "
+          f"{[round(v, 2) for v in turns['graphs']]}, eager {r['ms']['eager']:.2f} "
+          f"{[round(v, 2) for v in turns['eager']]} | 3 profiled steps, host ms / busy ms / "
+          f"intervals: " + "; ".join(f"{m} {p[m]['host_ms']:.2f} / {p[m]['busy_ms']:.2f} / "
+                                     f"{p[m]['intervals']}" for m in p)
+          + f" | K1 in the timed chunks: graphed {k1['graphs'][0]} through the replays for "
+          f"{k1['graphs'][1]} plans, 0 eager in replayed steps; eager {k1['eager'][0]} for "
+          f"{k1['eager'][1]} plans (13/plan) | [eager, captured, replays] by pattern "
+          f"{r['counts']} | capture s {r['capture_s']} | pool {r['pool_mib']} MiB | "
+          f"{r['steps']} steps bit-equal to eager steps: {n_out} command and arm leaves, "
+          f"{n_state} state leaves, the events {r['events'] or 'none'} | learning_ind "
           f"{es.learning_ind}")
-    return launches, dt * 1e3, len(plans)
+    return r
 
 
 def phase_native_bridge(n_steps=12, budget_s=60.0):
@@ -2742,11 +2869,14 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     180x180 on the card from the driver's pose. Runs until n_steps samples
     are absorbed, within budget_s seconds (a degraded loop rate fails
     commands and pauses the runner until the heartbeat recovers it, 0.2 s
-    later). Prints the loop's stats."""
+    later). The runner takes the host-pipelined step through its step
+    graph (the host observation staged), which replays once a pattern is
+    captured; every plan (a step's, or one primed after a recovery) makes
+    13 K1 launches, counted through the replays. Prints the loop's stats."""
     import torch
     from ealv_tpu_torch.hw.bridge import NativeBridge
-    from ealv_tpu_torch.ops import footprint_and_spread
     from ealv_tpu_torch.runtime import Experiment, HostLoopRunner
+    from ealv_tpu_torch.runtime.graphs import reset_launches, total_launches
     from ealv_tpu_torch.runtime.watchdog import RecoveryHeartbeat
     from ealv_tpu_torch.sim.renderer import TrayScene, render_camera
     from ealv_tpu_torch.utils.config import ExperimentConfig
@@ -2782,7 +2912,12 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     try:
         runner = HostLoopRunner(exp, bridge,
                                 heartbeat=RecoveryHeartbeat(period_s=5.0, timeout_s=0.2))
-        footprint_and_spread.launches = 0
+        if runner._fast or runner.step_graph is None:
+            raise RuntimeError("native bridge: not the host-pipelined step through a graph")
+        plans = [0]
+        _counted(runner, "_plan_obs", plans)
+        _counted(runner, "_step_absorb_plan", plans)
+        reset_launches()
         t0, iters = time.perf_counter(), 0
         while es.explr_step < n_steps and time.perf_counter() - t0 < budget_s:
             es = runner.step(es)
@@ -2794,6 +2929,13 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     finally:
         bridge.stop()
     stats = bridge.loop_stats()
+    g, k1 = runner.step_graph, total_launches()["footprint_and_spread"]
+    counts = {_host_pattern_name(p): c for p, c in g.counts.items()}
+    capture_s = {_host_pattern_name(p): [round(t, 3) for t in v]
+                 for p, v in g.capture_seconds.items()}
+    if g.replays < 1 or k1 != 13 * plans[0]:
+        raise RuntimeError(f"native bridge: {g.replays} step-graph replays, K1 {k1} for "
+                           f"{plans[0]} plans")
     if es.explr_step < n_steps:
         raise RuntimeError(f"native bridge: {es.explr_step} samples in {iters} steps; events "
                            f"{runner.events}; loop {stats}")
@@ -2802,12 +2944,15 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     if not np.isfinite(drv.pose).all() or stats["ticks"] <= 0:
         raise RuntimeError(f"native bridge: driver pose {drv.pose}, loop {stats}")
     print(f"[native bridge] library built/loaded in {t_build:.2f} s; {es.explr_step} samples "
-          f"in {iters} host-loop steps, {wall:.2f} s ({wall / iters * 1e3:.2f} ms/step) | K1 "
-          f"launches {footprint_and_spread.launches} | events {runner.events or 'none'} | "
+          f"in {iters} host-loop steps, {wall:.2f} s ({wall / iters * 1e3:.2f} ms/step) | "
+          f"host-pipelined step graph [eager, captured, replays] by pattern {counts}, "
+          f"capture s {capture_s} | K1 launches {k1} for {plans[0]} plans (13/plan, through the replays) | "
+          f"events {runner.events or 'none'} | "
           f"loop_stats: {stats['rate_hz']:.1f} Hz over {stats['ticks']} ticks, jitter mean "
           f"{stats['jitter_mean_s'] * 1e6:.1f} us, max {stats['jitter_max_s'] * 1e6:.1f} us, "
           f"{stats['missed']} missed deadlines | driver pose "
           f"{np.round(drv.pose[:3], 4).tolist()}")
+    stats["ms_step"], stats["k1"], stats["plans"] = wall / iters * 1e3, k1, plans[0]
     return stats
 
 
@@ -3035,8 +3180,88 @@ def phase_dp_trainer(n_filled=200, rounds=2):
           f"{[round(x, 2) for x in times[True]]} / {[round(x, 2) for x in times[False]]}) | "
           f"device busy ms a call: {dev[True]:.2f} / {dev[False]:.2f} (each profiled call: "
           f"{busy[True]} / {busy[False]} ms in {spans[True]} / {spans[False]} intervals)")
+    captured = _dp_trainer_graph(cfg, mesh, n_filled, rounds)
     return dict(host_ms=host[True], plain_host_ms=host[False], busy_ms=dev[True],
-                plain_busy_ms=dev[False], k2=k2, k3=k3)
+                plain_busy_ms=dev[False], k2=k2, k3=k3, captured=captured)
+
+
+def _dp_trainer_graph(cfg, mesh, n_filled, rounds):
+    """The data-parallel call through a ``TrainerGraph`` (its all-reduces
+    captured with it) against the eager data-parallel call at production
+    size on the one NCCL rank, with the trainer kernels on and off, as
+    ``phase_trainer_graphs`` holds the plain call: three experiments from
+    seed 0 share one ring, two call eagerly, one through the graph (an
+    eager call, a capture and its replay, a replay) on the same fed draws;
+    the captured call equals the eager one bit for bit where the two eager
+    calls agree bit for bit (K3's deterministic wgrad), and stays within
+    their spread where they do not (cuDNN's). Then host ms per call on the
+    generator's draws, eager against captured in turns, and busy ms."""
+    import torch
+    from ealv_tpu_torch.parallel import dp_train_call
+    from ealv_tpu_torch.runtime.graphs import TrainerGraph
+
+    betas = [torch.tensor(v, device="cuda") for v in (0.005, 0.01, 0.02)]
+    gammas = [torch.tensor(v, device="cuda") for v in (0.5, 0.25, 0.125)]
+    err = lambda a, b: max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    ring, out = None, {}
+    for on in (True, False):
+        runs = [_trainer_experiment(cfg, "cuda", kernels=on) for _ in range(3)]
+        if ring is None:
+            ring = _fill_ring(runs[0][1], cfg, n_filled)
+        for _, es in runs:
+            es.buf = ring
+        graph = TrainerGraph()
+        rng = np.random.default_rng(12)
+        spread = gap = 0.0
+        for beta, gamma in zip(betas, gammas):
+            draws = _train_draws(cfg, n_filled, rng, "cuda")
+            leaves = []
+            for j, (exp, es) in enumerate(runs):
+                met = dp_train_call(exp.trainer, mesh, es.model, es.opt, es.buf, beta, gamma,
+                                    generator=es.gen, draws=draws,
+                                    graph=graph if j == 2 else None)
+                leaves.append([*met.values(), *(q.detach() for q in es.model.parameters())])
+            spread = max(spread, err(leaves[1], leaves[0]))
+            gap = max(gap, err(leaves[2], leaves[0]))
+        name = "kernels on (K2 + K3)" if on else "kernels off (torch.optim.Adam + cuDNN)"
+        if (graph.warmups, graph.captures, graph.replays) != (1, 1, 2) or gap > spread:
+            raise RuntimeError(f"captured data-parallel call, {name}: {graph.warmups} eager, "
+                               f"{graph.captures} captured, {graph.replays} replays; "
+                               f"max|captured - eager| {gap:.3e}, two eager calls {spread:.3e}")
+        (exp_e, es_e), (exp_g, es_g) = runs[0], runs[2]
+        eager = lambda: dp_train_call(exp_e.trainer, mesh, es_e.model, es_e.opt, es_e.buf,
+                                      betas[0], gammas[0], generator=es_e.gen)
+        replay = lambda: dp_train_call(exp_g.trainer, mesh, es_g.model, es_g.opt, es_g.buf,
+                                       betas[0], gammas[0], generator=es_g.gen, graph=graph)
+        replay()  # the generator's draws are a new key: an eager call, then a capture
+        replay()
+        times = {"eager": [], "captured": []}
+        for _ in range(rounds):
+            for which, call in (("eager", eager), ("captured", replay), ("captured", replay),
+                                ("eager", eager)):
+                times[which].append(_timed(call))
+        busy = {which: _profiled_call(call)[1]
+                for which, call in (("eager", eager), ("captured", replay))}
+        res = dict(host_ms={w: float(np.median(t)) for w, t in times.items()}, busy_ms=busy,
+                   gap=gap, spread=spread, capture_s=graph.capture_seconds[-1],
+                   k2=graph.recorded["adam_apply"], k3=graph.recorded["conv_wgrad_direct"])
+        out[on] = res
+        print(f"[dp trainer graph] {name}, one NCCL rank, production, fed draws: an eager "
+              f"call, a capture and its replay, a replay; metrics and parameters "
+              f"max|captured - eager| {gap:.3e}, two eager experiments {spread:.3e}"
+              + (" (bit for bit)" if gap == 0.0 else "")
+              + f" | generator draws, host ms a call in turns: eager "
+              f"{res['host_ms']['eager']:.2f}, captured {res['host_ms']['captured']:.2f} "
+              f"({[round(x, 2) for x in times['eager']]} / "
+              f"{[round(x, 2) for x in times['captured']]}); busy ms eager "
+              f"{busy['eager']:.2f}, captured {busy['captured']:.2f} | capture "
+              f"{res['capture_s']:.3f} s, recorded K2 {res['k2']} and K3 {res['k3']}")
+        if (res["k2"], res["k3"]) != ((25, 75) if on else (0, 0)):
+            raise RuntimeError(f"captured data-parallel call, {name}: K2 {res['k2']} and K3 "
+                               f"{res['k3']} recorded")
+        del runs, exp_e, es_e, exp_g, es_g, graph, eager, replay
+        torch.cuda.empty_cache()
+    return out
 
 
 def _dp_rank(n_filled):
@@ -3125,39 +3350,111 @@ def phase_dp_two_ranks(n_filled=200, timeout=600.0):
     return worst
 
 
-def phase_mesh_tick(xyw_ms, n_warm=6, n_timed=12):
-    """The tick at the production config over a one-rank mesh (the planner's
-    decode through sharded_pdf, the trainer through dp_train_call): 13 K1
-    launches a tick, ms/tick beside the xyw tick of the same call. Inside
-    an NCCL group."""
+def phase_mesh_tick(xyw_ms, least=9, rounds=2, chunk=6):
+    """The tick at the production config over a one-rank NCCL mesh (the
+    planner's decode through sharded_pdf, the trainer through dp_train_call,
+    K2 and K3 on) two ways in one call, from seed 0 over the same ticks:
+    through the tick graphs, their collectives captured with them, and
+    eagerly (every graph None). Warm ticks (at least ``least``) until each
+    of the next ``2 rounds chunk`` + 3 ticks replays its pattern's graph,
+    then ``rounds`` x 4 timed chunks of ``chunk`` ticks in turns (graphed,
+    eager, eager, graphed): in a graphed chunk every tick replays with no
+    eager kernel launch, and through the replays K1 launches 13 times a
+    tick, K2 25 and K3 75 times a trainer call, as in an eager chunk. Every
+    info and state leaf held bit for bit; 3 profiled ticks each; a replayed
+    tick without and with a trainer call under ``set_sync_debug_mode
+    ("error")``. Inside an NCCL group."""
     import torch
-    from ealv_tpu_torch.ops import footprint_and_spread
     from ealv_tpu_torch.parallel import make_mesh
     from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.runtime.graphs import kernel_counts, reset_launches, total_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
 
-    exp = Experiment(ExperimentConfig(**PRODUCTION), train_calls_per_tick=1, train_every=3,
-                     device="cuda", mesh=make_mesh(device="cuda"))
-    es = exp.init(seed=0)
-    for _ in range(n_warm):
-        es, _ = exp.tick(es)
-    torch.cuda.synchronize()
-    footprint_and_spread.launches = 0
-    t0 = time.perf_counter()
-    es, infos = exp.run_chunk(es, n_timed)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    launches = footprint_and_spread.launches
-    losses, costs = infos["loss"].cpu(), infos["ergodic_cost"].cpu()
-    if launches != 13 * n_timed:
-        raise RuntimeError(f"mesh tick: K1 launched {launches} times in {n_timed} ticks")
+    cfg = ExperimentConfig(**PRODUCTION, fast_encoder_grads="pallas")
+    mesh = make_mesh(device="cuda")
+    runs = {}
+    for mode in ("graphs", "eager"):
+        exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda", mesh=mesh)
+        exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
+        if exp.eager_reason is not None or len(exp.graphs()) != 4:
+            raise RuntimeError(f"mesh tick: an NCCL mesh ran eagerly ({exp.eager_reason})")
+        if mode == "eager":
+            exp.tick_graph = exp.post_train_graph = exp.trainer_graph = exp.planner_graph = None
+        runs[mode] = [exp, exp.init(seed=0), []]
+    exp, es = runs["graphs"][:2]
+    n_warm = 0
+    while n_warm < least or not _ready(exp, es, 2 * rounds * chunk + 3):
+        if n_warm > 150:
+            raise RuntimeError(f"mesh tick: not every pattern captured after 150 ticks: "
+                               f"{_graph_note(exp)}")
+        for run in runs.values():
+            run[2].append(run[0].tick(run[1])[1])
+        n_warm += 1
+    turns = {"graphs": [], "eager": []}
+    k = {"graphs": dict.fromkeys(("K1", "K2", "K3", "ticks", "calls"), 0)}
+    k["eager"] = dict(k["graphs"])
+    names = {"K1": "footprint_and_spread", "K2": "adam_apply", "K3": "conv_wgrad_direct"}
+    for mode in ("graphs", "eager", "eager", "graphs") * rounds:
+        e, st, infos = runs[mode]
+        reset_launches()
+        replays, calls = exp.tick_graph.replays, st.learning_ind
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            infos.append(e.tick(st)[1])
+        torch.cuda.synchronize()
+        turns[mode].append((time.perf_counter() - t0) / chunk * 1e3)
+        calls = st.learning_ind - calls
+        got = {n: total_launches()[v] for n, v in names.items()}
+        eager = kernel_counts()
+        want = {"K1": 13 * chunk, "K2": 25 * calls, "K3": 75 * calls}
+        if got != want or (mode == "graphs" and (exp.tick_graph.replays - replays != chunk
+                                                 or any(eager.values()))):
+            raise RuntimeError(f"mesh tick, {mode}: launches {got} for {chunk} ticks and "
+                               f"{calls} trainer calls (eager {eager}), "
+                               f"{exp.tick_graph.replays - replays} replays")
+        for n in names:
+            k[mode][n] += got[n]
+        k[mode]["ticks"] += chunk
+        k[mode]["calls"] += calls
+    profiles = {}
+    for mode, run in runs.items():
+        def three(run=run):
+            for _ in range(3):
+                run[2].append(run[0].tick(run[1])[1])
+        wall, busy, _, _, n = _profiled_call(three)
+        profiles[mode] = dict(host_ms=wall, busy_ms=busy, intervals=n)
+    _held_equal("mesh tick graphs against eager mesh ticks", _stacked(runs["eager"][2]),
+                _stacked(runs["graphs"][2]))
+    state = _snapshot(es)
+    _held_equal("mesh tick graphs against eager mesh ticks", _snapshot(runs["eager"][1]),
+                state)
+    losses, costs = (torch.stack([i[key] for i in runs["graphs"][2]]).cpu()
+                     for key in ("loss", "ergodic_cost"))
     if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()) \
             or es.learning_ind <= 0:
         raise RuntimeError(f"mesh tick: losses {losses}, costs {costs}")
-    print(f"[mesh tick] production, one-rank NCCL mesh: {n_timed} ticks after {n_warm} warm: "
-          f"{dt * 1e3:.2f} ms/tick (the xyw tick of this call: {xyw_ms:.2f}) | K1 launches "
-          f"{launches} (13/tick) | learning_ind {es.learning_ind}")
-    return launches, dt * 1e3
+    sync = _tick_builders()
+    for build in (sync.untrained_tick, sync.trained_tick):
+        _sync_free("mesh tick (one NCCL rank, production, replayed)", build(exp, es))
+    ms = {m: float(np.median(v)) for m, v in turns.items()}
+    p = profiles
+    print(f"[mesh tick] production, one-rank NCCL mesh, K2 + K3: ms/tick in turns (medians "
+          f"of {2 * rounds} chunks of {chunk} after {n_warm} warm), tick graphs "
+          f"{ms['graphs']:.2f} {[round(v, 2) for v in turns['graphs']]}, eager "
+          f"{ms['eager']:.2f} {[round(v, 2) for v in turns['eager']]} (the xyw tick of this "
+          f"call: {xyw_ms:.2f}) | 3 profiled ticks, host ms / busy ms / intervals: "
+          + "; ".join(f"{m} {p[m]['host_ms']:.2f} / {p[m]['busy_ms']:.2f} / "
+                      f"{p[m]['intervals']}" for m in p)
+          + f" | timed chunks, graphed: K1 {k['graphs']['K1']} in {k['graphs']['ticks']} "
+          f"ticks, K2 {k['graphs']['K2']} and K3 {k['graphs']['K3']} in "
+          f"{k['graphs']['calls']} trainer calls, through the replays, 0 eager; eager: K1 "
+          f"{k['eager']['K1']}, K2 {k['eager']['K2']}, K3 {k['eager']['K3']} | "
+          f"{_graph_note(exp)} | pool {_pool_mib(exp.tick_graph)} MiB | "
+          f"{len(runs['graphs'][2])} ticks bit-equal to eager ticks, infos and {len(state)} "
+          f"state leaves | learning_ind {es.learning_ind}")
+    return dict(ms=ms, turns=turns, profile=profiles, k=k, k1=k["graphs"]["K1"],
+                pool_mib=_pool_mib(exp.tick_graph))
 
 
 def phase_dashboard(n_warm=6):
@@ -3359,7 +3656,7 @@ def main() -> int:
     stamp("xyw")
     with _NcclGroup():
         dp = phase_dp_trainer()
-        k1_mesh, mesh_ms = phase_mesh_tick(xyw_ms)
+        mesh = phase_mesh_tick(xyw_ms)
     dp_worst = phase_dp_two_ranks()
     dash = phase_dashboard()
     stamp("data parallelism and dashboard")
@@ -3372,7 +3669,7 @@ def main() -> int:
     stamp("eval and fingerprint")
     k1_arm, arm_ms, arm_peak, step_vel, arm = phase_arm_path()
     stamp("arm")
-    k1_host, host_ms_step, host_plans = phase_host_loop_path()
+    host = phase_host_loop_path()
     loop = phase_native_bridge()
     stamp("host loop and native bridge")
     print(f"[main paths] xyw {xyw_ms:.2f} ms/tick, peak {xyw_peak:.1f} MiB | xyzrpw "
@@ -3386,7 +3683,8 @@ def main() -> int:
           f"{step_vel['step_vel']['intervals']} intervals "
           f"({step_vel['step_vel with the drift correction']['intervals']} with the drift "
           f"correction); "
-          f"host loop {host_ms_step:.2f} ms/step; native loop {loop['rate_hz']:.1f} Hz; toy arm "
+          f"host loop {host['ms']['graphs']:.2f} ms/step graphed, {host['ms']['eager']:.2f} "
+          f"eager; native loop {loop['rate_hz']:.1f} Hz; toy arm "
           f"card-vs-CPU max|diff| {arm_err:.3e}")
     plan = "1 plan_step (sync + plan), {}"
     paths = (("xyw", xyw), ("xyzrpw", rpw), ("xywb force z-ensemble K2 K3", var), ("arm", arm))
@@ -3418,10 +3716,15 @@ def main() -> int:
     stamp("studies")
     k1_repro = phase_repro_planner()
     stamp("repro planner")
+    cap = dp["captured"][True]
     print(f"[parallel and dashboard] data-parallel call {dp['host_ms']:.2f} ms host, "
           f"{dp['busy_ms']:.2f} ms busy vs plain {dp['plain_host_ms']:.2f} / "
-          f"{dp['plain_busy_ms']:.2f} | two-rank gradients max rel diff {dp_worst:.2e} | mesh "
-          f"tick {mesh_ms:.2f} ms vs xyw {xyw_ms:.2f} | payload {dash['device_ms']:.4f} ms "
+          f"{dp['plain_busy_ms']:.2f}; captured (K2 + K3) {cap['host_ms']['captured']:.2f} / "
+          f"{cap['busy_ms']['captured']:.2f} vs eager {cap['host_ms']['eager']:.2f} / "
+          f"{cap['busy_ms']['eager']:.2f} | two-rank gradients max rel diff {dp_worst:.2e} | "
+          f"mesh tick {mesh['ms']['graphs']:.2f} ms graphed, {mesh['ms']['eager']:.2f} eager, "
+          f"vs xyw {xyw_ms:.2f} | host-loop step {host['ms']['graphs']:.2f} ms graphed, "
+          f"{host['ms']['eager']:.2f} eager | payload {dash['device_ms']:.4f} ms "
           f"device, {dash['host_ms']:.4f} ms host | resume study {resume_leaves} leaves "
           f"bit-equal")
     print(json.dumps({"kernels": [
@@ -3434,7 +3737,7 @@ def main() -> int:
          "launches_identify_per_tick": fp["identify_per_tick"],
          "launches_find_clusters": fp["find_clusters"],
          "launches_entropy_slices": fp["entropy_slices"], "launches_arm": k1_arm,
-         "launches_host_loop": k1_host, "launches_mesh_tick": k1_mesh,
+         "launches_host_loop": host["k1"]["graphs"][0], "launches_mesh_tick": mesh["k1"],
          "launches_dashboard_payload": dash["launches"],
          "launches_repro_planner": k1_repro, **k1},
         {"name": "adam_apply", "route": "cuda",

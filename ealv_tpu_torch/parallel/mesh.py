@@ -29,6 +29,12 @@ class Mesh:
     device: torch.device
     axis_name: str = "data"
 
+    @property
+    def backend(self) -> str:
+        """The group's backend: ``"nccl"`` (whose collectives a CUDA graph
+        can capture) or ``"gloo"``."""
+        return dist.get_backend(self.group)
+
 
 def make_mesh(n_devices: int | None = None, axis_name: str = "data",
               device="cuda") -> Mesh:

@@ -11,10 +11,11 @@ call. The state is updated in place and returned. The throttle counters
 in Python and a tick never waits on the device. ``post_train_chunk`` is
 the training that follows exploration: trainer calls with no exploration.
 
-On the card (outside a mesh) a whole tick runs as a captured CUDA graph
-(``tick_graph``, a ``runtime/graphs.py`` ``StepGraph``), as the JAX
-package runs ``run_chunk`` as one ``lax.scan`` over the tick, one graph for
-each pattern of the host values the tick branches on (``_tick_pattern``:
+On the card (over no mesh, or an NCCL one) a whole tick runs as a
+captured CUDA graph (``tick_graph``, a ``runtime/graphs.py``
+``StepGraph``), as the JAX package runs ``run_chunk`` as one ``lax.scan``
+over the tick, one graph for each pattern of the host values the tick
+branches on (``_tick_pattern``:
 which trainer calls run, the prior, the arm's drift corrections); a
 post-training call likewise (``post_train_graph``). The host values the
 tick computes with (the step it records in the hyperparameter ring, the
@@ -22,7 +23,9 @@ manual ramps) are staged into device scalars (``HostValues``). With
 ``tick_graph`` and ``post_train_graph`` set to None the experiment runs
 the planner call and the trainer call as their own captured graphs
 (``planner_graph``, ``trainer_graph``) and the rest of the tick eagerly;
-with those set to None too, everything eagerly.
+with those set to None too, everything eagerly. Over an NCCL mesh the
+graphs hold the data-parallel call's and the sharded decode's collectives;
+a gloo mesh runs eagerly, as the CPU does (``eager_reason`` says which).
 """
 
 from __future__ import annotations
@@ -292,17 +295,23 @@ class Experiment:
             batch_size=cfg.batch_size, num_learning_opt=cfg.num_learning_opt,
             gamma_weight=cfg.gamma_weight, other_locs=cfg.other_locs,
             lr=cfg.model_lr)
-        # captured CUDA graphs on the card, outside a mesh (the data-parallel
-        # call stays eager): the whole tick and the post-training call, one
-        # memory pool between them; the planner and trainer calls on their
-        # own for the callers outside the tick (plan_step alone, the host
-        # loop) and for an experiment whose tick_graph is set to None
-        graphs = self.device.type == "cuda" and mesh is None
+        # captured CUDA graphs on the card, over no mesh or an NCCL one: the
+        # whole tick and the post-training call, one memory pool between
+        # them (which the host loop's step graph shares); the planner and
+        # trainer calls on their own for the callers outside the tick
+        # (plan_step alone, the host loop) and for an experiment whose
+        # tick_graph is set to None. A gloo group's collectives run through
+        # the host and cannot be captured: over a gloo mesh (the caller's
+        # backend choice) the experiment runs eagerly, as on the CPU.
+        self.eager_reason = ("the CPU" if self.device.type != "cuda" else
+                             f"a {mesh.backend} mesh" if mesh is not None
+                             and mesh.backend != "nccl" else None)
+        graphs = self.eager_reason is None
         self.trainer_graph = TrainerGraph() if graphs else None
         self.planner_graph = PlannerGraph() if graphs and not self.use_baseline else None
-        pool = torch.cuda.MemPool() if graphs else None
-        self.tick_graph = StepGraph(pool=pool) if graphs else None
-        self.post_train_graph = StepGraph(pool=pool) if graphs else None
+        self.graph_pool = torch.cuda.MemPool() if graphs else None
+        self.tick_graph = StepGraph(pool=self.graph_pool) if graphs else None
+        self.post_train_graph = StepGraph(pool=self.graph_pool) if graphs else None
         self._host = None  # HostValues, made on the first captured step
 
         self.tray6 = tuple(TRAY_LIM[s] for s in "xyzrpw")
@@ -376,7 +385,7 @@ class Experiment:
 
     def graphs(self) -> list:
         """The experiment's captured calls and steps (none on the CPU or
-        over a mesh)."""
+        over a gloo mesh)."""
         return [g for g in (self.trainer_graph, self.planner_graph, self.tick_graph,
                             self.post_train_graph) if g is not None]
 
@@ -538,7 +547,8 @@ class Experiment:
             from ..parallel.train import dp_train_call
             metrics = dp_train_call(self.trainer, self.mesh, es.model, es.opt, es.buf,
                                     hyper.beta, hyper.gamma, generator=es.gen,
-                                    draws=train_draws)
+                                    draws=train_draws,
+                                    graph=self.trainer_graph if graphs else None)
         else:
             train = (self.trainer_graph if graphs else None) or train_call
             metrics = train(self.trainer, es.model, es.opt, es.buf, hyper.beta, hyper.gamma,
@@ -649,11 +659,17 @@ class Experiment:
         view, out = run_step(graph, es, self._carry, self._with_carry, self._base, pattern,
                              draws, lambda view, d: (view, run(view, d)),
                              [es.gen, es.pstate.gen])
+        self._take(es, view, calls)
+        return out
+
+    def _take(self, es: ExperimentState, view: ExperimentState, calls: int) -> None:
+        """``es`` takes a captured step's new carry from ``view``, and its
+        host ints advance by the step's ``calls`` trainer calls (the caller
+        advances ``explr_step``)."""
         es.pstate, es.env, es.mstate = view.pstate, view.env, view.mstate
         es.hyper = dataclasses.replace(view.hyper, iter=es.hyper.iter
                                        + calls * self.trainer.num_learning_opt)
         es.learning_ind += calls
-        return out
 
     def _graph_tick(self, es: ExperimentState, draws: TickDraws | None):
         """``tick`` through the tick graph."""

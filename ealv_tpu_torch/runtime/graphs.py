@@ -42,15 +42,16 @@ capture ran no kernel) and adds them to ``launched`` on every replay:
 ``StepGraph`` goes one level up, as the reference's ``lax.scan`` over the
 tick does (``ealv_tpu/runtime/agent.py``): it captures a whole step of a
 loop (``Experiment.tick``, one post-training call, ``EvalExperiment.tick``,
-a fingerprint capture or identification step) with the calls above run
-eagerly inside, one graph for each pattern of the host values the step
-branches on. Its carry (what the step replaces: the planner and env state,
-the target state, beta and gamma; the capture's model state; the
-identification's beliefs) stays resident in static buffers that the
+a fingerprint capture or identification step, the host loop's absorb and
+plan) with the calls above run eagerly inside, one graph for each pattern
+of the host values the step branches on. Its carry (what the step
+replaces: the planner and env state, the target state, beta and gamma;
+the capture's model state; the identification's beliefs; the host loop's
+pending plan) stays resident in static buffers that the
 step's last kernels overwrite, so the next replay reads what the last one
 wrote; the host values it computes with are staged into device scalars
 before each replay. The patterns' graphs share one memory pool.
-``run_step`` is the step mechanics both runtimes share: the carry split
+``run_step`` is the step mechanics the runtimes share: the carry split
 off the runtime's state, the body on a view that holds the host values
 as they were, and the new carry joined back.
 """
@@ -76,6 +77,12 @@ KERNELS = {"footprint_and_spread": footprint_and_spread, "adam_apply": adam_appl
 # for a caller that cannot reach the graphs (a capture's EvalExperiment
 # lives only inside capture_fingerprint)
 _REPLAYED = dict.fromkeys(KERNELS, 0)
+
+
+class CaptureError(RuntimeError):
+    """A capture failed. Raised by the call or step that captures, and again
+    by every later one under its key: nothing runs the eager call in its
+    place."""
 
 
 def _leaf(x) -> bool:
@@ -320,6 +327,10 @@ def _counted_capture(graph, body, static) -> tuple:
     t0 = time.perf_counter()
     try:
         graph.capture(body, static)
+    except CaptureError:
+        raise
+    except Exception as e:
+        raise CaptureError(f"capturing failed: {type(e).__name__}: {e}") from e
     finally:
         after = kernel_counts()
         for name, fn in KERNELS.items():
@@ -366,7 +377,7 @@ class CudaGraph:
                 raise
             # the capture's end reports only that the capture was invalidated:
             # name the call's own error, which is the cause
-            raise RuntimeError(f"capturing the call failed: {type(failed).__name__}: "
+            raise CaptureError(f"capturing the call failed: {type(failed).__name__}: "
                                f"{failed}") from failed
         finally:
             if enabled:
@@ -457,22 +468,29 @@ class TrainerGraph(_CapturedCall):
     step). Staged: ``beta``, ``gamma`` and fed ``draws``. Read in place and
     keyed by address: the model's parameters and buffers, the optimizer's
     state, the replay ring's rows (``x``, ``y``, ``force``) and its head and
-    fill counters. Registered: ``generator``. Returns the metrics, cloned."""
+    fill counters. Registered: ``generator``. Returns the metrics, cloned.
+    With a ``mesh`` (a ``parallel.Mesh`` over an NCCL group) the call is
+    ``parallel.dp_train_call``, its gradient and metric all-reduces captured
+    with it; keyed by the mesh."""
 
     def __call__(self, statics, model, opt, buf, beta, gamma,
                  generator: torch.Generator | None = None, weighted: bool = True,
-                 deterministic: bool = False, draws=None):
+                 deterministic: bool = False, draws=None, mesh=None):
         inputs = (beta, gamma, draws)
         ring = (buf.x, buf.y, buf.force, buf.pos, buf.size)
         spec = (statics, weighted, deterministic, id(buf), _spec(ring), id(generator),
-                _spec(inputs))
+                _spec(inputs), mesh)
 
         def key():
             return spec, module_key(model), optimizer_key(opt), _addresses(ring)
 
         def body(st):
-            return train_call(statics, model, opt, buf, st[0], st[1], generator=generator,
-                              weighted=weighted, deterministic=deterministic, draws=st[2])
+            kw = dict(generator=generator, weighted=weighted, deterministic=deterministic,
+                      draws=st[2])
+            if mesh is None:
+                return train_call(statics, model, opt, buf, st[0], st[1], **kw)
+            from ..parallel.train import dp_train_call
+            return dp_train_call(statics, mesh, model, opt, buf, st[0], st[1], **kw)
 
         return self._call(key, inputs, body, [] if generator is None else [generator])
 
@@ -620,7 +638,8 @@ class StepGraph:
 
 def run_step(graph: StepGraph, state, split, join, base, pattern, draws, run, generators):
     """One step of a runtime's ``state`` through ``graph``, the mechanics
-    ``Experiment`` and ``EvalExperiment`` share. ``split(state)`` is the
+    ``Experiment``, ``EvalExperiment`` and ``HostLoopRunner`` share.
+    ``split(state)`` is the
     carry; ``join(state, carry)`` a view of ``state`` that holds ``carry``
     and ``state``'s host values; ``run(view, draws)`` makes the step on a
     view and returns (the new state, out); ``base(state, carry)`` is the

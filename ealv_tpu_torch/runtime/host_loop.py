@@ -28,7 +28,33 @@ packed observation never leaves the device and only the small watchdog
 slice (pose, vel, force, brightness) is copied to pinned host memory,
 checked one step later. A plan that is not used (a pause, a failed
 command, a stuck hit, a recovery) leaves the experiment state as it was:
-each plan runs on a fork of the planner's state.
+each plan runs on the runner's fork of the planner's state, a ring and a
+generator that the runner owns and reuses (``_fork``). A plan's staging
+copies the planner's ring into the fork's ring and sets the fork's
+generator from the planner's; an absorb adopts the plan by copying back
+(``_adopt``). The experiment's ring and generator stay the same objects,
+so the graphs that read them in place, and register the fork's generator,
+keep their keys from plan to plan. Two generators that swapped roles at
+each adoption would change the registered generators, and with them the
+step graphs' base key, at every step; ``graphsafe_set_state`` would swap
+the state object a graph registered. ``set_state`` writes the seed and
+offset into that object, and the graph's next replay reads them.
+
+On the card every plan runs as the experiment's captured planner call
+(``PlannerGraph``), and each absorb-and-plan step of the pipelined forms
+(the device-resident step with the bridge's command and observation, the
+host-pipelined step with the host observation staged) runs as a captured
+CUDA graph (``step_graph``, a ``runtime/graphs.py`` ``StepGraph`` in the
+experiment's memory pool), one graph a pattern of the host values the
+step branches on: which trainer calls the absorb makes, whether the next
+plan targets the prior, the arm's drift correction, whether the plan sends
+a brightness. The counterpart of the JAX runner's jitted ``_absorb_plan``
+and ``_cmd_absorb_plan``. Pause, stuck detection, escape and recovery stay
+on the host, between steps. After a replay the experiment state's fields
+and the pending plan are the graph's static buffers, which the next
+replay overwrites: copy what you keep. With ``step_graph`` set to None
+the step runs its absorb and plan as the experiment's own captured calls,
+the serial step always does, and on the CPU everything runs eagerly.
 """
 
 from __future__ import annotations
@@ -41,7 +67,9 @@ import numpy as np
 import torch
 
 from ..utils.host_copy import HostCopy
-from .agent import Experiment, ExperimentState, TickDraws
+from .agent import Experiment, ExperimentState, TickDraws, advance_env, drift_key, \
+    sim_carry, with_sim_carry
+from .graphs import CaptureError, StepGraph, _addresses, run_step
 from .metrics import MetricsLog
 from .panel import ControlHooks
 from .watchdog import (
@@ -51,18 +79,6 @@ from .watchdog import (
     RecoveryHeartbeat,
     StuckDetector,
 )
-
-
-def _fork(pstate):
-    """The planner's (or a baseline's) state for a plan that may go unused:
-    its trajectory ring and random generator are copies (a push writes the
-    ring's row and counters in place)."""
-    gen = torch.Generator(device=pstate.gen.device)
-    gen.set_state(pstate.gen.get_state())
-    m = pstate.memory
-    memory = dataclasses.replace(m, **{f.name: getattr(m, f.name).clone()
-                                       for f in dataclasses.fields(m)})
-    return dataclasses.replace(pstate, memory=memory, gen=gen)
 
 
 @dataclass
@@ -113,6 +129,12 @@ class HostLoopRunner:
         self._obs = None  # last sensed (pose6, vel6, force, img), host-side
         self._pending = None  # pipelined (pstate, info, cmd7, its HostCopy or None)
         self._prev_small = None  # device-resident step: the deferred watchdog slice
+        # the fork every plan runs on, made on the first plan (_fork_parts)
+        self._fork_memory = self._fork_generator = None
+        # the absorb-and-plan step as captured graphs on the card, in the
+        # experiment's memory pool; None on the CPU (tests may set one)
+        pool = self.exp.graph_pool
+        self.step_graph = StepGraph(pool=pool) if pool is not None else None
         self._fast = bool(self.pipeline) and bool(self.device_fast) and bool(
             getattr(self.bridge, "device_fast_path_ok", lambda: False)())
         self._cmd_absorb_plan = None
@@ -132,18 +154,61 @@ class HostLoopRunner:
                     or "cmd_observe_device" in self.bridge.__dict__):
                 pure = None
             if pure is not None:
-                def _cmd_absorb_plan(es, pstate, info, env_s, cmd7):
+                def _cmd_absorb_plan(es, pstate, info, env_s, cmd7, draws=(None, None),
+                                     graphs=True, host=None):
                     env_s2, flat, small = pure(env_s, cmd7)
                     es, pstate2, cmd7n, info2, tick_info = self._absorb_plan_flat(
-                        es, pstate, info, flat)
+                        es, pstate, info, flat, draws, graphs, host)
                     return es, pstate2, cmd7n, info2, tick_info, env_s2, small
 
                 self._cmd_absorb_plan = _cmd_absorb_plan
 
     # ------------------------------------------------------------------
+    # the runner's fork of the planner's state
+    def _fork_parts(self, pstate):
+        """The fork's ring and generator, made like the planner's on the
+        first plan."""
+        if self._fork_memory is None:
+            m = pstate.memory
+            self._fork_memory = dataclasses.replace(
+                m, **{f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)})
+            self._fork_generator = torch.Generator(device=pstate.gen.device)
+        return self._fork_memory, self._fork_generator
+
+    def _fork(self, pstate):
+        """``pstate`` (the planner's or a baseline's) on the fork, for a plan
+        that may go unused: its ring copied into the fork's ring in place
+        (a push writes the ring's row and counters in place), the fork's
+        generator in place of its own. Device copies only, so a captured
+        step holds them; the generator's state is set on the host
+        (``_seed_fork``)."""
+        fm, gen = self._fork_parts(pstate)
+        for f in dataclasses.fields(fm):
+            getattr(fm, f.name).copy_(getattr(pstate.memory, f.name))
+        return dataclasses.replace(pstate, memory=fm, gen=gen)
+
+    def _seed_fork(self, es: ExperimentState):
+        """Before a plan from the experiment's state: the fork's generator
+        takes the planner's generator's state (a host copy of its seed and
+        offset; a graph that registered the fork's generator reads it at
+        its next replay)."""
+        self._fork_parts(es.pstate)[1].set_state(es.pstate.gen.get_state())
+
+    @staticmethod
+    def _adopt(es: ExperimentState, pstate):
+        """The plan ``pstate``, made on the fork, as the experiment's
+        planner state: its ring copied into the experiment's ring in place,
+        and the experiment's generator, whose state the caller sets to the
+        fork's as it was after this plan."""
+        mine = es.pstate.memory
+        for f in dataclasses.fields(mine):
+            getattr(mine, f.name).copy_(getattr(pstate.memory, f.name))
+        return dataclasses.replace(pstate, memory=mine, gen=es.pstate.gen)
+
+    # ------------------------------------------------------------------
     # the plan and absorb halves, on device tensors
-    def _draws(self, es: ExperimentState):
-        return self.draws_fn(es.explr_step) if self.draws_fn is not None else None
+    def _draws(self, explr_step: int):
+        return self.draws_fn(explr_step) if self.draws_fn is not None else None
 
     def _dev(self, *values):
         """Host values (numpy, floats) or tensors as f32 tensors on the
@@ -152,37 +217,50 @@ class HostLoopRunner:
         return [(v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v, np.float32)))
                 .to(device=dev, dtype=torch.float32) for v in values]
 
-    def _plan_cmd7(self, es, pose6, vel6, b):
-        """Plan from an observed (pose6, vel6, brightness), on a fork of the
-        planner's state. The one definition of the packed command: cmd7 =
+    def _plan_cmd7(self, es, pose6, vel6, b, draws=None, graph=True):
+        """Plan from an observed (pose6, vel6, brightness) on the fork of the
+        planner's state, ``draws`` fed; through the experiment's planner
+        graph unless ``graph=False``. The fork's generator must hold the
+        state to draw from. The one definition of the packed command: cmd7 =
         [vel6 | brightness, -1 = keep the current one]."""
         exp = self.exp
         full_state = exp.explored.measured_obs(pose6, vel6, b)
-        fork = dataclasses.replace(es, pstate=_fork(es.pstate))
-        pstate, vel6_cmd, b_cmd, info = exp.plan_step(fork, full_state, self._draws(es),
-                                                      graph=False)
+        fork = dataclasses.replace(es, pstate=self._fork(es.pstate))
+        pstate, vel6_cmd, b_cmd, info = exp.plan_step(fork, full_state, draws, graph=graph)
         tail = vel6_cmd.new_full((1,), -1.0) if b_cmd is None else b_cmd.reshape(1)
         return pstate, torch.cat([vel6_cmd, tail]), info
 
     def _plan_obs(self, es, obs):
+        """A plan from a host observation (the first step, after a drop, or
+        every serial step), the fork seeded from the planner."""
         pose6, vel6 = obs[0], obs[1]
-        return self._plan_cmd7(es, *self._dev(pose6, vel6, self._brightness(pose6)))
+        self._seed_fork(es)
+        return self._plan_cmd7(es, *self._dev(pose6, vel6, self._brightness(pose6)),
+                               self._draws(es.explr_step))
 
-    def _absorb(self, es, pstate, info, pose6, vel6, b, img, force):
+    def _absorb(self, es, pstate, info, pose6, vel6, b, img, force, draws=None,
+                graphs=True, host=None):
+        """Adopt the plan and absorb the observation (``absorb_step``, its
+        trainer calls through the trainer graph unless ``graphs=False``;
+        ``host`` stages the host values)."""
         robot_state = self.exp.explored.measured_obs(pose6, vel6, b)[: self.exp.cfg.s_dim]
-        return self.exp.absorb_step(es, pstate, info, robot_state, img, force,
-                                    self._draws(es))
+        return self.exp.absorb_step(es, self._adopt(es, pstate), info, robot_state, img,
+                                    force, draws, graphs=graphs, host=host)
 
     def _absorb_plan(self, es, pstate, info, pose6, vel6, b, img, force,
-                     plan_pose6, plan_vel6, plan_b):
+                     plan_pose6, plan_vel6, plan_b, draws=(None, None), graphs=True,
+                     host=None):
         """Absorb step t, then plan step t+1 from ``plan_*``: on bridges
         with a live loop the freshest ring state, else the same
-        observation."""
-        es, tick_info = self._absorb(es, pstate, info, pose6, vel6, b, img, force)
-        pstate2, cmd7, info2 = self._plan_cmd7(es, plan_pose6, plan_vel6, plan_b)
+        observation. ``draws`` feeds the absorb's and the plan's."""
+        es, tick_info = self._absorb(es, pstate, info, pose6, vel6, b, img, force, draws[0],
+                                     graphs, host)
+        pstate2, cmd7, info2 = self._plan_cmd7(es, plan_pose6, plan_vel6, plan_b, draws[1],
+                                               graph=graphs)
         return es, pstate2, cmd7, info2, tick_info
 
-    def _absorb_plan_flat(self, es, pstate, info, flat):
+    def _absorb_plan_flat(self, es, pstate, info, flat, draws=(None, None), graphs=True,
+                          host=None):
         """``_absorb_plan`` on the packed observation (pose6, vel6, force,
         brightness, image), which stays on the device; the absorb gets the
         whole force slice (a wrench reduces to its norm there)."""
@@ -190,7 +268,84 @@ class HostLoopRunner:
         pose6, vel6, force, b = flat[:6], flat[6:12], flat[12:12 + nf], flat[12 + nf]
         img = flat[13 + nf:].reshape(self._img_shape)
         return self._absorb_plan(es, pstate, info, pose6, vel6, b, img, force,
-                                 pose6, vel6, b)
+                                 pose6, vel6, b, draws, graphs, host)
+
+    def _step_absorb_plan(self, es, pending, env_s=None, inputs=()):
+        """One absorb of the pending plan ``(pstate, info, cmd7)`` and plan
+        of the next step, as one captured step through ``step_graph`` where
+        the runner has one. With the bridge's env state ``env_s``, the
+        composed device-resident step (command the pending cmd7 and observe
+        first); else ``inputs`` is the observation, the packed one
+        ``(flat,)`` or the host one's tensors (absorbed, then planned from).
+        The draws of both halves are staged. Returns (es, the new pending
+        ``(pstate, info, cmd7)``, the new env state, the new cmd7 (out of a
+        graph's memory), the watchdog slice or None); the experiment's
+        planner generator adopts the pending plan's."""
+        exp = self.exp
+        adopted = self._fork_generator.get_state()  # after the pending plan
+        draws = (self._draws(es.explr_step), self._draws(es.explr_step + 1))
+        graphs, host = self.step_graph is None, None
+
+        def run(state, staged):
+            es, (pstate, info, cmd7), env_s = state
+            inputs, draws = staged
+            small = None
+            if env_s is not None:
+                (es, pstate2, cmd7n, info2, tick_info, env_s,
+                 small) = self._cmd_absorb_plan(es, pstate, info, env_s, cmd7, draws,
+                                                graphs, host)
+            elif len(inputs) == 1:
+                es, pstate2, cmd7n, info2, tick_info = self._absorb_plan_flat(
+                    es, pstate, info, *inputs, draws, graphs, host)
+            else:
+                es, pstate2, cmd7n, info2, tick_info = self._absorb_plan(
+                    es, pstate, info, *inputs, draws, graphs, host)
+            return (es, (pstate2, info2, cmd7n), env_s), (cmd7n, small, tick_info)
+
+        state = (es, pending, env_s)
+        if self.step_graph is None:
+            (es, pending, env_s), (cmd7n, small, _) = run(state, (inputs, draws))
+        else:
+            pattern = self._pattern(es, env_s)
+            host = exp._stage(es, pattern[0])
+            fork = self._fork_memory
+            view, (cmd7n, small, _) = run_step(
+                self.step_graph, state, self._carry, self._with_carry,
+                lambda state, carry: (*exp._base(state[0], carry), self._fork_generator,
+                                      _addresses(getattr(fork, f.name)
+                                                 for f in dataclasses.fields(fork))),
+                pattern, (inputs, draws), run, [es.gen, self._fork_generator])
+            exp._take(es, view[0], sum(pattern[0]))
+            es.explr_step += 1
+            pending, env_s = view[1], None if view[2] is None else advance_env(view[2], 1)
+        es.pstate.gen.set_state(adopted)
+        return es, pending, env_s, cmd7n, small
+
+    def _pattern(self, es, env_s) -> tuple:
+        """The host values an absorb-and-plan step from ``es`` branches on:
+        which trainer calls the absorb makes, whether the next plan targets
+        the prior, which of the step's one velocity command corrects the
+        arm's drift (the composed step's, on the bridge's env state
+        ``env_s``), whether the plan sends a brightness."""
+        exp = self.exp
+        return (exp._throttle(es.explr_step, es.learning_ind),
+                es.explr_step + 1 < exp.cfg.prior_steps,
+                drift_key(getattr(self.bridge, "env", None), env_s, 1),
+                exp.explored.b_pos >= 0)
+
+    def _carry(self, state) -> tuple:
+        """What an absorb-and-plan step replaces: the experiment's tick carry
+        (``Experiment._carry``), the pending plan (its state but the fork's
+        generator, its info and cmd7) and the bridge's env state but the
+        arm's host counter (or None)."""
+        es, (pstate, info, cmd7), env_s = state
+        return (self.exp._carry(es), *sim_carry(pstate, env_s), info, cmd7)
+
+    def _with_carry(self, state, carry) -> tuple:
+        """A view of ``state`` holding ``carry``, with its host values."""
+        es, (pstate, _, _), env_s = state
+        pstate, env_s = with_sim_carry(pstate, env_s, carry[1:3])
+        return self.exp._with_carry(es, carry[0]), (pstate, *carry[3:]), env_s
 
     # ------------------------------------------------------------------
     def hooks(self) -> ControlHooks:
@@ -253,7 +408,7 @@ class HostLoopRunner:
         if self.pipeline and self._pending is not None:
             # steady state: the plan came with the previous absorb, and its
             # host copy has been in flight since
-            pstate, info, _, cmd_copy = self._pending
+            pstate, info, cmd7_dev, cmd_copy = self._pending
             self._pending = None
             cmd7 = cmd_copy.numpy()
         else:
@@ -261,8 +416,8 @@ class HostLoopRunner:
             # the latest camera-synced observation, as the serial step does
             if self._obs is None:
                 self._obs = self.bridge.observe()
-            pstate, cmd7, info = self._plan_obs(es, self._obs)
-            cmd7 = cmd7.cpu().numpy()
+            pstate, cmd7_dev, info = self._plan_obs(es, self._obs)
+            cmd7 = cmd7_dev.cpu().numpy()
 
         try:
             ok = self.bridge.klerg_cmd(cmd7[:6], float(cmd7[6]))
@@ -302,12 +457,13 @@ class HostLoopRunner:
                 latest = fresh()
                 if latest is not None:
                     plan_pose, plan_vel = latest
-            es, pstate2, cmd7_next, info2, _ = self._absorb_plan(
-                es, pstate, info, *obs,
-                *self._dev(plan_pose, plan_vel, self._brightness(plan_pose)))
-            self._pending = (pstate2, info2, cmd7_next, HostCopy(cmd7_next))
+            es, pending, _, cmd7_next, _ = self._step_absorb_plan(
+                es, (pstate, info, cmd7_dev),
+                inputs=(*obs, *self._dev(plan_pose, plan_vel, self._brightness(plan_pose))))
+            self._pending = (*pending, HostCopy(cmd7_next))
         else:
-            es, _ = self._absorb(es, pstate, info, *obs)
+            es, _ = self._absorb(es, pstate, info, *obs, self._draws(es.explr_step))
+            es.pstate.gen.set_state(self._fork_generator.get_state())
         self._obs = (pose2, vel2, force2, img2)
         self._maybe_save(es)
         return es
@@ -352,8 +508,10 @@ class HostLoopRunner:
                 self._prev_small = None  # post-pause state is stale
                 return es
             try:
-                (es, pstate2, cmd7_next, info2, _tick_info, env_s2,
-                 small) = self._cmd_absorb_plan(es, pstate, info, self.bridge.state, cmd7)
+                es, pending, env_s2, _, small = self._step_absorb_plan(
+                    es, (pstate, info, cmd7), self.bridge.state)
+            except CaptureError:
+                raise  # a failed capture is the program's fault, not the robot's
             except Exception as e:  # service-exception parity (:153-166)
                 self.pause.pause()
                 self._log("cmd_error", repr(e))
@@ -362,7 +520,7 @@ class HostLoopRunner:
                 self._prev_small = None
                 return es
             self.bridge.state = env_s2
-            self._pending = (pstate2, info2, cmd7_next, None)
+            self._pending = (*pending, None)
             self._obs = None
             # deferred watchdog: check the previous step's slice, whose copy
             # has landed while this step was queued, and hold this one; a
@@ -370,9 +528,9 @@ class HostLoopRunner:
             # check_cmd also checks the previous iteration's state)
             small, self._prev_small = self._prev_small, HostCopy(small)
         else:
-            cmd7 = cmd_copy.numpy() if cmd_copy is not None else cmd7.cpu().numpy()
+            cmd7_h = cmd_copy.numpy() if cmd_copy is not None else cmd7.cpu().numpy()
             try:
-                res = self.bridge.cmd_observe_device(cmd7)
+                res = self.bridge.cmd_observe_device(cmd7_h)
             except Exception as e:  # service-exception parity (:153-166)
                 res = None
                 self._log("cmd_error", repr(e))
@@ -382,8 +540,9 @@ class HostLoopRunner:
                 self._obs = None
                 return es
             flat, small = res
-            es, pstate2, cmd7_next, info2, _ = self._absorb_plan_flat(es, pstate, info, flat)
-            self._pending = (pstate2, info2, cmd7_next, HostCopy(cmd7_next))
+            es, pending, _, cmd7_next, _ = self._step_absorb_plan(es, (pstate, info, cmd7),
+                                                                  inputs=(flat,))
+            self._pending = (*pending, HostCopy(cmd7_next))
             self._obs = None  # this step never holds a host-side image
 
         if small is not None:

@@ -533,3 +533,162 @@ def test_captured_identification_run_is_bit_equal(cuda, seek_mode, update_every)
     ptrs = lambda tree: {v.data_ptr() for _, v in _leaves(tree)
                          if isinstance(v, torch.Tensor) and v.numel()}
     assert not ptrs(g.carry) & ptrs(b_g)
+
+
+def _runner_pair(form, pause_at=5):
+    """The eager and the captured host loop over a toy ``SyntheticBridge``,
+    both from seed 0 with a trainer call every third step: the captured
+    one with its step graph (the default on the card), the eager one with
+    the step graph and every experiment graph set to None. ``form``
+    "device" is the composed device-resident step, "host" the
+    host-pipelined one (the observation copied to the host and staged)."""
+    from ealv_tpu_torch.hw.bridge import SyntheticBridge
+    from ealv_tpu_torch.runtime import HostLoopRunner
+    out = []
+    for graphs in (False, True):
+        exp = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1, train_every=3,
+                         device="cuda")
+        if not graphs:
+            exp.tick_graph = exp.post_train_graph = None
+            exp.trainer_graph = exp.planner_graph = None
+        es = exp.init(seed=0)
+        runner = HostLoopRunner(exp, SyntheticBridge(exp.env, es.env),
+                                device_fast=form == "device")
+        assert runner.step_graph is not None and runner.step_graph.pool is exp.graph_pool
+        if not graphs:
+            runner.step_graph = None
+        out.append((runner, es))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["device", "host"])
+def test_captured_host_loop_step_is_bit_equal(cuda, form):
+    """Twelve host-loop steps with a pause before step 5 (the plan in
+    flight dropped, the next primed through the planner graph) through the
+    step graph against the eager runner: the state and the pending command
+    after every step, bit for bit; the steady steps replay their pattern's
+    graph; the experiment's planner generator and ring are the same objects
+    throughout, and the fork's generator is registered with the graphs."""
+    pair = _runner_pair(form)
+    (r_e, es_e), (r_g, es_g) = pair
+    gen, ring = es_g.pstate.gen, es_g.pstate.memory.buf
+    for k in range(12):
+        for runner, es in pair:
+            if k == 5:
+                runner.pause.pause()
+            if k == 6:
+                runner.pause.resume()
+            runner.step(es)
+        _assert_states_equal(es_e, es_g)
+        assert (r_e._pending is None) == (r_g._pending is None), k
+        if r_e._pending is not None:
+            assert torch.equal(r_e._pending[2], r_g._pending[2]), k
+    g = r_g.step_graph
+    assert g.replays >= 5 and g.captures >= 2, g.counts
+    assert es_g.pstate.gen is gen and es_g.explr_step == 11
+    assert any(x is r_g._fork_generator for x in g.base)
+    assert r_g.exp.planner_graph.replays >= 1  # the prime plan after the pause
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trained", [False, True], ids=["untrained", "trained"])
+def test_replayed_host_loop_step_never_synchronises(cuda, trained):
+    """A device-resident host-loop step that replays its step graph
+    (``test_torch_sync.host_loop_step``), with and without a trainer call,
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from test_torch_sync import host_loop_step
+    runner, es = _runner_pair("device")[1]
+    parts = host_loop_step(runner, es, trained=trained)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for _, call in parts:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.fixture
+def nccl(cuda, tmp_path):
+    """A one-rank NCCL group over the card and its mesh, destroyed after
+    the test."""
+    import torch.distributed as dist
+    from ealv_tpu_torch.parallel import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield make_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernels", [False, True], ids=["stock", "K2-K3"])
+def test_captured_dp_train_call_is_bit_equal(nccl, kernels):
+    """Four data-parallel calls on one NCCL rank with other beta, gamma and
+    fed draws each, through a ``TrainerGraph`` (eager, capture and replay,
+    replay, replay) against the eager calls: the metrics and the state
+    after every call bit for bit; the all-reduces are inside the graph."""
+    from ealv_tpu_torch.parallel import dp_train_call
+    (exp_e, es_e), (exp_g, es_g) = _pair(kernels)
+    for exp, es in ((exp_e, es_e), (exp_g, es_g)):
+        _fill(es, exp.cfg)
+    graph = exp_g.trainer_graph
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        beta = torch.tensor(0.01 * (i + 1), device="cuda")
+        gamma = torch.tensor(0.5 / (i + 1), device="cuda")
+        draws = _draws(exp_e.cfg, 12, rng)
+        out = [dp_train_call(exp.trainer, nccl, es.model, es.opt, es.buf, beta, gamma,
+                             generator=es.gen, draws=draws, graph=g)
+               for (exp, es), g in (((exp_e, es_e), None), ((exp_g, es_g), graph))]
+        for k in out[0]:
+            assert torch.equal(out[0][k], out[1][k]), (i, k)
+        _assert_states_equal(es_e, es_g)
+    assert (graph.warmups, graph.captures, graph.replays) == (1, 1, 3)
+    assert graph.recorded["adam_apply"] == (2 if kernels else 0)
+
+
+@pytest.mark.cuda
+def test_captured_mesh_tick_is_bit_equal(nccl):
+    """Ten ticks over the one-rank NCCL mesh (the decode through
+    ``sharded_pdf``, the trainer through ``dp_train_call``) through the
+    tick graph against the eager mesh ticks, then three post-training
+    calls: bit for bit; a replayed tick with a trainer call makes no
+    synchronising call. A gloo mesh on the card builds no graph."""
+    import torch.distributed as dist
+    from ealv_tpu_torch.parallel import Mesh
+    runs = []
+    for graphs in (False, True):
+        exp = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1, train_every=3,
+                         device="cuda", mesh=nccl)
+        assert exp.eager_reason is None and len(exp.graphs()) == 4
+        if not graphs:
+            exp.tick_graph = exp.post_train_graph = None
+            exp.trainer_graph = exp.planner_graph = None
+        runs.append((exp, exp.init(seed=0)))
+    infos = [exp.run_chunk(es, 10)[1] for exp, es in runs]
+    for k in infos[0]:
+        assert torch.equal(infos[0][k], infos[1][k]), k
+    _assert_states_equal(runs[0][1], runs[1][1])
+    rows = [exp.post_train_chunk(es, 3)[1] for exp, es in runs]
+    for k in rows[0]:
+        assert torch.equal(rows[0][k], rows[1][k]), k
+    _assert_states_equal(runs[0][1], runs[1][1])
+    g = runs[1][0].tick_graph
+    assert g.captures >= 2 and g.replays >= 4
+    parts = trained_tick(*runs[1])
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for _, call in parts:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    gloo = Mesh(group=dist.new_group([0], backend="gloo"), rank=0, size=1,
+                device=torch.device("cuda", 0))
+    exp = Experiment(ExperimentConfig(**TOY), device="cuda", mesh=gloo)
+    assert exp.eager_reason == "a gloo mesh" and exp.graphs() == []

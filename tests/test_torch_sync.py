@@ -199,6 +199,60 @@ def test_warm_tick_with_a_trainer_call_makes_no_round_trip(monkeypatch, kw):
         assert _round_trips(trained_tick(exp, es)) == {}, fused
 
 
+def host_loop_step(runner, es, trained=False):
+    """One steady step of a device-resident ``HostLoopRunner`` (the composed
+    step: command, observe, absorb, plan) from ``es``, as [(name, call)]:
+    the runner first steps on until the next step holds a pending plan,
+    makes a trainer call or none as ``trained`` asks, and (where the runner
+    has a step graph) replays its pattern's graph; the call raises if it
+    did not replay. ``chip_smoke.py`` checks its production steps through
+    this."""
+    from ealv_tpu_torch.runtime.graphs import _spec
+
+    exp, g = runner.exp, runner.step_graph
+    assert runner._cmd_absorb_plan is not None and runner.draws_fn is None
+
+    def ready():
+        if runner._pending is None or runner.pause.paused:
+            return False
+        if any(exp._throttle(es.explr_step, es.learning_ind)) != trained:
+            return False
+        return g is None or (runner._pattern(es, runner.bridge.state),
+                             _spec(((), (None, None)))) in g.entries
+
+    for _ in range(60):
+        if ready():
+            break
+        runner.step(es)
+    else:
+        raise RuntimeError("no steady host-loop step to check in 60 steps")
+
+    def step():
+        replays = g.replays if g is not None else 0
+        runner.step(es)
+        if g is not None and g.replays != replays + 1:
+            raise RuntimeError("the checked host-loop step did not replay its graph")
+
+    return [("HostLoopRunner.step" + (" with a trainer call" if trained else ""), step)]
+
+
+def host_loop_parts(dev):
+    """A toy device-resident ``HostLoopRunner`` over a ``SyntheticBridge``
+    on ``dev`` and its next steady step that makes no trainer call."""
+    from ealv_tpu_torch.hw.bridge import SyntheticBridge
+    from ealv_tpu_torch.runtime import HostLoopRunner
+
+    exp = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1, train_every=3,
+                     device=dev)
+    es = exp.init(seed=0)
+    runner = HostLoopRunner(exp, SyntheticBridge(exp.env, es.env))
+    return host_loop_step(runner, es)
+
+
+def test_steady_host_loop_step_makes_no_round_trip():
+    assert _round_trips(host_loop_parts("cpu")) == {}
+
+
 def eval_parts(dev):
     """A toy ``EvalExperiment`` on ``dev`` toward an ExplrDist target after
     2 ticks, and its next tick."""
