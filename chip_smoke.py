@@ -113,6 +113,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      pieces (the sync, the draws, the target decode, the base footprint,
      the initial cost, the first inner iteration's parts), each under the
      queue's depth, enqueued behind a spin kernel: none may wait;
+     then the CVAE's options (MODEL_OPTIONS: the "subpixel" and
+     "resize_conv" decoders, the "s2d" and "im2col" encoder weight-gradient
+     schedules, lane_pad=8) beside the default: their layers at the
+     production shapes (TF32 off; each subpixel form against the transposed
+     conv, the schedules' dW against the f64 sums in f32 and bf16, the
+     lane-padded conv and transposed conv against the unpadded ones), a toy
+     trainer call per option card against CPU, and per option the
+     production Experiment through its tick graphs, bit-equal to eager
+     ticks, the sync check on a replayed tick with a trainer call, ms per
+     tick, capture seconds, K1 (13 a tick) and K3 (0) through the graphs,
+     and the captured trainer call's host and busy ms;
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
@@ -182,6 +193,27 @@ WGRAD_PROBES = [(2, 17, 17, 3, 5, 3, 2), (1, 20, 20, 4, 6, 5, 3),
                 (1, 9, 9, 2, 70, 3, 2), (2, 15, 15, 1, 5, 4, 2), (2, 9, 9, 17, 6, 1, 1),
                 (1, 13, 13, 12, 6, 5, 2), (6, 100, 100, 3, 10, 3, 2),
                 (40, 100, 100, 3, 10, 3, 2), (1, 31, 31, 4, 12, 3, 2)]
+# the CVAE's options beside the default, as ExperimentConfig fields
+MODEL_OPTIONS = {"default": {}, "subpixel": dict(decoder_mode="subpixel"),
+                 "resize_conv": dict(decoder_mode="resize_conv"),
+                 "s2d": dict(fast_encoder_grads="s2d"),
+                 "im2col": dict(fast_encoder_grads="im2col"), "lane_pad 8": dict(lane_pad=8)}
+# (B, H, Cin, Cout, k, s): the production decoder's three layers at the
+# trainer's 2 x 64 rows (a batch and its cross-decode)
+DECODER_LAYERS = [(128, 14, 20, 10, 5, 3), (128, 44, 10, 10, 3, 2), (128, 89, 10, 3, 3, 2)]
+# f32, another summation order: the subpixel forms against the transposed
+# conv as tests/test_cvae.py holds the JAX forms; a conv on zero-padded
+# channels against the conv on the channels alone (the zero terms add 0)
+SUBPIXEL_TOL = dict(rtol=1e-4, atol=1e-4)
+LANE_TOL = dict(rtol=1e-5, atol=1e-5)
+# the s2d schedule's dW from bf16 inputs is bf16, as the JAX schedule's (its
+# stride-1 wgrad is the library's own in the inputs' dtype: cuDNN's bf16
+# wgrad, deterministic, which the default encoder's backward runs too).
+# Against the exact sums: K3's tolerance plus two bf16 ulps of the entry
+# (2^-6 relative), the output's rounding and cuDNN's bf16 accumulation: on
+# the H100 one entry of 5000 at the third layer sat 2.6 ulps of its own
+# (0.065) off, 1.27e-3
+WGRAD_BF16_OUT_TOL = dict(rtol=WGRAD_TOL["rtol"] + 2 ** -6, atol=WGRAD_TOL["atol"])
 # the production config (bench.py:372-379)
 PRODUCTION = dict(states="xyw", num_target_samples=2000, num_traj_samples=3000,
                   image_dim=(180, 180, 3), batch_size=64, num_learning_opt=25)
@@ -1772,6 +1804,242 @@ def phase_variant_path(n_timed=12):
               f"2000-row decodes {p_ms:.4f}, one 2000-row decode (no ensemble) {single_ms:.4f}; "
               f"host clock {h_ms:.4f} ms; transient memory {transient:.1f} MiB")
     return dt, r["peak"]["ticks"], (k1, k2, k3), r
+
+
+def _option_layers(dev):
+    """The options' layers at the production shapes (TF32 off): each
+    subpixel form against F.conv_transpose2d at the decoder's three layers
+    (f32); the s2d and im2col schedules' dW against the exact sums
+    (``conv_wgrad_reference`` in f64) at the encoder's three layers, f32
+    and bf16 inputs, the first layer's input a channels-last view as the
+    CVAE gives it; the lane-padded conv and transposed conv (lane 8, f32)
+    against the unpadded ones, their padded channels exact zeros. Returns
+    the largest errors by check."""
+    import torch
+    import torch.nn.functional as F
+    from ealv_tpu_torch.models.cvae import _lane_padded
+    from ealv_tpu_torch.models.subpixel import (subpixel_conv_transpose,
+                                                subpixel_conv_transpose_d2s)
+    from ealv_tpu_torch.ops import fast_conv, wgrad as twg
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    worst = {}
+
+    def held(what, got, want, tol):
+        torch.testing.assert_close(got.double(), want.double(), **tol,
+                                   msg=lambda e: f"model options, {what}: {e}")
+        err = float((got.double() - want.double()).abs().max())
+        worst[what.split(" at ")[0]] = max(worst.get(what.split(" at ")[0], 0.0), err)
+
+    def padded(what, got, want, c):
+        if float(got[:, c:].abs().max()) != 0.0:
+            raise RuntimeError(f"model options, {what}: a padded channel is not zero")
+        held(what, got[:, :c], want, LANE_TOL)
+
+    for B, h, cin, cout, k, s in DECODER_LAYERS:
+        x, b = rnd(B, cin, h, h), rnd(cout)
+        w = rnd(cin, cout, k, k) / (cin * k * k) ** 0.5
+        ref = F.conv_transpose2d(x, w, b, stride=s)
+        for name, f in (("subpixel", subpixel_conv_transpose),
+                        ("subpixel d2s", subpixel_conv_transpose_d2s)):
+            held(f"{name} at {(B, h, cin, cout, k, s)}", f(x, w, s) + b[:, None, None], ref,
+                 SUBPIXEL_TOL)
+        padded(f"lane_pad 8 transposed conv at {(B, h, cin, cout, k, s)}",
+               F.conv_transpose2d(*_lane_padded(x, w, b, 8, transposed=True), stride=s),
+               ref, cout)
+    for i, (B, H, W, cin, cout, k, s) in enumerate(WGRAD_PRODUCTION):
+        taps = fast_conv.tap_index(k, s, cin, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd(B, H, W, cin).to(dtype).permute(0, 3, 1, 2)
+            if i:
+                x = x.contiguous()
+            cot = rnd(B, cout, (H - k) // s + 1, (W - k) // s + 1).to(dtype)
+            want = twg.conv_wgrad_reference(x, cot, k, s, dtype=torch.float64)
+            for name, dw in (("s2d", fast_conv._dw_s2d(x, cot, k, s, taps)),
+                             ("im2col", fast_conv._dw_im2col(x, cot, k, s))):
+                tol = WGRAD_TOL if dw.dtype == torch.float32 else WGRAD_BF16_OUT_TOL
+                held(f"{name} dW, {str(dtype)[6:]} in, {str(dw.dtype)[6:]} out at "
+                     f"{(B, H, cin, cout, k, s)}", dw, want, tol)
+        x, b = rnd(B, cin, H, W), rnd(cout)
+        w = rnd(cout, cin, k, k) / (cin * k * k) ** 0.5
+        padded(f"lane_pad 8 conv at {(B, H, cin, cout, k, s)}",
+               F.conv2d(*_lane_padded(x, w, b, 8, transposed=False), stride=s),
+               F.conv2d(x, w, b, stride=s), cout)
+    print("[model options] layers at the production shapes, max|diff| against the plain "
+          "version (f32 tolerance rtol/atol " + f"{SUBPIXEL_TOL['rtol']:g} subpixel, "
+          f"{LANE_TOL['rtol']:g} lane pad; dW against the f64 sums at K3's {WGRAD_TOL}, "
+          f"bf16 outputs {WGRAD_BF16_OUT_TOL}): " + "; ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def _option_toy_agreement(name, opts):
+    """One toy trainer call under the option on the card and on the CPU
+    from the same weights, ring and fed draws (f32, TF32 off): the losses
+    at rtol 1e-3, atol 1e-4 as the default's (phase 4), the parameters
+    within two Adam steps' reach of rounding-level gradients (2 lr a
+    step). Returns (max|loss diff|, max|param diff|)."""
+    import torch
+    from ealv_tpu_torch.runtime import Experiment, train_call
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(states="xyw", num_target_samples=64, num_traj_samples=100,
+                           image_dim=(24, 24, 3), batch_size=8, num_learning_opt=2,
+                           compute_dtype="float32", **opts)
+    rng = np.random.default_rng(2)
+    xs = rng.uniform(cfg.robot_lim[:, 0], cfg.robot_lim[:, 1], (12, cfg.s_dim))
+    ys = rng.uniform(0, 1, (12, *cfg.image_dim))
+    draws = _train_draws(cfg, 12, rng, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device=dev)
+        es = exp.init(seed=0)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        for x, y in zip(xs, ys):
+            es.buf.push(t(x), t(y))
+        met = train_call(exp.trainer, es.model, es.opt, es.buf, t(0.01), t(0.5),
+                         draws=dataclasses.replace(
+                             draws, **{f: getattr(draws, f).to(dev) for f in ("idx", "idx2", "eps")}))
+        out[dev] = (met["loss"].cpu(), [p.detach().cpu() for p in es.model.parameters()])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-4,
+                               msg=lambda e: f"model option {name}, toy trainer call: {e}")
+    perr = _max_err(out["cuda"][1], out["cpu"][1])
+    if not perr <= 2 * cfg.model_lr * cfg.num_learning_opt:
+        raise RuntimeError(f"model option {name}, toy trainer call: parameters {perr:.3e} "
+                           "apart, card against CPU")
+    return float((out["cuda"][0] - out["cpu"][0]).abs().max()), perr
+
+
+def _option_production(name, opts, n_timed=6, rounds=4):
+    """The production Experiment under the option (bf16, a trainer call
+    every third tick, the trainer kernels off) through its tick graphs:
+    warm ticks (at least 9) until each of the next ``n_timed`` + 3 replays
+    its pattern's graph, then ``n_timed`` timed ticks (two or more trainer
+    calls among them, replayed), K1, K2 and K3 counted through the graphs
+    (13, 0 and 0 a tick; the wrappers' eager counts 0); every tick's info
+    and the state then held bit for bit against an eager experiment taking
+    the same ticks; the sync check on a replayed tick with a trainer call;
+    then a captured trainer call (``TrainerGraph``: an eager call, a
+    capture) on the tick graphs' experiment: host ms per replay (median of
+    ``rounds``), device busy ms and intervals (one profiled replay), its
+    capture seconds. Returns the readings."""
+    import gc
+    import torch
+    from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.runtime.graphs import (TrainerGraph, kernel_counts, kernel_launches,
+                                               reset_launches)
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(**PRODUCTION, **opts)
+
+    def make(graphs):
+        exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
+        if not graphs:
+            exp.tick_graph = exp.post_train_graph = exp.trainer_graph = exp.planner_graph = None
+        return exp, exp.init(seed=0)
+
+    exp, es = make(True)
+    warm = []
+    while len(warm) < 9 or not _ready(exp, es, n_timed + 3):
+        if len(warm) > 60:
+            raise RuntimeError(f"model option {name}: not every pattern captured after 60 "
+                               f"ticks: {_graph_note(exp)}")
+        warm.append(exp.tick(es)[1])
+    reset_launches(*exp.graphs())
+    calls0 = es.learning_ind
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, infos = exp.run_chunk(es, n_timed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches, calls, eager = kernel_launches(*exp.graphs()), es.learning_ind - calls0, \
+        kernel_counts()
+    k1, k2, k3 = (launches[k] for k in ("footprint_and_spread", "adam_apply",
+                                        "conv_wgrad_direct"))
+    if exp.tick_graph.replays != n_timed or any(eager.values()):
+        raise RuntimeError(f"model option {name}: {exp.tick_graph.replays} replays in "
+                           f"{n_timed} timed ticks, eager wrapper launches {eager}")
+    if calls < 2 or (k1, k2, k3) != (13 * n_timed, 0, 0):
+        raise RuntimeError(f"model option {name}: {calls} trainer calls and K1 {k1}, K2 "
+                           f"{k2}, K3 {k3} launches in {n_timed} timed ticks, expected two "
+                           f"or more calls and {13 * n_timed}, 0, 0")
+    losses = infos["loss"]
+    if not (torch.isfinite(losses).all() and torch.isfinite(infos["ergodic_cost"]).all()):
+        raise RuntimeError(f"model option {name}: non-finite losses or costs")
+    run, state = _stacked(warm + [infos]), _snapshot(es)
+    capture_s = {_pattern_name(p): t for p, t in exp.tick_graph.capture_seconds.items()}
+    _sync_free(f"model option {name}, a replayed tick with a trainer call",
+               _tick_builders().trained_tick(exp, es))
+
+    exp_e, es_e = make(False)
+    warm_e = [exp_e.tick(es_e)[1] for _ in range(len(warm))]
+    _, infos_e = exp_e.run_chunk(es_e, n_timed)
+    _held_equal(f"model option {name}, tick graphs against eager ticks",
+                _stacked(warm_e + [infos_e]), run)
+    _held_equal(f"model option {name}, tick graphs against eager ticks", _snapshot(es_e), state)
+    held = (len(warm) + n_timed, len(state))
+    del exp_e, es_e, run, state
+
+    graph = TrainerGraph()
+    beta, gamma = torch.tensor(0.01, device="cuda"), torch.tensor(0.5, device="cuda")
+    call = lambda: graph(exp.trainer, es.model, es.opt, es.buf, beta, gamma, generator=es.gen)
+    call()
+    call()
+    if (graph.warmups, graph.captures) != (1, 1):
+        raise RuntimeError(f"model option {name}: trainer graph {graph.warmups} eager calls, "
+                           f"{graph.captures} captures")
+    host = float(np.median([_timed(call) for _ in range(rounds)]))
+    # two profiled replays, the reading with more device intervals kept: a
+    # profile on the H100 once came back with 124 of about 13,000 intervals
+    profiles = [_profiled_call(call) for _ in range(2)]
+    wall, busy, _, _, n = max(profiles, key=lambda p: p[4])
+    r = dict(ms=ms, k1=k1, k3=k3, calls=calls, capture_s=capture_s, held=held,
+             host_ms=host, busy_ms=busy, intervals=n, profiled_host_ms=wall,
+             profile_intervals=[p[4] for p in profiles],
+             trainer_capture_s=graph.capture_seconds[-1],
+             loss=float(losses[losses != 0][-1]))
+    del exp, es, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_model_options(n_timed=6):
+    """The CVAE's options (``MODEL_OPTIONS``: the subpixel and resize_conv
+    decoders, the s2d and im2col encoder schedules, lane_pad 8) beside the
+    default: their layers at the production shapes (``_option_layers``);
+    one toy trainer call per option, card against CPU; per option the
+    production Experiment through its tick graphs (``_option_production``:
+    bit-equal to eager ticks, the sync check, ms per tick, capture seconds,
+    K1 and K3, the captured trainer call's host and busy ms), all in this
+    call. Returns the readings by option."""
+    _option_layers("cuda")
+    toy = {name: _option_toy_agreement(name, opts)
+           for name, opts in MODEL_OPTIONS.items() if opts}
+    print("[model options] toy trainer call card against CPU (f32, fed draws), max|loss "
+          "diff| / max|param diff|: " + "; ".join(f"{k} {a:.3e} / {b:.3e}"
+                                                  for k, (a, b) in toy.items()))
+    out = {}
+    for name, opts in MODEL_OPTIONS.items():
+        t0 = time.perf_counter()
+        r = out[name] = _option_production(name, opts, n_timed)
+        print(f"[model options] {name}: {n_timed} timed ticks through the tick graphs "
+              f"{r['ms']:.2f} ms/tick, {r['calls']} trainer calls replayed, K1 {r['k1']} "
+              f"(13/tick), K3 {r['k3']}; tick-graph captures (s) "
+              + ", ".join(f"{k} {', '.join(f'{t:.2f}' for t in v)}"
+                          for k, v in r["capture_s"].items())
+              + f"; {r['held'][0]} ticks bit-equal to eager (every info, {r['held'][1]} "
+              f"state leaves); no sync in a replayed tick with a trainer call; captured "
+              f"trainer call host {r['host_ms']:.2f} ms (median of 4), busy "
+              f"{r['busy_ms']:.2f} ms in {r['intervals']} intervals (of "
+              f"{r['profile_intervals']} in two profiled replays; profiled host "
+              f"{r['profiled_host_ms']:.2f} ms), capture {r['trainer_capture_s']:.3f} s; "
+              f"last loss {r['loss']:.4f}; {time.perf_counter() - t0:.1f} s")
+    print("[model options] captured trainer call host ms / busy ms, ms/tick through the "
+          "tick graphs: " + "; ".join(f"{k} {r['host_ms']:.2f} / {r['busy_ms']:.2f}, "
+                                      f"{r['ms']:.2f}" for k, r in out.items()))
+    return out
 
 
 def _tree(tree, path=""):
@@ -3664,6 +3932,8 @@ def main() -> int:
     stamp("xyzrpw")
     var_ms, var_peak, (k1_var, k2_var, k3_var), var = phase_variant_path()
     stamp("variant")
+    options = phase_model_options()
+    stamp("model options")
     eval_ms, eval_per_plan = phase_eval_path()
     fp = phase_fingerprint_path()
     stamp("eval and fingerprint")
@@ -3738,6 +4008,7 @@ def main() -> int:
          "launches_find_clusters": fp["find_clusters"],
          "launches_entropy_slices": fp["entropy_slices"], "launches_arm": k1_arm,
          "launches_host_loop": host["k1"]["graphs"][0], "launches_mesh_tick": mesh["k1"],
+         "launches_model_options": {k: r["k1"] for k, r in options.items()},
          "launches_dashboard_payload": dash["launches"],
          "launches_repro_planner": k1_repro, **k1},
         {"name": "adam_apply", "route": "cuda",
@@ -3749,6 +4020,7 @@ def main() -> int:
          "source": "ealv_tpu_torch/csrc/wgrad.cu",
          "replaces": "ealv_tpu/ops/pallas_wgrad.py:115",
          "launches": k3_launches, "launches_variant": k3_var,
+         "launches_model_options": {k: r["k3"] for k, r in options.items()},
          "launches_dp_call": dp["k3"], **k3}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

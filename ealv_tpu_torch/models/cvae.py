@@ -1,10 +1,28 @@
 """Conditional VAE in torch (port of ``ealv_tpu/models/cvae.py``).
 
-Only the default ``conv_transpose`` decoder is built. The module keeps the
-reference torch key layout (``img_encoder.{2i}``, ``encode.{2i}``,
-``decode.{2i}``, ``img_decoder.{2i+1}``), so
+The module keeps the reference torch key layout (``img_encoder.{2i}``,
+``encode.{2i}``, ``decode.{2i}``, ``img_decoder.{2i+1}``), so
 ``ealv_tpu/utils/torch_import.py::convert_state_dict`` reads its
 ``state_dict`` as it is, the force variant's (``learn_force``) included.
+
+Options, each the JAX model's:
+  - ``decoder_mode``: ``"conv_transpose"`` (the reference's stack, the
+    VALID transposed conv's shortfall filled with zeros by
+    ``output_padding``), ``"subpixel"`` (the same layers computed by
+    ``subpixel.py``'s phase decomposition; a short layer's output is
+    edge-replicated at the high edge, so wherever a layer comes up short
+    this is another function than ``"conv_transpose"``) or
+    ``"resize_conv"`` (a nearest resize to the forward layer's input size,
+    then a stride-1 SAME ``Conv2d`` at the same keys);
+  - ``fast_encoder_grads``: the encoder convs' weight-gradient schedule
+    from ``ops/fast_conv.py`` (``True``/``"s2d"``, ``"im2col"``,
+    ``"pallas"`` for K3), the bias added after the conv;
+  - ``lane_pad``: encoder convs and ``"conv_transpose"`` layers compute on
+    channels zero-padded to a multiple of it (zero weights and biases),
+    the padded channels carried from layer to layer and sliced off before
+    the flatten and after the last layer; the parameters do not change.
+    ``fast_encoder_grads`` takes the encoder first (it is then not padded),
+    and the other decoders are never padded.
 Public tensors keep the JAX layouts: images are
 NHWC ``(B, H, W, C)``; internally the convs run NCHW and the conv features
 flatten in (C, h, w) order.
@@ -24,10 +42,42 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fast_conv import conv2d_valid_direct
+from ..ops.fast_conv import CONV_VARIANTS, tap_index
 from ..utils.config import conv_output_dims
+from .subpixel import subpixel_conv_transpose_d2s
 
 LOGVAR_LIMS = (-10.0, 2.0)
+DECODER_MODES = ("conv_transpose", "subpixel", "resize_conv")
+
+
+def _ceil_to(c: int, m: int) -> int:
+    return c + (-c) % m
+
+
+def _lane_padded(x, w, b, lane: int, transposed: bool):
+    """x (B, C, H, W) with C zero-padded to a multiple of ``lane`` (it may
+    arrive padded), and the weight and bias zero-padded to match in both
+    channel dims: a Conv2d weight is (Cout, Cin, k, k), a ConvTranspose2d
+    weight (Cin, Cout, k, k)."""
+    cin, cout = (w.shape[0], w.shape[1]) if transposed else (w.shape[1], w.shape[0])
+    cin_p, cout_p = _ceil_to(x.shape[1], lane), _ceil_to(cout, lane)
+    x = F.pad(x, (0, 0, 0, 0, 0, cin_p - x.shape[1]))
+    if transposed:
+        w = F.pad(w, (0, 0, 0, 0, 0, cout_p - cout, 0, cin_p - cin))
+    else:
+        w = F.pad(w, (0, 0, 0, 0, 0, cin_p - cin, 0, cout_p - cout))
+    return x, w, F.pad(b, (0, cout_p - cout))
+
+
+def _edge_pad(h, target):
+    """Replicate the last row and column of (B, C, H, W) up to ``target``
+    (H', W'), as ``jnp.pad(mode="edge")`` at the high edge."""
+    dh, dw = target[0] - h.shape[2], target[1] - h.shape[3]
+    if dh:
+        h = torch.cat([h, h[:, :, -1:].expand(-1, -1, dh, -1)], 2)
+    if dw:
+        h = torch.cat([h, h[:, :, :, -1:].expand(-1, -1, -1, dw)], 3)
+    return h
 
 
 @dataclasses.dataclass
@@ -49,7 +99,7 @@ class CVAE(nn.Module):
 
     encoder: conv(img) -> flatten -> MLP([feat, (force,) pose]) -> (mu, logvar)
     decoder: MLP([z, pose]) -> [y_logvar | (force_pred |) img_feat]
-             -> conv_transpose(img_feat) -> image
+             -> conv_transpose / subpixel / resize_conv(img_feat) -> image
     The force shares the image's logvar (the "combo var").
     """
 
@@ -61,14 +111,10 @@ class CVAE(nn.Module):
                  decoder_mode: str = "conv_transpose",
                  fast_encoder_grads=False, lane_pad: int = 0):
         super().__init__()
-        if decoder_mode != "conv_transpose":
-            raise NotImplementedError(f"decoder_mode={decoder_mode!r}: the port "
-                                      "builds only 'conv_transpose'")
-        if fast_encoder_grads not in (False, "pallas"):
-            raise NotImplementedError(f"fast_encoder_grads={fast_encoder_grads!r}: "
-                                      "the port builds only False and 'pallas'")
-        if lane_pad:
-            raise NotImplementedError("lane_pad is not ported")
+        if decoder_mode not in DECODER_MODES:
+            raise ValueError(f"unknown decoder_mode {decoder_mode!r}")
+        if fast_encoder_grads and fast_encoder_grads not in CONV_VARIANTS:
+            raise ValueError(f"unknown fast_encoder_grads {fast_encoder_grads!r}")
         self.img_dim = tuple(img_dim)
         self.z_dim = z_dim
         self.s_dim = s_dim
@@ -79,6 +125,8 @@ class CVAE(nn.Module):
         self.z_mem = z_mem
         self.compute_dtype = compute_dtype
         self.fast_encoder_grads = fast_encoder_grads
+        self.decoder_mode = decoder_mode
+        self.lane_pad = lane_pad
         (h, w), dims = conv_output_dims(self.img_dim[:2], cnn_kernels, cnn_strides)
         self.inner_shape = (cnn_channels[-1], h, w)  # NCHW
         self.feat_dim = h * w * cnn_channels[-1]
@@ -89,19 +137,24 @@ class CVAE(nn.Module):
             if i:
                 enc.append(nn.ReLU())
             enc.append(nn.Conv2d(in_ch[i], c, k, stride=s))
+            if fast_encoder_grads in (True, "s2d"):
+                # the s2d backward's tap gather, built here so that no
+                # backward copies it to the device
+                self.register_buffer(f"taps{i}", tap_index(k, s, in_ch[i]), persistent=False)
         self.img_encoder = nn.Sequential(*enc)
         self.encode = self._mlp([self.feat_dim + self.force_dim + s_dim, *hidden_dim,
                                  2 * z_dim])
         self.decode = self._mlp([z_dim + s_dim, *reversed(hidden_dim),
                                  y_logvar_dim + self.force_dim + self.feat_dim])
         # a VALID transposed conv of a floor-divided forward conv comes up
-        # `deficit` pixels short; output_padding adds them at the hi edge,
-        # as the JAX decoder's (k-1, k-1+deficit) padding does
+        # `deficit` pixels short; under "conv_transpose" output_padding adds
+        # them at the hi edge as zeros, as the JAX decoder's (k-1,
+        # k-1+deficit) padding does, under "subpixel" they are edge copies
         L = len(cnn_kernels)
-        # the Unflatten at index 0 puts the transposed convs at the reference
+        # the Unflatten at index 0 puts the decoder's convs at the reference
         # keys img_decoder.{1,3,5}
         dec = [nn.Unflatten(1, self.inner_shape)]
-        self.output_padding = []
+        self.output_padding, self.dec_targets = [], []
         for i, (k, s, c_in, c_out) in enumerate(zip(
                 reversed(cnn_kernels), reversed(cnn_strides),
                 reversed(cnn_channels), reversed(in_ch))):
@@ -109,9 +162,14 @@ class CVAE(nn.Module):
             op = tuple(target[d] - ((in_hw[d] - 1) * s + k) for d in range(2))
             if i:
                 dec.append(nn.ReLU())
-            dec.append(nn.ConvTranspose2d(c_in, c_out, k, stride=s,
-                                          output_padding=op))
+            if decoder_mode == "resize_conv":
+                dec.append(nn.Conv2d(c_in, c_out, k, padding="same"))
+            else:
+                dec.append(nn.ConvTranspose2d(
+                    c_in, c_out, k, stride=s,
+                    output_padding=op if decoder_mode == "conv_transpose" else 0))
             self.output_padding.append(op)
+            self.dec_targets.append(target)
         self.img_decoder = nn.Sequential(*dec)
 
     @staticmethod
@@ -148,32 +206,54 @@ class CVAE(nn.Module):
 
     def img_encode(self, y):
         """(B, H, W, C) -> (B, feat), features in (C, h, w) order. The last
-        conv is not activated. With ``fast_encoder_grads="pallas"`` each conv
-        takes its weight gradient from K3 (``ops/fast_conv.py``) and the bias
-        is added after it, as the JAX ``_FastValidConv`` does."""
+        conv is not activated. With ``fast_encoder_grads`` each conv takes
+        its weight gradient from that schedule (``ops/fast_conv.py``) and
+        the bias is added after it, as the JAX ``_FastValidConv`` does;
+        else with ``lane_pad`` it computes on padded channels."""
         dt = self.compute_dtype
         h = y.to(dt).permute(0, 3, 1, 2)
         convs = self._layers(self.img_encoder, nn.Conv2d)
+        lane = 0 if self.fast_encoder_grads else self.lane_pad
         for i, conv in enumerate(convs):
-            if self.fast_encoder_grads == "pallas":
-                h = conv2d_valid_direct(h, conv.weight.to(dt), conv.stride[0]) \
-                    + conv.bias.to(dt)[:, None, None]
+            w, b, s = conv.weight.to(dt), conv.bias.to(dt), conv.stride[0]
+            if self.fast_encoder_grads:
+                h = CONV_VARIANTS[self.fast_encoder_grads](
+                    h, w, s, getattr(self, f"taps{i}", None)) + b[:, None, None]
+            elif lane:
+                h = F.conv2d(*_lane_padded(h, w, b, lane, transposed=False), stride=s)
             else:
-                h = F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt), stride=conv.stride)
+                h = F.conv2d(h, w, b, stride=s)
             if i < len(convs) - 1:
                 h = F.relu(h)
+        if lane:
+            h = h[:, :self.inner_shape[0]]
         return h.flatten(1)
 
     def img_decode(self, feat):
         """(B, feat) -> (B, H, W, C) in the compute dtype."""
         dt = self.compute_dtype
         h = feat.reshape(feat.shape[0], *self.inner_shape)
-        convs = self._layers(self.img_decoder, nn.ConvTranspose2d)
-        for i, (conv, op) in enumerate(zip(convs, self.output_padding)):
-            h = F.conv_transpose2d(h, conv.weight.to(dt), conv.bias.to(dt),
-                                   stride=conv.stride, output_padding=op)
+        mode = self.decoder_mode
+        convs = self._layers(self.img_decoder, nn.Conv2d if mode == "resize_conv"
+                             else nn.ConvTranspose2d)
+        lane = self.lane_pad if mode == "conv_transpose" else 0
+        for i, (conv, op, target) in enumerate(zip(convs, self.output_padding,
+                                                   self.dec_targets)):
+            w, b, s = conv.weight.to(dt), conv.bias.to(dt), conv.stride[0]
+            if mode == "resize_conv":
+                h = F.interpolate(h, size=target, mode="nearest-exact")
+                h = F.conv2d(h, w, b, padding="same")
+            elif mode == "subpixel":
+                h = _edge_pad(subpixel_conv_transpose_d2s(h, w, s) + b[:, None, None], target)
+            elif lane:
+                h = F.conv_transpose2d(*_lane_padded(h, w, b, lane, transposed=True),
+                                       stride=s, output_padding=op)
+            else:
+                h = F.conv_transpose2d(h, w, b, stride=s, output_padding=op)
             if i < len(convs) - 1:
                 h = F.relu(h)
+        if lane:
+            h = h[:, :self.img_dim[2]]
         return h.permute(0, 2, 3, 1)
 
     def encode_fn(self, x, y, force=None):

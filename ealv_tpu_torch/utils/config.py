@@ -110,15 +110,17 @@ class ExperimentConfig:
     # activation compute dtype: bf16 keeps params/losses f32 but runs the
     # conv/dense stacks in bf16
     compute_dtype: str = "bfloat16"
-    # image decoder family; the port builds only 'conv_transpose' and
-    # raises on 'subpixel' and 'resize_conv'
+    # image decoder family (models/cvae.py): 'conv_transpose' (the
+    # reference's stack), 'subpixel' (its layers by phase decomposition,
+    # short layers edge-padded) or 'resize_conv' (nearest resize + SAME conv)
     decoder_mode: str = "conv_transpose"
-    # encoder weight-gradient schedule: False = autograd's conv wgrad,
-    # 'pallas' = the direct wgrad kernel K3 (ops/fast_conv.py); the port
-    # raises on the JAX package's True, 's2d' and 'im2col'
+    # encoder weight-gradient schedule (ops/fast_conv.py): False =
+    # autograd's conv wgrad, True/'s2d' = space-to-depth, 'im2col' = the
+    # patch-matrix product, 'pallas' = the direct wgrad kernel K3
     fast_encoder_grads: object = False
-    # lane-padded conv layouts of the JAX package; the port raises on
-    # anything but 0
+    # compute the encoder convs (unless fast_encoder_grads) and the
+    # 'conv_transpose' layers on channels zero-padded to a multiple of
+    # this; 0 = the native channel counts. Parameters do not change
     lane_pad: int = 0
     # trainer (test_config.yaml:83-104)
     model_lr: float = 1e-3

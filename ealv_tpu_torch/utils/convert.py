@@ -8,7 +8,9 @@ same weights:
   - flax Conv kernel (kH, kW, I, O)   -> Conv2d weight (O, I, kH, kW)
   - flax ConvTranspose kernel (kH, kW, I, O) -> ConvTranspose2d weight
     (I, O, kH, kW) with both spatial axes flipped (the JAX decoder's
-    (k-1, k-1+deficit) padding is the port's output_padding)
+    (k-1, k-1+deficit) padding is the port's output_padding; the
+    ``"subpixel"`` decoder's layers are the same), and the
+    ``"resize_conv"`` decoder's flax Conv kernels like the encoder's
   - the conv features flatten (h, w, C) in JAX and (C, h, w) here, so the
     feature columns of ``enc_fc0`` and the feature rows of ``dec_out`` are
     permuted. The force variant's extra encoder input column (after the
@@ -88,11 +90,13 @@ def params_from_jax(params, model) -> dict:
         sd[f"decode.{li}.weight"] = W
         sd[f"decode.{li}.bias"] = b
 
-    tconvs = [i for i, m in enumerate(model.img_decoder)
-              if isinstance(m, nn.ConvTranspose2d)]
-    for j, li in enumerate(tconvs):
+    dconvs = [(i, m) for i, m in enumerate(model.img_decoder)
+              if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+    for j, (li, m) in enumerate(dconvs):
         K = a(p[f"dec_conv{j}"]["kernel"])
-        sd[f"img_decoder.{li}.weight"] = K[::-1, ::-1].transpose(2, 3, 0, 1)
+        sd[f"img_decoder.{li}.weight"] = (K[::-1, ::-1].transpose(2, 3, 0, 1)
+                                          if isinstance(m, nn.ConvTranspose2d)
+                                          else K.transpose(3, 2, 0, 1))
         sd[f"img_decoder.{li}.bias"] = a(p[f"dec_conv{j}"]["bias"])
 
     ref = model.state_dict()

@@ -179,16 +179,6 @@ def test_forward_and_loss_match_jax_bf16():
     _close(tl, jl, rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("kwargs", [dict(decoder_mode="subpixel"),
-                                    dict(decoder_mode="resize_conv"),
-                                    dict(lane_pad=8), dict(fast_encoder_grads="s2d"),
-                                    dict(fast_encoder_grads="im2col"),
-                                    dict(fast_encoder_grads=True)])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        CVAE(img_dim=(24, 24, 3), **kwargs)
-
-
 def test_random_init_follows_flax_law():
     """Port init: truncated lecun-normal weights, zero biases, as flax."""
     tm = CVAE(img_dim=(24, 24, 3), s_dim=S_DIM, hidden_dim=HIDDEN)

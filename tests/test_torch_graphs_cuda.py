@@ -692,3 +692,60 @@ def test_captured_mesh_tick_is_bit_equal(nccl):
                 device=torch.device("cuda", 0))
     exp = Experiment(ExperimentConfig(**TOY), device="cuda", mesh=gloo)
     assert exp.eager_reason == "a gloo mesh" and exp.graphs() == []
+
+
+MODEL_OPTIONS = {"subpixel": dict(decoder_mode="subpixel"),
+                 "resize_conv": dict(decoder_mode="resize_conv"),
+                 "s2d": dict(fast_encoder_grads="s2d"), "im2col": dict(fast_encoder_grads="im2col"),
+                 "lane-pad-8": dict(lane_pad=8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MODEL_OPTIONS))
+def test_captured_trainer_call_is_bit_equal_per_model_option(cuda, name):
+    """The CVAE's options (decoder modes, encoder schedules, lane padding)
+    in the captured trainer call: four calls on fed draws (eager, capture
+    and replay, replay, replay), the metrics and the whole state equal to
+    the eager experiment's after every call."""
+    runs = []
+    for graphs in (False, True):
+        exp = Experiment(ExperimentConfig(**{**TOY, **MODEL_OPTIONS[name]}),
+                         train_calls_per_tick=1, train_every=1, device="cuda")
+        exp.tick_graph = exp.post_train_graph = None
+        if not graphs:
+            exp.trainer_graph = exp.planner_graph = None
+        es = exp.init(seed=0)
+        _fill(es, exp.cfg)
+        runs.append((exp, es))
+    (exp_e, es_e), (exp_g, es_g) = runs
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        beta = torch.tensor(0.01 * (i + 1), device="cuda")
+        gamma = torch.tensor(0.5 / (i + 1), device="cuda")
+        draws = _draws(exp_e.cfg, 12, rng)
+        want = _train(exp_e, es_e, beta, gamma, draws)
+        got = _train(exp_g, es_g, beta, gamma, draws)
+        for k in want:
+            assert torch.equal(want[k], got[k]), (i, k)
+        _assert_states_equal(es_e, es_g)
+    g = exp_g.trainer_graph
+    assert (g.warmups, g.captures, g.replays) == (1, 1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MODEL_OPTIONS))
+def test_replayed_tick_with_a_trainer_call_never_synchronises_per_model_option(cuda, name):
+    """A toy tick with a trainer call under each CVAE option, replaying its
+    tick graph, under ``torch.cuda.set_sync_debug_mode("error")``."""
+    exp = Experiment(ExperimentConfig(**{**SYNC_TOY, **MODEL_OPTIONS[name]}),
+                     train_calls_per_tick=1, train_every=3, device="cuda")
+    parts = trained_tick(exp, exp.init(seed=0))
+    assert exp.tick_graph.captures >= 2
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for _, call in parts:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -172,12 +172,6 @@ def test_model_switch_keeps_parameters_and_values():
         torch.testing.assert_close(p1.grad, p0.grad, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("variant", [True, "im2col"])
-def test_other_variants_raise(variant):
-    with pytest.raises(NotImplementedError):
-        CVAE(fast_encoder_grads=variant, **KW)
-
-
 # ---- the bf16 tensor-core kernel's schedule, emulated on the CPU ----
 #
 # csrc/wgrad.cu's wgrad_mma_kernel runs only on the card. Its index math is
