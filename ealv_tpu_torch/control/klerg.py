@@ -314,7 +314,10 @@ class KlergPlanner:
         ``pstate.gen``, unless ``samples`` (num_target_samples, d) and
         ``hist_idx`` (num_traj_samples,) feed them. ``add_recent_history``
         appends the last H visited states to the samples, unmasked.
-        Returns (pstate, info)."""
+        Returns (pstate, info). The tracer's device spans: ``decode`` from
+        here to the base footprint, ``descent`` from there to the end."""
+        from ..runtime import tracing  # the runtime package imports this module
+        tracing.begin("decode")
         cfg = self.cfg
         if samples is None:
             samples = self._draw_samples(pstate)
@@ -345,12 +348,15 @@ class KlergPlanner:
                          use_prior: bool = False):
         """The planner call after sampling: target shaping, base footprint
         and the hybrid inner loop on given (samples, history) inputs."""
+        from ..runtime import tracing
         cfg = self.cfg
         dev = samples.device
         p, tdist_aux = self._target_dist(pdf_ctx, pstate, samples, temp,
                                          use_prior=use_prior, with_aux=True)
         q_base = traj_footprint(traj_hist, samples, self._explr_idx, self.std,
                                 traj_mask=hist_mask)
+        tracing.end("decode")
+        tracing.begin("descent")
         p_n = cost_norm(p)
 
         def cost_fn(u_test):
@@ -390,6 +396,7 @@ class KlergPlanner:
             info["tdist_pdf"] = tdist_aux["pdf"]
         if "spread" in tdist_aux:
             info["tdist_spread"] = tdist_aux["spread"]
+        tracing.end("descent")
         return pstate, info
 
     def _apply(self, cost_fn, u, u_eff, u_star, djdlam, idx: int, last_cost):

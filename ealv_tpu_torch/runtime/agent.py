@@ -49,6 +49,7 @@ from ..control.baselines import BaselineController, BaselineDraws, BaselineState
 from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
+from . import tracing
 from .graphs import PlannerGraph, StepGraph, TrainerGraph, _addresses, _spec, \
     module_key, optimizer_key, run_step
 from .trainer import TrainerStatics, TrainDraws, train_call
@@ -414,6 +415,7 @@ class Experiment:
                 hist_idx=draws.hist_idx if draws else None)
             x_pred = self.dyn.step(pstate.dyn, pstate.u[0]).x
             vel_pred = x_pred[m:]
+        tracing.begin("env")
         vel6, b_cmd = self.explored.command(x_pred[:m], vel_pred)
         return pstate, vel6, b_cmd, info
 
@@ -421,24 +423,31 @@ class Experiment:
         """One exploration step plus throttled learning, through the tick
         graph where the experiment has one. Returns (es, tick_info); ``es``
         is updated in place."""
-        if self.tick_graph is None:
-            return self._tick(es, draws)
-        return self._graph_tick(es, draws)
+        with tracing.tick():
+            if self.tick_graph is None:
+                return self._tick(es, draws)
+            return self._graph_tick(es, draws)
 
     def _tick(self, es: ExperimentState, draws: TickDraws | None = None,
               graphs: bool = True, host: HostValues | None = None):
         """The tick's body: its planner and trainer calls through their own
-        graphs unless ``graphs=False``; ``host`` stages the host values."""
+        graphs unless ``graphs=False``; ``host`` stages the host values.
+        The tracer's device spans: ``tick`` over the body, ``env`` from the
+        command (``plan_step``) to the render."""
+        tracing.begin("tick")
         full_state = self._measured_robot_state(es.env)
         pstate, vel6, b_cmd, info = self.plan_step(es, full_state, draws, graph=graphs)
         env = es.env
         for _ in range(self.cfg.data_to_ctrl_rate):
             env = self.env.step_vel(env, vel6, b_cmd)
         _, _, force, img = self.env.observe(env)
+        tracing.end("env")
         robot_state = self._measured_robot_state(env)[: self.cfg.s_dim]
         es.env = env
-        return self.absorb_step(es, pstate, info, robot_state, img, force, draws,
-                                graphs=graphs, host=host)
+        out = self.absorb_step(es, pstate, info, robot_state, img, force, draws,
+                               graphs=graphs, host=host)
+        tracing.end("tick")
+        return out
 
     def _throttle(self, explr_step: int, learning_ind: int) -> tuple:
         """Which of the tick's ``train_calls_per_tick`` trainer calls run,
@@ -459,7 +468,9 @@ class Experiment:
                     force, draws: TickDraws | None = None, graphs: bool = True,
                     host: HostValues | None = None):
         """Push the sample, reseed the target distribution, update the
-        hyperparameters and run the throttled learning."""
+        hyperparameters and run the throttled learning: the tracer's device
+        span ``absorb``, the trainer calls' ``train`` spans inside it."""
+        tracing.begin("absorb")
         cfg = self.cfg
         force = force.float().reshape(-1)
         if force.shape[0] > 1:
@@ -503,6 +514,7 @@ class Experiment:
             "robot_state": robot_state,
             "force": force,
         }
+        tracing.end("absorb")
         return es, tick_info
 
     def _grade_spread(self, es: ExperimentState, samples=None):
@@ -543,6 +555,7 @@ class Experiment:
             ramp=None if host is None else host.ramp(slot))
         hyper.iter += self.trainer.num_learning_opt
         es.hyper = hyper
+        tracing.begin("train")
         if self.mesh is not None:
             from ..parallel.train import dp_train_call
             metrics = dp_train_call(self.trainer, self.mesh, es.model, es.opt, es.buf,
@@ -553,6 +566,7 @@ class Experiment:
             train = (self.trainer_graph if graphs else None) or train_call
             metrics = train(self.trainer, es.model, es.opt, es.buf, hyper.beta, hyper.gamma,
                             generator=es.gen, draws=train_draws)
+        tracing.end("train")
         es.buf.update_hyperparams(es.explr_step if host is None else host.explr_step,
                                   grade, spread)
         es.learning_ind += 1

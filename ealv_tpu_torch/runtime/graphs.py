@@ -69,6 +69,7 @@ from torch import nn
 from ..ops.adam import adam_apply
 from ..ops.footprint import footprint_and_spread
 from ..ops.wgrad import conv_wgrad_direct
+from . import tracing
 from .trainer import train_call
 
 KERNELS = {"footprint_and_spread": footprint_and_spread, "adam_apply": adam_apply,
@@ -433,16 +434,16 @@ class _CapturedCall:
 
     def _call(self, key_fn, inputs, body, generators):
         """``body(inputs)``: eagerly under a new key, else replayed (captured
-        first on the key's second call). ``key_fn()`` gives the key; it is
-        read again after an eager call, which may create what the key holds
-        (the optimizer's moments)."""
-        key = key_fn()
+        first on the key's second call). ``key_fn()`` and the tracer's
+        ``state()`` give the key; it is read again after an eager call,
+        which may create what the key holds (the optimizer's moments)."""
+        key = (key_fn(), tracing.state())
         if key != self.key:
             if key != self._warm:
                 self._drop()
                 self.warmups += 1
                 out = body(inputs)
-                self._warm = key_fn()
+                self._warm = (key_fn(), tracing.state())
                 return out
             self._capture(key, inputs, body, generators)
         else:
@@ -543,7 +544,8 @@ class StepGraph:
 
     - ``base_fn()`` keys what every pattern's graph reads in place (the
       addresses of the parameters, the optimizer's state and the rings, the
-      generators, the carry's structure); when it changes, every graph is
+      generators, the carry's structure), with the tracer's ``state()``
+      (a graph holds its stamps); when it changes, every graph is
       dropped. It is read again after an eager step, which may create what
       it holds (the optimizer's moments);
     - ``pattern`` keys the host values the step branches on (which trainer
@@ -562,7 +564,9 @@ class StepGraph:
     Counts: ``warmups``, ``captures`` and ``replays`` over every pattern,
     ``counts[pattern]`` the three for each, ``capture_seconds[pattern]``;
     ``launched`` sums the kernel launches each capture recorded over its
-    replays, as in ``_CapturedCall``. Every graph takes its memory from
+    replays, as in ``_CapturedCall``. The tracer's host spans ``key``,
+    ``stage``, ``replay`` and ``clone`` (``runtime/tracing.py``) time the
+    step's parts on the host. Every graph takes its memory from
     ``pool`` (a ``torch.cuda.MemPool``, which other steps' graphs may
     share); nothing allocated there outlives a replay but the graphs'
     outputs, which are cloned out at once. The ``MemPool`` object keeps the
@@ -572,7 +576,7 @@ class StepGraph:
 
     def __init__(self, graph_type=CudaGraph, pool=None):
         self.graph_type, self.pool = graph_type, pool
-        self.base = self.carry = None
+        self.base = self.carry = self.traced = None
         self.entries: dict = {}
         self.warm: set = set()
         self.counts: dict = {}
@@ -581,17 +585,20 @@ class StepGraph:
         self.warmups = self.captures = self.replays = 0
 
     def _rebase(self, base) -> None:
-        """Drop every graph (and the static carry) when the base changes."""
-        if base != self.base:
+        """Drop every graph (and the static carry) when the base or the
+        tracer's state changes."""
+        traced = tracing.state()
+        if base != self.base or traced != self.traced:
             self.entries, self.warm, self.carry = {}, set(), None
-            self.base = base
+            self.base, self.traced = base, traced
 
     def _count(self, pattern, i: int) -> None:
         self.counts.setdefault(pattern, [0, 0, 0])[i] += 1
 
     def step(self, base_fn, pattern, carry, draws, body, generators):
-        self._rebase(base_fn())
-        key = (pattern, _spec(draws))
+        with tracing.span("key"):
+            self._rebase(base_fn())
+            key = (pattern, _spec(draws))
         entry = self.entries.get(key)
         if entry is None:
             if key not in self.warm:
@@ -606,13 +613,17 @@ class StepGraph:
                 return new, _clone(out)
             entry = self._capture(key, carry, draws, body, generators)
         else:
-            _copy_into(self.carry, carry)
-            _copy_into(entry.draws, draws)
-        out = entry.graph.replay()
+            with tracing.span("stage"):
+                _copy_into(self.carry, carry)
+                _copy_into(entry.draws, draws)
+        with tracing.span("replay"):
+            out = entry.graph.replay()
         self.replays += 1
         self._count(pattern, 2)
         _replayed(self.launched, entry.recorded)
-        return self.carry, _clone(out)
+        with tracing.span("clone"):
+            out = _clone(out)
+        return self.carry, out
 
     def _capture(self, key, carry, draws, body, generators) -> _Entry:
         if self.carry is None:

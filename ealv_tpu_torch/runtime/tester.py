@@ -38,6 +38,7 @@ from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
 from .agent import ExploredStates, TickDraws, advance_env, drift_key, reject_unported, \
     sim_carry, step_base, with_sim_carry
+from . import tracing
 from .graphs import StepGraph, inplace_key, run_step
 
 
@@ -134,7 +135,8 @@ class EvalExperiment:
             view, obs = self._tick(view, pdf_ctx, d)
             return view, extra, obs
 
-        ev, _, obs = self.step(ev, (), draws, run, ("tick",), inplace_key(pdf_ctx))
+        with tracing.tick():
+            ev, _, obs = self.step(ev, (), draws, run, ("tick",), inplace_key(pdf_ctx))
         return ev, obs
 
     def step(self, ev: EvalState, extra, draws, run, pattern: tuple, *reads):
@@ -174,7 +176,9 @@ class EvalExperiment:
                 extra, out)
 
     def _tick(self, ev: EvalState, pdf_ctx, draws: TickDraws | None = None):
-        """The tick's body."""
+        """The tick's body: the tracer's device span ``tick``, and ``env``
+        from the command to the render."""
+        tracing.begin("tick")
         pstate = self.planner.save_update(ev.pstate, self.explored.measured(ev.env),
                                           save=True)
         pstate, info = self.planner.plan(pstate, pdf_ctx,
@@ -182,11 +186,14 @@ class EvalExperiment:
                                          hist_idx=draws.hist_idx if draws else None)
         m = self.dyn.num_actions
         x_pred = self.dyn.step(pstate.dyn, pstate.u[0]).x
+        tracing.begin("env")
         vel6, b_cmd = self.explored.command(x_pred[:m], x_pred[m:])
         env = self.env.step_vel(ev.env, vel6, b_cmd)
         _, _, force, img = self.env.observe(env)
         if self.cfg.image_dim[2] == 1:
             img = img.mean(-1, keepdim=True)
+        tracing.end("env")
         robot_state = self.explored.measured(env)[: len(self.explr_states)]
         ev = EvalState(pstate=pstate, env=env, step=ev.step + 1)
+        tracing.end("tick")
         return ev, dict(robot_state=robot_state, image=img, force=force, cost=info["cost"])

@@ -30,9 +30,12 @@ clusters are stable).
 save and the other panel commands, beside the live dashboard frame) in both
 loops; the chunked loop pauses and saves between chunks. ``--dash-every N``
 redraws ``dashboard.png`` (``dashboard.html`` beside it) after the chunk
-that crosses each multiple of N steps. ``--profile`` writes a
-``torch.profiler`` trace of the second chunk (CPU and, on the card, CUDA
-activity) to ``profile/trace.json`` as a Chrome trace. ``--entropy-slices``
+that crosses each multiple of N steps. ``--profile`` turns the tracer
+(``runtime/tracing.py``) on for the run, writes a ``torch.profiler`` trace
+of the second chunk (CPU and, on the card, CUDA activity, with the
+program's spans) to ``profile/trace.json`` as a Chrome trace, and logs to
+``log.txt`` each span's self time a tick over the chunks after that one,
+and the device's wait by host span. ``--entropy-slices``
 draws the entropy-slice figures after the run. The end-of-run figures
 (``training.png``, ``final_view.png``) are drawn where matplotlib is
 installed; where it is not, ``log.txt`` gets one line naming them, and
@@ -60,7 +63,7 @@ import numpy as np
 import torch
 
 from ..utils.config import ExperimentConfig
-from ..runtime import Experiment, ExperimentState, HostLoopRunner
+from ..runtime import Experiment, ExperimentState, HostLoopRunner, tracing
 from ..runtime.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ..runtime.metrics import MetricsLog, run_dir
 from ..runtime.panel import ControlHooks, ControlPanel
@@ -131,8 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="redraw the live dashboard (dashboard.png / .html in the run "
                          "dir) every N exploration steps, between chunks")
     ap.add_argument("--profile", action="store_true",
-                    help="write a torch.profiler trace of the second chunk to "
-                         "{run_dir}/profile/trace.json (Chrome trace format)")
+                    help="trace the run's spans: a torch.profiler trace of the second "
+                         "chunk to {run_dir}/profile/trace.json (Chrome trace format), and "
+                         "each span's self time a tick after it in log.txt")
     ap.add_argument("--entropy-slices", action="store_true",
                     help="after the run, draw the entropy-slice figures (marginal "
                          "uncertainty fields per z-range variant) into the run dir")
@@ -227,6 +231,21 @@ def _profiler(device: torch.device):
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return torch.profiler.profile(activities=acts)
+
+
+def log_spans(ml: MetricsLog, first: int | None) -> None:
+    """Log the tracer's split of the ticks from ``first`` on (those after
+    the profiled chunk, which the profiler slows) and turn the tracer off."""
+    last = tracing.ticks()
+    if first is None or first >= last:
+        ml.write_to_log("tracer: no chunk ran after the profiled one")
+    else:
+        tr = tracing.read(max(first, last - tracing.CAPACITY), last)
+        ml.write_to_log(tracing.describe(tracing.summary(tr)))
+        ml.write_to_log(f"tracer: stamps on the host clock within {tr.uncertainty_ns} ns "
+                        f"(offset {tr.offset_ns} ns, drift since the run began "
+                        f"{tr.drift_ns} ns)")
+    tracing.disable()
 
 
 def draw_figures(exp: Experiment, es: ExperimentState, dirp: str, ml: MetricsLog) -> list:
@@ -335,6 +354,9 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
     t0 = time.time()
     start = es.explr_step
     c = 0
+    untraced = None  # the first tick after the profiled chunk
+    if args.profile:
+        tracing.enable(exp.device)
     with _web_panel(args, ControlHooks(), dirp, ml) as web:
         while es.explr_step < args.steps:
             if web is not None:
@@ -354,6 +376,7 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
                 os.makedirs(os.path.dirname(trace), exist_ok=True)
                 prof.export_chrome_trace(trace)
                 ml.write_to_log(f"profiler trace -> {trace}")
+                untraced = tracing.ticks()
             ml.push_tick_info(infos)
             if dash and es.explr_step // args.dash_every > before // args.dash_every:
                 dash.render(es, ml.series, step=es.explr_step)
@@ -369,6 +392,8 @@ def run(exp: Experiment, args, dirp: str, ml: MetricsLog,
             c += 1
     if args.profile and c < 2:
         ml.write_to_log(f"no profiler trace: {c} chunk(s), the trace takes the second")
+    if args.profile:
+        log_spans(ml, untraced)
     wall = max(time.time() - t0, 1e-9)
     ml.write_to_log(f"done: {es.explr_step} steps in {wall:.0f}s "
                     f"({(es.explr_step - start) / wall:.2f} Hz)")
