@@ -5,8 +5,9 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles every kernel (K1 footprint.cu, K2 adam.cu, K3
-     wgrad.cu) from ealv_tpu_torch/csrc, one nvcc per source, in parallel;
+  2. build: compiles every kernel (K1 footprint.cu, the planner's horizon
+     recurrences rollout.cu, K2 adam.cu, K3 wgrad.cu) from
+     ealv_tpu_torch/csrc, one nvcc per source, in parallel;
   3. kernels vs their plain torch versions on the card, at the main paths'
      shapes (K1 at d = 3 for the xyw tick, d = 6 for the xyzrpw tick, and
      N = 2010 for the planner's add_recent_history samples, and at the
@@ -16,7 +17,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      times (CUDA events) and host clock per call of each kernel, its plain
      version and the one PyTorch call for the same function where there is
      one (torch.optim.Adam(fused=True) for K2, cuDNN's bf16 wgrad for K3),
-     beside each kernel's bound on this card;
+     beside each kernel's bound on this card; the planner's rollout and
+     costate kernels at the cells' shapes, bit-equal to their plain
+     versions but for the SO(3) roll model's gap, and their device us as
+     nodes of a captured graph beside an empty kernel's;
   4. agreement: two toy-size ticks on the card and on the CPU with the same
      weights and the same fed random draws (float32, TF32 off), at xyw, at
      xywb with the force variant and the z-ensemble, and with each baseline
@@ -154,7 +158,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
   8. the port's ``repro planner`` table at 2 seeds x 30 steps (the
      published spec otherwise; 13 K1 launches a step), its rows finite and
      printed as one JSON line.
-The line before the last is the kernels' JSON record; the last line is the
+Every path of phases 4 to 8 whose K1 launches are counted has the
+planner's horizon kernels counted beside them, from the same counts set to
+0: 17 horizon_rollout and 5 costate_sweep launches a plan (a toy planner
+mode's own numbers), one more rollout for each planner state set up in the
+window (``init_state`` rolls out the zero plan), none where nothing plans.
+The line before the last is the kernels' JSON record (the horizon kernels'
+launches by path among it); the last line is the
 result JSON. Imports nothing of JAX.
 """
 
@@ -531,6 +541,141 @@ def _trainer_layout(x, cot, last_layer):
     return cl(x), out
 
 
+def _graph_us(fn, inner=50, reps=11):
+    """Device us a call of ``fn`` as one of ``inner`` nodes of a captured
+    CUDA graph, as a tick graph replays it: median over ``reps`` replays,
+    from CUDA events."""
+    import torch
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / inner)
+    return float(np.median(times))
+
+
+HORIZON = ("horizon_rollout", "costate_sweep")
+# each path's horizon kernel launches, plans and planner set-ups, summed
+# over its checked windows by _horizon_launches, for the kernels record
+HORIZON_LAUNCHES: dict = {}
+
+
+def _horizon_want(kcfg) -> tuple:
+    """The horizon kernels' launches a plan (rollouts, costate sweeps) at a
+    planner config: a rollout for the initial cost, for every inner
+    iteration's forward pass, line search (its windows as one batch),
+    ``full_cost`` substitutions and new plan's cost, and for the final
+    plan; a sweep for every backward pass. (17, 5) at the default config."""
+    search = kcfg.ctrl_app_search and not kcfg.fixed_lam
+    per_iter = 2 + int(search) + int(kcfg.ctrl_app_search and kcfg.full_cost)
+    return 2 + kcfg.num_iters * per_iter, kcfg.num_iters
+
+
+def _horizon_launches(counts, plans, path, inits=0, per_plan=(17, 5), record=True):
+    """Check the horizon kernels' launches in ``counts`` (kernel name ->
+    launches, set to 0 before the window): ``per_plan`` (rollouts, sweeps)
+    for each of ``plans`` planner calls, and one eager rollout for each of
+    ``inits`` planner states set up (``init_state`` rolls out the zero
+    plan). Adds them to ``HORIZON_LAUNCHES[path]``."""
+    got = tuple(counts[k] for k in HORIZON)
+    want = (per_plan[0] * plans + inits, per_plan[1] * plans)
+    if got != want:
+        raise RuntimeError(f"{path}: {got[0]} horizon_rollout and {got[1]} costate_sweep "
+                           f"launches for {plans} plans and {inits} planner set-ups, expected "
+                           f"{want[0]} and {want[1]} ({per_plan[0]} and {per_plan[1]} a plan)")
+    if record:
+        r = HORIZON_LAUNCHES.setdefault(path, dict.fromkeys(("plans", "inits", *HORIZON), 0))
+        for k, v in zip(("plans", "inits", *HORIZON), (plans, inits, *got)):
+            r[k] += v
+
+
+def _horizon_record(name) -> dict:
+    """A horizon kernel's launches by path for the kernels record: the
+    total and, where the path plans, the launches a plan."""
+    return {"launches": {p: r[name] for p, r in HORIZON_LAUNCHES.items()},
+            "launches_per_plan": {p: (r[name] - (r["inits"] if name == HORIZON[0] else 0))
+                                  / r["plans"] for p, r in HORIZON_LAUNCHES.items()
+                                  if r["plans"]}}
+
+
+def phase_rollout(dev):
+    """The planner's horizon kernels (``control/horizon.py``) at the cells'
+    shapes, H = 10 and the Roll policy: the rollout of one plan through the
+    policy (``_forward``) and of the line search's 5 candidates as they
+    are (the costs), for the double integrator (xyw, n = 6), the speed
+    model (n = 9) and the SO(3) roll model (xyzrpw, n = 12), and the costate
+    sweep on the planner's own matrices; each against its plain version
+    (bit-equal but for the roll model, whose gap is printed), then device
+    us a call of each as a node of a captured graph, beside an empty
+    kernel's (the latency bound) and the plain version's, captured and
+    eager."""
+    import torch
+    from ealv_tpu_torch.control import DynState, make_dynamics, make_policy
+    from ealv_tpu_torch.control.horizon import (costate, costate_sweep_reference,
+                                                horizon_rollout_reference, rollout, state_gap)
+    from ealv_tpu_torch.utils.timing import device_ms
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    bound = _graph_us(lambda: torch.cuda._sleep(0))
+    print(f"[rollout] an empty kernel: {bound:.2f} us a graph node (the latency bound)")
+    out = {k: {"bound_us": bound} for k in HORIZON}
+    for name, kw in (("xyw", {}), ("xyw speed", {"use_magnitude": True}), ("xyzrpw", {})):
+        dyn = make_dynamics(name.split()[0], dt=0.2, device=dev, **kw)
+        pol = make_policy("Roll", dyn, 10)
+        n, m = dyn.num_states, dyn.num_actions
+        s0 = dyn.init(torch.rand(n, generator=g, device=dev) * 2 - 1)
+        angles = getattr(dyn, "rpw", ())
+        for k, p in ((1, pol), (5, None)):
+            u = torch.rand((k, 10, m) if k > 1 else (10, m), generator=g, device=dev) * 2 - 1
+            kern = lambda: rollout(dyn, p, s0.x, s0.R, u)
+            plain = lambda: horizon_rollout_reference(dyn, p, s0.x, s0.R, u)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            gap = max(state_gap(got[0], want[0], angles), state_gap(got[1], want[1]))
+            if not angles and not equal:
+                raise RuntimeError(f"rollout {name} K={k} is not bit-equal: {gap:.3e}")
+            if gap > 1e-6:
+                raise RuntimeError(f"rollout {name} K={k}: gap {gap:.3e} above 1e-6")
+            us, plain_us, plain_ms = _graph_us(kern), _graph_us(plain), device_ms(plain)
+            print(f"[rollout] horizon_rollout {name} n={n} K={k}: "
+                  f"{'bit-equal' if equal else f'max rel gap {gap:.3e}'}; kernel {us:.2f} us "
+                  f"a graph node; plain {plain_us:.2f} us captured, {plain_ms * 1e3:.2f} us "
+                  f"eager (CUDA events)")
+            out["horizon_rollout"][f"{name} K={k}"] = dict(us=us, plain_us=plain_us, plain_ms=plain_ms,
+                                                          gap=gap, equal=equal)
+        u = torch.rand((10, m), generator=g, device=dev) * 2 - 1
+        xs, Rs, ue = horizon_rollout_reference(dyn, pol, s0.x, s0.R, u)
+        xs, Rs = xs[:-1], Rs[:-1]
+        A, B = dyn.get_lin(DynState(x=xs, R=Rs), ue) if dyn.state_dependent else (dyn.A, dyn.B)
+        jac = A.expand(10, n, n) + B.expand(10, n, m) @ pol.dx(xs, ue)
+        drive = torch.randn((10, n), generator=g, device=dev)
+        kern = lambda: costate(drive, jac, 0.2)
+        plain = lambda: costate_sweep_reference(drive, jac, 0.2)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        equal, gap = torch.equal(got, want), state_gap(got, want)
+        if (not angles and not equal) or gap > 1e-6:
+            raise RuntimeError(f"costate {name}: gap {gap:.3e}")
+        us, plain_us, plain_ms = _graph_us(kern), _graph_us(plain), device_ms(plain)
+        print(f"[rollout] costate_sweep {name} n={n}: "
+              f"{'bit-equal' if equal else f'max rel gap {gap:.3e}'}; kernel {us:.2f} us a "
+              f"graph node; plain {plain_us:.2f} us captured, {plain_ms * 1e3:.2f} us eager")
+        out["costate_sweep"][name] = dict(us=us, plain_us=plain_us, plain_ms=plain_ms, gap=gap,
+                                          equal=equal)
+    return out
+
+
 def phase_wgrad(dev):
     """K3 against its plain version in f64 at the encoder's three production
     layers at 64 rows and at 32 (one rank's shard at two ranks) and the
@@ -788,10 +933,10 @@ def _toy_plan(dyn_name, policy, mode, dev, H=10, N=256, M=64):
     a start state (a positive roll for the roll model), a non-zero initial
     plan, a Gaussian target, 64 visited states and the draws. Returns the
     plan u, the ergodic cost, R after rolling the plan out from the start,
-    and the K1 launches of the call."""
+    and the kernels' launches in the call (the wrappers' counts)."""
     import torch
     from ealv_tpu_torch import control as tc
-    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime.graphs import kernel_counts
 
     states = PLANNER_STATES[dyn_name]
     d = len(states)
@@ -837,10 +982,10 @@ def _toy_plan(dyn_name, policy, mode, dev, H=10, N=256, M=64):
     for h in hist:
         ps.memory.push(t(h))
     ps = dataclasses.replace(ps, u=t(u0))
-    before = footprint_and_spread.launches
+    before = kernel_counts()
     ps, info = planner.plan(ps, None, samples=t(samples),
                             hist_idx=torch.as_tensor(hist_idx, device=dev))
-    launches = footprint_and_spread.launches - before
+    launches = {k: n - before[k] for k, n in kernel_counts().items()}
     s = ps.dyn
     for k in range(H):
         s = dyn.step(s, ps.u[k])
@@ -851,8 +996,11 @@ def phase_planner_agreement():
     """Every dynamics model, policy and mode of the planner: one toy call
     on the card and on the CPU with the same fed draws (f32, TF32 off);
     plan and cost at rtol 1e-3, atol 1e-4, R at atol 1e-5 and orthonormal
-    to 1e-5 on both; 13 K1 launches per call on the card in every mode."""
+    to 1e-5 on both; 13 K1 launches per call on the card in every mode, and
+    the horizon kernels' launches of its mode (17 rollouts and 5 costate
+    sweeps at the default)."""
     import torch
+    from ealv_tpu_torch.control import KlergConfig
     worst = {"u": 0.0, "cost": 0.0, "R": 0.0, "RtR": 0.0}
     for dyn_name, policy, mode in PLANNER_CASES:
         what = f"{dyn_name} / {policy} / {mode or 'default'}"
@@ -865,8 +1013,11 @@ def phase_planner_agreement():
         rtr = max(float((R.T @ R - torch.eye(3)).abs().max()) for R in (R_c, R_g))
         if rtr > 1e-5:
             raise RuntimeError(f"{what}: R off orthonormal by {rtr:.2e}")
-        if launches != 13:
-            raise RuntimeError(f"{what}: {launches} K1 launches in one plan, expected 13")
+        if launches["footprint_and_spread"] != 13:
+            raise RuntimeError(f"{what}: {launches['footprint_and_spread']} K1 launches in one "
+                               f"plan, expected 13")
+        _horizon_launches(launches, 1, what, per_plan=_horizon_want(KlergConfig(**mode)),
+                          record=False)
         if float(u_c.abs().max()) == 0.0:
             raise RuntimeError(f"{what}: the plan is all zeros")
         for key, err in (("u", _max_err([u_g], [u_c])), ("cost", float((cost_g - cost_c).abs())),
@@ -875,7 +1026,8 @@ def phase_planner_agreement():
     print(f"[agreement] planner, {len(PLANNER_CASES)} toy calls (4 dynamics x 4 policies, 5 "
           f"modes on the roll model), cuda vs cpu with fed draws: max|du| {worst['u']:.3e}, "
           f"max|dcost| {worst['cost']:.3e}, max|dR| {worst['R']:.3e}, max|R^T R - I| "
-          f"{worst['RtR']:.3e}; 13 K1 launches per call on the card in every mode")
+          f"{worst['RtR']:.3e}; 13 K1 launches per call on the card in every mode, and the "
+          f"horizon kernels' launches of its mode")
 
 
 def _train_draws(cfg, n_filled, rng, dev):
@@ -1672,6 +1824,8 @@ def phase_main_path(states="xyw", n_timed=24):
         raise RuntimeError(f"footprint kernel launched {launches} times in {n_timed} ticks "
                            f"through the tick graphs, {r['launches_calls']} through the "
                            f"per-call graphs, expected {13 * n_timed}")
+    _horizon_launches(r["launches"], n_timed, f"main path {states}, tick graphs")
+    _horizon_launches(r["launches_calls"], n_timed, f"main path {states}, per-call graphs")
     if not (torch.isfinite(costs).all() and torch.isfinite(losses).all()):
         raise RuntimeError(f"non-finite costs {costs} or losses {losses}")
     if r["calls"] <= 0 or trained.numel() == 0:
@@ -1688,7 +1842,9 @@ def phase_main_path(states="xyw", n_timed=24):
     print(f"[main path {states}] {n_timed} timed ticks through the tick graphs: {ms:.2f} "
           f"ms/tick = {1e3 / ms:.2f} Hz | last loss {float(trained[-1]):.4f} | ergodic cost "
           f"{float(costs[-1]):.4f} | {r['calls']} trainer calls | K1 launches {launches} "
-          f"(13/tick, the wrappers' eager counts 0) | planner |R^T R - I| {rtr:.1e} | "
+          f"(13/tick, the wrappers' eager counts 0), horizon_rollout "
+          f"{r['launches']['horizon_rollout']} (17/tick), costate_sweep "
+          f"{r['launches']['costate_sweep']} (5/tick) | planner |R^T R - I| {rtr:.1e} | "
           f"{_graph_note(exp)}")
     print(_three_ways(f"main path {states}", r))
     n_compared = _plan_step_agreement(exp_c, es_c)
@@ -1755,6 +1911,7 @@ def phase_variant_path(n_timed=12):
         raise RuntimeError(f"variant path: {calls} trainer calls in {n_timed} ticks made "
                            f"K1 {k1}, K2 {k2}, K3 {k3} launches; expected "
                            f"{13 * n_timed + calls}, {25 * calls}, {75 * calls}")
+    _horizon_launches(counts, n_timed, "variant path, tick graphs")
     losses, costs = r["infos"]["loss"].cpu(), r["infos"]["ergodic_cost"].cpu()
     if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()):
         raise RuntimeError(f"non-finite losses {losses} or costs {costs}")
@@ -1964,6 +2121,7 @@ def _option_production(name, opts, n_timed=6, rounds=4):
         raise RuntimeError(f"model option {name}: {calls} trainer calls and K1 {k1}, K2 "
                            f"{k2}, K3 {k3} launches in {n_timed} timed ticks, expected two "
                            f"or more calls and {13 * n_timed}, 0, 0")
+    _horizon_launches(launches, n_timed, f"model option {name}, tick graphs")
     losses = infos["loss"]
     if not (torch.isfinite(losses).all() and torch.isfinite(infos["ergodic_cost"]).all()):
         raise RuntimeError(f"model option {name}: non-finite losses or costs")
@@ -2098,7 +2256,8 @@ def _steps_two_ways(name, make, step, n_warm, rounds=2, chunk=6, k1_per_step=12,
     chunks of ``chunk`` steps in turns (graphed, eager, eager, graphed),
     each timed: every graphed chunk replays its graphs on every step with
     no eager K1 launch, ``k1_per_step`` K1 launches a step read through the
-    graphs; then 3 steps of each under torch.profiler. Every out and the
+    graphs, and in every chunk one plan a step (17 rollouts, 5 costate
+    sweeps); then 3 steps of each under torch.profiler. Every out and the
     final state are held bit for bit. Returns the readings."""
     import torch
     from ealv_tpu_torch.runtime.graphs import kernel_counts, reset_launches, total_launches
@@ -2133,6 +2292,7 @@ def _steps_two_ways(name, make, step, n_warm, rounds=2, chunk=6, k1_per_step=12,
                                f"K1 {k1} through the graphs ({eager_k1} eager)")
         if mode == "eager" and eager_k1 != k1_per_step * chunk:
             raise RuntimeError(f"{name}, eager: K1 {eager_k1} in {chunk} steps")
+        _horizon_launches(total_launches(), chunk, f"{name}, {mode}")
         per_step[mode] = k1 / chunk
     profiles = {}
     for mode, run in runs.items() if profile else ():
@@ -2285,10 +2445,11 @@ def phase_eval_path(n_points=25):
         if planned != 0 or ticked != calls or calls <= 0:
             raise RuntimeError(f"{method}: {planned} K1 launches in 3 plan_steps (expected "
                                f"0), {ticked} in 6 ticks with {calls} trainer calls")
+        _horizon_launches(kernel_launches(*exp.graphs()), 0, f"baseline {method}")
         if not torch.isfinite(infos["loss"]).all():
             raise RuntimeError(f"{method}: losses {infos['loss']}")
         print(f"[eval path] baseline {method} at xywb, production size: 0 K1 launches in 3 "
-              f"plan_steps; {ticked} in 6 ticks = one per trainer call ({calls}, the entropy "
+              f"plan_steps and no horizon kernel launch in them or the ticks; {ticked} in 6 ticks = one per trainer call ({calls}, the entropy "
               f"grade); {b_ms:.2f} ms/tick (the first ticks, cold)")
     return dt, per_plan
 
@@ -2472,17 +2633,18 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
                 * (rl[:, 1] - rl[:, 0]) + rl[:, 0])
     seeds_y = t(images)
     gen = torch.Generator(device=dev).manual_seed(0)
-    launches = {}
+    launches, counts = {}, {}
 
     def timed(name, fn):
-        """fn() and its seconds; its K1 launches, eager and replayed by any
-        graph (a capture's step graph lives only inside the call)."""
+        """fn() and its seconds; its kernel launches, eager and replayed by
+        any graph (a capture's step graph lives only inside the call)."""
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
-        launches[name] = total_launches()["footprint_and_spread"]
+        counts[name] = total_launches()
+        launches[name] = counts[name]["footprint_and_spread"]
         return result, time.perf_counter() - t0
 
     res, cluster_s = timed("find_clusters", lambda: find_clusters(
@@ -2618,6 +2780,13 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
             "entropy_slices": 0}
     if launches != want:
         raise RuntimeError(f"fingerprint path K1 launches {launches}, expected {want}")
+    # one plan a capture or identification tick; each capture and each
+    # identification run sets up its planner state once
+    for name, plans, inits in (("find_clusters", 0, 0), ("entropy_slices", 0, 0),
+                               ("capture", n_capture * len(truth), len(truth)),
+                               *((f"identify {m}{e}", n_id, 1) for m in ("fixed", "uncertain")
+                                 for e in ("", " eager"))):
+        _horizon_launches(counts[name], plans, f"fingerprint {name}", inits=inits)
     capture_ms = capture_s / (n_capture * len(truth)) * 1e3
     id_ms = (runs["fixed"] + runs["uncertain"]) / (2 * n_id) * 1e3
     print(f"[fingerprint path] production size, bf16, 3-object scene: find_clusters over 1000 "
@@ -2632,7 +2801,9 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
           f"{identify_ms:.4f}; update_beliefs "
           f"{ {k: round(v, 4) for k, v in update_ms.items()} }; match_forward "
           f"{match_ms:.4f}; fuse_matches { {k: round(v, 4) for k, v in fuse_ms.items()} } "
-          f"(four: {sum(fuse_ms.values()):.4f}) | K1 launches {launches}")
+          f"(four: {sum(fuse_ms.values()):.4f}) | K1 launches {launches} | horizon_rollout, "
+          f"costate_sweep launches "
+          f"{ {k: (c['horizon_rollout'], c['costate_sweep']) for k, c in counts.items()} }")
     return dict(capture_per_tick=launches["capture"] / (n_capture * len(truth)),
                 identify_per_tick=launches["identify fixed"] / n_id,
                 find_clusters=launches["find_clusters"],
@@ -2889,6 +3060,7 @@ def phase_arm_path(n_timed=12):
     if launches != 13 * n_timed:
         raise RuntimeError(f"arm path: K1 launched {launches} times in {n_timed} ticks, "
                            f"expected {13 * n_timed}")
+    _horizon_launches(r["launches"], n_timed, "arm path, tick graphs")
     if not any(c[2] for c in drift.values()):
         raise RuntimeError(f"arm path: no drift-correcting tick replayed: {drift}")
     losses, costs = r["infos"]["loss"].cpu(), r["infos"]["ergodic_cost"].cpu()
@@ -3077,6 +3249,7 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
                                    f"plans, {eager} eager")
         elif eager != 13 * plans:
             raise RuntimeError(f"host loop path, eager: K1 {eager} for {plans} plans")
+        _horizon_launches(total_launches(), plans, f"host loop path, {mode}")
     profiles = {}
     for mode, run in runs.items():
         def three(run=run):
@@ -3198,6 +3371,7 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
         bridge.stop()
     stats = bridge.loop_stats()
     g, k1 = runner.step_graph, total_launches()["footprint_and_spread"]
+    _horizon_launches(total_launches(), plans[0], "native bridge")
     counts = {_host_pattern_name(p): c for p, c in g.counts.items()}
     capture_s = {_host_pattern_name(p): [round(t, 3) for t in v]
                  for p, v in g.capture_seconds.items()}
@@ -3293,6 +3467,7 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3)
         if k1 != 13 * steps + n_posted:
             raise RuntimeError(f"K1 launched {k1} times; expected 13 per tick and one "
                                f"per post-training call, {13 * steps + n_posted}")
+        _horizon_launches(counts, steps, "learning path, tick graphs")
         if exp.tick_graph.replays < 1 or exp.post_train_graph.replays < 1:
             raise RuntimeError(f"the run replayed no tick or post-training graph: "
                                f"{_graph_note(exp)}")
@@ -3681,6 +3856,7 @@ def phase_mesh_tick(xyw_ms, least=9, rounds=2, chunk=6):
             raise RuntimeError(f"mesh tick, {mode}: launches {got} for {chunk} ticks and "
                                f"{calls} trainer calls (eager {eager}), "
                                f"{exp.tick_graph.replays - replays} replays")
+        _horizon_launches(total_launches(), chunk, f"mesh tick, {mode}")
         for n in names:
             k[mode][n] += got[n]
         k[mode]["ticks"] += chunk
@@ -3733,8 +3909,8 @@ def phase_dashboard(n_warm=6):
     ms a payload by CUDA events, host ms with the copy. No render: the
     card's machine has no matplotlib."""
     import torch
-    from ealv_tpu_torch.ops import footprint_and_spread
     from ealv_tpu_torch.runtime import Experiment
+    from ealv_tpu_torch.runtime.graphs import reset_launches, total_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
     from ealv_tpu_torch.viz import LiveDashboard
@@ -3747,9 +3923,11 @@ def phase_dashboard(n_warm=6):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dash_") as tmp:
         dash = LiveDashboard(exp, tmp)
         torch.cuda.synchronize()
-        footprint_and_spread.launches = 0
+        reset_launches()
         pl = dash.payload(es)
-        launches = footprint_and_spread.launches
+        counts = total_launches()
+        launches = counts["footprint_and_spread"]
+    _horizon_launches(counts, 0, "dashboard payload")
     n = 2 * cfg.s_dim  # (position, velocity) states
     shapes = {"image": cfg.image_dim, "img_pred": cfg.image_dim, "z_mu": (cfg.z_dim,),
               "p": (50, 50), "q": (50, 50), "path": (cfg.traj_buffer_capacity, n),
@@ -3864,15 +4042,18 @@ def phase_repro_planner(seeds=(0, 1), steps=30):
     ``steps`` after one warm step a seed; the published spec otherwise:
     1500 x 1000 samples, horizon 10), 13 K1 launches a step; the port's
     rows finite. Prints the rows as one JSON line. Returns the launches."""
-    from ealv_tpu_torch.ops import footprint_and_spread
+    from ealv_tpu_torch.runtime.graphs import reset_launches, total_launches
     from ealv_tpu_torch.scripts.repro import planner_study
 
-    footprint_and_spread.launches = 0
+    reset_launches()
     rows, _ = planner_study(seeds=seeds, steps=steps, device="cuda")
-    launches = footprint_and_spread.launches
+    counts = total_launches()
+    launches = counts["footprint_and_spread"]
     want = 13 * len(seeds) * (steps + 1)
     if launches != want:
         raise RuntimeError(f"repro planner: {launches} K1 launches, expected {want}")
+    # two planner set-ups a seed: the warm step's and the timed steps'
+    _horizon_launches(counts, len(seeds) * (steps + 1), "repro planner", inits=2 * len(seeds))
     port = [dict(seed=seed, **m) for impl, seed, m in rows if impl == "port"]
     if len(port) != len(seeds) or not all(np.isfinite(list(r.values())).all() for r in port):
         raise RuntimeError(f"repro planner: rows {port}")
@@ -3893,7 +4074,7 @@ def main() -> int:
     smi = _smi()
     print(f"[device] {smi} | torch {torch.__version__} | CUDA {torch.version.cuda} "
           f"| {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    sources = ("footprint.cu", "adam.cu", "wgrad.cu")
+    sources = ("footprint.cu", "rollout.cu", "adam.cu", "wgrad.cu")
     t0 = time.perf_counter()
     cuda_build.build(*sources)
     for source in sources:
@@ -3909,6 +4090,7 @@ def main() -> int:
     k1 = phase_kernels(dev)
     k2 = phase_adam(dev)
     k3 = phase_wgrad(dev)
+    horizon = phase_rollout(dev)
     stamp("kernels")
     phase_agreement()
     phase_eval_agreement()
@@ -4021,7 +4203,15 @@ def main() -> int:
          "replaces": "ealv_tpu/ops/pallas_wgrad.py:115",
          "launches": k3_launches, "launches_variant": k3_var,
          "launches_model_options": {k: r["k3"] for k, r in options.items()},
-         "launches_dp_call": dp["k3"], **k3}]}))
+         "launches_dp_call": dp["k3"], **k3},
+        {"name": "horizon_rollout", "route": "cuda",
+         "source": "ealv_tpu_torch/csrc/rollout.cu",
+         "replaces": "ealv_tpu/control/klerg.py:168",
+         **_horizon_record("horizon_rollout"), **horizon["horizon_rollout"]},
+        {"name": "costate_sweep", "route": "cuda",
+         "source": "ealv_tpu_torch/csrc/rollout.cu",
+         "replaces": "ealv_tpu/control/klerg.py:226",
+         **_horizon_record("costate_sweep"), **horizon["costate_sweep"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

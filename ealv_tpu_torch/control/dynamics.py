@@ -9,7 +9,8 @@ States may carry leading batch dims, so candidate plans roll out together.
 the state: the plain double integrator's does not, so the planner
 linearizes it once; the speed model's B follows the velocity signs and
 the SO(3) roll model's A the angles and R, so the planner linearizes them
-at every step of the horizon.
+at every step of the horizon. ``rollout_args`` gives the horizon kernel's
+model and its parameters (``ops/rollout.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import rollout as kernels
 from ..utils import rotations as rot
 
 
@@ -85,6 +87,11 @@ class _Base:
     def step(self, s: DynState, u) -> DynState:
         return DynState(x=self._integrate(s, u), R=s.R)
 
+    def rollout_args(self) -> dict:
+        """The horizon kernel's model for ``step`` and its parameters."""
+        return dict(model=kernels.LINEAR, A=self.A, B=self.B, dt=self.dt,
+                    use_rk4=self.use_rk4)
+
 
 class SingleIntegrator(_Base):
     """x' = u (num_states == num_actions)."""
@@ -134,6 +141,9 @@ class DoubleIntegratorSpeed(DoubleIntegrator):
     def step(self, s: DynState, u) -> DynState:
         return DynState(x=self._with_speed(self._integrate(s, u)), R=s.R)
 
+    def rollout_args(self) -> dict:
+        return {**super().rollout_args(), "model": kernels.SPEED}
+
     def init(self, x0) -> DynState:
         s = super().init(x0)
         if x0.shape[0] < self.num_states:
@@ -181,6 +191,10 @@ class DoubleIntegratorRoll(DoubleIntegrator):
         R = rot.mm(rot.so3_exp(w * self.dt), s.R)
         ang = rot.wrap_angles(rot.matrix_to_euler_angles(R))
         return DynState(x=x.index_copy(-1, self._rpw, self.from_angles(ang)), R=R)
+
+    def rollout_args(self) -> dict:
+        return {**super().rollout_args(), "model": kernels.ROLL, "angle_scale": self._scale,
+                "angle_shift": self._shift, "rpw": self.rpw}
 
     def init(self, x0) -> DynState:
         s = super().init(x0)

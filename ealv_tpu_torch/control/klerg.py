@@ -8,12 +8,17 @@ with the device (no ``.item()``, ``bool(tensor)``, ``.cpu()`` or tensor
 built from Python data; ``chip_smoke.py`` runs ``plan_step`` under
 ``torch.cuda.set_sync_debug_mode("error")``), and the number of K1 launches
 per call is fixed (13 at the default config: the target spread, the base
-footprint, the initial cost, and two per inner iteration). The host still
-blocks inside a call: its about 7,700 launches at the production config
-overrun the card's launch queue (about a thousand), so the host waits for
-room while the device catches up. ``full_cost`` costs its H one-slot
-substitutions as one batch through the plain psi matrix, as the line
-search costs its windows, so it adds no K1 launch. Models whose linearization depends on the state
+footprint, the initial cost, and two per inner iteration). The horizon
+recurrences (``control/horizon.py``) are one launch a call on the card: a
+rollout for every cost, forward pass and the final plan (17 a call at the
+default config) and a costate sweep for every backward pass (5). That
+leaves about 2,000 launches a call at the production config (about 2,200
+at xyzrpw; 7,700 and 20,000 with the recurrences' per-step loops), still
+more than the card's launch queue holds (about a thousand), so the host
+waits inside a call for room while the device catches up. ``full_cost``
+costs its H one-slot substitutions as one batch through the plain psi
+matrix and one rollout launch, as the line search costs its windows, so it
+adds no K1 launch. Models whose linearization depends on the state
 (``dyn.state_dependent``) are linearized at every step of the horizon.
 """
 
@@ -33,7 +38,8 @@ from ..ops import (
     psi_matrix,
 )
 from ..data.replay import TrajMemory
-from .dynamics import rk4_step, DynState
+from .dynamics import DynState
+from .horizon import costate, rollout
 from .policies import BarrierPushPolicy, RollPolicy, ZeroPolicy
 from .target_dists import prior_dist as make_prior
 
@@ -142,18 +148,12 @@ class KlergPlanner:
     def _traj_states(self, dyn0: DynState, u):
         """(..., H, n) post-step states of plan(s) u (..., H, m); the whole
         state, R included, is carried through the steps."""
-        batch = u.shape[:-2]
-        s = DynState(x=dyn0.x.expand(*batch, *dyn0.x.shape),
-                     R=dyn0.R.expand(*batch, *dyn0.R.shape))
-        xs = []
-        for t in range(u.shape[-2]):
-            s = self.dyn.step(s, u[..., t, :])
-            xs.append(s.x)
-        return torch.stack(xs, -2)
+        return self._rollout(dyn0, u)[..., 1:, :]
 
     def _rollout(self, dyn0: DynState, u):
-        """(H+1, n) states from rolling u open loop, start included."""
-        return torch.cat([dyn0.x[None], self._traj_states(dyn0, u)], 0)
+        """(..., H+1, n) states from rolling plan(s) u open loop, start
+        included: one rollout kernel launch on the card."""
+        return rollout(self.dyn, None, dyn0.x, dyn0.R, u)[0]
 
     def _cost(self, dyn0, u_test, samples, p_n, q_base, barrier):
         """KL + barrier cost of a plan (H, m) -> (), or of candidates
@@ -165,7 +165,7 @@ class KlergPlanner:
             return (p_n * torch.log(p_n / q)).sum() + barrier.batch(traj).sum()
         trajs = self._traj_states(dyn0, u_test)  # (K, H, n)
         k, h, _ = trajs.shape
-        flat = trajs.reshape(k * h, -1)[:, self._explr_idx]
+        flat = trajs[..., self._explr_idx].reshape(k * h, -1)
         psi_m = psi_matrix(samples, flat, self.std)  # (N, K*H)
         q_iters = psi_m.reshape(-1, k, h).sum(-1).T  # (K, N)
         q = renormalize(q_base[None, :] + q_iters, dim=1)
@@ -182,17 +182,11 @@ class KlergPlanner:
         if idx == 0 and isinstance(self.policy, BarrierPushPolicy):
             u = torch.zeros_like(u)
         s = pstate.dyn
-        u_eff, xs, Rs = [], [], []
-        for t in range(u.shape[0]):
-            ut = self.policy.act(s.x, u[t])
-            u_eff.append(ut)
-            xs.append(s.x)
-            Rs.append(s.R)
-            s = self.dyn.step(s, ut)
-        u_eff, xs = torch.stack(u_eff), torch.stack(xs)
+        xs, Rs, u_eff = rollout(self.dyn, self.policy, s.x, s.R, u)
+        xs, Rs = xs[:-1], Rs[:-1]  # the pre-step states
         H, n = xs.shape
         if self.dyn.state_dependent:
-            A, B = self.dyn.get_lin(DynState(x=xs, R=torch.stack(Rs)), u_eff)
+            A, B = self.dyn.get_lin(DynState(x=xs, R=Rs), u_eff)
         else:
             A, B = self.dyn.get_lin(pstate.dyn, None)
         A = A.expand(H, n, n)
@@ -204,14 +198,8 @@ class KlergPlanner:
         """Costate integration backwards over the horizon. Returns
         (du (H, m), djdlam (H,))."""
         dgdx = kldiv_grad_batch(xs, samples, self._explr_idx, self.std, p / q)
-        M = (A + B @ dmu).transpose(-1, -2)  # (H, n, n)
-        drive = dgdx - dbarr
-        rho = torch.zeros(self.dyn.num_states, device=xs.device)
-        rhos = [None] * xs.shape[0]
-        for t in reversed(range(xs.shape[0])):
-            rho = rk4_step(lambda r, _: drive[t] - M[t] @ r, -self.cfg.dt, rho, None)
-            rhos[t] = rho
-        rhos = torch.stack(rhos)  # (H, n)
+        # rho' = drive - (A + B dmu)^T rho, one costate kernel launch on the card
+        rhos = costate(dgdx - dbarr, A + B @ dmu, self.cfg.dt)  # (H, n)
         Bt_rho = (B.transpose(-1, -2) @ rhos[..., None])[..., 0]  # (H, m)
         du = -(self.R_inv @ Bt_rho[..., None])[..., 0]
         djdlam = (Bt_rho * du).sum(-1)

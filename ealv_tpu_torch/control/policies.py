@@ -6,6 +6,8 @@ is a function of (x_t, nominal u_t):
   - ``dx(x, u_t) -> dmu/dx``   its (..., num_actions, num_states) Jacobian
   - ``shift(u, idx) -> u``     the warm-start transform; ``idx`` may be a
                                () int tensor, so no host sync is needed
+  - ``rollout_args() -> dict`` ``act`` as the horizon kernel's policy
+                               (``ops/rollout.py``)
 
 States may carry leading batch dims.
 """
@@ -15,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..ops import rollout as kernels
 
 
 def _zeros_dx(x, m, n):
@@ -31,6 +35,9 @@ class RollPolicy:
 
     def act(self, x, u_t):
         return u_t
+
+    def rollout_args(self) -> dict:
+        return dict(policy=kernels.PASS)
 
     def dx(self, x, u_t):
         return _zeros_dx(x, self.num_actions, self.num_states)
@@ -52,6 +59,9 @@ class ZeroPolicy:
 
     def act(self, x, u_t):
         return u_t
+
+    def rollout_args(self) -> dict:
+        return dict(policy=kernels.PASS)
 
     def dx(self, x, u_t):
         return _zeros_dx(x, self.num_actions, self.num_states)
@@ -81,6 +91,9 @@ class BarrierPushPolicy:
     def act(self, x, u_t):
         vel = x[..., self.num_actions: 2 * self.num_actions]
         return torch.where(self._active(x), -self.weight * vel, u_t)
+
+    def rollout_args(self) -> dict:
+        return dict(policy=kernels.BARRIER, barrier=(self.weight, self.b_lo, self.b_hi))
 
     def dx(self, x, u_t):
         m = self.num_actions
@@ -121,6 +134,9 @@ class LQRPolicy:
 
     def act(self, x, u_t):
         return -(x @ self.K.T)
+
+    def rollout_args(self) -> dict:
+        return dict(policy=kernels.LQR, gain=self.K)
 
     def dx(self, x, u_t):
         return (-self.K).expand(*x.shape[:-1], *self.K.shape)

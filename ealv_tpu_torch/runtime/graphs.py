@@ -4,8 +4,9 @@ JAX package's single compiled programs.
 The JAX package runs its 25-step trainer call as one ``lax.scan``
 (``ealv_tpu/runtime/trainer.py``) and its planner call as one jitted
 function whose loops are fixed-trip scans (``ealv_tpu/control/klerg.py``).
-The port runs both as eager Python loops, about 10,800 and 7,700 device
-launches a call at production size, each dispatched by the host.
+The port runs both as eager Python loops, about 10,800 and 2,000 device
+launches a call at production size (the planner's 7,700 before its horizon
+recurrences became kernels), each dispatched by the host.
 ``TrainerGraph`` and ``PlannerGraph`` capture one whole call each as a CUDA
 graph and replay it: the host then issues one launch a call.
 
@@ -68,12 +69,14 @@ from torch import nn
 
 from ..ops.adam import adam_apply
 from ..ops.footprint import footprint_and_spread
+from ..ops.rollout import costate_sweep, horizon_rollout
 from ..ops.wgrad import conv_wgrad_direct
 from . import tracing
 from .trainer import train_call
 
 KERNELS = {"footprint_and_spread": footprint_and_spread, "adam_apply": adam_apply,
-           "conv_wgrad_direct": conv_wgrad_direct}
+           "conv_wgrad_direct": conv_wgrad_direct, "horizon_rollout": horizon_rollout,
+           "costate_sweep": costate_sweep}
 # the launches every graph's replays made since the last reset_launches(),
 # for a caller that cannot reach the graphs (a capture's EvalExperiment
 # lives only inside capture_fingerprint)
