@@ -7,7 +7,11 @@ runs.
 Model FLOPs count two operations a multiply-add of the CVAE's convs, its
 transposed convs (every input pixel scatters k * k * c_out products; the
 zeros that output padding adds cost nothing) and its dense layers. A
-training step is its forward pass and twice that for the backward.
+training step is its forward pass and twice that for the backward. The
+configuration's variants count as the CVAE runs them: ``learn_force``
+widens the encoder's dense input by the force and the decoder's head by
+its prediction; ``use_z_ensemble`` decodes each target sample under each
+of the z ring's ``Z_MEM`` latents.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import math
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+
+Z_MEM = 5  # the z ring's latents (the CVAE's z_mem, the reference's build_z_buffer)
 
 
 def conv_dims(hw, kernels, strides) -> list:
@@ -61,8 +67,9 @@ def cvae_flops(cfg: dict) -> dict:
     h, w = dims[-1]
     feat = h * w * cs[-1]
     hidden, z, s = hidden_widths(cfg), cfg["z_dim"], len(cfg["states"])
-    return dict(encode=conv + _mlp([feat + s, *hidden, 2 * z]),
-                decode_mlp=_mlp([z + s, *reversed(hidden), cfg["y_logvar_dim"] + feat]),
+    force = 1 if cfg["learn_force"] else 0
+    return dict(encode=conv + _mlp([feat + force + s, *hidden, 2 * z]),
+                decode_mlp=_mlp([z + s, *reversed(hidden), cfg["y_logvar_dim"] + force + feat]),
                 img_decode=deconv)
 
 
@@ -78,15 +85,21 @@ def trainer_call_flops(cfg: dict) -> int:
 
 def tick_flops(cfg: dict, learning: bool, trained: bool) -> int:
     """One tick: the planner's target decode at ``num_target_samples``
-    poses; in the learning loop the new sample's encode and decode (its
-    latent reseeds the target) and, on a throttled tick, one trainer
-    call."""
+    poses (under each of the ``Z_MEM`` latents with ``use_z_ensemble``);
+    in the learning loop the new sample's encode and decode (its latent
+    reseeds the target) and, on a throttled tick, one trainer call, with a
+    fresh plain decode of the target samples for its entropy grade where
+    the call does not take the planner's (``hyper_from_planner`` off, or
+    the planner's decode an ensemble's)."""
     f = cvae_flops(cfg)
-    n = cfg["num_target_samples"] * f["decode_mlp"]
+    samples = cfg["num_target_samples"]
+    n = samples * (Z_MEM if cfg["use_z_ensemble"] else 1) * f["decode_mlp"]
     if learning:
         n += f["encode"] + f["decode_mlp"] + f["img_decode"]
     if trained:
         n += trainer_call_flops(cfg)
+        if cfg["use_z_ensemble"] or not cfg["hyper_from_planner"]:
+            n += samples * f["decode_mlp"]
     return n
 
 

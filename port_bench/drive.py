@@ -20,7 +20,11 @@ A traffic file (``traffic/<name>.json``) holds only parameters:
 Every draw the timed ticks make comes from the program's own generators,
 seeded from ``--seed`` by the entry's ``init``. An ``Entry`` also copies
 the state before a tick (``snapshot``), reads what the tick produced
-(``outputs``) and has the reference recompute it (``recompute``).
+(``outputs``) and has the reference recompute it (``recompute``). An
+entry that brings work of its own says so through three hooks, whose
+defaults are the explore and learn ticks': ``extra_gaps`` (its own
+compared numbers, which a limits file can then name), ``tick_flops`` (a
+tick's model FLOPs) and ``k1_launches`` (the K1 launches of a tick).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import importlib
 
 import torch
 
+from . import counts
 from .reference import config as ref_config
 from .reference import cvae as ref_cvae
 from .reference.tick import Tick
@@ -111,6 +116,24 @@ class Driver:
     def target(self, tick: Tick):
         """What every recomputed tick of a run shares (None: nothing)."""
         return None
+
+    def extra_gaps(self, prog: dict, ref: dict, snap: dict) -> dict:
+        """The entry's own compared numbers at one tick, from what the
+        program (or a control in its place) produced, ``prog``, against the
+        reference's recomputation ``ref`` of the tick after ``snap``:
+        {name: gap}, merged into the tick's ``compare.tick_gaps``. Empty by
+        default."""
+        return {}
+
+    def tick_flops(self, trained: bool) -> int:
+        """The model FLOPs of one tick, ``trained`` where it made a trainer
+        call."""
+        return counts.tick_flops(self.cfg_dict, self.learning, trained)
+
+    def k1_launches(self, fill: int) -> list:
+        """(n, t, d, unmasked) of each K1 launch of a tick whose history
+        holds ``fill`` points (``counts.k1_bound_s`` takes each)."""
+        return counts.k1_tick_launches(self.cfg_dict, self.learning, fill)
 
 
 def entry(traffic: dict) -> type:

@@ -9,6 +9,12 @@ chunks until ``seconds`` have passed. A CUDA event recorded on the stream
 after every tick call gives each tick's gap from the one before; there is
 no host synchronisation inside a chunk, so a stall or a host lag shows in
 the gaps.
+
+A traced run (``trace_on``) turns the program's tracer
+(``ealv_tpu_torch/runtime/tracing.py``) on before the entry is built, so
+every graph it captures holds the tracer's stamps, and keeps the window's
+spans as ``run["spans"]`` (``tracing.summary`` over the window's ticks and
+its host-clock interval). An untraced run never turns it on.
 """
 
 from __future__ import annotations
@@ -164,21 +170,25 @@ def window(drv, seconds: float, chunk: int, picks: dict, max_ticks: int, clock: 
         elapsed = time.perf_counter() - t0
         if elapsed >= seconds or len(gaps) + chunk > max_ticks:
             break
-    return dict(ticks=len(gaps), window_s=elapsed, trained=trained, host_s=host,
+    return dict(ticks=len(gaps), window_s=elapsed, opened_s=t0, trained=trained, host_s=host,
                 gaps_s=[clock.seconds(a, b) for a, b in gaps], nonfinite=nonfinite,
                 compared=compared)
 
 
-def traced_chunk(drv, chunk: int, cfg: dict) -> dict:
+def traced_chunk(drv, chunk: int, clock: _Clock) -> dict:
     """One more chunk under ``torch.profiler``: the device's busy time,
-    K1's device time and least time, the device work by name and the
-    longest idle gaps. The profiler's tracing of every kernel slows the
-    chunk (PERF.md, Layers), so its busy share is not the window's."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    K1's device time and least time (``drv.k1_launches``), the device work
+    by name (``by_name``, all of it; ``device_ops``, the longest 10), the
+    longest idle gaps, the history's fill before the chunk (``fill0``) and
+    its ticks. The profiler's tracing of every kernel slows the chunk
+    (PERF.md, Layers), so its busy share is not the window's."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if clock.cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     fill0 = drv.fill()  # each tick pushes one point to the history first
     bound = sum(counts.k1_bound_s(*launch)[0] for i in range(chunk)
-                for launch in counts.k1_tick_launches(cfg, drv.learning, fill0 + i + 1))
-    torch.cuda.synchronize()
+                for launch in drv.k1_launches(fill0 + i + 1))
+    clock.sync()
     with torch.profiler.profile(activities=acts) as prof:
         infos = []
         with torch.profiler.record_function(trace.HOST_PREFIX + "chunk"):
@@ -187,7 +197,7 @@ def traced_chunk(drv, chunk: int, cfg: dict) -> dict:
                     infos.append(drv.tick())
             with torch.profiler.record_function(trace.HOST_PREFIX + "readback"):
                 _read_chunk(drv, infos)
-        torch.cuda.synchronize()
+        clock.sync()
     device, host = trace.events(prof)
     span = next(s for s in host if s[0] == "chunk")
     lo, hi = span[1], span[2]
@@ -196,7 +206,8 @@ def traced_chunk(drv, chunk: int, cfg: dict) -> dict:
     top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
     return dict(window_s=(hi - lo) / 1e9, busy_s=trace.busy_ns(device, lo, hi) / 1e9,
                 k1_s=k1, k1_bound_s=bound, device_ops=[[n, s] for n, s in top],
-                idle_gaps=trace.idle_gaps(device, host, lo, hi))
+                idle_gaps=trace.idle_gaps(device, host, lo, hi), by_name=names,
+                fill0=fill0, ticks=chunk)
 
 
 CONTROLS = {"fp8": dict(cast=ref_cvae.fp8_round, ring_cast=ref_cvae.fp8_round),
@@ -212,7 +223,8 @@ def reference_gaps(drv, compared: list, ring_y, controls=()) -> tuple:
     configuration's, the control proper; ``f32``, a witness above it) or
     with a planted fault (``half_batch``; ``stuck``, a tick that returns
     its state unchanged). Each follows the program's plan after the
-    planner, as the reference does."""
+    planner, as the reference does. The entry's own numbers
+    (``drv.extra_gaps``) join each tick's gaps, the controls' alike."""
     ref = drv.reference()
     target = drv.target(ref)
     others = {}
@@ -224,13 +236,13 @@ def reference_gaps(drv, compared: list, ring_y, controls=()) -> tuple:
         if ring_y is not None:
             prog["image"] = ring_y[int(snap["ring_pos"])]
         r = drv.recompute(ref, target, snap, ring_y, prog["u"])
-        prog_gaps.append(compare.tick_gaps(prog, r, snap))
+        prog_gaps.append({**compare.tick_gaps(prog, r, snap), **drv.extra_gaps(prog, r, snap)})
         for name, (tick, tgt) in others.items():
             c = drv.recompute(tick, tgt, snap, ring_y, prog["u"])
             c["trained"] = prog["trained"] and "losses" in c
             if "losses" in c:
                 c["loss"] = c["losses"][-1]
-            ctl_gaps[name].append(compare.tick_gaps(c, r, snap))
+            ctl_gaps[name].append({**compare.tick_gaps(c, r, snap), **drv.extra_gaps(c, r, snap)})
     return prog_gaps, ctl_gaps
 
 
@@ -238,8 +250,11 @@ def measure(files: dict, seed: int, seconds: float, trace_on: bool, device="cuda
             controls=()) -> dict:
     """One run of a cell from its ``cell_files``. Returns the result's
     fields (and, with ``controls``, their gaps beside the program's)."""
+    from ealv_tpu_torch.runtime import tracing
     cfg, traffic = files["config"], files["traffic"]
     clock = _Clock(device)
+    if trace_on:
+        tracing.enable(device)
     drv = drive.make(cfg, traffic, seed, device)
     n_warm = warm(drv, traffic["settle"])
     clock.sync()
@@ -247,9 +262,16 @@ def measure(files: dict, seed: int, seconds: float, trace_on: bool, device="cuda
     setup_s = process_age_s()
     picks = pick_ticks(seed, traffic["compare"], drv.learning)
     max_ticks = cfg["num_steps"] - n_warm - (traffic["chunk"] if trace_on else 0)
+    first = tracing.ticks() if trace_on else None
     win = window(drv, seconds, traffic["chunk"], picks, max_ticks, clock)
     captured_in_window = drv.settled_count() - settled
-    traced = traced_chunk(drv, traffic["chunk"], cfg) if trace_on else None
+    spans = traced = None
+    if trace_on:
+        lo = round(win["opened_s"] * 1e9)  # perf_counter's clock, the tracer's host clock
+        spans = tracing.summary(tracing.read(first, tracing.ticks()), lo,
+                                lo + round(win["window_s"] * 1e9))
+        traced = traced_chunk(drv, traffic["chunk"], clock)
+        tracing.disable()
     peak = torch.cuda.max_memory_allocated() if clock.cuda else 0
     ring_y = drv.ring_images()
     compared = win.pop("compared")
@@ -259,9 +281,9 @@ def measure(files: dict, seed: int, seconds: float, trace_on: bool, device="cuda
         torch.cuda.empty_cache()
     prog_gaps, ctl_gaps = reference_gaps(drv, compared, ring_y, controls)
     gaps = dict(compare.widest(prog_gaps), start=drv.start_gap(drv.reference()))
-    flops = sum(counts.tick_flops(cfg, drv.learning, t) for t in win["trained"])
+    flops = sum(drv.tick_flops(t) for t in win["trained"])
     return dict(setup_s=setup_s, warm_ticks=n_warm, captured_in_window=captured_in_window,
-                memory_peak_bytes=peak, traced=traced, flops=flops,
+                memory_peak_bytes=peak, traced=traced, spans=spans, config=cfg, flops=flops,
                 gaps=gaps, per_tick=prog_gaps,
                 controls={k: compare.widest(v) for k, v in ctl_gaps.items()},
                 controls_per_tick=ctl_gaps, learning=drv.learning, **win)

@@ -126,6 +126,9 @@ def main(argv=None) -> int:
         print(f"port_bench: the traced chunk, {n} ticks: {t['window_s'] / n * 1e3:.3f} ms a tick "
               f"under the profiler, {t['busy_s'] / n * 1e3:.3f} of them busy; the window "
               f"{r['window_s'] / r['ticks'] * 1e3:.3f}", file=sys.stderr)
+    if r["spans"]:
+        from ealv_tpu_torch.runtime import tracing
+        print(tracing.describe(r["spans"]), file=sys.stderr)
     for name, v in sorted(r["gaps"].items()):
         if name not in line["checks"]:
             print(f"reading {name} {v!r} (not compared)", file=sys.stderr)

@@ -77,3 +77,46 @@ def test_k1_launches_of_a_planner_call():
     assert learn[2:] == [(2000, 10, 3, 10)] * 11
     assert len(counts.k1_tick_launches(cfg, learning=False, fill=5000)) == 12
     assert counts.k1_tick_launches(cfg, learning=False, fill=5000)[0] == (2000, 3000, 3, 3000)
+
+
+@pytest.mark.parametrize("config,learning,trained,flops", [
+    ("xyw", True, True, 210375028536), ("xyw", True, False, 8601978936),
+    ("xyw", False, False, 8573952000), ("xyzrpw", True, True, 210407596344),
+    ("xyzrpw", True, False, 8605055544), ("xyzrpw", False, False, 8577024000),
+])
+def test_the_cells_tick_flops_are_pinned(config, learning, trained, flops):
+    """The four cells' configurations run neither variant: their counts stay
+    as they were before ``learn_force`` and ``use_z_ensemble`` were read."""
+    from port_bench import harness
+    cfg = harness.load_json(harness.ROOT / "configs" / f"{config}.json")["config"]
+    assert not cfg["learn_force"] and not cfg["use_z_ensemble"]
+    assert counts.tick_flops(cfg, learning, trained) == flops
+
+
+def test_learn_force_widens_the_dense_layers_by_hand():
+    cfg = _cfg(states="xy", image_dim=(8, 8, 1), cnn_kernels=(3,), cnn_strides=(2,),
+               cnn_channels=(2,), hidden_dim=(4,), z_dim=2, y_logvar_dim=1, learn_force=True)
+    conv = 9 * 2 * 1 * 9 * 2
+    feat = 3 * 3 * 2
+    # the encoder takes [feat, force, pose]; the head gives [y_logvar, force_pred, feat]
+    enc = conv + 2 * (feat + 1 + 2) * 4 + 2 * 4 * (2 * 2)
+    dec_mlp = 2 * (2 + 2) * 4 + 2 * 4 * (1 + 1 + feat)
+    assert counts.cvae_flops(cfg) == dict(encode=enc, decode_mlp=dec_mlp, img_decode=conv)
+
+
+def test_the_z_ensemble_decodes_under_each_latent_by_hand():
+    base = _cfg()
+    f = counts.cvae_flops(base)
+    cfg = {**base, "use_z_ensemble": True}
+    assert counts.cvae_flops(cfg) == f
+    assert counts.tick_flops(cfg, learning=False, trained=False) == 5 * 2000 * f["decode_mlp"]
+    assert counts.tick_flops(cfg, learning=True, trained=False) == \
+        5 * 2000 * f["decode_mlp"] + f["encode"] + f["decode_mlp"] + f["img_decode"]
+    # a trainer call's entropy grade decodes the target samples afresh,
+    # plainly, where the planner's decode is an ensemble's
+    assert counts.tick_flops(cfg, learning=True, trained=True) == \
+        5 * 2000 * f["decode_mlp"] + f["encode"] + f["decode_mlp"] + f["img_decode"] \
+        + counts.trainer_call_flops(base) + 2000 * f["decode_mlp"]
+    fresh = {**base, "hyper_from_planner": False}
+    assert counts.tick_flops(fresh, True, True) == \
+        counts.tick_flops(base, True, True) + 2000 * f["decode_mlp"]

@@ -5,12 +5,16 @@ by what the host was doing, and the kernel time by name.
 The device's work is every event on the card that is not a user
 annotation: kernels, copies and sets, those a graph replay launches
 included. The host's spans are the ``record_function`` ranges the harness
-opens around its own calls (``port_bench.*``).
+opens around its own calls (``port_bench.*``, named without the prefix)
+and those the program's tracer opens around its own spans while a
+profiler runs (``ealv.*``, named with it, so that the program's ``tick``
+and the harness's stay apart).
 """
 
 from __future__ import annotations
 
 HOST_PREFIX = "port_bench."
+PROGRAM_PREFIX = "ealv."
 
 
 def events(prof) -> tuple:
@@ -20,8 +24,9 @@ def events(prof) -> tuple:
     for e in prof.profiler.kineto_results.events():
         kind = str(e.device_type())
         if kind.endswith("CPU"):
-            if e.is_user_annotation() and e.name().startswith(HOST_PREFIX):
-                host.append((e.name()[len(HOST_PREFIX):], e.start_ns(), e.end_ns()))
+            name = e.name()
+            if e.is_user_annotation() and name.startswith((HOST_PREFIX, PROGRAM_PREFIX)):
+                host.append((name.removeprefix(HOST_PREFIX), e.start_ns(), e.end_ns()))
         elif not e.is_user_annotation():
             device.append((e.name(), e.start_ns(), e.end_ns()))
     return device, host
@@ -46,8 +51,9 @@ def busy_ns(device, lo: int, hi: int) -> int:
 
 def idle_gaps(device, host, lo: int, hi: int, top: int = 10) -> list:
     """The ``top`` longest stretches of [lo, hi] with no device work, each
-    named by the innermost host span that covers its midpoint ("harness"
-    where none does): [[name, seconds], ...], longest first."""
+    named by the innermost host span, the harness's or the program's, that
+    covers its midpoint ("harness" where none does): [[name, seconds],
+    ...], longest first."""
     busy = merge((max(a, lo), min(b, hi)) for _, a, b in device if b > lo and a < hi)
     edges = [lo] + [x for iv in busy for x in iv] + [hi]
     gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
