@@ -16,8 +16,16 @@ patterns beside the arm's drift correction: a run has two to four. In the
 "uncertain" seek mode the adopted belief is the one of largest entropy,
 picked by a device ``argmax`` with no host copy. The combinations of one
 observation share its forward: their distances come from the same K*S-row
-match. The history comes to the host in one copy at the end of ``run``;
-the beliefs ``run`` returns are copies, not the graph's static buffers.
+match. ``init`` and ``tick`` make a run one tick at a time, and ``run``
+is a loop over ``tick``; the history comes to the host in one copy at the
+end of ``run``, and the beliefs ``run`` returns are copies, not the
+graph's static buffers.
+
+Each tick is a tick of the tracer (``runtime/tracing.py``): its device
+span ``tick`` covers the whole step, with ``seek`` (the entropies and the
+selection), the eval tick's own spans, ``match`` (the K*S-row forward and
+every combination's best matches) and ``fuse`` (the relative poses, the
+pushes and every belief's fusion) inside.
 """
 
 from __future__ import annotations
@@ -30,8 +38,9 @@ import numpy as np
 import torch
 
 from ..utils.config import ExperimentConfig
+from ..runtime import tracing
 from ..runtime.graphs import _addresses, _clone, module_key
-from ..runtime.tester import EvalExperiment
+from ..runtime.tester import EvalExperiment, EvalState
 from ..ops import renormalize
 from .belief import FingerprintBelief
 from .identify import FingerprintSet, best_matches, calibrate_thresholds, fuse_matches, \
@@ -88,7 +97,8 @@ def _identification_tick(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
     ``beliefs`` is one list of K beliefs per combination (updated in
     place), ``robot_lim``/``tray_lim`` the config's limits on the device,
     ``draw`` the tick's ``TickDraws``. Returns (ev, robot_state (d,), dists
-    (C, K), seek_k ())."""
+    (C, K), seek_k (), cost (), image (H, W, C)): the explore tick's plan
+    cost and camera image beside the identification's outputs."""
     adopted, update = ev.step >= update_tdist_step, ev.step % update_every == 0
 
     def run(view, bel, d):
@@ -99,8 +109,9 @@ def _identification_tick(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
         return view, bel, tuple(out)
 
     pattern = ("identify", tuple(combos), seek_combo, seek_fp, seek_mode, adopted, update)
-    ev, new, out = ev_exp.step(ev, beliefs, draw, run, pattern, module_key(model),
-                               _addresses(fps), _addresses((robot_lim, tray_lim)))
+    with tracing.tick():
+        ev, new, out = ev_exp.step(ev, beliefs, draw, run, pattern, module_key(model),
+                                   _addresses(fps), _addresses((robot_lim, tray_lim)))
     beliefs[:] = [list(bs) for bs in new]
     return (ev, *out)
 
@@ -110,8 +121,10 @@ def _identification_body(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
                          ev, robot_lim, tray_lim, seek_mode: str, draw):
     """The identification tick's body (``_identification_tick``), its two
     host branches given: ``adopted`` (else the target is a neutral belief)
-    and ``update`` (else the beliefs stay and the distances are NaN)."""
+    and ``update`` (else the beliefs stay and the distances are NaN). Every
+    combination is matched before any is fused: a match reads no belief."""
     dev = fps.x.device
+    tracing.begin("seek")
     if seek_mode == "uncertain":
         k_star = torch.argmax(_belief_entropies(beliefs[seek_combo]))
         seek_b = _select(beliefs[seek_combo], k_star)
@@ -121,43 +134,77 @@ def _identification_body(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
     if not adopted:
         seek_b = dataclasses.replace(seek_b, prior=torch.full_like(seek_b.prior, 0.5),
                                      prior_var=torch.full_like(seek_b.prior_var, 2.0))
+    tracing.end("seek")
     ev, obs = ev_exp._tick(ev, seek_b, draw)
     if update:
+        tracing.begin("match")
         out, seed_y = match_forward(model, fps, obs["image"])
-        dists = []
-        for ci, (method, err) in enumerate(combos):
-            d, best = best_matches(out, seed_y, fps, method, err)
+        matches = [best_matches(out, seed_y, fps, method, err) for method, err in combos]
+        tracing.end("match")
+        tracing.begin("fuse")
+        for ci, ((d, best), (_, err)) in enumerate(zip(matches, combos)):
             beliefs[ci] = fuse_matches(beliefs[ci], d, best, obs["robot_state"], fps,
                                        cfg.states, robot_lim, tray_lim, err)
-            dists.append(d)
-        dists = torch.stack(dists)
+        tracing.end("fuse")
+        dists = torch.stack([d for d, _ in matches])
     else:
         dists = torch.full((len(combos), fps.center.shape[0]), float("nan"), device=dev)
-    return ev, obs["robot_state"], dists, k_star
+    return ev, obs["robot_state"], dists, k_star, obs["cost"], obs["image"]
 
 
-def _identification_loop(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg, combos,
-                         beliefs, seek_combo: int, seek_fp: int, update_tdist_step: int,
-                         update_every: int, n_steps: int, ev, seek_mode: str = "fixed",
-                         draws=None):
-    """``n_steps`` identification ticks (``_identification_tick``) from
-    ``ev``; ``draws`` is one ``TickDraws`` a tick. Returns (ev, beliefs,
-    outputs stacked on the device: robot_state (n, d), dists (n, C, K),
-    seek_k (n,)); after replays ``ev`` and ``beliefs`` are the tick graph's
-    static buffers."""
-    beliefs = [list(bs) for bs in beliefs]
-    dev = fps.x.device
-    robot_lim, tray_lim = (torch.as_tensor(cfg.robot_lim, device=dev),
-                           torch.as_tensor(cfg.tray_lim, device=dev))
-    rows = {"robot_state": [], "dists": [], "seek_k": []}
-    for i in range(n_steps):
-        ev, *row = _identification_tick(
-            ev_exp, model, fps, cfg, combos, beliefs, seek_combo, seek_fp,
-            update_tdist_step, update_every, ev, robot_lim, tray_lim, seek_mode,
-            draws[i] if draws else None)
-        for key, v in zip(rows, row):
-            rows[key].append(v)
-    return ev, beliefs, {key: torch.stack(v) for key, v in rows.items()}
+@dataclass
+class IdentificationState:
+    """An identification run between two ticks: the eval state and one list
+    of K beliefs a combination. After a replay both are the tick graph's
+    static buffers, which the next replay overwrites."""
+
+    ev: EvalState
+    beliefs: list
+
+
+class _Identification:
+    """What the two runtimes share: ``init``, ``tick`` and the loop of
+    ``run``. A runtime gives ``_combos``, ``_seek`` (combination and mode)
+    and ``_belief_lists`` (its beliefs in the combinations' order)."""
+
+    def _setup(self):
+        self._ev = EvalExperiment(self.cfg, _make_target_pdf(self.target_sharpness),
+                                  scene=self.scene, device=self.device)
+        dev = self.fps.x.device
+        # on the device once: the tick graphs read them in place
+        self._lims = (torch.as_tensor(self.cfg.robot_lim, device=dev),
+                      torch.as_tensor(self.cfg.tray_lim, device=dev))
+
+    def init(self, seed: int = 0) -> IdentificationState:
+        """A run's start: the explorer at the tray centre, its draws seeded
+        with ``seed``, the beliefs as the runtime holds them."""
+        return IdentificationState(ev=self._ev.init(seed=seed),
+                                   beliefs=[list(bs) for bs in self._belief_lists()])
+
+    def tick(self, state: IdentificationState, draw=None, update_every: int = 1):
+        """One identification tick (``_identification_tick``) from ``state``;
+        ``draw`` feeds the planner. Returns (state, {robot_state (d,), dists
+        (C, K), seek_k (), cost (), image (H, W, C)}), the outputs cloned."""
+        beliefs = [list(bs) for bs in state.beliefs]
+        seek_combo, seek_mode = self._seek()
+        ev, *out = _identification_tick(
+            self._ev, self.model, self.fps, self.cfg, self._combos(), beliefs, seek_combo,
+            self.seek_fingerprint, self.update_tdist_step, update_every, state.ev, *self._lims,
+            seek_mode, draw)
+        keys = ("robot_state", "dists", "seek_k", "cost", "image")
+        return IdentificationState(ev=ev, beliefs=beliefs), dict(zip(keys, out))
+
+    def _loop(self, n_steps: int, seed: int, update_every: int, draws):
+        """``n_steps`` ticks from ``init(seed)``; ``draws`` is one
+        ``TickDraws`` a tick. Returns (the last state, robot_state (n, d),
+        dists (n, C, K), seek_k (n,) in one host copy)."""
+        state = self.init(seed)
+        rows = {"robot_state": [], "dists": [], "seek_k": []}
+        for i in range(n_steps):
+            state, out = self.tick(state, draws[i] if draws else None, update_every)
+            for key in rows:
+                rows[key].append(out[key])
+        return (state, *_fetch({key: torch.stack(v) for key, v in rows.items()}))
 
 
 def _fetch(outs):
@@ -176,7 +223,7 @@ def _peaks(beliefs):
 
 
 @dataclass
-class FingerprintTestRuntime:
+class FingerprintTestRuntime(_Identification):
     """One (dist_method, error_mode) identification run."""
 
     cfg: ExperimentConfig
@@ -199,21 +246,25 @@ class FingerprintTestRuntime:
                                                      thresh=thresh, clip=clip,
                                                      device=self.device)
                             for _ in range(self.fps.center.shape[0])]
-        self._ev = EvalExperiment(self.cfg, _make_target_pdf(self.target_sharpness),
-                                  scene=self.scene, device=self.device)
+        self._setup()
+
+    def _combos(self):
+        return ((self.dist_method, self.error_mode),)
+
+    def _seek(self):
+        return 0, "fixed"
+
+    def _belief_lists(self):
+        return [self.beliefs]
 
     def run(self, n_steps: int, seed: int = 0, update_every: int = 1, draws=None):
         """Explore for ``n_steps``, updating every fingerprint's belief from
         every ``update_every``-th observation. Returns (beliefs, history)."""
-        ev, beliefs, outs = _identification_loop(
-            self._ev, self.model, self.fps, self.cfg, ((self.dist_method, self.error_mode),),
-            [self.beliefs], 0, self.seek_fingerprint, self.update_tdist_step, update_every,
-            n_steps, self._ev.init(seed=seed), draws=draws)
-        rs, da, sk = _fetch(outs)
+        state, rs, da, sk = self._loop(n_steps, seed, update_every, draws)
         for i in range(0, n_steps, update_every):
             self.history.append({"step": i, "dists": da[i, 0], "robot_state": rs[i],
                                  "seek_k": int(sk[i])})
-        self.beliefs = _clone(beliefs[0])
+        self.beliefs = _clone(state.beliefs[0])
         return self.beliefs, self.history
 
     def belief_peaks(self):
@@ -227,7 +278,7 @@ class FingerprintTestRuntime:
 
 
 @dataclass
-class FingerprintMatrixRuntime:
+class FingerprintMatrixRuntime(_Identification):
     """Every (dist_method, error_mode) combination evaluated from one
     exploration: one belief list per combination, all updated from the same
     observations; ``seek_combo``'s beliefs steer the explorer."""
@@ -260,26 +311,29 @@ class FingerprintMatrixRuntime:
                 self.beliefs[key] = [FingerprintBelief.create(
                     self.cfg.states, self.cfg.robot_lim, thresh=thresh, clip=clip,
                     device=self.device) for _ in range(k)]
-        self._ev = EvalExperiment(self.cfg, _make_target_pdf(self.target_sharpness),
-                                  scene=self.scene, device=self.device)
+        self._setup()
+
+    def _combos(self):
+        return self.combos
+
+    def _seek(self):
+        return self.seek_combo, self.seek_mode
+
+    def _belief_lists(self):
+        return [self.beliefs[self.combo_key(m, e)] for m, e in self.combos]
 
     def run(self, n_steps: int, seed: int = 0, update_every: int = 1, draws=None):
         """One exploration; every combination's beliefs are updated from
         every ``update_every``-th observation. Returns (beliefs dict,
         history)."""
         keys = [self.combo_key(m, e) for m, e in self.combos]
-        ev, beliefs, outs = _identification_loop(
-            self._ev, self.model, self.fps, self.cfg, self.combos,
-            [self.beliefs[key] for key in keys], self.seek_combo, self.seek_fingerprint,
-            self.update_tdist_step, update_every, n_steps, self._ev.init(seed=seed),
-            seek_mode=self.seek_mode, draws=draws)
-        rs, da, sk = _fetch(outs)
+        state, rs, da, sk = self._loop(n_steps, seed, update_every, draws)
         for i in range(0, n_steps, update_every):
             rec = {"step": i, "robot_state": rs[i], "seek_k": int(sk[i])}
             rec.update({key: da[i, ci] for ci, key in enumerate(keys)})
             self.history.append(rec)
         self.seek_history = sk
-        self.beliefs.update(zip(keys, _clone(beliefs)))
+        self.beliefs.update(zip(keys, _clone(state.beliefs)))
         return self.beliefs, self.history
 
     def belief_peaks(self, key: str):

@@ -150,9 +150,17 @@ class EvalExperiment:
         the host values the step branches on (the arm's drift correction
         is added here), ``reads`` what else it reads in place. Returns (ev,
         extra, out): after a replay ``ev`` and ``extra`` are the graph's
-        static buffers, which the next replay overwrites; out is cloned."""
+        static buffers, which the next replay overwrites; out is cloned.
+        The tracer's device span ``tick`` runs from the step body's first
+        kernel to its last."""
+        def traced(view, extra, d):
+            tracing.begin("tick")
+            view, extra, out = run(view, extra, d)
+            tracing.end("tick")
+            return view, extra, out
+
         if self.tick_graph is None:
-            return run(ev, extra, draws)
+            return traced(ev, extra, draws)
         gen = ev.pstate.gen
 
         def split(state):
@@ -165,7 +173,7 @@ class EvalExperiment:
             return dataclasses.replace(ev, pstate=pstate, env=env), carry[2]
 
         def body(state, d):
-            ev, extra, out = run(*state, d)
+            ev, extra, out = traced(*state, d)
             return (ev, extra), out
 
         (view, extra), out = run_step(
@@ -176,9 +184,9 @@ class EvalExperiment:
                 extra, out)
 
     def _tick(self, ev: EvalState, pdf_ctx, draws: TickDraws | None = None):
-        """The tick's body: the tracer's device span ``tick``, and ``env``
-        from the command to the render."""
-        tracing.begin("tick")
+        """The tick's body, with the tracer's device span ``env`` from the
+        command to the render (``step`` stamps ``tick`` around the whole
+        step)."""
         pstate = self.planner.save_update(ev.pstate, self.explored.measured(ev.env),
                                           save=True)
         pstate, info = self.planner.plan(pstate, pdf_ctx,
@@ -195,5 +203,4 @@ class EvalExperiment:
         tracing.end("env")
         robot_state = self.explored.measured(env)[: len(self.explr_states)]
         ev = EvalState(pstate=pstate, env=env, step=ev.step + 1)
-        tracing.end("tick")
         return ev, dict(robot_state=robot_state, image=img, force=force, cost=info["cost"])

@@ -8,8 +8,9 @@ process, ``disable()`` off.
 
 Host spans. ``span(name)`` records the name, the tick it runs in, the span
 that encloses it, and its start and end on ``time.perf_counter_ns``. The
-runtimes open ``tick`` around ``Experiment.tick`` and
-``EvalExperiment.tick`` (``tick()``, which also numbers the ticks);
+runtimes open ``tick`` around ``Experiment.tick``, ``EvalExperiment.tick``
+and the identification tick (``fingerprint/test_runtime.py``; ``tick()``,
+which also numbers the ticks);
 ``runtime/graphs.py`` ``StepGraph.step`` opens ``key``, ``stage``,
 ``replay`` and ``clone`` inside it. While a ``torch.profiler`` runs, a span
 also opens ``record_function("ealv." + name)``, so the profiler's trace
@@ -29,7 +30,8 @@ clock. The device spans: ``tick``, from the tick body's first kernel to its
 last, and inside it ``decode`` and ``descent`` (``control/klerg.py``),
 ``env`` (``agent.py``, ``tester.py``), ``absorb`` and ``train``
 (``agent.py``: the trainer call is made inside ``absorb_step``, so
-``train`` lies inside ``absorb``).
+``train`` lies inside ``absorb``), and in an identification tick
+``seek``, ``match`` and ``fuse`` (``fingerprint/test_runtime.py``).
 
 One clock. ``read()`` drains the records and maps the stamps onto the host
 clock by the tightest of a few calibration pairs (host clock, stamp,

@@ -271,7 +271,7 @@ def check_identification_ticks(case, seek_mode):
             beliefs[ci] = list(bs)
             dists.append(np.asarray(d))
         # the port's tick from the JAX state
-        ev_t, rs_t, d_t, k_t = trt._identification_tick(
+        ev_t, rs_t, d_t, k_t, *_ = trt._identification_tick(
             rt_t._ev, s["tm"], tfs, tc, COMBOS, beliefs_t, 0, 0, ADOPT, 1, ev_t, robot_lim,
             tray_lim, seek_mode, draws)
         what = f"{seek_mode} tick {i}"
