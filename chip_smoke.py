@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every kernel (K1 footprint.cu, the planner's horizon
-     recurrences rollout.cu, K2 adam.cu, K3 wgrad.cu) from
+     recurrences rollout.cu, K2 adam.cu, K3 wgrad.cu, the belief fusion
+     belief.cu) from
      ealv_tpu_torch/csrc, one nvcc per source, in parallel;
   3. kernels vs their plain torch versions on the card, at the main paths'
      shapes (K1 at d = 3 for the xyw tick, d = 6 for the xyzrpw tick, and
@@ -91,7 +92,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      eager (histories and beliefs bit-equal), then identification ticks
      graphed and eager in turns; 12 K1 launches a capture or
      identification tick through the graphs and none in the clustering,
-     matching or entropy slices; then the arm: 12 ticks
+     matching or entropy slices; one belief fusion launch an
+     identification tick and none elsewhere; the fusion kernel at the
+     identification cell's sizes (16 beliefs of 50^3 cells) against its
+     plain version, with both device times beside its bound; then the arm: 12 ticks
      on sim_backend="arm" three ways after 60 warm ticks (so that a
      drift-correcting tick replays its graph; 13 K1 launches a tick), then
      ArmEnv.step_vel
@@ -2588,6 +2592,89 @@ def phase_fingerprint_agreement():
     return err
 
 
+# the identification cell's fusion: K = 4 objects, 50^3 cells, a ring of
+# 64, three combinations of two pushes (the yaw reflection) and one of one
+# (error mode), each with its own thresholds
+FUSION_CELL = dict(objects=4, grid=50, ring=64, pushes=(2, 2, 2, 1))
+
+
+def _fusion_beliefs(dev, objects, grid, ring, pushes, seed=0):
+    """The cell's beliefs, a random prior and variance each, and their
+    pushes as ``match_pushes`` makes them (rows i, K + i of one relative-pose
+    tensor a combination, its distance expanded)."""
+    import torch
+    from ealv_tpu_torch.fingerprint import FingerprintBelief
+    from ealv_tpu_torch.utils.config import ExperimentConfig
+    cfg = ExperimentConfig(**PRODUCTION)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    beliefs, push = [], []
+    for ci, reps in enumerate(pushes):
+        rows = t(rng.uniform(-1, 1, (reps * objects, cfg.s_dim)))
+        dist = t(rng.uniform(0.0, 2.5, objects))
+        for i in range(objects):
+            b = FingerprintBelief.create(cfg.states, cfg.robot_lim, num_samples=grid,
+                                         meas_capacity=ring, thresh=0.5 + 0.1 * ci,
+                                         clip=2.0 + 0.2 * ci, device=dev)
+            g = b.grid.shape[0]
+            beliefs.append(dataclasses.replace(b, prior=t(rng.uniform(0.2, 0.9, g)),
+                                               prior_var=t(rng.uniform(0.05, 2.0, g))))
+            push.append((rows[i::objects], dist[i].expand(reps)))
+    return beliefs, push
+
+
+def phase_fusion(dev, cell=FUSION_CELL):
+    """The belief fusion kernel (``csrc/belief.cu``) at the identification
+    cell's sizes: one ``push_and_fuse`` of its C x K beliefs against the
+    plain push and ``update_prior`` of each on the card (prior and variance
+    within 1e-5 of the largest value, ring and counters exact, the old
+    beliefs unchanged); the kernel's launches a call; device ms (CUDA
+    events) of the kernel's call and of the plain version's beside the
+    bound, C x K x G x 16 B at 3.35 TB/s. Returns the record."""
+    import torch
+    from ealv_tpu_torch.fingerprint.belief import push_and_fuse
+    from ealv_tpu_torch.ops.belief import fuse_beliefs
+    from ealv_tpu_torch.utils.timing import device_ms
+
+    beliefs, pushes = _fusion_beliefs(dev, **cell)
+    kept = [b.prior.clone() for b in beliefs]
+    before = fuse_beliefs.launches
+    got = push_and_fuse(beliefs, pushes)
+    launches = fuse_beliefs.launches - before
+
+    def plain():
+        return [(b.push_batch(*p) if p is not None else b)._update_prior_plain()
+                for b, p in zip(beliefs, pushes)]
+
+    want = plain()
+    torch.cuda.synchronize()
+    worst = 0.0
+    for b, g, w, k in zip(beliefs, got, want, kept):
+        for name in ("prior", "prior_var"):
+            a, r = getattr(g, name), getattr(w, name)
+            worst = max(worst, float((a - r).abs().max() / r.abs().max()))
+        for name in ("meas_loc", "meas_val", "meas_n", "count"):
+            if not torch.equal(getattr(g, name), getattr(w, name)):
+                raise RuntimeError(f"fusion kernel: {name} differs from the plain version's")
+        if not torch.equal(b.prior, k):
+            raise RuntimeError("fusion kernel wrote into the old belief")
+    if worst > 1e-5:
+        raise RuntimeError(f"fusion kernel: prior or variance {worst:.3e} off the plain version")
+    cells = beliefs[0].grid.shape[0]
+    bound_ms = len(beliefs) * cells * 16 / 3.35e12 * 1e3
+    kernel_ms = device_ms(lambda: push_and_fuse(beliefs, pushes), reps=11, inner=20)
+    plain_ms = device_ms(plain, reps=5, inner=3)
+    out = dict(beliefs=len(beliefs), cells=cells, launches_per_call=launches,
+               device_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               roofline_pct=bound_ms / kernel_ms * 100, worst_rel=worst)
+    print(f"[fusion] {len(beliefs)} beliefs of {cells} cells, ring {cell['ring']}: kernel "
+          f"{kernel_ms:.4f} ms device a call ({launches} launch of the C entry, 3 kernels), "
+          f"plain push and update_prior {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by bytes "
+          f"({out['roofline_pct']:.1f}% of it); prior and variance within {worst:.2e} of the "
+          f"plain version's, ring and counters exact")
+    return out
+
+
 def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     """The fingerprint stage at production size (bf16, weights from seed 0,
     ``TrayScene.make(3, seed=0)``): find_clusters over 1000 samples seeded
@@ -2780,6 +2867,12 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
             "entropy_slices": 0}
     if launches != want:
         raise RuntimeError(f"fingerprint path K1 launches {launches}, expected {want}")
+    # one fusion launch a tick for the 4 x 3 beliefs, through the graphs too
+    fused = {name: counts[name]["fuse_beliefs"] for name in want}
+    want_fused = {name: n_id if name.startswith("identify") else 0 for name in want}
+    if fused != want_fused:
+        raise RuntimeError(f"fingerprint path fusion launches {fused}, expected {want_fused}")
+    fusion = phase_fusion(dev)
     # one plan a capture or identification tick; each capture and each
     # identification run sets up its planner state once
     for name, plans, inits in (("find_clusters", 0, 0), ("entropy_slices", 0, 0),
@@ -2801,7 +2894,8 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
           f"{identify_ms:.4f}; update_beliefs "
           f"{ {k: round(v, 4) for k, v in update_ms.items()} }; match_forward "
           f"{match_ms:.4f}; fuse_matches { {k: round(v, 4) for k, v in fuse_ms.items()} } "
-          f"(four: {sum(fuse_ms.values()):.4f}) | K1 launches {launches} | horizon_rollout, "
+          f"(four: {sum(fuse_ms.values()):.4f}) | K1 launches {launches} | fuse_beliefs "
+          f"launches {fused} | horizon_rollout, "
           f"costate_sweep launches "
           f"{ {k: (c['horizon_rollout'], c['costate_sweep']) for k, c in counts.items()} }")
     return dict(capture_per_tick=launches["capture"] / (n_capture * len(truth)),
@@ -2809,7 +2903,8 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
                 find_clusters=launches["find_clusters"],
                 entropy_slices=launches["entropy_slices"], capture_ms=capture_ms,
                 identify_ms=id_ms, peak=peak, capture_step_ms=cap_ms,
-                identify_step_ms={m: r["ms"] for m, r in id_two.items()})
+                identify_step_ms={m: r["ms"] for m, r in id_two.items()},
+                fusion=dict(fusion, launches_identify_per_tick=fused["identify fixed"] / n_id))
 
 
 # the arm phases: the wedge scene of tests/test_arm.py (one wide cylinder
@@ -4074,7 +4169,7 @@ def main() -> int:
     smi = _smi()
     print(f"[device] {smi} | torch {torch.__version__} | CUDA {torch.version.cuda} "
           f"| {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    sources = ("footprint.cu", "rollout.cu", "adam.cu", "wgrad.cu")
+    sources = ("footprint.cu", "rollout.cu", "adam.cu", "wgrad.cu", "belief.cu")
     t0 = time.perf_counter()
     cuda_build.build(*sources)
     for source in sources:
@@ -4211,7 +4306,9 @@ def main() -> int:
         {"name": "costate_sweep", "route": "cuda",
          "source": "ealv_tpu_torch/csrc/rollout.cu",
          "replaces": "ealv_tpu/control/klerg.py:226",
-         **_horizon_record("costate_sweep"), **horizon["costate_sweep"]}]}))
+         **_horizon_record("costate_sweep"), **horizon["costate_sweep"]},
+        {"name": "fuse_beliefs", "route": "cuda", "source": "ealv_tpu_torch/csrc/belief.cu",
+         "replaces": None, **fp["fusion"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,16 @@
 exploration box, a ring of pending (pose, distance) measurements, and a
 precision-weighted Gaussian fusion of them into the grid's prior.
 
-A belief is a value: ``push``, ``push_batch`` and ``update_prior`` return a
-new object and never write into the old one, so a caller can keep the old
-belief beside the new one. The ring's counters are device tensors, so no
-operation waits on the device.
+A belief is a value: ``push``, ``push_batch``, ``update_prior`` and
+``push_and_fuse`` return new objects and never write into the old ones, so
+a caller can keep the old belief beside the new one. The ring's counters
+are device tensors, so no operation waits on the device.
+
+The fusion routes by device: beliefs on CUDA go through the kernel of
+``ops/belief.py`` (``csrc/belief.cu``), which reads the pending columns
+alone and fuses a whole list of beliefs, pushes included, in three
+launches; CPU beliefs take the plain torch version here (``push``, then
+``_update_prior_plain``), the kernel's test oracle.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops import renormalize
+from ..ops.belief import fuse_beliefs
 
 
 def _rescale(x, old, new):
@@ -47,7 +54,7 @@ class FingerprintBelief:
         """The yaw limits widen 1.33x, then all of them 1.15x; the grid is
         ``np.meshgrid``'s ('xy' indexing) over num_samples points a
         dimension; the default kernel scale is 2.5 times the widest mesh
-        spacing. ``update_prior`` holds a (G, meas_capacity, d) footprint,
+        spacing. The plain ``update_prior`` holds a (G, meas_capacity, d) footprint,
         so grids over 96 Mi (G, cap) elements are refused."""
         lims = np.asarray(lims, np.float64).copy()
         if "w" in explr_states:
@@ -107,7 +114,14 @@ class FingerprintBelief:
     def update_prior(self) -> "FingerprintBelief":
         """Precision-weighted Gaussian fusion of the pending measurements
         into the prior; the ring is emptied. No change without pending
-        measurements."""
+        measurements. On CUDA through the kernel (``push_and_fuse``)."""
+        if self.prior.is_cuda:
+            return push_and_fuse([self])[0]
+        return self._update_prior_plain()
+
+    def _update_prior_plain(self) -> "FingerprintBelief":
+        """``update_prior`` in torch over every ring column, the pending ones
+        masked in: the CPU path and the kernel's oracle."""
         n = self.meas_n
         has = n > 0
         mask = torch.arange(self.capacity, device=n.device) < n
@@ -160,6 +174,25 @@ class FingerprintBelief:
         if self.invert and not override_invert:
             out = -out + self.prior.max() + self.prior.min()
         return out
+
+
+def push_and_fuse(beliefs, pushes=None) -> list:
+    """Each belief's pushes (rows (P, d) with values (P,), or None) pushed in
+    order, then its pending measurements fused (``push`` for each row, then
+    ``update_prior``). CUDA beliefs, all of one grid and ring, take one
+    kernel call for the whole list (``ops.belief.fuse_beliefs``: three
+    launches for every 16 beliefs), CPU beliefs the plain methods. Returns
+    the new beliefs."""
+    pushes = [None] * len(beliefs) if pushes is None else list(pushes)
+    if beliefs and beliefs[0].prior.is_cuda:
+        return [dataclasses.replace(b, **new)
+                for b, new in zip(beliefs, fuse_beliefs(beliefs, pushes))]
+    out = []
+    for b, push in zip(beliefs, pushes):
+        if push is not None:
+            b = b.push_batch(*push)
+        out.append(b._update_prior_plain())
+    return out
 
 
 def marginalize_angles(p_grid, num_samples, plot_idx, method: str = "mean"):

@@ -18,6 +18,7 @@ import torch
 
 from ..models import CVAE
 from ..utils.states import ws_conversion
+from .belief import push_and_fuse
 from .distances import latent_distance
 
 
@@ -200,23 +201,30 @@ def relative_pose_beliefs(states: str, test_state, fp_states, centers, robot_lim
     return torch.stack(cols, -1)
 
 
+def match_pushes(dists, best_states, test_state, fps: FingerprintSet, states: str,
+                 robot_lim, tray_lim, error_mode: bool = False, reflect_w: bool = True):
+    """Each fingerprint's pushes, (rows (P, d), values (P,)): its
+    relative-pose sample(s) (2 with the yaw reflection; with ``error_mode``
+    the test pose itself), each with its best distance. Views of the
+    relative poses and distances: nothing is copied."""
+    k = fps.center.shape[0]
+    if error_mode:
+        row = torch.as_tensor(test_state, dtype=torch.float32, device=dists.device)[None]
+        return [(row, dists[i].expand(1)) for i in range(k)]
+    bel_states = relative_pose_beliefs(states, test_state, best_states, fps.center,
+                                       robot_lim, tray_lim, reflect_w)
+    reps = bel_states.shape[0] // k
+    return [(bel_states[i::k], dists[i].expand(reps)) for i in range(k)]
+
+
 def fuse_matches(beliefs: list, dists, best_states, test_state, fps: FingerprintSet,
                  states: str, robot_lim, tray_lim, error_mode: bool = False,
                  reflect_w: bool = True):
     """Push each fingerprint's relative-pose sample(s) (with
-    ``error_mode``, the test pose itself) with its best distance, and fuse.
-    Returns the new beliefs."""
-    if error_mode:
-        return [b.push(test_state, dists[i]).update_prior() for i, b in enumerate(beliefs)]
-    bel_states = relative_pose_beliefs(states, test_state, best_states, fps.center,
-                                       robot_lim, tray_lim, reflect_w)
-    k = fps.center.shape[0]
-    new = []
-    for i, b in enumerate(beliefs):
-        for r in range(bel_states.shape[0] // k):  # 2 with the reflection
-            b = b.push(bel_states[r * k + i], dists[i])
-        new.append(b.update_prior())
-    return new
+    ``error_mode``, the test pose itself) with its best distance, and fuse
+    (``match_pushes``, ``push_and_fuse``). Returns the new beliefs."""
+    return push_and_fuse(beliefs, match_pushes(dists, best_states, test_state, fps, states,
+                                               robot_lim, tray_lim, error_mode, reflect_w))
 
 
 def update_beliefs(model: CVAE, fps: FingerprintSet, beliefs: list, test_state, test_y,

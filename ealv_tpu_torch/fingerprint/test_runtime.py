@@ -42,9 +42,9 @@ from ..runtime import tracing
 from ..runtime.graphs import _addresses, _clone, module_key
 from ..runtime.tester import EvalExperiment, EvalState
 from ..ops import renormalize
-from .belief import FingerprintBelief
-from .identify import FingerprintSet, best_matches, calibrate_thresholds, fuse_matches, \
-    match_forward
+from .belief import FingerprintBelief, push_and_fuse
+from .identify import FingerprintSet, best_matches, calibrate_thresholds, match_forward, \
+    match_pushes
 
 
 def _make_target_pdf(sharpness: float):
@@ -142,9 +142,13 @@ def _identification_body(ev_exp: EvalExperiment, model, fps: FingerprintSet, cfg
         matches = [best_matches(out, seed_y, fps, method, err) for method, err in combos]
         tracing.end("match")
         tracing.begin("fuse")
-        for ci, ((d, best), (_, err)) in enumerate(zip(matches, combos)):
-            beliefs[ci] = fuse_matches(beliefs[ci], d, best, obs["robot_state"], fps,
-                                       cfg.states, robot_lim, tray_lim, err)
+        # every combination's relative poses, then all C*K fusions in one call
+        pushes = [p for (d, best), (_, err) in zip(matches, combos)
+                  for p in match_pushes(d, best, obs["robot_state"], fps, cfg.states,
+                                        robot_lim, tray_lim, err)]
+        fused = push_and_fuse([b for bs in beliefs for b in bs], pushes)
+        k = fps.center.shape[0]
+        beliefs[:] = [fused[ci * k:(ci + 1) * k] for ci in range(len(combos))]
         tracing.end("fuse")
         dists = torch.stack([d for d, _ in matches])
     else:

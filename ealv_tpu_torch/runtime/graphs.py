@@ -68,6 +68,7 @@ import torch
 from torch import nn
 
 from ..ops.adam import adam_apply
+from ..ops.belief import fuse_beliefs
 from ..ops.footprint import footprint_and_spread
 from ..ops.rollout import costate_sweep, horizon_rollout
 from ..ops.wgrad import conv_wgrad_direct
@@ -76,7 +77,7 @@ from .trainer import train_call
 
 KERNELS = {"footprint_and_spread": footprint_and_spread, "adam_apply": adam_apply,
            "conv_wgrad_direct": conv_wgrad_direct, "horizon_rollout": horizon_rollout,
-           "costate_sweep": costate_sweep}
+           "costate_sweep": costate_sweep, "fuse_beliefs": fuse_beliefs}
 # the launches every graph's replays made since the last reset_launches(),
 # for a caller that cannot reach the graphs (a capture's EvalExperiment
 # lives only inside capture_fingerprint)

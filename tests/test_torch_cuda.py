@@ -1,5 +1,6 @@
-"""K1, K2 and K3 on the card: each CUDA kernel against its plain torch
-version, at the main path's shapes and at ragged probe shapes.
+"""K1, K2, K3 and the belief fusion on the card: each CUDA kernel against
+its plain torch version, at the main path's shapes and at ragged probe
+shapes.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -8,12 +9,16 @@ without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from ealv_tpu_torch.fingerprint import belief as tbel
 from ealv_tpu_torch.models import CVAE
 from ealv_tpu_torch.ops import adam as tad
+from ealv_tpu_torch.ops import belief as tbo
 from ealv_tpu_torch.ops import fast_conv as tfc
 from ealv_tpu_torch.ops import footprint as tfp
 from ealv_tpu_torch.ops import kernels as tk
@@ -426,3 +431,199 @@ def test_warm_toy_tick_never_synchronises(cuda, path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ the belief fusion
+
+BELIEF_STATES = {1: "x", 2: "xy", 3: "xyw", 4: "xyzw", 5: "xyzpw", 6: "xyzrpw"}
+BELIEF_LIMS = [[-1.0, 1.0], [-0.8, 0.6], [-0.5, 0.9], [-1.0, 1.0], [-0.7, 0.7], [-1.0, 1.0]]
+RING = ("prior", "prior_var", "meas_loc", "meas_val", "meas_n", "count")
+
+
+def _belief(d, ns, cap, dev, rng, pending=0, thresh=0.8, clip=2.2):
+    """A belief of ns^d cells with a random prior and variance, a ring of
+    random past measurements and ``pending`` of them pending."""
+    b = tbel.FingerprintBelief.create(BELIEF_STATES[d], BELIEF_LIMS[:d], num_samples=ns,
+                                      meas_capacity=cap, thresh=thresh, clip=clip, device=dev)
+    g = b.grid.shape[0]
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return dataclasses.replace(
+        b, prior=t(rng.uniform(0.2, 0.9, g)), prior_var=t(rng.uniform(0.05, 2.0, g)),
+        meas_loc=t(rng.uniform(-1.0, 1.0, (cap, d))), meas_val=t(rng.uniform(0.0, 2.5, cap)),
+        meas_n=torch.tensor(pending, device=dev), count=torch.tensor(7, device=dev))
+
+
+def _pushes(d, n, dev, rng, k=1, i=0):
+    """``n`` pushed rows as the identification passes them: rows i, i + k,
+    ... of a (n k, d) tensor of relative poses, each with one distance."""
+    rows = torch.tensor(rng.uniform(-1.0, 1.0, (n * k, d)), dtype=torch.float32, device=dev)
+    dist = torch.tensor(rng.uniform(0.0, 2.5, k), dtype=torch.float32, device=dev)
+    return rows[i::k], dist[i].expand(n)
+
+
+def _plain(b, push):
+    if push is not None:
+        b = b.push_batch(*push)
+    return b._update_prior_plain()
+
+
+def _assert_fused_like(got, want):
+    """Prior and variance within 1e-5 of the largest value (the sums'
+    order); the ring and its counters exact."""
+    for name in ("prior", "prior_var"):
+        a, b = getattr(got, name), getattr(want, name)
+        gap = float((a - b).abs().max() / b.abs().max())
+        assert gap <= 1e-5, (name, gap)
+    for name in ("meas_loc", "meas_val", "meas_n", "count"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pending,n_push", [(0, 0), (0, 1), (0, 2), (5, 0), (62, 2), (64, 2),
+                                            (40, 64)],
+                         ids=["n0", "error-mode", "reflection", "pending-only", "ring-full",
+                              "wrap-at-cap", "64-pushes"])
+def test_belief_kernel_matches_plain_at_the_cells_size(cuda, pending, n_push):
+    """50^3 cells at d = 3, a ring of 64: no measurement (the prior and
+    variance as they were); one push (error mode), two (the yaw
+    reflection); measurements pushed before; the ring filled to 64; two
+    pushes at meas_n == cap (both into slot 0); 64 pushes that wrap."""
+    rng = np.random.default_rng(pending * 100 + n_push)
+    b = _belief(3, 50, 64, cuda, rng, pending)
+    push = _pushes(3, n_push, cuda, rng) if n_push else None
+    before = tbo.fuse_beliefs.launches
+    (got,) = tbel.push_and_fuse([b], [push])
+    assert tbo.fuse_beliefs.launches == before + 1
+    want = _plain(b, push)
+    torch.cuda.synchronize()
+    _assert_fused_like(got, want)
+    assert int(got.meas_n) == 0 and int(got.count) == 7 + min(pending + n_push, 64)
+    if pending + n_push == 0:
+        assert torch.equal(got.prior, b.prior) and torch.equal(got.prior_var, b.prior_var)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,ns,cap", [(1, 300, 8), (2, 40, 8), (4, 12, 16), (5, 8, 16),
+                                      (6, 5, 16)])
+@pytest.mark.parametrize("n_push", [1, 2])
+def test_belief_kernel_matches_plain_at_other_widths(cuda, d, ns, cap, n_push):
+    """The same at a small grid of every other width, with 3 measurements
+    pending before the pushes."""
+    rng = np.random.default_rng(d * 10 + n_push)
+    b = _belief(d, ns, cap, cuda, rng, pending=3)
+    push = _pushes(d, n_push, cuda, rng)
+    (got,) = tbel.push_and_fuse([b], [push])
+    _assert_fused_like(got, _plain(b, push))
+
+
+def _identification_beliefs(dev, rng, ns=50, k=4):
+    """The cell's 16 beliefs, three combinations of two pushes (the
+    reflection) and one of one (error mode), each with its own thresholds,
+    and their pushes."""
+    beliefs, pushes = [], []
+    for combo in range(4):
+        reps = 1 if combo == 3 else 2
+        rows = torch.tensor(rng.uniform(-1, 1, (reps * k, 3)), dtype=torch.float32, device=dev)
+        dist = torch.tensor(rng.uniform(0.0, 2.5, k), dtype=torch.float32, device=dev)
+        for i in range(k):
+            beliefs.append(_belief(3, ns, 64, dev, rng, thresh=0.5 + 0.2 * combo,
+                                   clip=2.0 + 0.3 * combo))
+            pushes.append((rows[i::k], dist[i].expand(reps)))
+    return beliefs, pushes
+
+
+@pytest.mark.cuda
+def test_belief_kernel_fuses_the_identification_in_one_launch(cuda):
+    """The identification's 16 beliefs in one call of the C entry, each as
+    its plain push and update; the old beliefs' tensors unchanged; the same
+    bits on a repeated call."""
+    rng = np.random.default_rng(16)
+    beliefs, pushes = _identification_beliefs(cuda, rng)
+    kept = [{n: getattr(b, n).clone() for n in RING} for b in beliefs]
+    before = tbo.fuse_beliefs.launches
+    got = tbel.push_and_fuse(beliefs, pushes)
+    assert tbo.fuse_beliefs.launches == before + 1
+    again = tbel.push_and_fuse(beliefs, pushes)
+    torch.cuda.synchronize()
+    for b, push, g, a, k in zip(beliefs, pushes, got, again, kept):
+        _assert_fused_like(g, _plain(b, push))
+        for n in RING:
+            assert torch.equal(getattr(g, n), getattr(a, n)), n
+            assert torch.equal(getattr(b, n), k[n]), n
+
+
+@pytest.mark.cuda
+def test_belief_kernel_splits_launches_by_count(cuda):
+    """20 beliefs take two launches (16 a launch)."""
+    rng = np.random.default_rng(20)
+    small = [_belief(3, 10, 8, cuda, rng, pending=1 + i % 3) for i in range(20)]
+    before = tbo.fuse_beliefs.launches
+    got = tbel.push_and_fuse(small)
+    assert tbo.fuse_beliefs.launches == before + 2
+    for b, g in zip(small, got):
+        _assert_fused_like(g, _plain(b, None))
+
+
+@pytest.mark.cuda
+def test_belief_kernel_replays_bit_equal_in_a_graph(cuda):
+    """The 16 fusions captured in a CUDA graph: a replay gives the eager
+    call's bits; the capture counts one launch."""
+    rng = np.random.default_rng(5)
+    beliefs, pushes = _identification_beliefs(cuda, rng)
+    eager = tbel.push_and_fuse(beliefs, pushes)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = tbo.fuse_beliefs.launches
+    with torch.cuda.graph(graph):
+        static = tbel.push_and_fuse(beliefs, pushes)
+    assert tbo.fuse_beliefs.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    for e, s in zip(eager, static):
+        for n in RING:
+            assert torch.equal(getattr(e, n), getattr(s, n)), n
+
+
+@pytest.mark.cuda
+def test_belief_fusion_routes_cuda_through_the_kernel(cuda):
+    """``update_prior`` and ``fuse_matches`` on CUDA beliefs launch the
+    kernel, once for all of a call's beliefs."""
+    from ealv_tpu_torch.fingerprint import identify as tid
+    rng = np.random.default_rng(3)
+    b = _belief(3, 20, 8, cuda, rng, pending=2)
+    before = tbo.fuse_beliefs.launches
+    got = b.update_prior()
+    assert tbo.fuse_beliefs.launches == before + 1
+    _assert_fused_like(got, _plain(b, None))
+    beliefs = [_belief(2, 20, 8, cuda, rng) for _ in range(3)]
+    fps = tid.FingerprintSet(z_mu=None, z_logvar=None, x=None, mask=None, center_img=None,
+                             center=torch.zeros((3, 2), device=cuda))
+    dists = torch.tensor([0.3, 1.1, 2.0], device=cuda)
+    best = torch.tensor(rng.uniform(-1, 1, (3, 2)), dtype=torch.float32, device=cuda)
+    test = torch.tensor([0.1, -0.2], device=cuda)
+    lims = torch.tensor([[-1.0, 1.0]] * 2, device=cuda)
+    new = tid.fuse_matches(beliefs, dists, best, test, fps, "xy", lims, lims)
+    assert tbo.fuse_beliefs.launches == before + 2
+    for i, (b, g) in enumerate(zip(beliefs, new)):
+        _assert_fused_like(g, _plain(b, ((test - best[i])[None], dists[i].expand(1))))
+
+
+@pytest.mark.cuda
+def test_belief_kernel_rejects_other_inputs(cuda):
+    """A dtype, shape or width the kernel does not take raises before any
+    launch."""
+    rng = np.random.default_rng(1)
+    b = _belief(3, 10, 8, cuda, rng)
+    before = tbo.fuse_beliefs.launches
+    with pytest.raises(TypeError):
+        tbo.fuse_beliefs([dataclasses.replace(b, prior=b.prior.double())])
+    with pytest.raises(ValueError):
+        tbo.fuse_beliefs([dataclasses.replace(b, prior_var=b.prior_var[:-1])])
+    with pytest.raises(ValueError):
+        tbo.fuse_beliefs([b], [(torch.zeros((2, 3), device=cuda).t().contiguous().t(),
+                                torch.zeros(2, device=cuda))])
+    with pytest.raises(TypeError):
+        tbo.fuse_beliefs([b, _belief(3, 10, 8, "cpu", rng)])
+    with pytest.raises(ValueError):
+        tbo.fuse_beliefs([b, _belief(3, 12, 8, cuda, rng)])
+    assert tbo.fuse_beliefs.launches == before

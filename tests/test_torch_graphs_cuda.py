@@ -351,7 +351,7 @@ def test_captured_post_training_call_is_bit_equal(cuda, kernels):
     (entry,) = g.entries.values()
     assert entry.recorded == {"footprint_and_spread": 1, "adam_apply": 2 if kernels else 0,
                               "conv_wgrad_direct": 6 if kernels else 0,
-                              "horizon_rollout": 0, "costate_sweep": 0}
+                              "horizon_rollout": 0, "costate_sweep": 0, "fuse_beliefs": 0}
 
 
 # ------------------------------------------------------------ the eval runtime's steps
