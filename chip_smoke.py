@@ -47,30 +47,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      production-size trainer call on the card with the kernels on vs off,
      from the same weights and draws, ms per trainer call on and off (K2's
      launch cache must hit on every step), and the device's busy time in
-     profiled calls; the captured trainer call (runtime/graphs.py) against
-     the eager one, kernels on and off: three calls on fed draws (an eager
-     call, a capture and its replay, a replay) bit for bit where two eager
-     calls agree, then host ms, busy ms and intervals eager against
-     captured, the capture's seconds and memory, the optimizer per
-     captured call, and the busy time of an eager call by kernel name,
-     kernels on against off;
+     profiled calls; the trainer call captured in the post-training call's
+     graph (runtime/graphs.py) against the eager call, kernels on and off:
+     three post-training calls on fed draws (an eager call, a capture and
+     its replay, a replay) bit for bit where two eager experiments agree,
+     then host ms, busy ms and intervals eager against captured, the
+     capture's seconds and memory, the optimizer per captured call, and
+     the busy time of an eager call by kernel name, kernels on against
+     off;
   5. the tick paths at production size (180x180x3 images, 2000 target
      samples, 3000 trajectory points, batch 64, 25 Adam steps every third
-     tick, bf16), trainer kernels off as in the JAX default, each three
-     ways in this call: whole ticks replayed as CUDA graphs (the default:
-     warm ticks until every timed tick replays its pattern's graph, then
-     timed ticks, the kernel counts read through the graphs with the
-     wrappers' eager counts at 0, and the whole run, every tick's info and
-     the final state, bit-equal to an eager experiment taking the same
-     ticks; capture seconds by pattern, the shared pool's MiB), the
-     per-call graphs (the planner and trainer calls captured, the rest of
-     the tick eager) and eager ticks, three ticks of each under
-     torch.profiler (host ms, busy ms, intervals), the two graph kinds
-     timed again in turns (medians of 4 chunks of 6 ticks): the xyw tick
-     (double integrator), then the 6-DoF xyzrpw tick (SO(3) roll dynamics,
-     linearized at every step); for each, K1's launch count over the timed
-     window, the captured plan_step against the eager one bit for bit on
-     3 ticks, and a profiled plan_step captured and eager; then the variant
+     tick, bf16), trainer kernels off as in the JAX default, each two ways
+     in this call: whole ticks replayed as CUDA graphs (the default: warm
+     ticks until every timed tick replays its pattern's graph, then timed
+     ticks, the kernel counts read through the graphs with the wrappers'
+     eager counts at 0, and the whole run, every tick's info and the final
+     state, bit-equal to an eager experiment taking the same ticks; capture
+     seconds by pattern, the shared pool's MiB) and eager ticks, three
+     ticks of each under torch.profiler (host ms, busy ms, intervals): the
+     xyw tick (double integrator), then the 6-DoF xyzrpw tick (SO(3) roll
+     dynamics, linearized at every step); for each, K1's launch count over
+     the timed window; then the variant
      tick path (xywb, learn_force, use_z_ensemble, both trainer kernels
      on) with K1, K2 and K3 counted and the ensemble pdf held against its
      plain decode-and-average; then the eval path: a 25-point grid test set
@@ -96,15 +93,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      identification tick and none elsewhere; the fusion kernel at the
      identification cell's sizes (16 beliefs of 50^3 cells) against its
      plain version, with both device times beside its bound; then the arm: 12 ticks
-     on sim_backend="arm" three ways after 60 warm ticks (so that a
+     on sim_backend="arm" two ways after 60 warm ticks (so that a
      drift-correcting tick replays its graph; 13 K1 launches a tick), then
      ArmEnv.step_vel
      (with and without the drift correction), step_pose and observe alone
      (device intervals, device ms and host ms per call; each enqueued
      behind a spin kernel must return before the spin ends: the host
      never waits for the device); the host loop on arm-dynamic in the
-     device-resident mode (drive_to_start with no K1 launch, then 24
-     timed steps at 13 K1 launches a plan); and the host loop over
+     device-resident mode through the runner's plan and step graphs and
+     eagerly (drive_to_start with no K1 launch, then 24 timed steps at 13
+     K1 launches a plan); and the host loop over
      NativeBridge: the controller library built from native/, its C++
      1 kHz loop against a numpy driver, the camera rendered on the card,
      12 absorbed steps and the loop's rate, jitter and missed deadlines;
@@ -115,8 +113,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      observe, absorb_step with the trainer call throttled out) run under
      torch.cuda.set_sync_debug_mode("error"): no call may synchronise (on
      xyw, xyzrpw, the variant path and the arm a replayed tick without and
-     with a trainer call, through the tick graphs and through the per-call
-     graphs); on
+     with a trainer call); on
      xyw also the card's launch queue depth, and plan_step bisected into
      pieces (the sync, the draws, the target decode, the base footprint,
      the initial cost, the first inner iteration's parts), each under the
@@ -131,15 +128,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      production Experiment through its tick graphs, bit-equal to eager
      ticks, the sync check on a replayed tick with a trainer call, ms per
      tick, capture seconds, K1 (13 a tick) and K3 (0) through the graphs,
-     and the captured trainer call's host and busy ms;
+     and the captured post-training call's host and busy ms;
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
      ``fast_encoder_grads="pallas"`` and ``fused_adam=True``: 12 exploration
      steps with a trainer call every third, post-training to 36 trainer
      calls, checkpoints every 6 steps and the postexplr checkpoint (in a
      temporary directory, removed afterwards), through the tick and
-     post-training graphs, its wall time beside the same run with the
-     per-call graphs; the postexplr checkpoint is reloaded into a fresh
+     post-training graphs, and its wall time; the postexplr checkpoint is
+     reloaded into a fresh
      Experiment and compared tensor for tensor, and 3 post-training calls
      from it through the post-training graph are held bit for bit against
      the same calls made eagerly;
@@ -149,8 +146,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      NCCL group (destroyed afterwards), the data-parallel trainer call at
      the production config with K2 and K3 on, bit-equal to the plain call
      on the same draws (25 K2 and 75 K3 launches a call, K2's table never
-     rebuilt; host ms and device busy ms beside the plain call's), and 12
-     ticks of Experiment(mesh=...) at 13 K1 launches a tick; two spawned
+     rebuilt; host ms and device busy ms beside the plain call's; captured
+     in the post-training call's graph against eager post-training calls,
+     kernels on and off), and 12 ticks of Experiment(mesh=...) at 13 K1
+     launches a tick; two spawned
      ranks on the one card over gloo (a data-parallel SGD step's averaged
      gradients against the full batch's, the ranks bit-equal after a bf16
      Adam call with K2 and K3 at 32 rows a rank); the dashboard's payload
@@ -183,6 +182,9 @@ import tempfile
 import time
 
 import numpy as np
+
+from port_bench import trace
+from port_bench.counts import k1_bound_s
 
 TOL = dict(rtol=1e-5, atol=1e-6)  # f32 K1: summation order only
 # f32 K2, same formula; nvcc contracts the moment updates into FMAs
@@ -241,15 +243,10 @@ def _smi():
 
 
 def _k1_bound_ms(n, t, d, mask):
-    """The least time for K1 on these inputs: 3d + 5 f32 operations for each
-    pair of a sample and an unmasked point (d subtractions and FMAs, the
-    scale, the exponential, the mask, the add and the max) at 67 TFLOP/s,
-    against each input read once and both outputs written once at 3.35
-    TB/s."""
-    pairs = n * int((mask != 0).sum())
-    ops_ms = pairs * (3 * d + 5) / 67e12 * 1e3
-    bytes_ms = 4 * (n * d + t * d + d + t + 2 * n) / 3.35e12 * 1e3
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    """K1's least time on these inputs in ms and what bounds it
+    (``port_bench.counts.k1_bound_s`` over the mask's unmasked points)."""
+    bound_s, bound_by = k1_bound_s(n, t, d, int((mask != 0).sum()))
+    return bound_s * 1e3, bound_by
 
 
 def phase_kernels(dev):
@@ -1044,12 +1041,13 @@ def _train_draws(cfg, n_filled, rng, dev):
                       eps=t(rng.standard_normal((steps, B, cfg.z_dim))))
 
 
-def _trainer_experiment(cfg, dev, kernels: bool):
-    """An Experiment with both trainer kernels on (fast_encoder_grads=
-    "pallas", fused_adam=True) or both off, weights from seed 0."""
+def _trainer_experiment(cfg, dev, kernels: bool, mesh=None):
+    """An Experiment (over ``mesh``, if given) with both trainer kernels on
+    (fast_encoder_grads="pallas", fused_adam=True) or both off, weights
+    from seed 0."""
     from ealv_tpu_torch.runtime import Experiment
     cfg = dataclasses.replace(cfg, fast_encoder_grads="pallas" if kernels else False)
-    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device=dev)
+    exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device=dev, mesh=mesh)
     exp.trainer = dataclasses.replace(exp.trainer, fused_adam=kernels)
     return exp, exp.init(seed=0)
 
@@ -1091,27 +1089,10 @@ def phase_trainer_agreement():
           f"atol 1e-4); max|param diff| {perr:.3e}")
 
 
-def _device_events(prof, annotations=False):
-    """The device rows of a profile: kernels, copies and memsets, and with
-    ``annotations`` also the ranges that torch puts on the device's
-    timeline for a ``record_function`` (``Optimizer.step#Adam.step``),
-    which span the gaps between their kernels and are no device work."""
-    import torch
-    on_card = torch.autograd.DeviceType.CUDA
-    ranges = {e.name for e in prof.events()
-              if e.device_type != on_card and getattr(e, "is_user_annotation", False)}
-    return [e for e in prof.events() if e.device_type == on_card and (
-        annotations or not (getattr(e, "is_user_annotation", False) or e.name in ranges))]
-
-
-def _profiled_call(call, annotations=False):
-    """One call under torch.profiler, ending in a synchronize: its host
-    clock; the device's busy time, the union of its kernels' and copies'
-    intervals (with ``annotations``, of the ``record_function`` ranges on
-    the device's timeline too); the plain sum of those intervals (more
-    than the union only if some overlapped); the sum of their durations
-    per name (a second reading of the same intervals); and the number of
-    intervals. All in ms but the count."""
+def _profile(call):
+    """One call under torch.profiler, ending in a synchronize: (its host
+    ms, the device's work as ``port_bench.trace.events`` reads it: kernels,
+    copies and sets, [(name, start_ns, end_ns)])."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1120,17 +1101,23 @@ def _profiled_call(call, annotations=False):
         call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = _device_events(prof, annotations)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy, end = busy + b - max(a, end), b
-    summed = sum(b - a for a, b in spans)
-    per_name = {}
-    for e in events:
-        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return wall, busy / 1e3, summed / 1e3, sum(per_name.values()) / 1e3, len(spans)
+    return wall, trace.events(prof)[0]
+
+
+def _profiled_call(call):
+    """One call under torch.profiler (``_profile``): its host clock; the
+    device's busy time, the union of its kernels' and copies' intervals
+    (``port_bench.trace.busy_ns``); the plain sum of those intervals (more
+    than the union only if some overlapped); their time summed by name (a
+    second reading of the same intervals, ``port_bench.trace.by_name``);
+    and the number of intervals. All in ms but the count."""
+    wall, device = _profile(call)
+    if not device:
+        return wall, 0.0, 0.0, 0.0, 0
+    lo, hi = min(a for _, a, _ in device), max(b for _, _, b in device)
+    return (wall, trace.busy_ns(device, lo, hi) / 1e6,
+            sum(b - a for _, a, b in device) / 1e6,
+            sum(trace.by_name(device, lo, hi).values()) * 1e3, len(device))
 
 
 def _behind_spin(call, spin_s=0.2):
@@ -1374,35 +1361,22 @@ def phase_trainer_production(n_filled=200, rounds=2):
 
 
 def _by_kernel(call):
-    """Device ms per name in one call under torch.profiler: (kernels and
-    copies, the ``record_function`` ranges on the device's timeline)."""
-    import torch
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        call()
-        torch.cuda.synchronize()
-    work = {id(e) for e in _device_events(prof)}
-    out = ({}, {})
-    for e in _device_events(prof, annotations=True):
-        d = out[0] if id(e) in work else out[1]
-        d[e.name] = d.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return out
-
-
-def _pool_id(graph):
-    """The memory pool of a captured call (its graph's private pool) or of
-    a step graph (the pool its patterns' graphs share)."""
-    from ealv_tpu_torch.runtime.graphs import StepGraph
-    return tuple(graph.pool.id if isinstance(graph, StepGraph) else graph.graph.graph.pool())
+    """Device ms per kernel or copy name in one call under torch.profiler
+    (``port_bench.trace.by_name``)."""
+    _, device = _profile(call)
+    if not device:
+        return {}
+    lo, hi = min(a for _, a, _ in device), max(b for _, _, b in device)
+    return {k: v * 1e3 for k, v in trace.by_name(device, lo, hi).items()}
 
 
 def _pool_mib(graph):
-    """The MiB of the memory segments in a captured call's or step graph's
-    pool, from ``torch.cuda.memory_snapshot()``; None where the snapshot
-    does not name segments' pools."""
+    """The MiB of the memory segments in a step graph's pool (which the
+    graphs of its patterns, and of the steps that share the pool, use),
+    from ``torch.cuda.memory_snapshot()``; None where the snapshot does not
+    name segments' pools."""
     import torch
-    pool = _pool_id(graph)
+    pool = tuple(graph.pool.id)
     segs = torch.cuda.memory_snapshot()
     if not any("segment_pool_id" in seg for seg in segs):
         return None
@@ -1420,14 +1394,27 @@ def _timed(call):
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_trainer_graphs(n_filled=200, rounds=2):
-    """The captured trainer call (``runtime/graphs.py``) against the eager
-    one at production size, with the trainer kernels on and off. Three
-    experiments from seed 0 share one ring; two run the eager call, one the
-    TrainerGraph (an eager call, a capture and its replay, a replay), each
-    on the same fed draws: the captured call's metrics and parameters must
-    equal the eager one's bit for bit where the two eager calls agree bit
-    for bit, and stay within their spread where they do not. Then, on the
+def _post_train_draws(cfg, n_filled, rng):
+    """Fed draws of one post-training call: the grade's samples in the
+    robot limits and the trainer call's draws."""
+    import torch
+    from ealv_tpu_torch.runtime import PostTrainDraws
+    lo, hi = cfg.robot_lim[:, 0], cfg.robot_lim[:, 1]
+    return PostTrainDraws(samples=torch.as_tensor(
+        rng.uniform(lo, hi, (cfg.num_target_samples, cfg.s_dim)), dtype=torch.float32,
+        device="cuda"), train=_train_draws(cfg, n_filled, rng, "cuda"))
+
+
+def phase_trainer_capture(n_filled=200, rounds=2):
+    """The trainer call captured in the post-training call's graph
+    (``Experiment.post_train_graph``, ``runtime/graphs.py``) against the
+    eager call at production size, with the trainer kernels on and off.
+    Three experiments from seed 0, their rings filled alike; two make their
+    post-training calls eagerly (the graph set to None), one through the
+    graph (an eager call, a capture and its replay, a replay), each on the
+    same fed draws: the captured calls' rows and parameters must equal the
+    eager ones bit for bit where the two eager experiments agree bit for
+    bit, and stay within their spread where they do not. Then, on the
     generator's draws, host ms and device busy ms per call, eager against
     captured in turns (eager, captured, captured, eager); the capture's
     seconds and memory; the optimizer per captured call (stock foreach
@@ -1435,54 +1422,47 @@ def phase_trainer_graphs(n_filled=200, rounds=2):
     of an eager call with the kernels on and off parts, by kernel name."""
     import torch
     from ealv_tpu_torch.ops.adam import FusedAdam
-    from ealv_tpu_torch.runtime import train_call
-    from ealv_tpu_torch.runtime.graphs import TrainerGraph
     from ealv_tpu_torch.utils.config import ExperimentConfig
 
     cfg = ExperimentConfig(**PRODUCTION)
-    betas = [torch.tensor(v, device="cuda") for v in (0.005, 0.01, 0.02)]
-    gammas = [torch.tensor(v, device="cuda") for v in (0.5, 0.25, 0.125)]
     err = lambda a, b: max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
-    ring, out, by_kernel = None, {}, {}
+    out, by_kernel = {}, {}
     for on in (True, False):
         runs = [_trainer_experiment(cfg, "cuda", kernels=on) for _ in range(3)]
-        if ring is None:
-            ring = _fill_ring(runs[0][1], cfg, n_filled)
-        for _, es in runs:
-            es.buf = ring
-        graph = TrainerGraph()
+        for exp, es in runs:
+            _fill_ring(es, cfg, n_filled)
+        for exp, _ in runs[:2]:
+            exp.post_train_graph = None
+        graph = runs[2][0].post_train_graph
         rng = np.random.default_rng(11)
         spread = captured = 0.0
-        for beta, gamma in zip(betas, gammas):
-            draws = _train_draws(cfg, n_filled, rng, "cuda")
+        for _ in range(3):
+            draws = [_post_train_draws(cfg, n_filled, rng)]
             leaves = []
-            for j, (exp, es) in enumerate(runs):
-                train = graph if j == 2 else train_call
-                met = train(exp.trainer, es.model, es.opt, es.buf, beta, gamma,
-                            generator=es.gen, draws=draws)
-                leaves.append([*met.values(), *(q.detach() for q in es.model.parameters())])
+            for exp, es in runs:
+                rows = exp.post_train_chunk(es, 1, draws)[1]
+                leaves.append([*rows.values(), *(q.detach() for q in es.model.parameters())])
             spread = max(spread, err(leaves[1], leaves[0]))
             captured = max(captured, err(leaves[2], leaves[0]))
         name = "kernels on (K2 + K3)" if on else "kernels off (torch.optim.Adam + cuDNN)"
-        if (graph.warmups, graph.captures, graph.replays) != (1, 1, 2):
-            raise RuntimeError(f"trainer graph, {name}: {graph.warmups} eager calls, "
-                               f"{graph.captures} captures, {graph.replays} replays")
+        if graph.counts != {(): [1, 1, 2]}:
+            raise RuntimeError(f"post-training graph, {name}: [eager, captured, replays] "
+                               f"{graph.counts}")
         if captured > spread:
             raise RuntimeError(f"captured trainer call, {name}: max|captured - eager| "
                                f"{captured:.3e} over 3 calls, two eager calls {spread:.3e}")
-        print(f"[trainer graph] {name}, production size, fed draws: an eager call, a capture "
-              f"and its replay, a replay; metrics and parameters max|captured - eager| "
-              f"{captured:.3e}, two eager experiments {spread:.3e}"
+        print(f"[trainer graph] {name}, production size, fed draws, post-training calls: an "
+              f"eager call, a capture and its replay, a replay; rows and parameters "
+              f"max|captured - eager| {captured:.3e}, two eager experiments {spread:.3e}"
               + (" (bit for bit)" if captured == 0.0 else ""))
         # on the generator's draws: a new key, so one eager call and a capture
         (exp_e, es_e), (exp_g, es_g) = runs[0], runs[2]
-        eager = lambda: train_call(exp_e.trainer, es_e.model, es_e.opt, es_e.buf, betas[0],
-                                   gammas[0], generator=es_e.gen)
-        replay = lambda: graph(exp_g.trainer, es_g.model, es_g.opt, es_g.buf, betas[0],
-                               gammas[0], generator=es_g.gen)
+        eager = lambda: exp_e.post_train_chunk(es_e, 1)
+        replay = lambda: exp_g.post_train_chunk(es_g, 1)
         replay()
         capture_ms = _timed(replay)
         pool = _pool_mib(graph)
+        recorded = graph.entries[((), None)].recorded
         times = {"eager": [], "captured": []}
         for _ in range(rounds):
             for which, call in (("eager", eager), ("captured", replay), ("captured", replay),
@@ -1497,27 +1477,23 @@ def phase_trainer_graphs(n_filled=200, rounds=2):
             peaks[which] = torch.cuda.max_memory_allocated() / 2**20
         prof = {which: _profiled_call(call)
                 for which, call in (("eager", eager), ("captured", replay))}
-        annotated = {which: _profiled_call(call, annotations=True)[1]
-                     for which, call in (("eager", eager), ("captured", replay))}
         res = {which: dict(host_ms=float(np.median(times[which])), busy_ms=prof[which][1])
                for which in times}
-        res.update(capture_s=graph.capture_seconds[-1], pool_mib=pool)
+        res.update(capture_s=graph.capture_seconds[()][-1], pool_mib=pool)
         out[on] = res
-        print(f"[trainer graph] {name}, generator draws: host ms per call eager "
-              f"{res['eager']['host_ms']:.2f}, captured {res['captured']['host_ms']:.2f} "
+        print(f"[trainer graph] {name}, generator draws: host ms per post-training call "
+              f"eager {res['eager']['host_ms']:.2f}, captured {res['captured']['host_ms']:.2f} "
               f"(median of {2 * rounds}, in turns; eager {[round(x, 2) for x in times['eager']]}, "
               f"captured {[round(x, 2) for x in times['captured']]}); profiled: eager host "
               f"{prof['eager'][0]:.2f} ms, busy {prof['eager'][1]:.2f} ms in {prof['eager'][4]} "
               f"intervals; captured host {prof['captured'][0]:.2f} ms, busy "
-              f"{prof['captured'][1]:.2f} ms in {prof['captured'][4]} intervals (busy with "
-              f"the profiler's ranges on the device timeline: eager {annotated['eager']:.2f}, "
-              f"captured {annotated['captured']:.2f}); capture "
-              f"{graph.capture_seconds[-1]:.3f} s (the capturing call {capture_ms:.1f} ms with "
-              f"its replay), the graph's pool "
+              f"{prof['captured'][1]:.2f} ms in {prof['captured'][4]} intervals; capture "
+              f"{res['capture_s']:.3f} s (the capturing call {capture_ms:.1f} ms with "
+              f"its replay), the experiment's pool "
               f"{'not measured' if pool is None else f'{pool:.1f} MiB'}; peak allocated eager "
               f"{peaks['eager']:.1f} MiB, captured {peaks['captured']:.1f} MiB; the capture "
-              f"recorded K2 {graph.recorded['adam_apply']} and K3 "
-              f"{graph.recorded['conv_wgrad_direct']} launches")
+              f"recorded K2 {recorded['adam_apply']} and K3 "
+              f"{recorded['conv_wgrad_direct']} launches")
         by_kernel[on] = _by_kernel(eager)
         if not on:
             stock = {}
@@ -1531,19 +1507,17 @@ def phase_trainer_graphs(n_filled=200, rounds=2):
                     replay()
                     replay()
                 stock[opt_name] = _profiled_call(replay)
-            print("[trainer graph] the optimizer per captured call (cuDNN wgrad), device busy "
-                  "ms / host ms: " + "; ".join(f"{k} {v[1]:.2f} / {v[0]:.2f}"
-                                               for k, v in stock.items()))
-    kernels = {on: v[0] for on, v in by_kernel.items()}
-    names = set(kernels[True]) | set(kernels[False])
-    diff = sorted(names, key=lambda k: -abs(kernels[True].get(k, 0.0) - kernels[False].get(k, 0.0)))
-    total = {on: sum(v.values()) for on, v in kernels.items()}
-    print(f"[trainer graph] device ms by kernel of an eager call, kernels on {total[True]:.2f} "
-          f"vs off {total[False]:.2f}; the largest differences: " + "; ".join(
-              f"{k[:70]} {kernels[True].get(k, 0.0):.2f} vs {kernels[False].get(k, 0.0):.2f}"
-              for k in diff[:10]) + " | the record_function ranges on the device timeline, "
-          "kernels on: " + ", ".join(f"{k} {v:.2f}" for k, v in by_kernel[True][1].items())
-          + "; off: " + ", ".join(f"{k} {v:.2f}" for k, v in by_kernel[False][1].items()))
+            print("[trainer graph] the optimizer per captured post-training call (cuDNN "
+                  "wgrad), device busy ms / host ms: " + "; ".join(
+                      f"{k} {v[1]:.2f} / {v[0]:.2f}" for k, v in stock.items()))
+    names = set(by_kernel[True]) | set(by_kernel[False])
+    diff = sorted(names, key=lambda k: -abs(by_kernel[True].get(k, 0.0)
+                                            - by_kernel[False].get(k, 0.0)))
+    total = {on: sum(v.values()) for on, v in by_kernel.items()}
+    print(f"[trainer graph] device ms by kernel of an eager post-training call, kernels on "
+          f"{total[True]:.2f} vs off {total[False]:.2f}; the largest differences: " + "; ".join(
+              f"{k[:70]} {by_kernel[True].get(k, 0.0):.2f} vs {by_kernel[False].get(k, 0.0):.2f}"
+              for k in diff[:10]))
     return out
 
 
@@ -1557,38 +1531,29 @@ def _pattern_name(pattern) -> str:
 
 
 def _graph_note(exp):
-    """The experiment's captured calls and steps: eager calls, captures
-    (seconds) and replays of each, a step graph's by pattern."""
+    """The experiment's captured steps: eager steps, captures (seconds)
+    and replays of each pattern."""
     out = []
-    for name, g in (("trainer call", exp.trainer_graph), ("planner call", exp.planner_graph),
-                    ("tick", exp.tick_graph), ("post-training", exp.post_train_graph)):
+    for name, g in (("tick", exp.tick_graph), ("post-training", exp.post_train_graph)):
         if g is None or not (g.warmups or g.replays):
             continue
-        if hasattr(g, "counts"):
-            out.append(f"{name} graphs " + ", ".join(
-                f"[{_pattern_name(p)}: {w} eager, {c} captured ("
-                f"{', '.join(f'{t:.2f}' for t in g.capture_seconds.get(p, []))} s), "
-                f"{r} replays]" for p, (w, c, r) in g.counts.items()))
-        else:
-            out.append(f"{name} graph {g.warmups} eager, {g.captures} captured "
-                       f"({', '.join(f'{t:.2f}' for t in g.capture_seconds)} s), "
-                       f"{g.replays} replays")
+        out.append(f"{name} graphs " + ", ".join(
+            f"[{_pattern_name(p)}: {w} eager, {c} captured ("
+            f"{', '.join(f'{t:.2f}' for t in g.capture_seconds.get(p, []))} s), "
+            f"{r} replays]" for p, (w, c, r) in g.counts.items()))
     return "; ".join(out)
 
 
-def _experiment(cfg, mode):
+def _experiment(cfg, graphs=True):
     """A production Experiment (a trainer call every third tick; K2 with
-    K3) running its ticks with tick graphs ("ticks", the default on the
-    card), the per-call graphs ("calls": the tick and post-training
-    graphs set to None) or eagerly ("eager": every graph None)."""
+    K3) running its ticks with tick graphs (the default on the card) or,
+    without ``graphs``, eagerly."""
     from ealv_tpu_torch.runtime import Experiment
     exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
     if cfg.fast_encoder_grads:
         exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
-    if mode != "ticks":
+    if not graphs:
         exp.tick_graph = exp.post_train_graph = None
-    if mode == "eager":
-        exp.trainer_graph = exp.planner_graph = None
     return exp
 
 
@@ -1641,7 +1606,7 @@ def _held_equal(what, want, got):
 
 
 def _tick_paths(cfg, n_timed, least=9):
-    """The production tick over ``cfg`` three ways in one call, each from
+    """The production tick over ``cfg`` two ways in one call, each from
     seed 0 with a trainer call every third tick:
 
     - tick graphs: warm ticks (at least ``least``) until each of the next
@@ -1650,15 +1615,11 @@ def _tick_paths(cfg, n_timed, least=9):
       graphs, the wrappers' eager counts 0; every tick's info and the whole
       state then held bit for bit against an eager experiment that takes
       the same ticks (its last ``n_timed`` timed);
-    - eager: every graph set to None;
-    - the per-call graphs (the tick and post-training graphs set to
-      None): 9 warm ticks (the trainer graph captures on the seventh), then
-      ``n_timed`` timed, its kernels counted through its graphs;
+    - eager: the tick and post-training graphs set to None;
 
     then three ticks of each under torch.profiler (host ms, busy ms,
-    intervals), and the two graph kinds timed again in turns (medians of 4
-    chunks of 6 ticks each). Returns (the tick graphs' experiment, its
-    state, the per-call graphs' experiment, its state, readings)."""
+    intervals). Returns (the tick graphs' experiment, its state,
+    readings)."""
     import torch
     from ealv_tpu_torch.runtime.graphs import kernel_counts, kernel_launches, reset_launches
 
@@ -1687,7 +1648,7 @@ def _tick_paths(cfg, n_timed, least=9):
 
     # tick graphs
     base = reset()
-    exp = _experiment(cfg, "ticks")
+    exp = _experiment(cfg)
     es = exp.init(seed=0)
     warm = []
     while len(warm) < least or not _ready(exp, es, n_timed + 3):
@@ -1711,7 +1672,7 @@ def _tick_paths(cfg, n_timed, least=9):
 
     # eager, the same ticks
     base = reset()
-    exp_e = _experiment(cfg, "eager")
+    exp_e = _experiment(cfg, graphs=False)
     es_e = exp_e.init(seed=0)
     warm_e = [exp_e.tick(es_e)[1] for _ in range(len(warm))]
     out["ms"]["eager"], infos_e, _ = timed(exp_e, es_e)
@@ -1722,114 +1683,43 @@ def _tick_paths(cfg, n_timed, least=9):
     del state, run
     profiled("eager", exp_e, es_e)
     del exp_e, es_e
-
-    # the per-call graphs
-    base = reset()
-    exp_c = _experiment(cfg, "calls")
-    es_c = exp_c.init(seed=0)
-    for _ in range(9):
-        exp_c.tick(es_c)
-    out["ms"]["calls"], _, _ = timed(exp_c, es_c)
-    out["peak"]["calls"] = peak(base)
-    out["launches_calls"] = kernel_launches(*exp_c.graphs())
-    out["pool_mib_calls"] = {type(g).__name__: _pool_mib(g) for g in
-                             (exp_c.trainer_graph, exp_c.planner_graph) if g is not None}
-    profiled("calls", exp_c, es_c)
-
-    # the two graph kinds in turns (tick graphs, per-call graphs, per-call
-    # graphs, tick graphs, twice), chunks of 6 ticks (two trainer calls
-    # each): single windows move 10-15% from call to call on one host
-    turns = {"ticks": [], "calls": []}
-    for mode in ("ticks", "calls", "calls", "ticks") * 2:
-        e, st = (exp, es) if mode == "ticks" else (exp_c, es_c)
-        while mode == "ticks" and not _ready(e, st, 6):
-            e.tick(st)  # untimed: a pattern's first ticks
-        turns[mode].append(timed(e, st, 6)[0])
-    out["turns"] = turns
-    out["ms_turns"] = {m: float(np.median(v)) for m, v in turns.items()}
     torch.cuda.empty_cache()
-    return exp, es, exp_c, es_c, out
+    return exp, es, out
 
 
-def _three_ways(name, r) -> str:
+def _two_ways(name, r) -> str:
     """A path's readings in one line."""
     p = r["profile"]
-    return (f"[{name}] ms/tick: tick graphs {r['ms']['ticks']:.2f}, per-call graphs "
-            f"{r['ms']['calls']:.2f}, eager {r['ms']['eager']:.2f}; in turns (medians of 4 "
-            f"chunks of 6 ticks): tick graphs {r['ms_turns']['ticks']:.2f} "
-            f"{[round(v, 2) for v in r['turns']['ticks']]}, per-call graphs "
-            f"{r['ms_turns']['calls']:.2f} {[round(v, 2) for v in r['turns']['calls']]}"
-            f" | 3 profiled ticks, host ms "
-            f"/ busy ms / intervals: " + "; ".join(
-                f"{m} {p[m]['host_ms']:.2f} / {p[m]['busy_ms']:.2f} / {p[m]['intervals']}"
-                for m in ("ticks", "calls", "eager"))
+    return (f"[{name}] ms/tick: tick graphs {r['ms']['ticks']:.2f}, eager "
+            f"{r['ms']['eager']:.2f} | 3 profiled ticks, host ms / busy ms / intervals: "
+            + "; ".join(f"{m} {p[m]['host_ms']:.2f} / {p[m]['busy_ms']:.2f} / "
+                        f"{p[m]['intervals']}" for m in ("ticks", "eager"))
             + " | peak MiB above the memory held before the run: "
             + ", ".join(f"{m} {v:.1f}" for m, v in r["peak"].items())
-            + f" | tick graphs' pool {r['pool_mib']} MiB (per-call graphs' pools "
-            f"{r['pool_mib_calls']}) | capture s by pattern {r['capture_s']} | "
-            f"{r['held'][0]} ticks ({r['n_warm']} warm) bit-equal to eager ticks, infos and "
-            f"{r['held'][1]} state leaves")
-
-
-def _plan_step_agreement(exp, es, n=3):
-    """The captured plan_step against the eager one on ``n`` ticks: each
-    tick, both plan from the same state (a copy of the visited-state ring,
-    the planner's generator set back to the same state), and must give the
-    same plan, rollout, command and info bit for bit; then the tick runs."""
-    import torch
-    graph = exp.planner_graph
-    replays = graph.replays
-    for i in range(n):
-        full = exp._measured_robot_state(es.env)
-        gen = es.pstate.gen
-        state = gen.get_state()
-        outs = []
-        for captured in (False, True):
-            gen.set_state(state)
-            mem = es.pstate.memory
-            memory = dataclasses.replace(mem, buf=mem.buf.clone(), pos=mem.pos.clone(),
-                                         size=mem.size.clone())
-            fork = dataclasses.replace(es, pstate=dataclasses.replace(es.pstate, memory=memory))
-            pstate, vel6, _, info = exp.plan_step(fork, full, graph=captured)
-            outs.append({"u": pstate.u, "last_plan": pstate.last_plan, "vel6": vel6,
-                         **{f"info {k}": v for k, v in info.items()}})
-        gen.set_state(state)
-        for k, v in outs[0].items():
-            if not torch.equal(v, outs[1][k]):
-                raise RuntimeError(f"captured plan_step, tick {i}: {k} differs from the eager "
-                                   f"one by {float((v - outs[1][k]).abs().max()):.3e}")
-        exp.tick(es)
-    if graph.replays - replays < 2 * n:
-        raise RuntimeError(f"the planner graph replayed {graph.replays - replays} times in "
-                           f"{n} ticks")
-    return len(outs[0])
+            + f" | tick graphs' pool {r['pool_mib']} MiB | capture s by pattern "
+            f"{r['capture_s']} | {r['held'][0]} ticks ({r['n_warm']} warm) bit-equal to eager "
+            f"ticks, infos and {r['held'][1]} state leaves")
 
 
 def phase_main_path(states="xyw", n_timed=24):
-    """The tick path at production size over ``states``, three ways
-    (``_tick_paths``: tick graphs bit-equal to eager ticks, per-call
-    graphs, eager), 13 K1 launches a tick counted through the tick graphs;
-    then on the tick graphs' experiment the checks of the path's state; on
-    the per-call graphs' experiment the captured plan_step against the
-    eager one bit for bit on 3 ticks and one plan_step, captured and eager,
-    under torch.profiler; the sync check on a replayed
-    tick without and with a trainer call, on the tick graphs and on the
-    per-call graphs. Returns (launches, ms/tick, peak MiB, readings)."""
+    """The tick path at production size over ``states``, two ways
+    (``_tick_paths``: tick graphs bit-equal to eager ticks), 13 K1 launches
+    a tick counted through the tick graphs; then the checks of the path's
+    state and the sync check on a replayed tick without and with a trainer
+    call. Returns (launches, ms/tick, peak MiB, readings)."""
     import torch
     from ealv_tpu_torch.utils.config import ExperimentConfig
 
     cfg = ExperimentConfig(**{**PRODUCTION, "states": states})
-    exp, es, exp_c, es_c, r = _tick_paths(cfg, n_timed)
+    exp, es, r = _tick_paths(cfg, n_timed)
     launches = r["launches"]["footprint_and_spread"]
     losses = r["infos"]["loss"].cpu()
     costs = r["infos"]["ergodic_cost"].cpu()
     trained = losses[losses != 0]
-    if launches != 13 * n_timed or r["launches_calls"]["footprint_and_spread"] != 13 * n_timed:
+    if launches != 13 * n_timed:
         raise RuntimeError(f"footprint kernel launched {launches} times in {n_timed} ticks "
-                           f"through the tick graphs, {r['launches_calls']} through the "
-                           f"per-call graphs, expected {13 * n_timed}")
+                           f"through the tick graphs, expected {13 * n_timed}")
     _horizon_launches(r["launches"], n_timed, f"main path {states}, tick graphs")
-    _horizon_launches(r["launches_calls"], n_timed, f"main path {states}, per-call graphs")
     if not (torch.isfinite(costs).all() and torch.isfinite(losses).all()):
         raise RuntimeError(f"non-finite costs {costs} or losses {losses}")
     if r["calls"] <= 0 or trained.numel() == 0:
@@ -1850,30 +1740,15 @@ def phase_main_path(states="xyw", n_timed=24):
           f"{r['launches']['horizon_rollout']} (17/tick), costate_sweep "
           f"{r['launches']['costate_sweep']} (5/tick) | planner |R^T R - I| {rtr:.1e} | "
           f"{_graph_note(exp)}")
-    print(_three_ways(f"main path {states}", r))
-    n_compared = _plan_step_agreement(exp_c, es_c)
-    print(f"[main path {states}] captured plan_step vs eager on 3 ticks (per-call graphs): "
-          f"{n_compared} outputs (plan, rollout, command, info) equal bit for bit")
-    readings = dict(r)
-    for what, call in (("1 plan_step (sync + plan), captured",
-                        lambda: exp_c.plan_step(es_c, exp_c._measured_robot_state(es_c.env))),
-                       ("1 plan_step (sync + plan), eager",
-                        lambda: exp_c.plan_step(es_c, exp_c._measured_robot_state(es_c.env),
-                                                graph=False))):
-        wall, busy, _, _, n = _profiled_call(call)
-        readings[what] = dict(host_ms=wall, busy_ms=busy, intervals=n)
-        print(f"[main path {states}] profiled {what}: host {wall:.2f} ms; device busy "
-              f"{busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle) in {n} kernel and copy "
-              f"intervals")
+    print(_two_ways(f"main path {states}", r))
     if states == "xyw":
         _sync_check_catches()
     ticks = _tick_builders()
-    for mode, e, s in (("tick graphs", exp, es), ("per-call graphs", exp_c, es_c)):
-        _sync_free(f"{states} tick, {mode}", ticks.untrained_tick(e, s))
-        _sync_free(f"{states} tick with a trainer call, {mode}", ticks.trained_tick(e, s))
+    _sync_free(f"{states} tick", ticks.untrained_tick(exp, es))
+    _sync_free(f"{states} tick with a trainer call", ticks.trained_tick(exp, es))
     if states == "xyw":
         _plan_bisect(exp, es)
-    return launches, ms, r["peak"]["ticks"], readings
+    return launches, ms, r["peak"]["ticks"], r
 
 
 def _ensemble_plain(model, mstate, samples):
@@ -1891,7 +1766,7 @@ def _ensemble_plain(model, mstate, samples):
 def phase_variant_path(n_timed=12):
     """The experiment's options together at production width: states
     "xywb" (the brightness state), the force variant, the z-ensemble target
-    (5 x 2000 decoder rows a plan) and both trainer kernels on; three ways
+    (5 x 2000 decoder rows a plan) and both trainer kernels on; two ways
     (``_tick_paths``), with K1, K2 and K3 counted through the tick graphs
     over the timed ticks (13 K1 launches a tick and one per trainer call,
     whose entropy grade takes a fresh plain decode under the ensemble; 25
@@ -1905,7 +1780,7 @@ def phase_variant_path(n_timed=12):
 
     cfg = ExperimentConfig(**{**PRODUCTION, "states": "xywb"}, learn_force=True,
                            use_z_ensemble=True, fast_encoder_grads="pallas")
-    exp, es, exp_c, es_c, r = _tick_paths(cfg, n_timed)
+    exp, es, r = _tick_paths(cfg, n_timed)
     counts, calls = r["launches"], r["calls"]
     k1, k2, k3 = (counts["footprint_and_spread"], counts["adam_apply"],
                   counts["conv_wgrad_direct"])
@@ -1930,12 +1805,10 @@ def phase_variant_path(n_timed=12):
           f"trainer calls | K1 {k1} (13/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} "
           f"(75/call) | last loss {float(losses[losses != 0][-1]):.4f} | brightness "
           f"{float(b):.4f} | {_graph_note(exp)}")
-    print(_three_ways("variant path", r))
+    print(_two_ways("variant path", r))
     ticks = _tick_builders()
-    for mode, e, st in (("tick graphs", exp, es), ("per-call graphs", exp_c, es_c)):
-        _sync_free(f"xywb force z-ensemble tick, {mode}", ticks.untrained_tick(e, st))
-        _sync_free(f"xywb force z-ensemble tick with a trainer call, {mode}",
-                   ticks.trained_tick(e, st))
+    _sync_free("xywb force z-ensemble tick", ticks.untrained_tick(exp, es))
+    _sync_free("xywb force z-ensemble tick with a trainer call", ticks.trained_tick(exp, es))
 
     g = torch.Generator(device="cuda").manual_seed(7)
     lo, hi = exp.robot_lim[:, 0], exp.robot_lim[:, 1]
@@ -2081,15 +1954,15 @@ def _option_production(name, opts, n_timed=6, rounds=4):
     (13, 0 and 0 a tick; the wrappers' eager counts 0); every tick's info
     and the state then held bit for bit against an eager experiment taking
     the same ticks; the sync check on a replayed tick with a trainer call;
-    then a captured trainer call (``TrainerGraph``: an eager call, a
-    capture) on the tick graphs' experiment: host ms per replay (median of
-    ``rounds``), device busy ms and intervals (one profiled replay), its
-    capture seconds. Returns the readings."""
+    then the trainer call captured in a post-training call (the
+    post-training graph: an eager call, a capture) on the tick graphs'
+    experiment: host ms per replay (median of ``rounds``), device busy ms
+    and intervals (one profiled replay), its capture seconds. Returns the
+    readings."""
     import gc
     import torch
     from ealv_tpu_torch.runtime import Experiment
-    from ealv_tpu_torch.runtime.graphs import (TrainerGraph, kernel_counts, kernel_launches,
-                                               reset_launches)
+    from ealv_tpu_torch.runtime.graphs import kernel_counts, kernel_launches, reset_launches
     from ealv_tpu_torch.utils.config import ExperimentConfig
 
     cfg = ExperimentConfig(**PRODUCTION, **opts)
@@ -2097,7 +1970,7 @@ def _option_production(name, opts, n_timed=6, rounds=4):
     def make(graphs):
         exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda")
         if not graphs:
-            exp.tick_graph = exp.post_train_graph = exp.trainer_graph = exp.planner_graph = None
+            exp.tick_graph = exp.post_train_graph = None
         return exp, exp.init(seed=0)
 
     exp, es = make(True)
@@ -2143,14 +2016,13 @@ def _option_production(name, opts, n_timed=6, rounds=4):
     held = (len(warm) + n_timed, len(state))
     del exp_e, es_e, run, state
 
-    graph = TrainerGraph()
-    beta, gamma = torch.tensor(0.01, device="cuda"), torch.tensor(0.5, device="cuda")
-    call = lambda: graph(exp.trainer, es.model, es.opt, es.buf, beta, gamma, generator=es.gen)
+    graph = exp.post_train_graph
+    call = lambda: exp.post_train_chunk(es, 1)
     call()
     call()
     if (graph.warmups, graph.captures) != (1, 1):
-        raise RuntimeError(f"model option {name}: trainer graph {graph.warmups} eager calls, "
-                           f"{graph.captures} captures")
+        raise RuntimeError(f"model option {name}: post-training graph {graph.warmups} eager "
+                           f"calls, {graph.captures} captures")
     host = float(np.median([_timed(call) for _ in range(rounds)]))
     # two profiled replays, the reading with more device intervals kept: a
     # profile on the H100 once came back with 124 of about 13,000 intervals
@@ -2159,7 +2031,7 @@ def _option_production(name, opts, n_timed=6, rounds=4):
     r = dict(ms=ms, k1=k1, k3=k3, calls=calls, capture_s=capture_s, held=held,
              host_ms=host, busy_ms=busy, intervals=n, profiled_host_ms=wall,
              profile_intervals=[p[4] for p in profiles],
-             trainer_capture_s=graph.capture_seconds[-1],
+             trainer_capture_s=graph.capture_seconds[()][-1],
              loss=float(losses[losses != 0][-1]))
     del exp, es, graph
     gc.collect()
@@ -2174,8 +2046,8 @@ def phase_model_options(n_timed=6):
     one toy trainer call per option, card against CPU; per option the
     production Experiment through its tick graphs (``_option_production``:
     bit-equal to eager ticks, the sync check, ms per tick, capture seconds,
-    K1 and K3, the captured trainer call's host and busy ms), all in this
-    call. Returns the readings by option."""
+    K1 and K3, the captured post-training call's host and busy ms), all in
+    this call. Returns the readings by option."""
     _option_layers("cuda")
     toy = {name: _option_toy_agreement(name, opts)
            for name, opts in MODEL_OPTIONS.items() if opts}
@@ -2193,13 +2065,13 @@ def phase_model_options(n_timed=6):
                           for k, v in r["capture_s"].items())
               + f"; {r['held'][0]} ticks bit-equal to eager (every info, {r['held'][1]} "
               f"state leaves); no sync in a replayed tick with a trainer call; captured "
-              f"trainer call host {r['host_ms']:.2f} ms (median of 4), busy "
+              f"post-training call host {r['host_ms']:.2f} ms (median of 4), busy "
               f"{r['busy_ms']:.2f} ms in {r['intervals']} intervals (of "
               f"{r['profile_intervals']} in two profiled replays; profiled host "
               f"{r['profiled_host_ms']:.2f} ms), capture {r['trainer_capture_s']:.3f} s; "
               f"last loss {r['loss']:.4f}; {time.perf_counter() - t0:.1f} s")
-    print("[model options] captured trainer call host ms / busy ms, ms/tick through the "
-          "tick graphs: " + "; ".join(f"{k} {r['host_ms']:.2f} / {r['busy_ms']:.2f}, "
+    print("[model options] captured post-training call host ms / busy ms, ms/tick through "
+          "the tick graphs: " + "; ".join(f"{k} {r['host_ms']:.2f} / {r['busy_ms']:.2f}, "
                                       f"{r['ms']:.2f}" for k, r in out.items()))
     return out
 
@@ -3134,7 +3006,7 @@ def _arm_long_agreement(n_run=140, n_ticks=4, devs=("cpu", "cuda")):
 
 def phase_arm_path(n_timed=12):
     """The tick on the arm at production size (sim_backend="arm", xyw),
-    three ways (``_tick_paths``) after at least 60 warm ticks, so that the
+    two ways (``_tick_paths``) after at least 60 warm ticks, so that the
     tick graphs replay a drift-correcting tick (the 60th: the corrections
     fall on every 20th command) in the run held bit-equal to the eager
     ticks; exactly 13 K1 launches a timed tick; then ``ArmEnv.step_vel``
@@ -3149,7 +3021,7 @@ def phase_arm_path(n_timed=12):
     from ealv_tpu_torch.utils.timing import device_ms, host_ms
 
     cfg = ExperimentConfig(**{**PRODUCTION, "sim_backend": "arm"})
-    exp, es, exp_c, es_c, r = _tick_paths(cfg, n_timed, least=60)
+    exp, es, r = _tick_paths(cfg, n_timed, least=60)
     launches = r["launches"]["footprint_and_spread"]
     drift = {p: c for p, c in exp.tick_graph.counts.items() if any(p[2])}
     if launches != 13 * n_timed:
@@ -3169,11 +3041,10 @@ def phase_arm_path(n_timed=12):
           f"after {r['n_warm']} warm: {dt:.2f} ms/tick = {1e3 / dt:.2f} Hz | last loss "
           f"{float(losses[losses != 0][-1]):.4f} | K1 launches {launches} (13/tick) | pose "
           f"{[round(v, 4) for v in es.env.pose.tolist()]} | {_graph_note(exp)}")
-    print(_three_ways("arm path", r))
+    print(_two_ways("arm path", r))
     ticks = _tick_builders()
-    for mode, e, st in (("tick graphs", exp, es), ("per-call graphs", exp_c, es_c)):
-        _sync_free(f"arm tick, {mode}", ticks.untrained_tick(e, st))
-        _sync_free(f"arm tick with a trainer call, {mode}", ticks.trained_tick(e, st))
+    _sync_free("arm tick", ticks.untrained_tick(exp, es))
+    _sync_free("arm tick with a trainer call", ticks.trained_tick(exp, es))
 
     env = exp.env
     cmd = torch.tensor([0.02, -0.01, 0.0, 0.0, 0.0, 0.1], device="cuda")
@@ -3255,16 +3126,17 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
     """The host loop at production size on arm-dynamic, HostLoopRunner over
     a SyntheticBridge in the device-resident mode (command, observation,
     absorb and plan on the card; a 13+3-float watchdog slice to pinned host
-    memory), two ways in one call: through the runner's step graph (the
-    default on the card) and eagerly (the step graph and every experiment
-    graph None), from the same seed. drive_to_start (no K1 launch), then
+    memory), two ways in one call: through the runner's plan and step
+    graphs (the default on the card) and eagerly (those and the
+    experiment's graphs None), from the same seed. drive_to_start (no K1
+    launch), then
     the same steps on both: warm steps (at least ``least``) until each of
     the next ``2 rounds chunk`` + 3 steps replays its pattern's graph,
     ``rounds`` x 4 timed chunks of ``chunk`` steps in turns (graphed,
     eager, eager, graphed), 3 profiled steps each. In a graphed chunk every
-    step replays and makes no eager K1 launch (a primed plan after a stuck
-    hit runs the planner graph), and K1 launches 13 times a plan through
-    the replays; in an eager chunk 13 a plan. Every pending command, every
+    step replays and makes no eager K1 launch but in a primed plan after a
+    stuck hit that the plan graph runs eagerly, and K1 launches 13 times a
+    plan through the replays; in an eager chunk 13 a plan. Every pending command, every
     arm state, the events and every state leaf are held bit for bit. Then
     a replayed step without and with a trainer call under
     ``set_sync_debug_mode("error")``. Returns the readings."""
@@ -3284,10 +3156,10 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
         if not (runner._fast and runner._cmd_absorb_plan is not None):
             raise RuntimeError("host loop path: the device-resident step is not in use")
         if mode == "eager":
-            runner.step_graph = exp.tick_graph = exp.post_train_graph = None
-            exp.trainer_graph = exp.planner_graph = None
-        elif runner.step_graph is None or runner.step_graph.pool is not exp.graph_pool:
-            raise RuntimeError("host loop path: no step graph in the experiment's pool")
+            runner.plan_graph = runner.step_graph = exp.tick_graph = exp.post_train_graph = None
+        elif any(g is None or g.pool is not exp.graph_pool
+                 for g in (runner.plan_graph, runner.step_graph)):
+            raise RuntimeError("host loop path: no plan or step graph in the experiment's pool")
         primes, steps = [0], [0]
         _counted(runner, "_plan_obs", primes)
         _counted(runner, "_step_absorb_plan", steps)
@@ -3323,7 +3195,7 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
         run = runs[mode]
         reset_launches()
         replays, steps0, primes0 = g.replays, run["steps"][0], run["primes"][0]
-        warm_plans = g_run["runner"].exp.planner_graph.warmups
+        warm_plans = g_run["runner"].plan_graph.warmups
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(chunk):
@@ -3336,7 +3208,7 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
         k1[mode][0] += launches
         k1[mode][1] += plans
         if mode == "graphs":
-            eager_plans = g_run["runner"].exp.planner_graph.warmups - warm_plans
+            eager_plans = g_run["runner"].plan_graph.warmups - warm_plans
             if (g.replays - replays != chunk or launches != 13 * plans
                     or eager != 13 * eager_plans):
                 raise RuntimeError(f"host loop path: {g.replays - replays} replays in a chunk "
@@ -3496,10 +3368,8 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
 def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3):
     """The learning path at production size through the port's run entry,
     with both trainer kernels on, its ticks and post-training calls through
-    the tick and post-training graphs; its wall time beside the same run
-    with the per-call graphs (the tick and post-training graphs set to
-    None), in the same call. The postexplr checkpoint is reloaded into a
-    fresh Experiment and compared tensor for tensor; then ``n_post``
+    the tick and post-training graphs. The postexplr checkpoint is reloaded
+    into a fresh Experiment and compared tensor for tensor; then ``n_post``
     post-training calls from it through the post-training graph (an eager
     call, a capture and its replay, a replay) are held bit for bit against
     the same calls made eagerly from it."""
@@ -3509,25 +3379,21 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3)
     from ealv_tpu_torch.runtime.metrics import MetricsLog, run_dir
     from ealv_tpu_torch.scripts import run_experiment as cli
 
-    walls = {}
-    for mode in ("calls", "ticks"):  # the checked run last: its directory is read below
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-        args = cli.build_parser().parse_args([
-            "--steps", str(steps), "--chunk", str(chunk), "--train-every",
-            str(train_every), "--save-rate", str(save_rate), "--out", tmp,
-            "--device", "cuda"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    args = cli.build_parser().parse_args([
+        "--steps", str(steps), "--chunk", str(chunk), "--train-every",
+        str(train_every), "--save-rate", str(save_rate), "--out", tmp, "--device", "cuda"])
 
-        def experiment(mode="ticks"):
-            cfg = dataclasses.replace(cli.make_config(args), fast_encoder_grads="pallas")
-            exp = cli.make_experiment(cfg, args)
-            exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
-            if mode != "ticks":
-                exp.tick_graph = exp.post_train_graph = None
-            if mode == "eager":
-                exp.trainer_graph = exp.planner_graph = None
-            return exp
+    def experiment(graphs=True):
+        cfg = dataclasses.replace(cli.make_config(args), fast_encoder_grads="pallas")
+        exp = cli.make_experiment(cfg, args)
+        exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
+        if not graphs:
+            exp.tick_graph = exp.post_train_graph = None
+        return exp
 
-        exp = experiment(mode)
+    try:
+        exp = experiment()
         dirp = run_dir(tmp, "synth", args.method, args.seed)
         ml = MetricsLog(dirp, echo=False)
         es = exp.init(seed=args.seed)
@@ -3537,13 +3403,7 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3)
         t0 = time.perf_counter()
         es = cli.run(exp, args, dirp, ml, es=es)
         torch.cuda.synchronize()
-        walls[mode] = time.perf_counter() - t0
-        if mode == "calls":
-            import shutil
-            shutil.rmtree(tmp)
-            del exp, es
-    try:
-        wall = walls["ticks"]
+        wall = time.perf_counter() - t0
         counts = kernel_launches(*exp.graphs())
         k1, k2, k3 = (counts["footprint_and_spread"], counts["adam_apply"],
                       counts["conv_wgrad_direct"])
@@ -3588,7 +3448,7 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3)
         del restored, es
         post = {}
         for mode in ("ticks", "eager"):
-            exp_p = experiment(mode)
+            exp_p = experiment(mode == "ticks")
             es_p = load_checkpoint(postexplr, exp_p.init(seed=args.seed + 1))
             _, rows = exp_p.post_train_chunk(es_p, n_post)
             post[mode] = (rows, _snapshot(es_p), exp_p)
@@ -3606,13 +3466,13 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3)
     print(f"[learning path] run entry at production size, K2 and K3 on: {steps} steps "
           f"(chunk {chunk}, a trainer call every {train_every}) + {n_posted} post-training "
           f"calls = {calls} trainer calls in {wall:.2f} s through the tick and post-training "
-          f"graphs (per-call graphs: {walls['calls']:.2f} s; checkpoints included) | K2 "
+          f"graphs (checkpoints included) | K2 "
           f"launches {k2} (25/call) | K3 calls {k3} (75/call) | K1 launches {k1} | last "
           f"loss {float(trained[-1]):.4f} | postexplr reloaded: {n_tensors} tensors "
           f"equal | {n_post} post-training calls from it through the graph bit-equal to "
           f"eager calls ({len(post['ticks'][1])} state leaves) | peak memory "
           f"{peak / 2**20:.1f} MiB | {_graph_note(exp)}")
-    return k1, k2, k3, walls
+    return k1, k2, k3, wall
 
 
 def _fill_ring(es, cfg, n_filled, seed=3):
@@ -3718,59 +3578,52 @@ def phase_dp_trainer(n_filled=200, rounds=2):
           f"{[round(x, 2) for x in times[True]]} / {[round(x, 2) for x in times[False]]}) | "
           f"device busy ms a call: {dev[True]:.2f} / {dev[False]:.2f} (each profiled call: "
           f"{busy[True]} / {busy[False]} ms in {spans[True]} / {spans[False]} intervals)")
-    captured = _dp_trainer_graph(cfg, mesh, n_filled, rounds)
+    captured = _dp_trainer_capture(cfg, mesh, n_filled, rounds)
     return dict(host_ms=host[True], plain_host_ms=host[False], busy_ms=dev[True],
                 plain_busy_ms=dev[False], k2=k2, k3=k3, captured=captured)
 
 
-def _dp_trainer_graph(cfg, mesh, n_filled, rounds):
-    """The data-parallel call through a ``TrainerGraph`` (its all-reduces
-    captured with it) against the eager data-parallel call at production
-    size on the one NCCL rank, with the trainer kernels on and off, as
-    ``phase_trainer_graphs`` holds the plain call: three experiments from
-    seed 0 share one ring, two call eagerly, one through the graph (an
-    eager call, a capture and its replay, a replay) on the same fed draws;
-    the captured call equals the eager one bit for bit where the two eager
-    calls agree bit for bit (K3's deterministic wgrad), and stays within
-    their spread where they do not (cuDNN's). Then host ms per call on the
-    generator's draws, eager against captured in turns, and busy ms."""
+def _dp_trainer_capture(cfg, mesh, n_filled, rounds):
+    """The data-parallel trainer call captured in the post-training call's
+    graph of an Experiment over the one NCCL rank (its all-reduces captured
+    with it) against eager post-training calls at production size, with
+    the trainer kernels on and off, as ``phase_trainer_capture`` holds the
+    plain call: three experiments over the mesh from seed 0, their rings
+    filled alike, two eager, one through the graph (an eager call, a
+    capture and its replay, a replay) on the same fed draws; the captured
+    call equals the eager one bit for bit where the two eager calls agree
+    bit for bit (K3's deterministic wgrad), and stays within their spread
+    where they do not (cuDNN's). Then host ms per call on the generator's
+    draws, eager against captured in turns, and busy ms."""
     import torch
-    from ealv_tpu_torch.parallel import dp_train_call
-    from ealv_tpu_torch.runtime.graphs import TrainerGraph
 
-    betas = [torch.tensor(v, device="cuda") for v in (0.005, 0.01, 0.02)]
-    gammas = [torch.tensor(v, device="cuda") for v in (0.5, 0.25, 0.125)]
     err = lambda a, b: max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
-    ring, out = None, {}
+    out = {}
     for on in (True, False):
-        runs = [_trainer_experiment(cfg, "cuda", kernels=on) for _ in range(3)]
-        if ring is None:
-            ring = _fill_ring(runs[0][1], cfg, n_filled)
-        for _, es in runs:
-            es.buf = ring
-        graph = TrainerGraph()
+        runs = [_trainer_experiment(cfg, "cuda", kernels=on, mesh=mesh) for _ in range(3)]
+        for exp, es in runs:
+            _fill_ring(es, cfg, n_filled)
+        for exp, _ in runs[:2]:
+            exp.post_train_graph = None
+        graph = runs[2][0].post_train_graph
         rng = np.random.default_rng(12)
         spread = gap = 0.0
-        for beta, gamma in zip(betas, gammas):
-            draws = _train_draws(cfg, n_filled, rng, "cuda")
+        for _ in range(3):
+            draws = [_post_train_draws(cfg, n_filled, rng)]
             leaves = []
-            for j, (exp, es) in enumerate(runs):
-                met = dp_train_call(exp.trainer, mesh, es.model, es.opt, es.buf, beta, gamma,
-                                    generator=es.gen, draws=draws,
-                                    graph=graph if j == 2 else None)
-                leaves.append([*met.values(), *(q.detach() for q in es.model.parameters())])
+            for exp, es in runs:
+                rows = exp.post_train_chunk(es, 1, draws)[1]
+                leaves.append([*rows.values(), *(q.detach() for q in es.model.parameters())])
             spread = max(spread, err(leaves[1], leaves[0]))
             gap = max(gap, err(leaves[2], leaves[0]))
         name = "kernels on (K2 + K3)" if on else "kernels off (torch.optim.Adam + cuDNN)"
-        if (graph.warmups, graph.captures, graph.replays) != (1, 1, 2) or gap > spread:
-            raise RuntimeError(f"captured data-parallel call, {name}: {graph.warmups} eager, "
-                               f"{graph.captures} captured, {graph.replays} replays; "
-                               f"max|captured - eager| {gap:.3e}, two eager calls {spread:.3e}")
+        if graph.counts != {(): [1, 1, 2]} or gap > spread:
+            raise RuntimeError(f"captured data-parallel call, {name}: [eager, captured, "
+                               f"replays] {graph.counts}; max|captured - eager| {gap:.3e}, "
+                               f"two eager calls {spread:.3e}")
         (exp_e, es_e), (exp_g, es_g) = runs[0], runs[2]
-        eager = lambda: dp_train_call(exp_e.trainer, mesh, es_e.model, es_e.opt, es_e.buf,
-                                      betas[0], gammas[0], generator=es_e.gen)
-        replay = lambda: dp_train_call(exp_g.trainer, mesh, es_g.model, es_g.opt, es_g.buf,
-                                       betas[0], gammas[0], generator=es_g.gen, graph=graph)
+        eager = lambda: exp_e.post_train_chunk(es_e, 1)
+        replay = lambda: exp_g.post_train_chunk(es_g, 1)
         replay()  # the generator's draws are a new key: an eager call, then a capture
         replay()
         times = {"eager": [], "captured": []}
@@ -3780,14 +3633,15 @@ def _dp_trainer_graph(cfg, mesh, n_filled, rounds):
                 times[which].append(_timed(call))
         busy = {which: _profiled_call(call)[1]
                 for which, call in (("eager", eager), ("captured", replay))}
+        recorded = graph.entries[((), None)].recorded
         res = dict(host_ms={w: float(np.median(t)) for w, t in times.items()}, busy_ms=busy,
-                   gap=gap, spread=spread, capture_s=graph.capture_seconds[-1],
-                   k2=graph.recorded["adam_apply"], k3=graph.recorded["conv_wgrad_direct"])
+                   gap=gap, spread=spread, capture_s=graph.capture_seconds[()][-1],
+                   k2=recorded["adam_apply"], k3=recorded["conv_wgrad_direct"])
         out[on] = res
-        print(f"[dp trainer graph] {name}, one NCCL rank, production, fed draws: an eager "
-              f"call, a capture and its replay, a replay; metrics and parameters "
-              f"max|captured - eager| {gap:.3e}, two eager experiments {spread:.3e}"
-              + (" (bit for bit)" if gap == 0.0 else "")
+        print(f"[dp trainer graph] {name}, one NCCL rank, production, fed draws, "
+              f"post-training calls: an eager call, a capture and its replay, a replay; rows "
+              f"and parameters max|captured - eager| {gap:.3e}, two eager experiments "
+              f"{spread:.3e}" + (" (bit for bit)" if gap == 0.0 else "")
               + f" | generator draws, host ms a call in turns: eager "
               f"{res['host_ms']['eager']:.2f}, captured {res['host_ms']['captured']:.2f} "
               f"({[round(x, 2) for x in times['eager']]} / "
@@ -3914,10 +3768,10 @@ def phase_mesh_tick(xyw_ms, least=9, rounds=2, chunk=6):
     for mode in ("graphs", "eager"):
         exp = Experiment(cfg, train_calls_per_tick=1, train_every=3, device="cuda", mesh=mesh)
         exp.trainer = dataclasses.replace(exp.trainer, fused_adam=True)
-        if exp.eager_reason is not None or len(exp.graphs()) != 4:
+        if exp.eager_reason is not None or len(exp.graphs()) != 2:
             raise RuntimeError(f"mesh tick: an NCCL mesh ran eagerly ({exp.eager_reason})")
         if mode == "eager":
-            exp.tick_graph = exp.post_train_graph = exp.trainer_graph = exp.planner_graph = None
+            exp.tick_graph = exp.post_train_graph = None
         runs[mode] = [exp, exp.init(seed=0), []]
     exp, es = runs["graphs"][:2]
     n_warm = 0
@@ -4195,7 +4049,7 @@ def main() -> int:
     phase_trainer_agreement()
     stamp("agreement")
     phase_trainer_production()
-    trainer_graphs = phase_trainer_graphs()
+    trainer_capture = phase_trainer_capture()
     stamp("trainer calls")
     k1_launches, xyw_ms, xyw_peak, xyw = phase_main_path("xyw", n_timed=24)
     stamp("xyw")
@@ -4233,30 +4087,19 @@ def main() -> int:
           f"host loop {host['ms']['graphs']:.2f} ms/step graphed, {host['ms']['eager']:.2f} "
           f"eager; native loop {loop['rate_hz']:.1f} Hz; toy arm "
           f"card-vs-CPU max|diff| {arm_err:.3e}")
-    plan = "1 plan_step (sync + plan), {}"
     paths = (("xyw", xyw), ("xyzrpw", rpw), ("xywb force z-ensemble K2 K3", var), ("arm", arm))
-    print("[graphs] ms/tick, tick graphs / per-call graphs / eager: " + "; ".join(
-        f"{k} {r['ms']['ticks']:.2f} / {r['ms']['calls']:.2f} / {r['ms']['eager']:.2f}"
-        for k, r in paths)
-        + " | in turns, tick graphs / per-call graphs: " + "; ".join(
-            f"{k} {r['ms_turns']['ticks']:.2f} / {r['ms_turns']['calls']:.2f}"
-            for k, r in paths)
-        + " | 3 profiled ticks, busy ms (host ms), tick graphs / per-call graphs / eager: "
+    print("[graphs] ms/tick, tick graphs / eager: " + "; ".join(
+        f"{k} {r['ms']['ticks']:.2f} / {r['ms']['eager']:.2f}" for k, r in paths)
+        + " | 3 profiled ticks, busy ms (host ms), tick graphs / eager: "
         + "; ".join(k + " " + " / ".join(
             f"{r['profile'][m]['busy_ms']:.2f} ({r['profile'][m]['host_ms']:.2f})"
-            for m in ("ticks", "calls", "eager")) for k, r in paths)
+            for m in ("ticks", "eager")) for k, r in paths)
         + " | tick graphs' pool MiB: " + "; ".join(f"{k} {r['pool_mib']}" for k, r in paths)
-        + " | plan_step host ms / busy ms / intervals, captured (eager): " + "; ".join(
-            f"{k} {r[plan.format('captured')]['host_ms']:.2f} / "
-            f"{r[plan.format('captured')]['busy_ms']:.2f} / "
-            f"{r[plan.format('captured')]['intervals']} ({r[plan.format('eager')]['host_ms']:.2f}"
-            f" / {r[plan.format('eager')]['busy_ms']:.2f} / {r[plan.format('eager')]['intervals']})"
-            for k, r in (("xyw", xyw), ("xyzrpw", rpw)))
-        + " | trainer call host ms / busy ms, captured (eager): " + "; ".join(
+        + " | post-training call host ms / busy ms, captured (eager): " + "; ".join(
             f"kernels {'on' if on else 'off'} {r['captured']['host_ms']:.2f} / "
             f"{r['captured']['busy_ms']:.2f} ({r['eager']['host_ms']:.2f} / "
             f"{r['eager']['busy_ms']:.2f}), capture {r['capture_s']:.3f} s, pool "
-            f"{r['pool_mib']} MiB" for on, r in trainer_graphs.items()))
+            f"{r['pool_mib']} MiB" for on, r in trainer_capture.items()))
     _, k2_launches, k3_launches, _ = phase_learning_path()
     stamp("learning path")
     resume_leaves = phase_studies()

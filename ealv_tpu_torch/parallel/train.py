@@ -10,22 +10,23 @@ rank then applies the same averaged gradient, so the parameters stay
 bit-equal across ranks. ``sharded_pdf`` decodes one slice of the candidate
 samples per rank and gathers the slices back in order.
 
-Over an NCCL group both run inside captured CUDA graphs (the trainer call
-through a ``runtime/graphs.py`` ``TrainerGraph``, the decode inside the
-planner's or the tick's graph), as the JAX package runs its ``shard_map``
-inside one program. What torch 2.11's ``ProcessGroupNCCL`` (NCCL 2.28.9)
-asks of a capture, found on an H100: its NCCL must be 2.9.6 or newer (it
-checks); the communicator must exist before the capture: a group made with
+Over an NCCL group both run inside the experiment's captured CUDA graphs
+(``runtime/graphs.py`` ``StepGraph``s: the decode and the trainer call
+inside the tick's graph, the trainer call inside the post-training
+call's), as the JAX package runs its ``shard_map`` inside one program.
+What torch 2.11's ``ProcessGroupNCCL`` (NCCL 2.28.9) asks of a capture,
+found on an H100: its NCCL must be 2.9.6 or newer (it checks); the
+communicator must exist before the capture: a group made with
 ``device_id`` creates it at once, one made without creates it at the
 first collective, and if that collective is captured NCCL fails with
 "operation not permitted when stream is capturing" and the capture is
-invalidated (every graph's first call under a key runs eagerly, which
-makes it either way). Its watchdog thread raised nothing over captures,
+invalidated (every pattern's first step runs eagerly, which makes it
+either way). Its watchdog thread raised nothing over captures,
 replays and ``destroy_process_group``; ``wait()`` on a captured
 collective's work, and its timing events (``TORCH_NCCL_ENABLE_TIMING``),
-leave the capture valid. So the captured calls need no setting. A gloo
+leave the capture valid. So the captured steps need no setting. A gloo
 group's collectives go through the host and cannot be captured: over
-gloo the calls stay eager.
+gloo the steps stay eager.
 """
 
 from __future__ import annotations
@@ -57,8 +58,7 @@ def _mean_over_ranks(mesh: Mesh):
 def dp_train_call(statics: TrainerStatics, mesh: Mesh, model: CVAE, opt,
                   buf: ReplayBuffer, beta, gamma,
                   generator: torch.Generator | None = None, weighted: bool = True,
-                  deterministic: bool = False, draws: TrainDraws | None = None,
-                  graph=None):
+                  deterministic: bool = False, draws: TrainDraws | None = None):
     """One trainer call data-parallel over ``mesh``: this rank trains on its
     ``batch_size / n`` rows of every global batch, the gradients are
     averaged over the ranks before each step, and the metrics are averaged
@@ -67,14 +67,10 @@ def dp_train_call(statics: TrainerStatics, mesh: Mesh, model: CVAE, opt,
     As in the JAX package every shard draws the same reparam noise, one
     (batch_size / n, z_dim) block; fed ``draws`` carry one such block a
     step. Returns the metrics as float32, each stacked to
-    (num_learning_opt,). ``graph`` (a ``TrainerGraph``, over an NCCL group)
-    runs the call as a captured CUDA graph, its all-reduces inside."""
+    (num_learning_opt,)."""
     n = mesh.size
     if statics.batch_size % n:
         raise ValueError(f"batch_size {statics.batch_size} not divisible by {n}")
-    if graph is not None:
-        return graph(statics, model, opt, buf, beta, gamma, generator=generator,
-                     weighted=weighted, deterministic=deterministic, draws=draws, mesh=mesh)
     metrics = train_call(statics, model, opt, buf, beta, gamma, generator=generator,
                          weighted=weighted, deterministic=deterministic, draws=draws,
                          grad_transform=_mean_over_ranks(mesh), num_shards=n,

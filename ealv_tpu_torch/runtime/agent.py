@@ -21,17 +21,14 @@ post-training call likewise (``post_train_graph``). The host values the
 tick computes with (the step it records in the hyperparameter ring, the
 manual ramps) are staged into device scalars (``HostValues``). With
 ``tick_graph`` and ``post_train_graph`` set to None the experiment runs
-the planner call and the trainer call as their own captured graphs
-(``planner_graph``, ``trainer_graph``) and the rest of the tick eagerly;
-with those set to None too, everything eagerly. Over an NCCL mesh the
-graphs hold the data-parallel call's and the sharded decode's collectives;
-a gloo mesh runs eagerly, as the CPU does (``eager_reason`` says which).
+eagerly. Over an NCCL mesh the graphs hold the data-parallel call's and
+the sharded decode's collectives; a gloo mesh runs eagerly, as the CPU
+does (``eager_reason`` says which).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import torch
@@ -50,8 +47,7 @@ from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
 from . import tracing
-from .graphs import PlannerGraph, StepGraph, TrainerGraph, _addresses, _spec, \
-    module_key, optimizer_key, run_step
+from .graphs import StepGraph, _addresses, _spec, module_key, optimizer_key, run_step
 from .trainer import TrainerStatics, TrainDraws, train_call
 from .schedules import HyperState, hyperparam_update, entropy_grade, \
     entropy_grade_spread, manual_ramp
@@ -298,18 +294,14 @@ class Experiment:
             lr=cfg.model_lr)
         # captured CUDA graphs on the card, over no mesh or an NCCL one: the
         # whole tick and the post-training call, one memory pool between
-        # them (which the host loop's step graph shares); the planner and
-        # trainer calls on their own for the callers outside the tick
-        # (plan_step alone, the host loop) and for an experiment whose
-        # tick_graph is set to None. A gloo group's collectives run through
-        # the host and cannot be captured: over a gloo mesh (the caller's
-        # backend choice) the experiment runs eagerly, as on the CPU.
+        # them (which the host loop's step graphs share). A gloo group's
+        # collectives run through the host and cannot be captured: over a
+        # gloo mesh (the caller's backend choice) the experiment runs
+        # eagerly, as on the CPU.
         self.eager_reason = ("the CPU" if self.device.type != "cuda" else
                              f"a {mesh.backend} mesh" if mesh is not None
                              and mesh.backend != "nccl" else None)
         graphs = self.eager_reason is None
-        self.trainer_graph = TrainerGraph() if graphs else None
-        self.planner_graph = PlannerGraph() if graphs and not self.use_baseline else None
         self.graph_pool = torch.cuda.MemPool() if graphs else None
         self.tick_graph = StepGraph(pool=self.graph_pool) if graphs else None
         self.post_train_graph = StepGraph(pool=self.graph_pool) if graphs else None
@@ -385,18 +377,15 @@ class Experiment:
         return self.explored.measured(env)
 
     def graphs(self) -> list:
-        """The experiment's captured calls and steps (none on the CPU or
-        over a gloo mesh)."""
-        return [g for g in (self.trainer_graph, self.planner_graph, self.tick_graph,
-                            self.post_train_graph) if g is not None]
+        """The experiment's captured steps, the tick and the post-training
+        call (none on the CPU or over a gloo mesh)."""
+        return [g for g in (self.tick_graph, self.post_train_graph) if g is not None]
 
-    def plan_step(self, es: ExperimentState, full_state, draws: TickDraws | None = None,
-                  graph: bool = True):
+    def plan_step(self, es: ExperimentState, full_state, draws: TickDraws | None = None):
         """Sync the planner (or the baseline) to the measured state, plan
         (or step), and convert the predicted state to a tray-frame 6-twist
-        and a brightness command. The plan runs as the captured graph where
-        the experiment has one, unless ``graph=False``. Returns (pstate,
-        vel6, b_cmd or None, info)."""
+        and a brightness command. Returns (pstate, vel6, b_cmd or None,
+        info)."""
         m = self.dyn.num_actions
         if self.use_baseline:
             pstate = self.baseline.save_update(es.pstate, full_state, save=True)
@@ -405,10 +394,7 @@ class Experiment:
             info = {"cost": torch.zeros((), device=self.device)}
         else:
             pstate = self.planner.save_update(es.pstate, full_state, save=True)
-            plan = self.planner.plan
-            if graph and self.planner_graph is not None:
-                plan = functools.partial(self.planner_graph, self.planner)
-            pstate, info = plan(
+            pstate, info = self.planner.plan(
                 pstate, (es.model, es.mstate),
                 use_prior=es.explr_step < self.cfg.prior_steps,
                 samples=draws.samples if draws else None,
@@ -429,14 +415,13 @@ class Experiment:
             return self._graph_tick(es, draws)
 
     def _tick(self, es: ExperimentState, draws: TickDraws | None = None,
-              graphs: bool = True, host: HostValues | None = None):
-        """The tick's body: its planner and trainer calls through their own
-        graphs unless ``graphs=False``; ``host`` stages the host values.
-        The tracer's device spans: ``tick`` over the body, ``env`` from the
-        command (``plan_step``) to the render."""
+              host: HostValues | None = None):
+        """The tick's body; ``host`` stages the host values. The tracer's
+        device spans: ``tick`` over the body, ``env`` from the command
+        (``plan_step``) to the render."""
         tracing.begin("tick")
         full_state = self._measured_robot_state(es.env)
-        pstate, vel6, b_cmd, info = self.plan_step(es, full_state, draws, graph=graphs)
+        pstate, vel6, b_cmd, info = self.plan_step(es, full_state, draws)
         env = es.env
         for _ in range(self.cfg.data_to_ctrl_rate):
             env = self.env.step_vel(env, vel6, b_cmd)
@@ -444,8 +429,7 @@ class Experiment:
         tracing.end("env")
         robot_state = self._measured_robot_state(env)[: self.cfg.s_dim]
         es.env = env
-        out = self.absorb_step(es, pstate, info, robot_state, img, force, draws,
-                               graphs=graphs, host=host)
+        out = self.absorb_step(es, pstate, info, robot_state, img, force, draws, host=host)
         tracing.end("tick")
         return out
 
@@ -465,8 +449,7 @@ class Experiment:
         return tuple(out)
 
     def absorb_step(self, es: ExperimentState, pstate, info, robot_state, img,
-                    force, draws: TickDraws | None = None, graphs: bool = True,
-                    host: HostValues | None = None):
+                    force, draws: TickDraws | None = None, host: HostValues | None = None):
         """Push the sample, reseed the target distribution, update the
         hyperparameters and run the throttled learning: the tracer's device
         span ``absorb``, the trainer calls' ``train`` spans inside it."""
@@ -502,7 +485,7 @@ class Experiment:
                     es, draws.grade_samples[i] if draws and draws.grade_samples else None)
             metrics = self._hyper_and_train(es, grade, spread,
                                             draws.train[i] if draws and draws.train else None,
-                                            graphs=graphs, host=host, slot=i)
+                                            host=host, slot=i)
 
         es.explr_step += 1
         zero = torch.zeros((), device=self.device)
@@ -533,13 +516,12 @@ class Experiment:
             torch.full((cfg.s_dim,), cfg.std, device=self.device), cfg.xi)
 
     def _hyper_and_train(self, es: ExperimentState, grade, spread,
-                         train_draws: TrainDraws | None, graphs: bool = True,
-                         host: HostValues | None = None, slot: int = 0):
-        """Update beta/gamma, make one trainer call (through the trainer
-        graph unless ``graphs=False``), push (grade, spread) to the
-        hyperparameter ring and count the call. ``host`` stages the step
-        and the manual ramps of trainer-call ``slot``. Returns the
-        metrics."""
+                         train_draws: TrainDraws | None, host: HostValues | None = None,
+                         slot: int = 0):
+        """Update beta/gamma, make one trainer call (data-parallel over the
+        mesh, if any), push (grade, spread) to the hyperparameter ring and
+        count the call. ``host`` stages the step and the manual ramps of
+        trainer-call ``slot``. Returns the metrics."""
         cfg = self.cfg
         hyper = hyperparam_update(
             es.hyper, grade, spread,
@@ -560,12 +542,10 @@ class Experiment:
             from ..parallel.train import dp_train_call
             metrics = dp_train_call(self.trainer, self.mesh, es.model, es.opt, es.buf,
                                     hyper.beta, hyper.gamma, generator=es.gen,
-                                    draws=train_draws,
-                                    graph=self.trainer_graph if graphs else None)
+                                    draws=train_draws)
         else:
-            train = (self.trainer_graph if graphs else None) or train_call
-            metrics = train(self.trainer, es.model, es.opt, es.buf, hyper.beta, hyper.gamma,
-                            generator=es.gen, draws=train_draws)
+            metrics = train_call(self.trainer, es.model, es.opt, es.buf, hyper.beta,
+                                 hyper.gamma, generator=es.gen, draws=train_draws)
         tracing.end("train")
         es.buf.update_hyperparams(es.explr_step if host is None else host.explr_step,
                                   grade, spread)
@@ -600,10 +580,9 @@ class Experiment:
         return es, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
     def _post_train_call(self, es: ExperimentState, d: PostTrainDraws | None,
-                         graphs: bool = True, host: HostValues | None = None):
+                         host: HostValues | None = None):
         grade, spread = self._grade_spread(es, d.samples if d else None)
-        metrics = self._hyper_and_train(es, grade, spread, d.train if d else None,
-                                        graphs=graphs, host=host)
+        metrics = self._hyper_and_train(es, grade, spread, d.train if d else None, host=host)
         return {"loss": metrics["loss"][-1], "beta": es.hyper.beta, "gamma": es.hyper.gamma}
 
     # ------------------------------------------------------------------
@@ -663,14 +642,14 @@ class Experiment:
         return dataclasses.replace(es, pstate=pstate, env=env, mstate=mstate,
                                    hyper=dataclasses.replace(es.hyper, beta=beta, gamma=gamma))
 
-    def _graph_step(self, graph: StepGraph, es: ExperimentState, pattern, draws, run,
+    def _graph_step(self, step_graph: StepGraph, es: ExperimentState, pattern, draws, run,
                     calls: int):
-        """One step through ``graph`` (``graphs.run_step``): the pattern's
-        first step runs eagerly, its second captures, later ones replay.
-        ``run(view, draws)`` makes the step on a view of ``es`` and returns
-        its out. Then ``es`` takes the new carry and its host ints advance
-        by the step's ``calls`` trainer calls. Returns out."""
-        view, out = run_step(graph, es, self._carry, self._with_carry, self._base, pattern,
+        """One step through ``step_graph`` (``graphs.run_step``): the
+        pattern's first step runs eagerly, its second captures, later ones
+        replay. ``run(view, draws)`` makes the step on a view of ``es`` and
+        returns its out. Then ``es`` takes the new carry and its host ints
+        advance by the step's ``calls`` trainer calls. Returns out."""
+        view, out = run_step(step_graph, es, self._carry, self._with_carry, self._base, pattern,
                              draws, lambda view, d: (view, run(view, d)),
                              [es.gen, es.pstate.gen])
         self._take(es, view, calls)
@@ -691,7 +670,7 @@ class Experiment:
         host = self._stage(es, pattern[0])
         info = self._graph_step(
             self.tick_graph, es, pattern, draws,
-            lambda view, d: self._tick(view, d, graphs=False, host=host)[1], sum(pattern[0]))
+            lambda view, d: self._tick(view, d, host=host)[1], sum(pattern[0]))
         es.env = advance_env(es.env, self.cfg.data_to_ctrl_rate)
         es.explr_step += 1
         return es, info
@@ -702,4 +681,4 @@ class Experiment:
         host = self._stage(es, (True,))
         return self._graph_step(
             self.post_train_graph, es, (), d,
-            lambda view, d: self._post_train_call(view, d, graphs=False, host=host), 1)
+            lambda view, d: self._post_train_call(view, d, host=host), 1)

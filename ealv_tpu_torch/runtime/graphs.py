@@ -1,60 +1,54 @@
-"""The tick's two hot calls as captured CUDA graphs: the counterpart of the
-JAX package's single compiled programs.
+"""Whole steps of the port's loops as captured CUDA graphs: the
+counterpart of the JAX package's compiled ``lax.scan`` over a tick.
 
-The JAX package runs its 25-step trainer call as one ``lax.scan``
-(``ealv_tpu/runtime/trainer.py``) and its planner call as one jitted
-function whose loops are fixed-trip scans (``ealv_tpu/control/klerg.py``).
-The port runs both as eager Python loops, about 10,800 and 2,000 device
-launches a call at production size (the planner's 7,700 before its horizon
-recurrences became kernels), each dispatched by the host.
-``TrainerGraph`` and ``PlannerGraph`` capture one whole call each as a CUDA
-graph and replay it: the host then issues one launch a call.
+The JAX package runs its tick (``ealv_tpu/runtime/agent.py``), its
+25-step trainer call and its planner call as compiled programs. The port
+runs them as eager Python, thousands of device launches a tick at
+production size, each dispatched by the host. ``StepGraph`` captures a
+whole step of a loop (``Experiment.tick``, one post-training call,
+``EvalExperiment.tick``, a fingerprint capture or identification step, the
+host loop's plan and its absorb-and-plan) as a CUDA graph and replays it:
+the host then issues one launch a step. ``run_step`` is the step
+mechanics the runtimes share: the carry split off the runtime's state,
+the body on a view that holds the host values as they were, and the new
+carry joined back.
 
-A captured call reads fixed device addresses. So each graph
+A captured step reads fixed device addresses and frozen host values. So
 
-- copies the inputs that change between calls (beta and gamma, fed draws;
-  the planner's state, the model's target state) into static buffers
-  before every replay, and clones what the call returns (the trainer's
-  metrics, the new plan, the planner's info) out of the graph's memory;
-- reads in place what is updated in place (the model's parameters and
-  buffers, the optimizer's moments and step counts, the replay ring), and
-  is keyed on those tensors' addresses, with every host value the call
-  depends on (the trainer's statics, ``temp``, ``use_prior``, the staged
-  inputs' shapes). A call whose key differs from the graph's never replays
-  it: the first call under a new key runs eagerly (a real call of the run,
-  which also creates the optimizer's moments, the library workspaces and
-  the kernels' launch plans), the next one captures and replays;
-- registers the call's ``torch.Generator`` with the graph, so that each
-  replay advances the random stream as the eager call does and draws what
-  it would draw.
+- one graph is captured for each pattern of the host values the step
+  branches on (which trainer calls run, the prior, the arm's drift
+  corrections, ...). A pattern's first step runs eagerly (a real step of
+  the run, which also creates the optimizer's moments, the library
+  workspaces and the kernels' launch plans), its second captures and
+  replays, later ones replay;
+- what the step replaces (the planner and env state, the target state,
+  beta and gamma; the capture's model state; the identification's
+  beliefs; the host loop's pending plan) is its carry, resident in static
+  buffers that the step's last kernels overwrite, so the next replay reads
+  what the last one wrote. A caller's carry that is not those buffers is
+  copied in before a replay, and so are the fed draws; what the step
+  returns is cloned out of the graph's memory;
+- what the step reads or updates in place (the model's parameters and
+  buffers, the optimizer's moments and step counts, the rings) is read by
+  address: every graph is keyed on those addresses, the generators and
+  the carry's structure, and all are dropped when that base key changes;
+- the host values the step computes with are staged into device scalars
+  by the caller before each replay;
+- the step's ``torch.Generator``s are registered with each graph, so that
+  a replay advances the random streams as the eager step does and draws
+  what it would draw.
 
-A capture that fails raises; nothing falls back to the eager call. On the
-CPU there are no graphs: ``Experiment`` runs the eager calls there, and
+A capture that fails raises; nothing falls back to the eager step. On the
+CPU there are no graphs: the runtimes run their steps eagerly there, and
 the tests run the staging through ``EagerGraph``, which replays by calling
-the function again on the static buffers and writing its outputs into the
-first replay's.
+the step again on the static buffers and writing its outputs into the
+first replay's. The patterns' graphs share one memory pool.
 
 The kernels' wrappers count launches on the host, so a replay, which
 makes none, leaves them as they are. Each graph records the launches its
-capture made (``recorded``; the wrappers' counts are set back, since the
-capture ran no kernel) and adds them to ``launched`` on every replay:
+capture made (the wrappers' counts are set back, since the capture ran no
+kernel) and adds them to its step's ``launched`` on every replay:
 ``kernel_launches`` sums the eager counts and the graphs'.
-
-``StepGraph`` goes one level up, as the reference's ``lax.scan`` over the
-tick does (``ealv_tpu/runtime/agent.py``): it captures a whole step of a
-loop (``Experiment.tick``, one post-training call, ``EvalExperiment.tick``,
-a fingerprint capture or identification step, the host loop's absorb and
-plan) with the calls above run eagerly inside, one graph for each pattern
-of the host values the step branches on. Its carry (what the step
-replaces: the planner and env state, the target state, beta and gamma;
-the capture's model state; the identification's beliefs; the host loop's
-pending plan) stays resident in static buffers that the
-step's last kernels overwrite, so the next replay reads what the last one
-wrote; the host values it computes with are staged into device scalars
-before each replay. The patterns' graphs share one memory pool.
-``run_step`` is the step mechanics the runtimes share: the carry split
-off the runtime's state, the body on a view that holds the host values
-as they were, and the new carry joined back.
 """
 
 from __future__ import annotations
@@ -73,7 +67,6 @@ from ..ops.footprint import footprint_and_spread
 from ..ops.rollout import costate_sweep, horizon_rollout
 from ..ops.wgrad import conv_wgrad_direct
 from . import tracing
-from .trainer import train_call
 
 KERNELS = {"footprint_and_spread": footprint_and_spread, "adam_apply": adam_apply,
            "conv_wgrad_direct": conv_wgrad_direct, "horizon_rollout": horizon_rollout,
@@ -85,8 +78,8 @@ _REPLAYED = dict.fromkeys(KERNELS, 0)
 
 
 class CaptureError(RuntimeError):
-    """A capture failed. Raised by the call or step that captures, and again
-    by every later one under its key: nothing runs the eager call in its
+    """A capture failed. Raised by the step that captures, and again by
+    every later step of its pattern: nothing runs the eager step in its
     place."""
 
 
@@ -212,33 +205,6 @@ def _write_back(static, new) -> None:
         s.copy_(t)
 
 
-def _pairs(static, tree, out: dict):
-    """{id of a static node: the caller's node}, over the tensors and
-    containers of the static inputs."""
-    found = _fields(static)
-    if found is not None or isinstance(static, torch.Tensor):
-        out[id(static)] = tree
-    if found is not None:
-        for (_, s), (_, t) in zip(found[1], _fields(tree)[1], strict=True):
-            _pairs(s, t, out)
-    return out
-
-
-def _escape(out, mine: dict):
-    """What the call returned, for its caller: a part that is a static
-    input is the caller's own input; every other tensor is cloned out of
-    the graph's memory, which the next replay overwrites."""
-    if id(out) in mine:
-        return mine[id(out)]
-    if isinstance(out, torch.Tensor):
-        return out.clone()
-    found = _fields(out)
-    if found is None:
-        return out
-    kind, children = found
-    return _rebuild(out, kind, [(k, _escape(v, mine)) for k, v in children])
-
-
 def _addresses(tensors) -> tuple:
     return tuple(t.data_ptr() for t in tensors)
 
@@ -344,7 +310,7 @@ def _counted_capture(graph, body, static) -> tuple:
 
 
 class CudaGraph:
-    """One ``torch.cuda.CUDAGraph`` of a call, its generators registered,
+    """One ``torch.cuda.CUDAGraph`` of a step, its generators registered,
     its memory from ``pool`` (a ``torch.cuda.MemPool`` shared with other
     graphs) or a private pool."""
 
@@ -394,7 +360,7 @@ class CudaGraph:
 
 
 class EagerGraph:
-    """The staging of a captured call without a card: "capture" keeps the
+    """The staging of a captured step without a card: "capture" keeps the
     function, each replay calls it on the static buffers and writes what it
     returns into the first replay's tensors, as a graph's replay overwrites
     its outputs. It holds the staging, the keys and the cloning to a graph's
@@ -413,123 +379,6 @@ class EagerGraph:
         else:
             _copy_into(self.out, got)
         return self.out
-
-
-class _CapturedCall:
-    """A call run as a graph under a key (see the module's docstring):
-    ``warmups``, ``captures`` and ``replays`` count the three ways a call
-    went; ``capture_seconds`` times each capture; ``recorded`` holds the
-    kernel launches the last capture recorded, ``launched`` those its
-    replays made."""
-
-    def __init__(self, graph_type=CudaGraph):
-        self.graph_type = graph_type
-        self.key = None  # the captured graph's
-        self._warm = None  # the last eager call's
-        self.graph = self.static = None
-        self.recorded = dict.fromkeys(KERNELS, 0)
-        self.launched = dict.fromkeys(KERNELS, 0)
-        self.warmups = self.captures = self.replays = 0
-        self.capture_seconds: list[float] = []
-
-    def _drop(self) -> None:
-        """Release the graph and its memory pool."""
-        self.graph = self.static = self.key = None
-
-    def _call(self, key_fn, inputs, body, generators):
-        """``body(inputs)``: eagerly under a new key, else replayed (captured
-        first on the key's second call). ``key_fn()`` and the tracer's
-        ``state()`` give the key; it is read again after an eager call,
-        which may create what the key holds (the optimizer's moments)."""
-        key = (key_fn(), tracing.state())
-        if key != self.key:
-            if key != self._warm:
-                self._drop()
-                self.warmups += 1
-                out = body(inputs)
-                self._warm = (key_fn(), tracing.state())
-                return out
-            self._capture(key, inputs, body, generators)
-        else:
-            _copy_into(self.static, inputs)
-        out = self.graph.replay()
-        self.replays += 1
-        _replayed(self.launched, self.recorded)
-        return _escape(out, _pairs(self.static, inputs, {}))
-
-    def _capture(self, key, inputs, body, generators):
-        self._drop()
-        static = _clone(inputs)
-        graph = self.graph_type(generators)
-        self.recorded, seconds = _counted_capture(graph, body, static)
-        self.capture_seconds.append(seconds)
-        self.graph, self.static, self.key = graph, static, key
-        self.captures += 1
-
-
-class TrainerGraph(_CapturedCall):
-    """``train_call`` as a captured graph: one whole call of
-    ``num_learning_opt`` steps (sample, forward, loss, backward, optimizer
-    step). Staged: ``beta``, ``gamma`` and fed ``draws``. Read in place and
-    keyed by address: the model's parameters and buffers, the optimizer's
-    state, the replay ring's rows (``x``, ``y``, ``force``) and its head and
-    fill counters. Registered: ``generator``. Returns the metrics, cloned.
-    With a ``mesh`` (a ``parallel.Mesh`` over an NCCL group) the call is
-    ``parallel.dp_train_call``, its gradient and metric all-reduces captured
-    with it; keyed by the mesh."""
-
-    def __call__(self, statics, model, opt, buf, beta, gamma,
-                 generator: torch.Generator | None = None, weighted: bool = True,
-                 deterministic: bool = False, draws=None, mesh=None):
-        inputs = (beta, gamma, draws)
-        ring = (buf.x, buf.y, buf.force, buf.pos, buf.size)
-        spec = (statics, weighted, deterministic, id(buf), _spec(ring), id(generator),
-                _spec(inputs), mesh)
-
-        def key():
-            return spec, module_key(model), optimizer_key(opt), _addresses(ring)
-
-        def body(st):
-            kw = dict(generator=generator, weighted=weighted, deterministic=deterministic,
-                      draws=st[2])
-            if mesh is None:
-                return train_call(statics, model, opt, buf, st[0], st[1], **kw)
-            from ..parallel.train import dp_train_call
-            return dp_train_call(statics, mesh, model, opt, buf, st[0], st[1], **kw)
-
-        return self._call(key, inputs, body, [] if generator is None else [generator])
-
-
-class PlannerGraph(_CapturedCall):
-    """``KlergPlanner.plan`` as a captured graph, its draws included.
-    Staged: the planner state but its generator (the plan, the measured
-    state, the visited-state ring, the limits, the barrier), the target
-    context's tensors (the model's target state) and fed ``samples`` /
-    ``hist_idx``. Read in place and keyed by address: the model's
-    parameters and buffers, the planner's own tensors (its limits and
-    kernel widths, which ``init_state`` may set anew). Keyed by value:
-    ``temp`` and ``use_prior``.
-    Registered: the planner state's generator. Returns (pstate, info) as
-    ``plan`` does: the new plan and rollout and every info tensor cloned,
-    the rest of the state the caller's own."""
-
-    def __call__(self, planner, pstate, pdf_ctx, temp: float = 1.0,
-                 use_prior: bool = False, samples=None, hist_idx=None):
-        gen = pstate.gen
-        inputs = (dataclasses.replace(pstate, gen=None), pdf_ctx, samples, hist_idx)
-        modules = [x for x in (pdf_ctx if isinstance(pdf_ctx, tuple) else (pdf_ctx,))
-                   if isinstance(x, nn.Module)]
-        spec = (id(planner), float(temp), bool(use_prior), id(gen), _spec(inputs))
-
-        def key():
-            return (spec, tuple(module_key(m) for m in modules),
-                    _addresses(v for v in vars(planner).values() if isinstance(v, torch.Tensor)))
-
-        def body(st):
-            return planner.plan(dataclasses.replace(st[0], gen=gen), st[1], temp=temp,
-                                use_prior=use_prior, samples=st[2], hist_idx=st[3])
-
-        return self._call(key, inputs, body, [gen])
 
 
 @dataclasses.dataclass
@@ -568,7 +417,7 @@ class StepGraph:
     Counts: ``warmups``, ``captures`` and ``replays`` over every pattern,
     ``counts[pattern]`` the three for each, ``capture_seconds[pattern]``;
     ``launched`` sums the kernel launches each capture recorded over its
-    replays, as in ``_CapturedCall``. The tracer's host spans ``key``,
+    replays. The tracer's host spans ``key``,
     ``stage``, ``replay`` and ``clone`` (``runtime/tracing.py``) time the
     step's parts on the host. Every graph takes its memory from
     ``pool`` (a ``torch.cuda.MemPool``, which other steps' graphs may

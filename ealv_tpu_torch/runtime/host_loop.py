@@ -40,21 +40,24 @@ step graphs' base key, at every step; ``graphsafe_set_state`` would swap
 the state object a graph registered. ``set_state`` writes the seed and
 offset into that object, and the graph's next replay reads them.
 
-On the card every plan runs as the experiment's captured planner call
-(``PlannerGraph``), and each absorb-and-plan step of the pipelined forms
-(the device-resident step with the bridge's command and observation, the
-host-pipelined step with the host observation staged) runs as a captured
-CUDA graph (``step_graph``, a ``runtime/graphs.py`` ``StepGraph`` in the
-experiment's memory pool), one graph a pattern of the host values the
-step branches on: which trainer calls the absorb makes, whether the next
-plan targets the prior, the arm's drift correction, whether the plan sends
-a brightness. The counterpart of the JAX runner's jitted ``_absorb_plan``
-and ``_cmd_absorb_plan``. Pause, stuck detection, escape and recovery stay
-on the host, between steps. After a replay the experiment state's fields
-and the pending plan are the graph's static buffers, which the next
-replay overwrites: copy what you keep. With ``step_graph`` set to None
-the step runs its absorb and plan as the experiment's own captured calls,
-the serial step always does, and on the CPU everything runs eagerly.
+On the card the device work of every step runs as captured CUDA graphs
+(``runtime/graphs.py`` ``StepGraph``s in the experiment's memory pool),
+one graph a pattern of the host values the step branches on: a plan from
+a host observation (the first step, after a drop, and every serial step)
+through ``plan_graph``, whose pattern is whether the plan targets the
+prior; and the runner's own step through ``step_graph``: the
+absorb-and-plan of the pipelined forms (the device-resident step with the
+bridge's command and observation, the host-pipelined step with the host
+observation staged) or the serial step's absorb, whose patterns are which
+trainer calls the absorb makes, whether the next plan targets the prior,
+the arm's drift correction and whether the plan sends a brightness. The
+counterpart of the JAX runner's jitted ``_plan``, ``_absorb``,
+``_absorb_plan`` and ``_cmd_absorb_plan``. Pause, stuck detection, escape
+and recovery stay on the host, between steps. After a replay of the
+runner's step the experiment state's fields and the pending plan are the
+graph's static buffers, which the next replay overwrites: copy what you
+keep. With ``plan_graph`` and ``step_graph`` set to None, and on the CPU,
+everything runs eagerly.
 """
 
 from __future__ import annotations
@@ -131,9 +134,11 @@ class HostLoopRunner:
         self._prev_small = None  # device-resident step: the deferred watchdog slice
         # the fork every plan runs on, made on the first plan (_fork_parts)
         self._fork_memory = self._fork_generator = None
-        # the absorb-and-plan step as captured graphs on the card, in the
-        # experiment's memory pool; None on the CPU (tests may set one)
+        # the plan from a host observation and the runner's step as captured
+        # graphs on the card, in the experiment's memory pool; None on the
+        # CPU (tests may set them)
         pool = self.exp.graph_pool
+        self.plan_graph = StepGraph(pool=pool) if pool is not None else None
         self.step_graph = StepGraph(pool=pool) if pool is not None else None
         self._fast = bool(self.pipeline) and bool(self.device_fast) and bool(
             getattr(self.bridge, "device_fast_path_ok", lambda: False)())
@@ -155,10 +160,10 @@ class HostLoopRunner:
                 pure = None
             if pure is not None:
                 def _cmd_absorb_plan(es, pstate, info, env_s, cmd7, draws=(None, None),
-                                     graphs=True, host=None):
+                                     host=None):
                     env_s2, flat, small = pure(env_s, cmd7)
                     es, pstate2, cmd7n, info2, tick_info = self._absorb_plan_flat(
-                        es, pstate, info, flat, draws, graphs, host)
+                        es, pstate, info, flat, draws, host)
                     return es, pstate2, cmd7n, info2, tick_info, env_s2, small
 
                 self._cmd_absorb_plan = _cmd_absorb_plan
@@ -217,50 +222,72 @@ class HostLoopRunner:
         return [(v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v, np.float32)))
                 .to(device=dev, dtype=torch.float32) for v in values]
 
-    def _plan_cmd7(self, es, pose6, vel6, b, draws=None, graph=True):
+    def _dev_obs(self, pose6, vel6, force, img):
+        """A host observation as the absorb's device tensors (pose6, vel6,
+        brightness, image, force); the absorb takes a one-element force, a
+        wrench's norm."""
+        f = np.asarray(force, np.float32).ravel()
+        if f.size > 1:
+            f = np.array([np.linalg.norm(f)], np.float32)
+        elif not f.size:
+            f = np.zeros(1, np.float32)
+        return self._dev(pose6, vel6, self._brightness(pose6), img, f)
+
+    def _plan_cmd7(self, es, pose6, vel6, b, draws=None):
         """Plan from an observed (pose6, vel6, brightness) on the fork of the
-        planner's state, ``draws`` fed; through the experiment's planner
-        graph unless ``graph=False``. The fork's generator must hold the
+        planner's state, ``draws`` fed. The fork's generator must hold the
         state to draw from. The one definition of the packed command: cmd7 =
         [vel6 | brightness, -1 = keep the current one]."""
         exp = self.exp
         full_state = exp.explored.measured_obs(pose6, vel6, b)
         fork = dataclasses.replace(es, pstate=self._fork(es.pstate))
-        pstate, vel6_cmd, b_cmd, info = exp.plan_step(fork, full_state, draws, graph=graph)
+        pstate, vel6_cmd, b_cmd, info = exp.plan_step(fork, full_state, draws)
         tail = vel6_cmd.new_full((1,), -1.0) if b_cmd is None else b_cmd.reshape(1)
         return pstate, torch.cat([vel6_cmd, tail]), info
 
     def _plan_obs(self, es, obs):
         """A plan from a host observation (the first step, after a drop, or
-        every serial step), the fork seeded from the planner."""
+        every serial step)."""
         pose6, vel6 = obs[0], obs[1]
-        self._seed_fork(es)
-        return self._plan_cmd7(es, *self._dev(pose6, vel6, self._brightness(pose6)),
-                               self._draws(es.explr_step))
+        return self._prime(es, self._dev(pose6, vel6, self._brightness(pose6)))
 
-    def _absorb(self, es, pstate, info, pose6, vel6, b, img, force, draws=None,
-                graphs=True, host=None):
-        """Adopt the plan and absorb the observation (``absorb_step``, its
-        trainer calls through the trainer graph unless ``graphs=False``;
+    def _prime(self, es, inputs):
+        """A plan from the observation ``inputs`` (pose6, vel6, brightness on
+        the device), the fork seeded from the planner, as one captured step
+        through ``plan_graph`` where the runner has one; its carry (the
+        experiment's tick carry) stays as it was. Returns (pstate, cmd7,
+        info)."""
+        self._seed_fork(es)
+        staged = (inputs, self._draws(es.explr_step))
+
+        def run(es, staged):
+            return es, self._plan_cmd7(es, *staged[0], staged[1])
+
+        if self.plan_graph is None:
+            return run(es, staged)[1]
+        exp = self.exp
+        return run_step(self.plan_graph, es, exp._carry, exp._with_carry, self._base,
+                        (es.explr_step < exp.cfg.prior_steps,), staged, run,
+                        [self._fork_generator])[1]
+
+    def _absorb(self, es, pstate, info, pose6, vel6, b, img, force, draws=None, host=None):
+        """Adopt the plan and absorb the observation (``absorb_step``;
         ``host`` stages the host values)."""
         robot_state = self.exp.explored.measured_obs(pose6, vel6, b)[: self.exp.cfg.s_dim]
         return self.exp.absorb_step(es, self._adopt(es, pstate), info, robot_state, img,
-                                    force, draws, graphs=graphs, host=host)
+                                    force, draws, host=host)
 
     def _absorb_plan(self, es, pstate, info, pose6, vel6, b, img, force,
-                     plan_pose6, plan_vel6, plan_b, draws=(None, None), graphs=True,
-                     host=None):
+                     plan_pose6, plan_vel6, plan_b, draws=(None, None), host=None):
         """Absorb step t, then plan step t+1 from ``plan_*``: on bridges
         with a live loop the freshest ring state, else the same
         observation. ``draws`` feeds the absorb's and the plan's."""
         es, tick_info = self._absorb(es, pstate, info, pose6, vel6, b, img, force, draws[0],
-                                     graphs, host)
-        pstate2, cmd7, info2 = self._plan_cmd7(es, plan_pose6, plan_vel6, plan_b, draws[1],
-                                               graph=graphs)
+                                     host)
+        pstate2, cmd7, info2 = self._plan_cmd7(es, plan_pose6, plan_vel6, plan_b, draws[1])
         return es, pstate2, cmd7, info2, tick_info
 
-    def _absorb_plan_flat(self, es, pstate, info, flat, draws=(None, None), graphs=True,
-                          host=None):
+    def _absorb_plan_flat(self, es, pstate, info, flat, draws=(None, None), host=None):
         """``_absorb_plan`` on the packed observation (pose6, vel6, force,
         brightness, image), which stays on the device; the absorb gets the
         whole force slice (a wrench reduces to its norm there)."""
@@ -268,70 +295,79 @@ class HostLoopRunner:
         pose6, vel6, force, b = flat[:6], flat[6:12], flat[12:12 + nf], flat[12 + nf]
         img = flat[13 + nf:].reshape(self._img_shape)
         return self._absorb_plan(es, pstate, info, pose6, vel6, b, img, force,
-                                 pose6, vel6, b, draws, graphs, host)
+                                 pose6, vel6, b, draws, host)
 
-    def _step_absorb_plan(self, es, pending, env_s=None, inputs=()):
-        """One absorb of the pending plan ``(pstate, info, cmd7)`` and plan
-        of the next step, as one captured step through ``step_graph`` where
-        the runner has one. With the bridge's env state ``env_s``, the
-        composed device-resident step (command the pending cmd7 and observe
-        first); else ``inputs`` is the observation, the packed one
-        ``(flat,)`` or the host one's tensors (absorbed, then planned from).
-        The draws of both halves are staged. Returns (es, the new pending
-        ``(pstate, info, cmd7)``, the new env state, the new cmd7 (out of a
-        graph's memory), the watchdog slice or None); the experiment's
-        planner generator adopts the pending plan's."""
+    def _step_absorb_plan(self, es, pending, env_s=None, inputs=(), plan=True):
+        """One absorb of the pending plan ``(pstate, info, cmd7)`` and, with
+        ``plan``, plan of the next step, as one captured step through
+        ``step_graph`` where the runner has one. With the bridge's env
+        state ``env_s``, the composed device-resident step (command the
+        pending cmd7 and observe first); else ``inputs`` is the
+        observation, the packed one ``(flat,)`` or the host one's tensors
+        (absorbed, then planned from; without ``plan``, the serial step,
+        only absorbed, and the pending plan stays). The draws of both
+        halves are staged. Returns (es, the new pending ``(pstate, info,
+        cmd7)``, the new env state, the new cmd7 (out of a graph's memory),
+        the watchdog slice or None); the experiment's planner generator
+        adopts the pending plan's."""
         exp = self.exp
         adopted = self._fork_generator.get_state()  # after the pending plan
-        draws = (self._draws(es.explr_step), self._draws(es.explr_step + 1))
-        graphs, host = self.step_graph is None, None
+        draws = (self._draws(es.explr_step), self._draws(es.explr_step + 1) if plan else None)
+        host = None
 
         def run(state, staged):
             es, (pstate, info, cmd7), env_s = state
             inputs, draws = staged
             small = None
             if env_s is not None:
-                (es, pstate2, cmd7n, info2, tick_info, env_s,
-                 small) = self._cmd_absorb_plan(es, pstate, info, env_s, cmd7, draws,
-                                                graphs, host)
+                (es, pstate, cmd7, info, tick_info, env_s,
+                 small) = self._cmd_absorb_plan(es, pstate, info, env_s, cmd7, draws, host)
+            elif not plan:
+                es, tick_info = self._absorb(es, pstate, info, *inputs, draws[0], host)
             elif len(inputs) == 1:
-                es, pstate2, cmd7n, info2, tick_info = self._absorb_plan_flat(
-                    es, pstate, info, *inputs, draws, graphs, host)
+                es, pstate, cmd7, info, tick_info = self._absorb_plan_flat(
+                    es, pstate, info, *inputs, draws, host)
             else:
-                es, pstate2, cmd7n, info2, tick_info = self._absorb_plan(
-                    es, pstate, info, *inputs, draws, graphs, host)
-            return (es, (pstate2, info2, cmd7n), env_s), (cmd7n, small, tick_info)
+                es, pstate, cmd7, info, tick_info = self._absorb_plan(
+                    es, pstate, info, *inputs, draws, host)
+            return (es, (pstate, info, cmd7), env_s), (cmd7, small, tick_info)
 
         state = (es, pending, env_s)
         if self.step_graph is None:
             (es, pending, env_s), (cmd7n, small, _) = run(state, (inputs, draws))
         else:
-            pattern = self._pattern(es, env_s)
+            pattern = self._pattern(es, env_s, plan)
             host = exp._stage(es, pattern[0])
-            fork = self._fork_memory
             view, (cmd7n, small, _) = run_step(
                 self.step_graph, state, self._carry, self._with_carry,
-                lambda state, carry: (*exp._base(state[0], carry), self._fork_generator,
-                                      _addresses(getattr(fork, f.name)
-                                                 for f in dataclasses.fields(fork))),
-                pattern, (inputs, draws), run, [es.gen, self._fork_generator])
+                lambda state, carry: self._base(state[0], carry), pattern, (inputs, draws),
+                run, [es.gen, self._fork_generator])
             exp._take(es, view[0], sum(pattern[0]))
             es.explr_step += 1
             pending, env_s = view[1], None if view[2] is None else advance_env(view[2], 1)
         es.pstate.gen.set_state(adopted)
         return es, pending, env_s, cmd7n, small
 
-    def _pattern(self, es, env_s) -> tuple:
+    def _pattern(self, es, env_s, plan=True) -> tuple:
         """The host values an absorb-and-plan step from ``es`` branches on:
-        which trainer calls the absorb makes, whether the next plan targets
-        the prior, which of the step's one velocity command corrects the
-        arm's drift (the composed step's, on the bridge's env state
-        ``env_s``), whether the plan sends a brightness."""
+        which trainer calls the absorb makes, whether the next plan (with
+        ``plan``) targets the prior, which of the step's one velocity
+        command corrects the arm's drift (the composed step's, on the
+        bridge's env state ``env_s``), whether the plan sends a
+        brightness."""
         exp = self.exp
         return (exp._throttle(es.explr_step, es.learning_ind),
-                es.explr_step + 1 < exp.cfg.prior_steps,
+                plan and es.explr_step + 1 < exp.cfg.prior_steps,
                 drift_key(getattr(self.bridge, "env", None), env_s, 1),
                 exp.explored.b_pos >= 0)
+
+    def _base(self, es, carry) -> tuple:
+        """The base key of the runner's captured steps from ``es``: the
+        experiment's (``Experiment._base``), the fork's generator and its
+        ring's tensors by address, which every plan reads in place."""
+        fork = self._fork_memory
+        return (*self.exp._base(es, carry), self._fork_generator,
+                _addresses(getattr(fork, f.name) for f in dataclasses.fields(fork)))
 
     def _carry(self, state) -> tuple:
         """What an absorb-and-plan step replaces: the experiment's tick carry
@@ -441,13 +477,7 @@ class HostLoopRunner:
                 self.bridge.reset()
                 self._log("stuck_reset", "no force reading; controller reset")
 
-        # the absorb takes a one-element force: a wrench's norm
-        f = np.asarray(force2, np.float32).ravel()
-        if f.size > 1:
-            f = np.array([np.linalg.norm(f)], np.float32)
-        elif not f.size:
-            f = np.zeros(1, np.float32)
-        obs = self._dev(pose2, vel2, self._brightness(pose2), img2, f)
+        obs = self._dev_obs(pose2, vel2, force2, img2)
         if self.pipeline:
             # the next step's plan follows this absorb; on a live-loop
             # bridge it takes the freshest ring state
@@ -462,8 +492,8 @@ class HostLoopRunner:
                 inputs=(*obs, *self._dev(plan_pose, plan_vel, self._brightness(plan_pose))))
             self._pending = (*pending, HostCopy(cmd7_next))
         else:
-            es, _ = self._absorb(es, pstate, info, *obs, self._draws(es.explr_step))
-            es.pstate.gen.set_state(self._fork_generator.get_state())
+            es, *_ = self._step_absorb_plan(es, (pstate, info, cmd7_dev), inputs=obs,
+                                            plan=False)
         self._obs = (pose2, vel2, force2, img2)
         self._maybe_save(es)
         return es

@@ -45,9 +45,9 @@ each such gap put down to the innermost host span over its midpoint (or
 "outside").
 
 A captured graph holds the stamps' points and the buffers' addresses, so
-``state()`` is part of the key of every step graph and captured call
-(``runtime/graphs.py``): toggling the tracer drops them, and they capture
-anew.
+``state()`` is part of the key of every step graph
+(``runtime/graphs.py``): toggling the tracer drops their graphs, and they
+capture anew.
 """
 
 from __future__ import annotations
@@ -252,8 +252,8 @@ def _nest(spans, base: int) -> list:
 
 def enable(device="cuda") -> None:
     """Turn the tracer on for the process, its buffers on ``device`` (and,
-    on the card, its stamp kernel built and loaded). Every step graph and
-    captured call captures anew at its next call."""
+    on the card, its stamp kernel built and loaded). Every step graph
+    captures anew at its next step."""
     global _tracer, _generation
     _generation += 1
     _tracer = _Tracer(device, _generation)

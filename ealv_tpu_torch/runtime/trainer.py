@@ -38,8 +38,8 @@ class TrainerStatics:
     def make_optimizer(self, model: CVAE) -> torch.optim.Optimizer:
         """``FusedAdam`` (K2) or the stock ``torch.optim.Adam``; on the card
         the stock one is ``capturable``, its step counts on the device as
-        the JAX optimizer's count is, so that a captured trainer call
-        (``runtime/graphs.py``) advances them on every replay."""
+        the JAX optimizer's count is, so that a trainer call captured in a
+        step (``runtime/graphs.py``) advances them on every replay."""
         if self.fused_adam:
             return FusedAdam(model.parameters(), lr=self.lr)
         capturable = next(model.parameters()).is_cuda

@@ -1,16 +1,18 @@
-"""What the captured calls rest on, held against the JAX package on the
-CPU, and the captured calls' staging.
+"""What the captured steps rest on, held against the JAX package on the
+CPU, and the captured steps' staging.
 
 The replay ring's counters are device tensors, as the reference's are: a
 capture would freeze host ints. K2's step count lives on the device and
 its plain version advances it as the kernel does. The stock optimizer is
 ``capturable`` on the card; its arithmetic runs here with the CPU admitted
 to torch's device check. Then the staging of ``runtime/graphs.py`` without
-a card: ``EagerGraph`` replays by calling the function again on the static
-buffers and overwrites its outputs, so consecutive staged calls equal
-direct calls only if every changing input is copied in before a replay and
-every output cloned out after it. The CUDA graphs themselves are held
-against the eager calls on the card (``tests/test_torch_graphs_cuda.py``).
+a card, through the experiment's tick and post-training graphs and the
+host loop's plan graph: ``EagerGraph`` replays by calling the step again
+on the static buffers and overwrites its outputs, so consecutive staged
+steps equal direct calls only if every changing input is copied in before
+a replay and every output cloned out after it. The CUDA graphs themselves
+are held against the eager steps on the card
+(``tests/test_torch_graphs_cuda.py``).
 """
 
 import dataclasses
@@ -30,7 +32,8 @@ from ealv_tpu_torch.data import replay as treplay
 from ealv_tpu_torch.data.replay import ReplayBuffer, TrajMemory
 from ealv_tpu_torch.ops import adam as tad
 from ealv_tpu_torch.ops import footprint as tfp
-from ealv_tpu_torch.runtime import Experiment, TrainDraws, train_call
+from ealv_tpu_torch.hw.bridge import SyntheticBridge
+from ealv_tpu_torch.runtime import Experiment, HostLoopRunner, PostTrainDraws, TrainDraws
 from ealv_tpu_torch.runtime import graphs as tg
 from ealv_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from ealv_tpu_torch.utils.config import ExperimentConfig
@@ -173,16 +176,17 @@ def test_capturable_adam_matches_optax(monkeypatch, foreach):
 
 
 def _toy(fused_adam=False, fast_encoder_grads=False, prior_steps=0, graphs=False,
-         states="xyw"):
-    """A toy CPU Experiment; with ``graphs`` its trainer and planner calls
-    run through the staging of ``runtime/graphs.py`` (``EagerGraph``)."""
+         states="xyw", graph_type=tg.EagerGraph):
+    """A toy CPU Experiment; with ``graphs`` its ticks and post-training
+    calls run through the staging of ``runtime/graphs.py`` (``StepGraph``s
+    over ``graph_type``)."""
     cfg = ExperimentConfig(**{**TOY, "states": states}, fast_encoder_grads=fast_encoder_grads,
                            prior_steps=prior_steps)
     exp = Experiment(cfg, train_calls_per_tick=1, device="cpu")
     exp.trainer = dataclasses.replace(exp.trainer, fused_adam=fused_adam)
     if graphs:
-        exp.trainer_graph = tg.TrainerGraph(tg.EagerGraph)
-        exp.planner_graph = tg.PlannerGraph(tg.EagerGraph)
+        exp.tick_graph = tg.StepGraph(graph_type)
+        exp.post_train_graph = tg.StepGraph(graph_type)
     return exp
 
 
@@ -204,28 +208,30 @@ def _draws(cfg, n, rng):
                                        dtype=torch.float32))
 
 
+def _post_draws(cfg, n, rng):
+    lim = cfg.robot_lim
+    return PostTrainDraws(samples=torch.tensor(rng.uniform(lim[:, 0], lim[:, 1], (
+        cfg.num_target_samples, cfg.s_dim)), dtype=torch.float32), train=_draws(cfg, n, rng))
+
+
 @pytest.mark.parametrize("fed", [True, False])
 @pytest.mark.parametrize("kernels", [False, True])
 def test_trainer_staging_equals_direct_calls(fed, kernels):
-    """Three calls with other beta, gamma and draws each: the direct
-    calls, and a TrainerGraph's (an eager call, a capture and its replay,
-    a replay), give the same metrics and leave the same state. The
-    metrics are compared after the third call, so a replay that did not
-    clone them would show the third call's values."""
+    """Four trainer calls (post-training calls: each grades the model,
+    moves beta and gamma and trains), with other draws each: the direct
+    calls, and the post-training graph's (an eager call, a capture and its
+    replay, two replays), give the same rows and leave the same state. The
+    rows are compared after the last call, so a replay that did not clone
+    them would show the last call's values."""
     rng = np.random.default_rng(5)
     runs = []
     for staged in (False, True):
-        exp = _toy(fused_adam=kernels, fast_encoder_grads="pallas" if kernels else False)
-        runs.append((exp, _filled(exp), tg.TrainerGraph(tg.EagerGraph) if staged else None))
-    calls = [(torch.tensor(b), torch.tensor(g), _draws(runs[0][0].cfg, 12, rng) if fed else None)
-             for b, g in ((0.01, 0.5), (0.02, 0.25), (0.005, 0.125))]
-    out = []
-    for exp, es, graph in runs:
-        train = graph or train_call
-        out.append([train(exp.trainer, es.model, es.opt, es.buf, beta, gamma,
-                          generator=es.gen, draws=draws) for beta, gamma, draws in calls])
-    graph = runs[1][2]
-    assert (graph.warmups, graph.captures, graph.replays) == (1, 1, 2)
+        exp = _toy(fused_adam=kernels, fast_encoder_grads="pallas" if kernels else False,
+                   graphs=staged)
+        runs.append((exp, _filled(exp)))
+    draws = [[_post_draws(runs[0][0].cfg, 12, rng)] if fed else None for _ in range(4)]
+    out = [[exp.post_train_chunk(es, 1, d)[1] for d in draws] for exp, es in runs]
+    assert runs[1][0].post_train_graph.counts == {(): [1, 1, 3]}
     for direct, staged in zip(*out):
         assert direct.keys() == staged.keys()
         for k in direct:
@@ -236,11 +242,11 @@ def test_trainer_staging_equals_direct_calls(fed, kernels):
 @pytest.mark.parametrize("states", ["xyw", "xyzrpw"])
 def test_tick_staging_equals_eager_ticks(states):
     """Nine ticks, with a trainer call every tick after the first and the
-    prior's target for the first four (a change of the planner graph's
-    key), through the staged planner and trainer calls against the plain
-    Experiment: every tick's info and the final state bit for bit. The
-    infos are compared after the last tick, so an output that was not
-    cloned out of the graph's buffers would show a later tick's value."""
+    prior's target for the first four (another pattern of the tick graph),
+    through the staged tick graph against the plain Experiment: every
+    tick's info and the final state bit for bit. The infos are compared
+    after the last tick, so an output that was not cloned out of the
+    graph's buffers would show a later tick's value."""
     runs = [_toy(prior_steps=4, graphs=graphs, states=states) for graphs in (False, True)]
     runs = [(exp, exp.init(seed=0)) for exp in runs]
     infos = [[exp.tick(es)[1] for _ in range(9)] for exp, es in runs]
@@ -249,33 +255,31 @@ def test_tick_staging_equals_eager_ticks(states):
             assert torch.equal(a[k], b[k]), (i, k)
     assert_states_equal(runs[0][1], runs[1][1])
     exp, es = runs[1]
-    p, t = exp.planner_graph, exp.trainer_graph
-    # the planner: eager, capture and replay, two replays under the prior
-    # (ticks 0-3); eager, capture and replay, three replays after it
-    assert (p.warmups, p.captures, p.replays) == (2, 2, 3 + 4)
-    # the trainer: a call on ticks 1-8, the first eager
-    assert es.learning_ind == 8 and (t.warmups, t.captures, t.replays) == (1, 1, 7)
+    # ticks 0: (no call, prior); 1-3: (call, prior); 4-8: (call, no prior)
+    assert es.learning_ind == 8 and exp.tick_graph.counts == {
+        ((False,), True, ()): [1, 0, 0], ((True,), True, ()): [1, 1, 2],
+        ((True,), False, ()): [1, 1, 4]}
 
 
 def test_load_checkpoint_forces_a_new_capture(tmp_path):
     """load_checkpoint rebuilds the ring's and the optimizer's tensors, so
-    the trainer graph's key changes: the next call runs eagerly, the one
-    after captures anew; the run still equals the plain one."""
+    the post-training graph's base key changes: the next call runs
+    eagerly, the one after captures anew; the run still equals the plain
+    one."""
     runs = [_toy(graphs=graphs) for graphs in (False, True)]
-    runs = [(exp, exp.init(seed=0)) for exp in runs]
+    runs = [(exp, _filled(exp)) for exp in runs]
     for exp, es in runs:
-        for _ in range(4):
-            exp.tick(es)
-    graph = runs[1][0].trainer_graph
+        exp.post_train_chunk(es, 3)
+    graph = runs[1][0].post_train_graph
     assert (graph.warmups, graph.captures) == (1, 1)
     ck = save_checkpoint(str(tmp_path / "c"), runs[1][1])
     exp = runs[1][0]
     es = load_checkpoint(ck, exp.init(seed=0))
     runs[1] = (exp, es)
-    for exp, es in runs:
-        for _ in range(3):
-            exp.tick(es)
+    rows = [exp.post_train_chunk(es, 3)[1] for exp, es in runs]
     assert (graph.warmups, graph.captures) == (2, 2)
+    for k in rows[0]:
+        assert torch.equal(rows[0][k], rows[1][k]), k
     assert_states_equal(runs[0][1], runs[1][1])
 
 
@@ -286,19 +290,19 @@ class _FailingGraph(tg.EagerGraph):
 
 
 def test_failed_capture_raises_every_time():
-    """A capture that fails raises on the call that captures and on every
-    later call under that key: the eager call never takes its place. The
-    wrappers' counts are set back, since a capture runs no kernel."""
-    exp = _toy()
+    """A trainer call whose capture fails (the post-training graph's)
+    raises on the call that captures and on every later call of its
+    pattern: the eager call never takes its place. The wrappers' counts
+    are set back, since a capture runs no kernel."""
+    exp = _toy(graphs=True, graph_type=_FailingGraph)
     es = _filled(exp)
-    graph = tg.TrainerGraph(_FailingGraph)
-    beta, gamma = torch.tensor(0.01), torch.tensor(0.5)
-    graph(exp.trainer, es.model, es.opt, es.buf, beta, gamma, generator=es.gen)
+    exp.post_train_chunk(es, 1)
     before = tg.kernel_counts()
     for _ in range(2):
         with pytest.raises(RuntimeError, match="capturing"):
-            graph(exp.trainer, es.model, es.opt, es.buf, beta, gamma, generator=es.gen)
-    assert tg.kernel_counts() == before
+            exp.post_train_chunk(es, 1)
+    assert tg.kernel_counts() == before and es.learning_ind == 1
+    graph = exp.post_train_graph
     assert (graph.warmups, graph.captures, graph.replays) == (1, 0, 0)
 
 
@@ -369,21 +373,24 @@ class _RecordingGraph(tg.EagerGraph):
 
 def test_replays_count_the_launches_recorded_at_capture():
     """kernel_launches is the wrappers' eager counts plus, for each graph,
-    what its capture recorded times its replays; reset_launches zeroes
-    both."""
-    exp = _toy(graphs=True)
-    exp.planner_graph = tg.PlannerGraph(_RecordingGraph)
+    what its capture recorded times its replays: here the host loop's plan
+    graph, through which the serial runner makes every plan; reset_launches
+    zeroes both."""
+    exp = _toy()
     es = exp.init(seed=0)
-    tg.reset_launches(*exp.graphs())
-    for _ in range(4):
-        exp.tick(es)
-    g = exp.planner_graph
-    assert (g.warmups, g.captures, g.replays) == (1, 1, 3)
-    assert g.recorded["footprint_and_spread"] == 13
+    runner = HostLoopRunner(exp, SyntheticBridge(exp.env, es.env), pipeline=False)
+    runner.plan_graph = tg.StepGraph(_RecordingGraph)
+    tg.reset_launches(runner.plan_graph)
+    for _ in range(6):
+        runner.step(es)
+    g = runner.plan_graph
+    # the first trainer call (step 1) makes the optimizer's moments, which
+    # the graphs' base key holds: steps 0 and 2 run eagerly, 1 and 3 capture
+    assert (g.warmups, g.captures, g.replays) == (2, 2, 4)
     assert tfp.footprint_and_spread.launches == 0  # CPU: the plain version
-    assert tg.kernel_launches(*exp.graphs())["footprint_and_spread"] == 39
-    tg.reset_launches(*exp.graphs())
-    assert tg.kernel_launches(*exp.graphs()) == dict.fromkeys(tg.KERNELS, 0)
+    assert tg.kernel_launches(g)["footprint_and_spread"] == 52
+    tg.reset_launches(g)
+    assert tg.kernel_launches(g) == dict.fromkeys(tg.KERNELS, 0)
 
 
 def test_graph_inputs_must_have_a_staged_form():

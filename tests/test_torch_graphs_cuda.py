@@ -1,7 +1,7 @@
-"""The captured trainer and planner calls, the captured tick and
-post-training call, and the eval runtime's captured steps (the eval tick,
-the fingerprint capture, the identification run) (``runtime/graphs.py``)
-against the eager calls on the card, at toy size.
+"""The captured tick and post-training call, the host loop's captured
+steps, and the eval runtime's captured steps (the eval tick, the
+fingerprint capture, the identification run) (``runtime/graphs.py``
+``StepGraph``s) against the eager steps on the card, at toy size.
 
 Every test needs a CUDA device and skips without one. This file imports
 neither JAX nor the JAX package, so it runs on the card's machine:
@@ -9,11 +9,10 @@ neither JAX nor the JAX package, so it runs on the card's machine:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_cuda.py
 
 Each test runs two experiments from the same seed, one with
-its graphs set to None (the eager calls) and one with the graphs, through
-the same calls, and compares them bit for bit: a captured call replays the
-eager call's kernels on the same inputs. The trainer and planner calls'
-own graphs are tested with the tick graphs set to None, the mode in which
-``Experiment`` runs them in its tick. cuDNN is held to deterministic
+its graphs set to None (the eager steps) and one with the graphs, through
+the same calls, and compares them bit for bit: a captured step replays the
+eager step's kernels on the same inputs. A trainer call is captured inside
+the post-training call's graph. cuDNN is held to deterministic
 algorithms here, so that two eager calls agree bit for bit too;
 ``chip_smoke.py`` holds the production call with cuDNN's default choice.
 """
@@ -27,8 +26,7 @@ import pytest
 import torch
 
 from ealv_tpu_torch.control import BaselineDraws
-from ealv_tpu_torch.runtime import Experiment, PostTrainDraws, TickDraws, TrainDraws, \
-    train_call
+from ealv_tpu_torch.runtime import Experiment, PostTrainDraws, TickDraws, TrainDraws
 from ealv_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint, state_leaves
 from ealv_tpu_torch.utils.config import ExperimentConfig
 from test_torch_sync import TOY as SYNC_TOY, trained_tick
@@ -49,20 +47,17 @@ def cuda():
     torch.backends.cudnn.deterministic = deterministic
 
 
-def _pair(kernels=False, ticks=False, train_every=1, drift_every=None, **kw):
+def _pair(kernels=False, train_every=1, drift_every=None, **kw):
     """The eager and the captured experiment, both from seed 0: the
-    captured one runs its trainer and planner calls as their own graphs,
-    or with ``ticks`` its whole ticks and post-training calls."""
+    captured one runs its ticks and post-training calls as graphs."""
     out = []
     for graphs in (False, True):
         cfg = ExperimentConfig(**{**TOY, **kw},
                                fast_encoder_grads="pallas" if kernels else False)
         exp = Experiment(cfg, train_calls_per_tick=1, train_every=train_every,
                          device="cuda")
-        if not (graphs and ticks):
-            exp.tick_graph = exp.post_train_graph = None
         if not graphs:
-            exp.trainer_graph = exp.planner_graph = None
+            exp.tick_graph = exp.post_train_graph = None
         if drift_every is not None:
             exp.env = dataclasses.replace(exp.env, drift_every=drift_every)
         exp.trainer = dataclasses.replace(exp.trainer, fused_adam=kernels)
@@ -96,58 +91,35 @@ def _assert_states_equal(a, b):
             assert x == y, path
 
 
-def _train(exp, es, beta, gamma, draws=None):
-    """One trainer call, through the experiment's trainer graph if it has
-    one."""
-    train = exp.trainer_graph or train_call
-    return train(exp.trainer, es.model, es.opt, es.buf, beta, gamma, generator=es.gen,
-                 draws=draws)
+def _post_draws(cfg, rng):
+    lim = cfg.robot_lim
+    return PostTrainDraws(samples=torch.tensor(
+        rng.uniform(lim[:, 0], lim[:, 1], (cfg.num_target_samples, cfg.s_dim)),
+        dtype=torch.float32, device="cuda"), train=_draws(cfg, 12, rng))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernels", [False, True], ids=["stock", "K2-K3"])
-def test_captured_trainer_call_is_bit_equal_on_fed_draws(cuda, kernels):
-    """Four calls with other beta, gamma and fed draws each (eager, capture
-    and replay, replay, replay): the metrics and the whole state equal the
-    eager experiment's after every call; the capture recorded the toy
-    call's kernel launches (2 K2 and 6 K3 with the kernels on)."""
-    (exp_e, es_e), (exp_g, es_g) = _pair(kernels)
-    for exp, es in ((exp_e, es_e), (exp_g, es_g)):
-        _fill(es, exp.cfg)
-    rng = np.random.default_rng(4)
-    for i in range(4):
-        beta = torch.tensor(0.01 * (i + 1), device="cuda")
-        gamma = torch.tensor(0.5 / (i + 1), device="cuda")
-        draws = _draws(exp_e.cfg, 12, rng)
-        want = _train(exp_e, es_e, beta, gamma, draws)
-        got = _train(exp_g, es_g, beta, gamma, draws)
-        for k in want:
-            assert torch.equal(want[k], got[k]), (i, k)
-        _assert_states_equal(es_e, es_g)
-    g = exp_g.trainer_graph
-    assert (g.warmups, g.captures, g.replays) == (1, 1, 3)
-    assert (g.recorded["adam_apply"], g.recorded["conv_wgrad_direct"]) == \
-        ((2, 6) if kernels else (0, 0))
-    assert g.launched["adam_apply"] == 3 * g.recorded["adam_apply"]
+def _train(exp, es, draws=None):
+    """One post-training call (a grade, beta and gamma moved, one trainer
+    call), through the experiment's post-training graph if it has one."""
+    return exp.post_train_chunk(es, 1, None if draws is None else [draws])[1]
 
 
 @pytest.mark.cuda
 def test_replays_advance_the_registered_generator(cuda):
-    """Trainer calls that draw their batches and noise from the
-    experiment's generator: each replay draws what the eager call draws,
-    so the generator is registered with the graph (unregistered, every
-    replay would redraw the capture's numbers), and the generator ends in
-    the eager run's state."""
+    """Post-training calls that draw their grade samples, batches and noise
+    from the experiment's generator: each replay draws what the eager call
+    draws, so the generator is registered with the graph (unregistered,
+    every replay would redraw the capture's numbers), and the generator
+    ends in the eager run's state."""
     (exp_e, es_e), (exp_g, es_g) = _pair()
     for exp, es in ((exp_e, es_e), (exp_g, es_g)):
         _fill(es, exp.cfg)
-    beta, gamma = torch.tensor(0.01, device="cuda"), torch.tensor(0.5, device="cuda")
     for i in range(4):
-        want = _train(exp_e, es_e, beta, gamma)
-        got = _train(exp_g, es_g, beta, gamma)
+        want = _train(exp_e, es_e)
+        got = _train(exp_g, es_g)
         for k in want:
             assert torch.equal(want[k], got[k]), (i, k)
-    assert exp_g.trainer_graph.replays == 3
+    assert exp_g.post_train_graph.replays == 3
     assert torch.equal(es_e.gen.get_state(), es_g.gen.get_state())
     _assert_states_equal(es_e, es_g)
 
@@ -160,30 +132,29 @@ def test_a_dead_experiment_collected_inside_a_capture_does_not_fail_it(cuda):
     Destroying a graph inside another capture invalidates that capture;
     the capture collects first. Here the forward pass collects inside the
     capture while a dead experiment with a captured graph waits."""
-    beta, gamma = torch.tensor(0.01, device="cuda"), torch.tensor(0.5, device="cuda")
     gc.disable()  # the dead experiment waits until a collection is asked for
     try:
         old_exp, old_es = _pair()[1]
         _fill(old_es, old_exp.cfg)
         for _ in range(2):
-            _train(old_exp, old_es, beta, gamma)
-        assert old_exp.trainer_graph.captures == 1
-        dead = weakref.ref(old_exp.trainer_graph)
+            _train(old_exp, old_es)
+        assert old_exp.post_train_graph.captures == 1
+        dead = weakref.ref(old_exp.post_train_graph)
         del old_exp, old_es
         exp, es = _pair()[1]
         _fill(es, exp.cfg)
-        _train(exp, es, beta, gamma)  # eager: the next call captures
+        _train(exp, es)  # eager: the next call captures
         assert dead() is not None
         def collect(*_):  # returns None: the forward's arguments stay
             gc.collect()
 
         es.model.register_forward_pre_hook(collect)
         for _ in range(2):
-            got = _train(exp, es, beta, gamma)
+            got = _train(exp, es)
         assert dead() is None
     finally:
         gc.enable()
-    g = exp.trainer_graph
+    g = exp.post_train_graph
     assert (g.warmups, g.captures, g.replays) == (1, 1, 2)
     assert all(torch.isfinite(v.float()).all() for v in got.values())
 
@@ -191,20 +162,21 @@ def test_a_dead_experiment_collected_inside_a_capture_does_not_fail_it(cuda):
 @pytest.mark.cuda
 def test_load_checkpoint_forces_a_recapture(cuda, tmp_path):
     """After load_checkpoint (which rebuilds the ring's and the optimizer's
-    tensors) the next trainer call runs eagerly and the one after it
+    tensors) the next post-training call runs eagerly and the one after it
     captures anew, and the run goes on as the eager run that loads the
     same checkpoint."""
     (exp_e, es_e), (exp_g, es_g) = _pair()
-    for _ in range(5):
-        exp_g.tick(es_g)
-    g = exp_g.trainer_graph
+    _fill(es_g, exp_g.cfg)
+    for _ in range(3):
+        _train(exp_g, es_g)
+    g = exp_g.post_train_graph
     assert g.captures == 1
     ck = save_checkpoint(str(tmp_path / "c"), es_g)
     es_e = load_checkpoint(ck, exp_e.init(seed=0))
     es_g = load_checkpoint(ck, exp_g.init(seed=0))
     for _ in range(3):
-        exp_e.tick(es_e)
-        exp_g.tick(es_g)
+        _train(exp_e, es_e)
+        _train(exp_g, es_g)
     assert (g.warmups, g.captures) == (2, 2)
     _assert_states_equal(es_e, es_g)
 
@@ -212,46 +184,44 @@ def test_load_checkpoint_forces_a_recapture(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("states", ["xyw", "xyzrpw"])
 def test_captured_plan_step_is_bit_equal(cuda, states):
-    """Five ticks with the planner and trainer calls captured against the
-    eager ticks: the plan, the planner's info and the state bit for bit
-    after every tick. Each tick plans twice (once alone, once in the tick),
-    so the planner graph runs eagerly once, captures once and replays on
-    nine calls."""
-    (exp_e, es_e), (exp_g, es_g) = _pair(states=states)
-    for i in range(5):
-        full_e = exp_e._measured_robot_state(es_e.env)
-        full_g = exp_g._measured_robot_state(es_g.env)
-        pe, ve, _, ie = exp_e.plan_step(es_e, full_e)
-        pg, vg, _, ig = exp_g.plan_step(es_g, full_g)
-        assert torch.equal(pe.u, pg.u) and torch.equal(ve, vg), i
+    """Six serial host-loop steps, each planned through the host loop's
+    plan graph, against the eager runner's: before each step a plan from
+    the step's observation alone, then the step (which plans from that
+    observation again); the plan, its command, the planner's info and the
+    state bit for bit after every step. The plans replay from the steady
+    steps on."""
+    pair = _runner_pair("serial", states=states)
+    (r_e, es_e), (r_g, es_g) = pair
+    for i in range(6):
+        plans = []
+        for runner, es in pair:
+            if runner._obs is None:
+                runner._obs = runner.bridge.observe()
+            plans.append(runner._plan_obs(es, runner._obs))
+        (pe, ce, ie), (pg, cg, ig) = plans
+        assert torch.equal(pe.u, pg.u) and torch.equal(ce, cg), i
         for k in ie:
             assert torch.equal(ie[k], ig[k]), (i, k)
-        exp_e.tick(es_e)
-        exp_g.tick(es_g)
+        for runner, es in pair:
+            runner.step(es)
         _assert_states_equal(es_e, es_g)
-    p = exp_g.planner_graph
-    assert (p.warmups, p.captures, p.replays) == (1, 1, 9)
+    p = r_g.plan_graph
+    assert p.captures >= 1 and p.replays >= 6, p.counts
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ticks", [False, True], ids=["per-call-graphs", "tick-graph"])
 @pytest.mark.parametrize("kw", [{}, {"states": "xywb", "learn_force": True,
                                      "use_z_ensemble": True, "fast_encoder_grads": "pallas"}],
                          ids=["xyw", "xywb-force-ensemble-K3"])
-def test_warm_toy_tick_with_a_replayed_trainer_call_never_synchronises(cuda, kw, ticks):
+def test_warm_toy_tick_with_a_replayed_trainer_call_never_synchronises(cuda, kw):
     """A toy tick with a trainer call (``test_torch_sync.trained_tick``)
-    that replays its graphs (the planner's and the trainer's, or the whole
-    tick's), under ``torch.cuda.set_sync_debug_mode("error")``: no call of
-    the tick makes the host wait for the card."""
+    that replays its tick graph, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call of the tick makes
+    the host wait for the card."""
     exp = Experiment(ExperimentConfig(**{**SYNC_TOY, **kw}), train_calls_per_tick=1,
                      train_every=3, device="cuda")
-    if not ticks:
-        exp.tick_graph = exp.post_train_graph = None
     parts = trained_tick(exp, exp.init(seed=0))
-    if ticks:
-        assert exp.tick_graph.captures >= 2 and exp.trainer_graph.captures == 0
-    else:
-        assert exp.trainer_graph.captures == 1 and exp.planner_graph.captures == 1
+    assert exp.tick_graph.captures >= 2
     torch.cuda.synchronize()
     try:
         torch.cuda.set_sync_debug_mode("error")
@@ -300,7 +270,7 @@ def test_captured_tick_is_bit_equal(cuda, path, fed):
     info (compared after the last tick) and the state after every tick, bit
     for bit; then three post-training calls. Each pattern captures once its
     second tick comes, and the later ticks replay."""
-    (exp_e, es_e), (exp_g, es_g) = _pair(ticks=True, train_every=3, **TICK_PATHS[path])
+    (exp_e, es_e), (exp_g, es_g) = _pair(train_every=3, **TICK_PATHS[path])
     rng = np.random.default_rng(3)
     infos = ([], [])
     for k in range(10):
@@ -330,14 +300,11 @@ def test_captured_post_training_call_is_bit_equal(cuda, kernels):
     the rows after the last call and the state after each, bit for bit;
     the capture recorded the toy call's launches (1 K1 for the grade's
     spread; 2 K2 and 6 K3 with the kernels on)."""
-    (exp_e, es_e), (exp_g, es_g) = _pair(kernels, ticks=True)
+    (exp_e, es_e), (exp_g, es_g) = _pair(kernels)
     for exp, es in ((exp_e, es_e), (exp_g, es_g)):
         _fill(es, exp.cfg)
     rng = np.random.default_rng(6)
-    lim, cfg = exp_e.cfg.robot_lim, exp_e.cfg
-    draws = [PostTrainDraws(samples=torch.tensor(
-        rng.uniform(lim[:, 0], lim[:, 1], (cfg.num_target_samples, cfg.s_dim)),
-        dtype=torch.float32, device="cuda"), train=_draws(cfg, 12, rng)) for _ in range(4)]
+    draws = [_post_draws(exp_e.cfg, rng) for _ in range(4)]
     rows = ([], [])
     for d in draws:
         for (exp, es), out in zip(((exp_e, es_e), (exp_g, es_g)), rows):
@@ -536,71 +503,84 @@ def test_captured_identification_run_is_bit_equal(cuda, seek_mode, update_every)
     assert not ptrs(g.carry) & ptrs(b_g)
 
 
-def _runner_pair(form, pause_at=5):
-    """The eager and the captured host loop over a toy ``SyntheticBridge``,
-    both from seed 0 with a trainer call every third step: the captured
-    one with its step graph (the default on the card), the eager one with
-    the step graph and every experiment graph set to None. ``form``
-    "device" is the composed device-resident step, "host" the
-    host-pipelined one (the observation copied to the host and staged)."""
+def _runner_pair(form, **kw):
+    """The eager and the captured host loop over a toy ``SyntheticBridge``
+    (``TOY`` with ``kw``), both from seed 0 with a trainer call every third
+    step: the captured one with its plan and step graphs (the default on
+    the card), the eager one with those and the experiment's graphs set to
+    None. ``form`` "device" is the composed device-resident step, "host"
+    the host-pipelined one (the observation copied to the host and
+    staged), "serial" the serial one (plan, command, observe, absorb)."""
     from ealv_tpu_torch.hw.bridge import SyntheticBridge
     from ealv_tpu_torch.runtime import HostLoopRunner
     out = []
     for graphs in (False, True):
-        exp = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1, train_every=3,
-                         device="cuda")
+        exp = Experiment(ExperimentConfig(**{**TOY, **kw}), train_calls_per_tick=1,
+                         train_every=3, device="cuda")
         if not graphs:
             exp.tick_graph = exp.post_train_graph = None
-            exp.trainer_graph = exp.planner_graph = None
         es = exp.init(seed=0)
         runner = HostLoopRunner(exp, SyntheticBridge(exp.env, es.env),
-                                device_fast=form == "device")
-        assert runner.step_graph is not None and runner.step_graph.pool is exp.graph_pool
+                                pipeline=form != "serial", device_fast=form == "device")
+        for g in (runner.plan_graph, runner.step_graph):
+            assert g is not None and g.pool is exp.graph_pool
         if not graphs:
-            runner.step_graph = None
+            runner.plan_graph = runner.step_graph = None
         out.append((runner, es))
     return out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["device", "host"])
+@pytest.mark.parametrize("form", ["device", "host", "serial"])
 def test_captured_host_loop_step_is_bit_equal(cuda, form):
-    """Twelve host-loop steps with a pause before step 5 (the plan in
-    flight dropped, the next primed through the planner graph) through the
-    step graph against the eager runner: the state and the pending command
-    after every step, bit for bit; the steady steps replay their pattern's
-    graph; the experiment's planner generator and ring are the same objects
-    throughout, and the fork's generator is registered with the graphs."""
+    """Fourteen host-loop steps with pauses before steps 5 and 9 (the plan
+    in flight dropped, the next primed through the plan graph) through the
+    plan and step graphs against the eager runner: the state and the
+    pending command after every step, bit for bit; the steady steps replay
+    their pattern's graph, and so does a plan primed after a pause (the
+    second one in the pipelined forms: the first trainer call, between the
+    first two primes, makes the optimizer's moments that the graphs' base
+    key holds); the experiment's planner generator and ring are the same
+    objects throughout, and the fork's generator is registered with the
+    graphs."""
     pair = _runner_pair(form)
     (r_e, es_e), (r_g, es_g) = pair
-    gen, ring = es_g.pstate.gen, es_g.pstate.memory.buf
-    for k in range(12):
+    gen = es_g.pstate.gen
+    primes = []
+    for k in range(14):
         for runner, es in pair:
-            if k == 5:
+            if k in (5, 9):
                 runner.pause.pause()
-            if k == 6:
+            if k in (6, 10):
                 runner.pause.resume()
+            replays = runner.plan_graph.replays if runner.plan_graph is not None else 0
             runner.step(es)
+            if runner is r_g and k in (6, 10):
+                primes.append(runner.plan_graph.replays - replays)
         _assert_states_equal(es_e, es_g)
         assert (r_e._pending is None) == (r_g._pending is None), k
         if r_e._pending is not None:
             assert torch.equal(r_e._pending[2], r_g._pending[2]), k
     g = r_g.step_graph
     assert g.replays >= 5 and g.captures >= 2, g.counts
-    assert es_g.pstate.gen is gen and es_g.explr_step == 11
-    assert any(x is r_g._fork_generator for x in g.base)
-    assert r_g.exp.planner_graph.replays >= 1  # the prime plan after the pause
+    assert es_g.pstate.gen is gen and es_g.explr_step == 12
+    for graph in (g, r_g.plan_graph):
+        assert any(x is r_g._fork_generator for x in graph.base)
+    assert primes[1] == 1 and (form != "serial" or primes[0] == 1), primes
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["device", "serial"])
 @pytest.mark.parametrize("trained", [False, True], ids=["untrained", "trained"])
-def test_replayed_host_loop_step_never_synchronises(cuda, trained):
-    """A device-resident host-loop step that replays its step graph
-    (``test_torch_sync.host_loop_step``), with and without a trainer call,
-    under ``torch.cuda.set_sync_debug_mode("error")``."""
-    from test_torch_sync import host_loop_step
-    runner, es = _runner_pair("device")[1]
-    parts = host_loop_step(runner, es, trained=trained)
+def test_replayed_host_loop_step_never_synchronises(cuda, trained, form):
+    """A host-loop step that replays its graphs, with and without a trainer
+    call, under ``torch.cuda.set_sync_debug_mode("error")``: the
+    device-resident step (``test_torch_sync.host_loop_step``), and the
+    serial step's plan and absorb (``test_torch_sync.serial_step``; its
+    command and observation cross the host by design)."""
+    from test_torch_sync import host_loop_step, serial_step
+    runner, es = _runner_pair(form)[1]
+    parts = (host_loop_step if form == "device" else serial_step)(runner, es, trained=trained)
     torch.cuda.synchronize()
     try:
         torch.cuda.set_sync_debug_mode("error")
@@ -628,28 +608,34 @@ def nccl(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernels", [False, True], ids=["stock", "K2-K3"])
 def test_captured_dp_train_call_is_bit_equal(nccl, kernels):
-    """Four data-parallel calls on one NCCL rank with other beta, gamma and
-    fed draws each, through a ``TrainerGraph`` (eager, capture and replay,
-    replay, replay) against the eager calls: the metrics and the state
-    after every call bit for bit; the all-reduces are inside the graph."""
-    from ealv_tpu_torch.parallel import dp_train_call
-    (exp_e, es_e), (exp_g, es_g) = _pair(kernels)
-    for exp, es in ((exp_e, es_e), (exp_g, es_g)):
+    """Four post-training calls on one NCCL rank, each one data-parallel
+    trainer call, on fed draws, through the post-training graph (eager,
+    capture and replay, replay, replay) against the eager calls: the rows
+    and the state after every call bit for bit; the all-reduces are inside
+    the graph."""
+    runs = []
+    for graphs in (False, True):
+        cfg = ExperimentConfig(**TOY, fast_encoder_grads="pallas" if kernels else False)
+        exp = Experiment(cfg, train_calls_per_tick=1, device="cuda", mesh=nccl)
+        exp.trainer = dataclasses.replace(exp.trainer, fused_adam=kernels)
+        if not graphs:
+            exp.tick_graph = exp.post_train_graph = None
+        es = exp.init(seed=0)
         _fill(es, exp.cfg)
-    graph = exp_g.trainer_graph
+        runs.append((exp, es))
+    (exp_e, es_e), (exp_g, es_g) = runs
     rng = np.random.default_rng(4)
     for i in range(4):
-        beta = torch.tensor(0.01 * (i + 1), device="cuda")
-        gamma = torch.tensor(0.5 / (i + 1), device="cuda")
-        draws = _draws(exp_e.cfg, 12, rng)
-        out = [dp_train_call(exp.trainer, nccl, es.model, es.opt, es.buf, beta, gamma,
-                             generator=es.gen, draws=draws, graph=g)
-               for (exp, es), g in (((exp_e, es_e), None), ((exp_g, es_g), graph))]
-        for k in out[0]:
-            assert torch.equal(out[0][k], out[1][k]), (i, k)
+        draws = _post_draws(exp_e.cfg, rng)
+        want = _train(exp_e, es_e, draws)
+        got = _train(exp_g, es_g, draws)
+        for k in want:
+            assert torch.equal(want[k], got[k]), (i, k)
         _assert_states_equal(es_e, es_g)
-    assert (graph.warmups, graph.captures, graph.replays) == (1, 1, 3)
-    assert graph.recorded["adam_apply"] == (2 if kernels else 0)
+    g = exp_g.post_train_graph
+    assert g.counts == {(): [1, 1, 3]}
+    (entry,) = g.entries.values()
+    assert entry.recorded["adam_apply"] == (2 if kernels else 0)
 
 
 @pytest.mark.cuda
@@ -665,10 +651,9 @@ def test_captured_mesh_tick_is_bit_equal(nccl):
     for graphs in (False, True):
         exp = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1, train_every=3,
                          device="cuda", mesh=nccl)
-        assert exp.eager_reason is None and len(exp.graphs()) == 4
+        assert exp.eager_reason is None and len(exp.graphs()) == 2
         if not graphs:
             exp.tick_graph = exp.post_train_graph = None
-            exp.trainer_graph = exp.planner_graph = None
         runs.append((exp, exp.init(seed=0)))
     infos = [exp.run_chunk(es, 10)[1] for exp, es in runs]
     for k in infos[0]:
@@ -705,32 +690,29 @@ MODEL_OPTIONS = {"subpixel": dict(decoder_mode="subpixel"),
 @pytest.mark.parametrize("name", list(MODEL_OPTIONS))
 def test_captured_trainer_call_is_bit_equal_per_model_option(cuda, name):
     """The CVAE's options (decoder modes, encoder schedules, lane padding)
-    in the captured trainer call: four calls on fed draws (eager, capture
-    and replay, replay, replay), the metrics and the whole state equal to
-    the eager experiment's after every call."""
+    in the captured trainer call: four post-training calls on fed draws
+    through the post-training graph (eager, capture and replay, replay,
+    replay), the rows and the whole state equal to the eager experiment's
+    after every call."""
     runs = []
     for graphs in (False, True):
         exp = Experiment(ExperimentConfig(**{**TOY, **MODEL_OPTIONS[name]}),
                          train_calls_per_tick=1, train_every=1, device="cuda")
-        exp.tick_graph = exp.post_train_graph = None
         if not graphs:
-            exp.trainer_graph = exp.planner_graph = None
+            exp.tick_graph = exp.post_train_graph = None
         es = exp.init(seed=0)
         _fill(es, exp.cfg)
         runs.append((exp, es))
     (exp_e, es_e), (exp_g, es_g) = runs
     rng = np.random.default_rng(4)
     for i in range(4):
-        beta = torch.tensor(0.01 * (i + 1), device="cuda")
-        gamma = torch.tensor(0.5 / (i + 1), device="cuda")
-        draws = _draws(exp_e.cfg, 12, rng)
-        want = _train(exp_e, es_e, beta, gamma, draws)
-        got = _train(exp_g, es_g, beta, gamma, draws)
+        draws = _post_draws(exp_e.cfg, rng)
+        want = _train(exp_e, es_e, draws)
+        got = _train(exp_g, es_g, draws)
         for k in want:
             assert torch.equal(want[k], got[k]), (i, k)
         _assert_states_equal(es_e, es_g)
-    g = exp_g.trainer_graph
-    assert (g.warmups, g.captures, g.replays) == (1, 1, 3)
+    assert exp_g.post_train_graph.counts == {(): [1, 1, 3]}
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The host loop's absorb-and-plan step as a captured step
-(``HostLoopRunner.step_graph``, a ``runtime/graphs.py`` ``StepGraph``)
+"""The host loop's steps as captured steps (``HostLoopRunner.plan_graph``
+for a plan from a host observation, ``step_graph`` for the absorb-and-plan
+step or the serial step's absorb, ``runtime/graphs.py`` ``StepGraph``s)
 and its plans on the runner's persistent fork, held on the CPU through
 ``EagerGraph``, whose replays call the step's body again on the static
 buffers with the host values frozen at capture, as a CUDA graph does.
@@ -103,9 +104,10 @@ def _run(form, staged, n_steps=thl.N_STEPS, fed=False):
                                                                      timeout_s=0.0),
                             draws_fn=_fed_draws(exp.cfg, n_steps + 1).get if fed else None,
                             **kw)
-    assert runner.step_graph is None  # no graphs on the CPU
+    assert runner.step_graph is None and runner.plan_graph is None  # no graphs on the CPU
     if staged:
         runner.step_graph = tg.StepGraph(tg.EagerGraph)
+        runner.plan_graph = tg.StepGraph(tg.EagerGraph)
     leaves, parts, cmds, forks = [], [], [], []
 
     def on_step(es):
@@ -127,13 +129,15 @@ def _equal(a, b, what):
             assert x == y, f"{what}: {pa}"
 
 
-@pytest.mark.parametrize("form", ["device", "custom", "host"])
+@pytest.mark.parametrize("form", ["device", "custom", "host", "serial"])
 def test_staged_host_loop_equals_the_eager_runner(form):
     """Twelve steps with stuck hits, a pause, a recovery and a save (and a
-    rejected command in the host-pipelined form): the staged runner's every
-    state leaf, event, counter, pending command and pose equal the eager
-    runner's after every step. The steady steps replay their pattern's
-    graph; a stuck hit, the pause and the recovery prime a plan outside it."""
+    rejected command in the host-pipelined and serial forms): the staged
+    runner's every state leaf, event, counter, pending command and pose
+    equal the eager runner's after every step. The steady steps replay
+    their pattern's graph; a stuck hit, the pause and the recovery prime a
+    plan through the plan graph, through which the serial runner makes
+    every plan."""
     eager, staged = _run(form, False), _run(form, True)
     for k, (a, b) in enumerate(zip(eager[2], staged[2], strict=True)):
         assert {**a, "pose": None} == {**b, "pose": None}, k
@@ -145,7 +149,10 @@ def test_staged_host_loop_equals_the_eager_runner(form):
     assert eager[0].events == staged[0].events and "recover" in staged[0].events
     g = staged[0].step_graph
     assert g.replays >= 2 and g.captures >= 1, g.counts
-    if form == "host":
+    if form == "serial":
+        p = staged[0].plan_graph
+        assert p.replays >= 2 and p.captures >= 1, p.counts
+    if form in ("host", "serial"):
         assert [c.tolist() for c in eager[1].cmds] == [c.tolist() for c in staged[1].cmds]
         assert "cmd_failed" in staged[0].events
 
@@ -208,6 +215,7 @@ def _staged_runners():
         def __post_init__(self):
             super().__post_init__()
             self.step_graph = tg.StepGraph(tg.EagerGraph)
+            self.plan_graph = tg.StepGraph(tg.EagerGraph)
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(thl, "HostLoopRunner", Staged)

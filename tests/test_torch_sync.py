@@ -127,19 +127,16 @@ def untrained_tick(exp, es):
 
 
 def _replays(exp, es) -> bool:
-    """The next tick replays captured graphs (on the card): the tick graph
-    of its pattern, or, where the experiment has no tick graph, the trainer
-    graph; always on the CPU, which has none."""
-    if exp.tick_graph is not None:
-        return (exp._tick_pattern(es), None) in exp.tick_graph.entries
-    return exp.trainer_graph is None or exp.trainer_graph.key is not None
+    """The next tick replays its pattern's tick graph (on the card); always
+    on the CPU, which has none."""
+    return exp.tick_graph is None or (exp._tick_pattern(es), None) in exp.tick_graph.entries
 
 
 def trained_tick(exp, es):
     """``Experiment.tick`` from ``es`` on a tick that makes a trainer call,
     as [(name, call)]: ``es`` first ticks on past the ticks that run
-    eagerly or capture the experiment's tick graph (or, without one, its
-    trainer graph) on the card, so the checked tick replays it; the call
+    eagerly or capture the experiment's tick graph on the card, so the
+    checked tick replays it; the call
     raises if it made no trainer call. ``chip_smoke.py`` checks its
     production ticks through this."""
     while (es.explr_step % exp.train_every or es.learning_ind < 1
@@ -236,6 +233,59 @@ def host_loop_step(runner, es, trained=False):
     return [("HostLoopRunner.step" + (" with a trainer call" if trained else ""), step)]
 
 
+def serial_step(runner, es, trained=False):
+    """The device work of one steady step of a serial ``HostLoopRunner``
+    from ``es``, as [(name, call)]: the plan from the last observation
+    (``_prime``) and the absorb of the next one, whose host tensors are put
+    on the device before the calls (the serial step sends its command and
+    takes its observation through the host by design). The runner first
+    steps on until the absorb makes a trainer call or none as ``trained``
+    asks and (where the runner has graphs) both the plan's and the absorb's
+    patterns are captured; each call raises if it did not replay."""
+    exp, plan_g, step_g = runner.exp, runner.plan_graph, runner.step_graph
+    assert not runner.pipeline and runner.draws_fn is None
+
+    def captured(g, pattern):
+        return g is None or any(key[0] == pattern for key in g.entries)
+
+    def ready():
+        if runner._obs is None or runner.pause.paused:
+            return False
+        if any(exp._throttle(es.explr_step, es.learning_ind)) != trained:
+            return False
+        return (captured(plan_g, (es.explr_step < exp.cfg.prior_steps,))
+                and captured(step_g, runner._pattern(es, None, plan=False)))
+
+    for _ in range(60):
+        if ready():
+            break
+        runner.step(es)
+    else:
+        raise RuntimeError("no steady serial step to check in 60 steps")
+    pose, vel, force, img = runner._obs
+    plan_in = runner._dev(pose, vel, runner._brightness(pose))
+    absorb_in = runner._dev_obs(pose, vel, force, img)
+    pending = []
+
+    def replayed(g, call):
+        replays = g.replays if g is not None else 0
+        out = call()
+        if g is not None and g.replays != replays + 1:
+            raise RuntimeError("the checked serial step did not replay its graph")
+        return out
+
+    def plan():
+        pending.append(replayed(plan_g, lambda: runner._prime(es, plan_in)))
+
+    def absorb():
+        pstate, cmd7, info = pending.pop()
+        replayed(step_g, lambda: runner._step_absorb_plan(es, (pstate, info, cmd7),
+                                                          inputs=absorb_in, plan=False))
+
+    name = "serial HostLoopRunner.step" + (" with a trainer call" if trained else "")
+    return [(f"{name}: plan", plan), (f"{name}: absorb", absorb)]
+
+
 def host_loop_parts(dev):
     """A toy device-resident ``HostLoopRunner`` over a ``SyntheticBridge``
     on ``dev`` and its next steady step that makes no trainer call."""
@@ -251,6 +301,27 @@ def host_loop_parts(dev):
 
 def test_steady_host_loop_step_makes_no_round_trip():
     assert _round_trips(host_loop_parts("cpu")) == {}
+
+
+@pytest.mark.parametrize("trained", [False, True], ids=["untrained", "trained"])
+def test_steady_serial_host_loop_step_makes_no_round_trip(monkeypatch, trained):
+    """The serial step's plan and absorb (``serial_step``), its observation
+    already on the device, with and without a trainer call (the stock
+    optimizer as the card builds it, as in
+    ``test_warm_tick_with_a_trainer_call_makes_no_round_trip``)."""
+    import torch.optim.adam as torch_adam
+    from ealv_tpu_torch.hw.bridge import SyntheticBridge
+    from ealv_tpu_torch.runtime import HostLoopRunner
+
+    supported = torch_adam._get_capturable_supported_devices
+    monkeypatch.setattr(torch_adam, "_get_capturable_supported_devices",
+                        lambda *a, **k: [*supported(*a, **k), "cpu"])
+    exp = Experiment(ExperimentConfig(**TOY), train_calls_per_tick=1, train_every=3,
+                     device="cpu")
+    es = exp.init(seed=0)
+    es.opt = torch.optim.Adam(es.model.parameters(), lr=exp.trainer.lr, capturable=True)
+    runner = HostLoopRunner(exp, SyntheticBridge(exp.env, es.env), pipeline=False)
+    assert _round_trips(serial_step(runner, es, trained=trained)) == {}
 
 
 def eval_parts(dev):

@@ -39,10 +39,9 @@ def tracer_off():
 
 class Runtime:
     """A toy learning (``Experiment``) or eval (``EvalExperiment``) runtime
-    on the CPU, its ticks through ``StepGraph``s over ``graph_type``, or
-    with ``calls`` through the captured planner and trainer calls."""
+    on the CPU, its ticks through ``StepGraph``s over ``graph_type``."""
 
-    def __init__(self, kind: str, graph_type=tg.EagerGraph, calls: bool = False):
+    def __init__(self, kind: str, graph_type=tg.EagerGraph):
         self.kind = kind
         cfg = ExperimentConfig(**TOY)
         if kind == "learn":
@@ -57,17 +56,8 @@ class Runtime:
             for _ in range(3):
                 self.ctx = self.ctx.push(t(rng.uniform(-0.6, 0.6, 3)),
                                          t(rng.uniform(0.02, 0.08, 3)))
-        if calls:
-            self.exp.tick_graph = None
-            self.exp.planner_graph = tg.PlannerGraph(graph_type)
-            self.exp.trainer_graph = tg.TrainerGraph(graph_type)
-        else:
-            self.exp.tick_graph = tg.StepGraph(graph_type)
+        self.exp.tick_graph = tg.StepGraph(graph_type)
         self.trained = []  # whether each tick made a trainer call
-
-    def graphs(self) -> list:
-        return [g for g in (self.exp.tick_graph, getattr(self.exp, "planner_graph", None),
-                            getattr(self.exp, "trainer_graph", None)) if g is not None]
 
     def tick(self) -> dict:
         if self.kind == "learn":
@@ -160,15 +150,14 @@ class RecordingGraph(tg.EagerGraph):
         return super().replay()
 
 
-@pytest.mark.parametrize("calls", [False, True], ids=["step", "calls"])
-def test_toggling_the_tracer_drops_the_graphs(calls):
-    """Turning the tracer on or off drops every step graph (``calls``: every
-    captured planner and trainer call): the next tick runs eagerly and
-    captures anew, and no graph replays in a state other than its
-    capture's."""
+@pytest.mark.parametrize("kind", ["learn", "eval"], ids=["step", "eval"])
+def test_toggling_the_tracer_drops_the_graphs(kind):
+    """Turning the tracer on or off drops every step graph (the learning
+    tick's, the eval tick's): the next tick runs eagerly and captures anew,
+    and no graph replays in a state other than its capture's."""
     RecordingGraph.seen = []
-    rt = Runtime("learn", RecordingGraph, calls)
-    counts = lambda: [(g.warmups, g.captures) for g in rt.graphs()]
+    rt = Runtime(kind, RecordingGraph)
+    counts = lambda: [(g.warmups, g.captures) for g in (rt.exp.tick_graph,)]
     for toggle in (None, lambda: tracing.enable("cpu"), tracing.disable,
                    lambda: tracing.enable("cpu")):
         if toggle is not None:
