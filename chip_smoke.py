@@ -6,8 +6,8 @@
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every kernel (K1 footprint.cu, the planner's horizon
-     recurrences rollout.cu, K2 adam.cu, K3 wgrad.cu, the belief fusion
-     belief.cu) from
+     recurrences rollout.cu and bookkeeping descent.cu, K2 adam.cu, K3
+     wgrad.cu, the belief fusion belief.cu) from
      ealv_tpu_torch/csrc, one nvcc per source, in parallel;
   3. kernels vs their plain torch versions on the card, at the main paths'
      shapes (K1 at d = 3 for the xyw tick, d = 6 for the xyzrpw tick, and
@@ -21,7 +21,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      beside each kernel's bound on this card; the planner's rollout and
      costate kernels at the cells' shapes, bit-equal to their plain
      versions but for the SO(3) roll model's gap, and their device us as
-     nodes of a captured graph beside an empty kernel's;
+     nodes of a captured graph beside an empty kernel's; the planner's
+     bookkeeping kernels (slot and windows, window acceptance, step
+     acceptance) at the cells' shapes and at the edge cases (ties, NaNs,
+     t_app at 0, idx and H - 1, fixed windows), bit-equal to their plain
+     versions, and their device us as graph nodes;
   4. agreement: two toy-size ticks on the card and on the CPU with the same
      weights and the same fed random draws (float32, TF32 off), at xyw, at
      xywb with the force variant and the z-ensemble, and with each baseline
@@ -162,10 +166,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      published spec otherwise; 13 K1 launches a step), its rows finite and
      printed as one JSON line.
 Every path of phases 4 to 8 whose K1 launches are counted has the
-planner's horizon kernels counted beside them, from the same counts set to
-0: 17 horizon_rollout and 5 costate_sweep launches a plan (a toy planner
-mode's own numbers), one more rollout for each planner state set up in the
-window (``init_state`` rolls out the zero plan), none where nothing plans.
+planner's horizon and bookkeeping kernels counted beside them, from the
+same counts set to 0: 17 horizon_rollout, 5 costate_sweep and 5 of each of
+descent_slot, descent_window and descent_accept launches a plan (a toy
+planner mode's own numbers: no window launch under fixed_lam, only the
+step acceptance without the slot search), one more rollout for each
+planner state set up in the window (``init_state`` rolls out the zero
+plan), none where nothing plans.
 The line before the last is the kernels' JSON record (the horizon kernels'
 launches by path among it); the last line is the
 result JSON. Imports nothing of JAX.
@@ -565,35 +572,42 @@ def _graph_us(fn, inner=50, reps=11):
     return float(np.median(times))
 
 
-HORIZON = ("horizon_rollout", "costate_sweep")
-# each path's horizon kernel launches, plans and planner set-ups, summed
+HORIZON = ("horizon_rollout", "costate_sweep", "descent_slot", "descent_window",
+           "descent_accept")
+DESCENT = HORIZON[2:]
+# each path's planner kernel launches, plans and planner set-ups, summed
 # over its checked windows by _horizon_launches, for the kernels record
 HORIZON_LAUNCHES: dict = {}
 
 
 def _horizon_want(kcfg) -> tuple:
-    """The horizon kernels' launches a plan (rollouts, costate sweeps) at a
-    planner config: a rollout for the initial cost, for every inner
-    iteration's forward pass, line search (its windows as one batch),
-    ``full_cost`` substitutions and new plan's cost, and for the final
-    plan; a sweep for every backward pass. (17, 5) at the default config."""
+    """The planner kernels' launches a plan (rollouts, costate sweeps, the
+    three bookkeeping kernels) at a planner config: a rollout for the
+    initial cost, for every inner iteration's forward pass, line search
+    (its windows as one batch), ``full_cost`` substitutions and new plan's
+    cost, and for the final plan; a sweep for every backward pass; a slot
+    launch for every inner iteration with the slot search, a window launch
+    for every line search, a step acceptance for every inner iteration.
+    (17, 5, 5, 5, 5) at the default config."""
     search = kcfg.ctrl_app_search and not kcfg.fixed_lam
     per_iter = 2 + int(search) + int(kcfg.ctrl_app_search and kcfg.full_cost)
-    return 2 + kcfg.num_iters * per_iter, kcfg.num_iters
+    n = kcfg.num_iters
+    return 2 + n * per_iter, n, n * int(kcfg.ctrl_app_search), n * int(search), n
 
 
-def _horizon_launches(counts, plans, path, inits=0, per_plan=(17, 5), record=True):
-    """Check the horizon kernels' launches in ``counts`` (kernel name ->
-    launches, set to 0 before the window): ``per_plan`` (rollouts, sweeps)
-    for each of ``plans`` planner calls, and one eager rollout for each of
-    ``inits`` planner states set up (``init_state`` rolls out the zero
-    plan). Adds them to ``HORIZON_LAUNCHES[path]``."""
+def _horizon_launches(counts, plans, path, inits=0, per_plan=(17, 5, 5, 5, 5), record=True):
+    """Check the planner kernels' launches in ``counts`` (kernel name ->
+    launches, set to 0 before the window): ``per_plan`` (rollouts, sweeps,
+    slot, window and step launches) for each of ``plans`` planner calls,
+    and one eager rollout for each of ``inits`` planner states set up
+    (``init_state`` rolls out the zero plan). Adds them to
+    ``HORIZON_LAUNCHES[path]``."""
     got = tuple(counts[k] for k in HORIZON)
-    want = (per_plan[0] * plans + inits, per_plan[1] * plans)
+    want = tuple(p * plans + (inits if k == 0 else 0) for k, p in enumerate(per_plan))
     if got != want:
-        raise RuntimeError(f"{path}: {got[0]} horizon_rollout and {got[1]} costate_sweep "
-                           f"launches for {plans} plans and {inits} planner set-ups, expected "
-                           f"{want[0]} and {want[1]} ({per_plan[0]} and {per_plan[1]} a plan)")
+        raise RuntimeError(f"{path}: {dict(zip(HORIZON, got))} launches for {plans} plans "
+                           f"and {inits} planner set-ups, expected {dict(zip(HORIZON, want))} "
+                           f"({per_plan} a plan)")
     if record:
         r = HORIZON_LAUNCHES.setdefault(path, dict.fromkeys(("plans", "inits", *HORIZON), 0))
         for k, v in zip(("plans", "inits", *HORIZON), (plans, inits, *got)):
@@ -629,7 +643,7 @@ def phase_rollout(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     bound = _graph_us(lambda: torch.cuda._sleep(0))
     print(f"[rollout] an empty kernel: {bound:.2f} us a graph node (the latency bound)")
-    out = {k: {"bound_us": bound} for k in HORIZON}
+    out = {k: {"bound_us": bound} for k in HORIZON[:2]}
     for name, kw in (("xyw", {}), ("xyw speed", {"use_magnitude": True}), ("xyzrpw", {})):
         dyn = make_dynamics(name.split()[0], dt=0.2, device=dev, **kw)
         pol = make_policy("Roll", dyn, 10)
@@ -674,6 +688,105 @@ def phase_rollout(dev):
               f"graph node; plain {plain_us:.2f} us captured, {plain_ms * 1e3:.2f} us eager")
         out["costate_sweep"][name] = dict(us=us, plain_us=plain_us, plain_ms=plain_ms, gap=gap,
                                           equal=equal)
+    return out
+
+
+def phase_descent(dev):
+    """The planner's bookkeeping kernels (``control/descent.py``) at the
+    cells' shapes (H = 10, max_app_dur 5, m = 3 at xyw and 6 at xyzrpw,
+    N = 2000 samples) and at edge cases (ties and NaNs in djdlam and the
+    window costs; t_app at 0, at idx and at H - 1; lam0 clamped to 1;
+    max_app_dur past H; a fixed window; a first and a later step), each
+    launch bit for bit against its plain version on the same tensors; then
+    device us a launch as a node of a captured graph at the cells' shapes,
+    beside an empty kernel's (the latency bound) and the plain version's,
+    captured and eager."""
+    import torch
+    from ealv_tpu_torch.control import descent as td
+    from ealv_tpu_torch.utils.timing import device_ms
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=dev) * 2 - 1
+    nan = float("nan")
+
+    def bits(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+    def check(what, got, want):
+        if not all(bits(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"descent {what}: not bit-equal to the plain version")
+
+    cases = 0
+    for H, m, mad, idx, edit in ((10, 3, 5, 0, None), (10, 6, 5, 2, None),
+                                 (10, 3, 5, 1, ("tie", (3, 7))), (10, 3, 5, 2, ("nan", (4, 8))),
+                                 (10, 2, 5, 3, ("min", (0,))), (10, 2, 5, 2, ("min", (2,))),
+                                 (10, 6, 5, 1, ("min", (9,))), (10, 2, 5, 4, ("min", (2,))),
+                                 (6, 3, 9, 2, ("min", (0,))), (10, 2, 5, 1, ("abs", ()))):
+        dj = rand(H)
+        if edit is not None:
+            kind, at = edit
+            if kind == "abs":
+                dj = dj.abs()
+            low = dj.min() - 0.5
+            for t in at:
+                dj[t] = nan if kind == "nan" else low
+        u, u_eff, u_star = rand(H, m), rand(H, m), rand(H, m)
+        for lam in (None, 3):
+            kw = dict(lam=lam) if lam else dict(max_app_dur=mad)
+            got = td.choose_slot(dj, u, u_eff, u_star, idx, **kw)
+            check(f"slot H={H} m={m} {edit} {kw}", got,
+                  td.choose_slot_reference(dj, u, u_eff, u_star, idx, **kw))
+            cases += 1
+        slot = td.choose_slot(dj, u, u_eff, u_star, idx, max_app_dur=mad)
+        for Js, J0 in ((rand(mad) + 1.0, torch.ones((), device=dev)),
+                       (torch.full((mad,), 0.75, device=dev), torch.ones((), device=dev)),
+                       (torch.where(torch.arange(mad, device=dev) % 2 == 0,
+                                    torch.full((mad,), nan, device=dev), rand(mad) + 1.0),
+                        torch.ones((), device=dev)),
+                       (rand(mad) + 1.0, torch.full((), nan, device=dev))):
+            check(f"window H={H} m={m} {edit}", td.accept_window(Js, J0, slot, u_eff, idx),
+                  td.accept_window_reference(Js, J0, slot, u_eff, idx))
+            cases += 1
+    for n in (2000, 2010):
+        q, q_keep = rand(n).abs(), rand(n).abs()
+        for cost, last, done, step in ((0.5, 1.0, False, False), (1.5, 1.0, False, False),
+                                       (1.0, 1.0, False, None), (nan, 1.0, False, False),
+                                       (0.5, 1.0, True, False), (0.5, 1.0, False, True)):
+            args = (rand(10, 6), torch.full((), cost, device=dev), q,
+                    None if step is None else torch.full((), step, device=dev),
+                    rand(10, 6), torch.full((), last, device=dev), q_keep,
+                    torch.full((), done, device=dev))
+            for check_cost in (False, True):
+                check(f"accept N={n}", td.accept_step(*args, check_cost),
+                      td.accept_step_reference(*args, check_cost))
+                cases += 1
+    print(f"[descent] {cases} launches bit-equal to their plain versions (slot, window, "
+          f"step acceptance; ties, NaNs, t_app at 0, idx and H - 1, lam0 clamped, "
+          f"max_app_dur past H, fixed windows)")
+
+    bound = _graph_us(lambda: torch.cuda._sleep(0))
+    out = {k: {"bound_us": bound} for k in DESCENT}
+    for states, m in (("xyw", 3), ("xyzrpw", 6)):
+        dj, u, u_eff, u_star = rand(10), rand(10, m), rand(10, m), rand(10, m)
+        slot = td.choose_slot(dj, u, u_eff, u_star, 1, max_app_dur=5)
+        Js, J0 = rand(5) + 1.0, torch.ones((), device=dev)
+        q, q_keep = rand(2000).abs(), rand(2000).abs()
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        step = (u_eff, J0 * 0.9, q, slot.step_done, u, J0, q_keep, done, True)
+        for name, kern, plain in (
+                ("descent_slot", lambda: td.choose_slot(dj, u, u_eff, u_star, 1, max_app_dur=5),
+                 lambda: td.choose_slot_reference(dj, u, u_eff, u_star, 1, max_app_dur=5)),
+                ("descent_window", lambda: td.accept_window(Js, J0, slot, u_eff, 1),
+                 lambda: td.accept_window_reference(Js, J0, slot, u_eff, 1)),
+                ("descent_accept", lambda: td.accept_step(*step),
+                 lambda: td.accept_step_reference(*step))):
+            us, plain_us, plain_ms = _graph_us(kern), _graph_us(plain), device_ms(plain)
+            print(f"[descent] {name} {states} (m = {m}): kernel {us:.2f} us a graph node "
+                  f"(empty kernel {bound:.2f}); plain {plain_us:.2f} us captured, "
+                  f"{plain_ms * 1e3:.2f} us eager (CUDA events)")
+            out[name][states] = dict(us=us, plain_us=plain_us, plain_ms=plain_ms)
     return out
 
 
@@ -4023,7 +4136,7 @@ def main() -> int:
     smi = _smi()
     print(f"[device] {smi} | torch {torch.__version__} | CUDA {torch.version.cuda} "
           f"| {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    sources = ("footprint.cu", "rollout.cu", "adam.cu", "wgrad.cu", "belief.cu")
+    sources = ("footprint.cu", "rollout.cu", "descent.cu", "adam.cu", "wgrad.cu", "belief.cu")
     t0 = time.perf_counter()
     cuda_build.build(*sources)
     for source in sources:
@@ -4040,6 +4153,7 @@ def main() -> int:
     k2 = phase_adam(dev)
     k3 = phase_wgrad(dev)
     horizon = phase_rollout(dev)
+    descent = phase_descent(dev)
     stamp("kernels")
     phase_agreement()
     phase_eval_agreement()
@@ -4151,7 +4265,10 @@ def main() -> int:
          "replaces": "ealv_tpu/control/klerg.py:226",
          **_horizon_record("costate_sweep"), **horizon["costate_sweep"]},
         {"name": "fuse_beliefs", "route": "cuda", "source": "ealv_tpu_torch/csrc/belief.cu",
-         "replaces": None, **fp["fusion"]}]}))
+         "replaces": None, **fp["fusion"]},
+        *({"name": name, "route": "cuda", "source": "ealv_tpu_torch/csrc/descent.cu",
+           "replaces": "ealv_tpu/control/klerg.py:299", **_horizon_record(name),
+           **descent[name]} for name in DESCENT)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

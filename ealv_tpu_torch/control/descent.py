@@ -1,0 +1,134 @@
+"""The planner's inner-iteration bookkeeping: the slot where the cost falls
+fastest and the candidate windows, the window search's acceptance, and the
+step's acceptance.
+
+``choose_slot``, ``accept_window`` and ``accept_step`` serve
+``control/klerg.py``'s inner loop. On CUDA tensors each call is one launch
+of a hand-written kernel (``ops/descent.py``); on CPU tensors they run
+``choose_slot_reference``, ``accept_window_reference`` and
+``accept_step_reference``, the torch operations the planner always ran
+(the JAX package's ``_line_search`` and inner loop, ``ealv_tpu/control/
+klerg.py``), which are also the kernels' oracles. They do integer
+arithmetic, comparisons, ``where``, ``gather`` and ``argmin`` alone, so the
+kernels give the same bits. An input the kernels do not take raises on
+either device; there is no fallback from a kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import descent as kernels
+from ..ops.descent import Slot
+
+
+def choose_slot_reference(djdlam, u, u_eff, u_star, idx: int, max_app_dur=None,
+                          lam=None) -> Slot:
+    """The slot t_app = argmin(djdlam) (H,), its control u_app = u_star[t_app]
+    and step_done: a djdlam at t_app that is not negative stops the loop.
+    With ``lam`` (a fixed window) the new plan u_eff with u_app over
+    [t_app, t_app + lam); with ``max_app_dur`` the line search's first
+    window size lam0, its windows [tis, tfs) for lam = 1 .. max_app_dur and
+    their candidates, the nominal plan u with u_app over each window."""
+    H = djdlam.shape[0]
+    dev = djdlam.device
+    w = torch.where
+    t = torch.arange(H, device=dev)
+    t_app = torch.argmin(djdlam)
+    u_app = u_star.index_select(0, t_app.reshape(1))[0]
+    step_done = ~(djdlam.gather(0, t_app.reshape(1))[0] < 0)
+    if lam is not None:
+        m = ((t >= t_app) & (t < t_app + lam))[:, None]
+        return Slot(t_app.reshape(1), u_app, step_done, w(m, u_app[None], u_eff))
+    mad = max_app_dur
+    i64 = lambda v: torch.full((), v, dtype=torch.int64, device=dev)
+    lam0 = w((t_app == 0) | (t_app == H - 1), i64(min(H, mad)),
+             w(t_app == idx, (H - t_app).clamp(max=mad),
+               torch.minimum(torch.minimum(t_app - idx, H - t_app - idx),
+                             i64((mad + 1) // 2))))
+    lam0 = lam0.clamp(min=1)
+    lams = torch.arange(1, mad + 1, device=dev)
+    tis = w(t_app == idx, t_app.expand(mad), w(t_app == H - 1, lams - 1, t_app - lams))
+    tfs = w(t_app == idx, lams + 1, w(t_app == H - 1, t_app.expand(mad), t_app + lams + 1))
+    masks = (t[None, :] >= tis[:, None]) & (t[None, :] < tfs[:, None])  # (mad, H)
+    u_variants = w(masks[:, :, None], u_app[None, None, :], u[None, :, :])
+    ints = torch.cat([t_app.reshape(1), lam0.reshape(1), tis, tfs])
+    return Slot(ints, u_app, step_done, u_variants)
+
+
+def accept_window_reference(Js, J0, slot: Slot, u_eff, idx: int):
+    """The line search's sequential early-stopping acceptance as a masked
+    loop over the candidates' costs ``Js`` (max_app_dur,), from the window
+    lam0 down, against the last cost ``J0``. Returns (ti, tf, ok, u_new):
+    the window taken, whether the search succeeded, and u_eff with u_app
+    over [ti, tf) if it did (the windows are costed on the nominal plan and
+    applied to u_eff)."""
+    H = u_eff.shape[0]
+    mad = Js.shape[0]
+    dev = Js.device
+    w = torch.where
+    lam0, tis, tfs = slot.lam0, slot.tis, slot.tfs
+    i64 = lambda v: torch.full((), v, dtype=torch.int64, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    ti_l, tf_l, Jn_last = i64(idx), lam0, J0 * 2.0
+    ti, tf, Jn = i64(idx), lam0, J0 * 2.0
+    for k in range(mad):
+        lam_k = lam0 - k
+        active = ~done & (lam_k > 0)
+        sel = (lam_k - 1).clamp(min=0).reshape(1)
+        # keep the current window as "last" before testing the next one
+        ti_l2 = w(active, ti, ti_l)
+        tf_l2 = w(active, tf, tf_l)
+        Jn_last2 = w(active, Jn, Jn_last)
+        Jn2 = w(active, Js.gather(0, sel)[0], Jn)
+        done = done | (active & (Jn_last2 < J0) & (Jn2 > Jn_last2))
+        ti_l, tf_l, Jn_last = ti_l2, tf_l2, Jn_last2
+        ti = w(active, tis.gather(0, sel)[0], ti)
+        tf = w(active, tfs.gather(0, sel)[0], tf)
+        Jn = Jn2
+    take_cur = ~done & (Jn < J0)
+    ti, tf, ok = w(take_cur, ti, ti_l), w(take_cur, tf, tf_l), done | take_cur
+    t = torch.arange(H, device=dev)
+    m = (ok & (t >= ti) & (t < tf))[:, None]
+    return ti, tf, ok, w(m, slot.u_app[None], u_eff)
+
+
+def accept_step_reference(u_new, cost, q, step_done, u, last_cost, q_keep, done,
+                          check_cost: bool):
+    """The inner loop's acceptance: the new plan ``u_new`` at ``cost`` with
+    its footprint ``q`` is taken unless the loop is ``done``, the slot
+    stopped it (``step_done``; None: it did not) or, with ``check_cost``
+    (every iteration but the first), the cost did not fall below
+    ``last_cost``. Returns (u, last_cost, q_keep, done)."""
+    if step_done is None:
+        step_done = torch.zeros_like(done)
+    cost_break = (last_cost <= cost) if check_cost else torch.zeros_like(done)
+    accept = ~done & ~step_done & ~cost_break
+    return (torch.where(accept, u_new, u), torch.where(accept, cost, last_cost),
+            torch.where(accept, q, q_keep), done | step_done | cost_break)
+
+
+def choose_slot(djdlam, u, u_eff, u_star, idx: int, max_app_dur=None, lam=None) -> Slot:
+    """``choose_slot_reference``: one kernel launch on CUDA tensors."""
+    if djdlam.device.type == "cpu":
+        kernels.check_slot(djdlam, u, u_eff, u_star, idx, max_app_dur, lam)
+        return choose_slot_reference(djdlam, u, u_eff, u_star, idx, max_app_dur, lam)
+    return kernels.descent_slot(djdlam, u, u_eff, u_star, idx, max_app_dur, lam)
+
+
+def accept_window(Js, J0, slot: Slot, u_eff, idx: int):
+    """``accept_window_reference``: one kernel launch on CUDA tensors."""
+    if Js.device.type == "cpu":
+        kernels.check_window(Js, J0, slot, u_eff, idx)
+        return accept_window_reference(Js, J0, slot, u_eff, idx)
+    return kernels.descent_window(Js, J0, slot, u_eff, idx)
+
+
+def accept_step(u_new, cost, q, step_done, u, last_cost, q_keep, done, check_cost: bool):
+    """``accept_step_reference``: one kernel launch on CUDA tensors."""
+    if u.device.type == "cpu":
+        kernels.check_accept(u_new, cost, q, step_done, u, last_cost, q_keep, done)
+        return accept_step_reference(u_new, cost, q, step_done, u, last_cost, q_keep, done,
+                                     check_cost)
+    return kernels.descent_accept(u_new, cost, q, step_done, u, last_cost, q_keep, done,
+                                  check_cost)

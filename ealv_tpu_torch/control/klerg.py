@@ -11,11 +11,13 @@ per call is fixed (13 at the default config: the target spread, the base
 footprint, the initial cost, and two per inner iteration). The horizon
 recurrences (``control/horizon.py``) are one launch a call on the card: a
 rollout for every cost, forward pass and the final plan (17 a call at the
-default config) and a costate sweep for every backward pass (5). That
-leaves about 2,000 launches a call at the production config (about 2,200
-at xyzrpw; 7,700 and 20,000 with the recurrences' per-step loops), still
-more than the card's launch queue holds (about a thousand), so the host
-waits inside a call for room while the device catches up. ``full_cost``
+default config) and a costate sweep for every backward pass (5). The
+inner iteration's bookkeeping (``control/descent.py``: the slot and the
+windows, the window search's acceptance, the step's acceptance) is three
+launches an iteration there, where it was about 170 torch operations.
+That leaves about 1,000 launches a call at the production config (1,800
+before the bookkeeping kernels, 7,700 and 20,000 with the recurrences'
+per-step loops), about what the card's launch queue holds. ``full_cost``
 costs its H one-slot substitutions as one batch through the plain psi
 matrix and one rollout launch, as the line search costs its windows, so it
 adds no K1 launch. Models whose linearization depends on the state
@@ -38,6 +40,7 @@ from ..ops import (
     psi_matrix,
 )
 from ..data.replay import TrajMemory
+from .descent import accept_step, accept_window, choose_slot
 from .dynamics import DynState
 from .horizon import costate, rollout
 from .policies import BarrierPushPolicy, RollPolicy, ZeroPolicy
@@ -249,50 +252,6 @@ class KlergPlanner:
             return torch.tanh(u / 0.1) * self.control_lim[:, 1]
         return torch.clamp(u, self.control_lim[:, 0], self.control_lim[:, 1])
 
-    def _line_search(self, cost_fn, t_app, u_app, u, idx: int, J0):
-        """Application-window search. All candidate windows (lam = 1 ..
-        max_app_dur) are costed in one batched call; the sequential
-        early-stopping acceptance then runs as a masked loop over the cost
-        vector. Returns (tau_i, tau_f, success) as () tensors."""
-        H = self.cfg.horizon
-        mad = self.cfg.max_app_dur
-        dev = u.device
-        i64 = lambda v: torch.full((), v, dtype=torch.int64, device=dev)
-        w = torch.where
-        lam0 = w((t_app == 0) | (t_app == H - 1), i64(min(H, mad)),
-                 w(t_app == idx, (H - t_app).clamp(max=mad),
-                   torch.minimum(torch.minimum(t_app - idx, H - t_app - idx),
-                                 i64((mad + 1) // 2))))
-        lam0 = lam0.clamp(min=1)
-
-        lams = torch.arange(1, mad + 1, device=dev)
-        tis = w(t_app == idx, t_app.expand(mad), w(t_app == H - 1, lams - 1, t_app - lams))
-        tfs = w(t_app == idx, lams + 1, w(t_app == H - 1, t_app.expand(mad), t_app + lams + 1))
-        t = torch.arange(H, device=dev)
-        masks = (t[None, :] >= tis[:, None]) & (t[None, :] < tfs[:, None])  # (mad, H)
-        u_variants = w(masks[:, :, None], u_app[None, None, :], u[None, :, :])
-        Js = cost_fn(u_variants)  # (mad,)
-
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        ti_l, tf_l, Jn_last = i64(idx), lam0, J0 * 2.0
-        ti, tf, Jn = i64(idx), lam0, J0 * 2.0
-        for k in range(mad):
-            lam_k = lam0 - k
-            active = ~done & (lam_k > 0)
-            sel = (lam_k - 1).clamp(min=0).reshape(1)
-            # keep the current window as "last" before testing the next one
-            ti_l2 = w(active, ti, ti_l)
-            tf_l2 = w(active, tf, tf_l)
-            Jn_last2 = w(active, Jn, Jn_last)
-            Jn2 = w(active, Js.gather(0, sel)[0], Jn)
-            done = done | (active & (Jn_last2 < J0) & (Jn2 > Jn_last2))
-            ti_l, tf_l, Jn_last = ti_l2, tf_l2, Jn_last2
-            ti = w(active, tis.gather(0, sel)[0], ti)
-            tf = w(active, tfs.gather(0, sel)[0], tf)
-            Jn = Jn2
-        take_cur = ~done & (Jn < J0)
-        return w(take_cur, ti, ti_l), w(take_cur, tf, tf_l), done | take_cur
-
     # ------------------------------------------------------------------
     def plan(self, pstate: PlannerState, pdf_ctx, temp: float = 1.0,
              use_prior: bool = False, samples=None, hist_idx=None):
@@ -364,14 +323,9 @@ class KlergPlanner:
                 u_new, step_done = self._apply(cost_fn, u, u_eff, u_star, djdlam, idx,
                                                last_cost)
             else:
-                u_new, step_done = u_star, torch.zeros_like(done)
-            cost = cost_fn(u_new)
-            cost_break = (last_cost <= cost) if idx > 0 else torch.zeros_like(done)
-            accept = ~done & ~step_done & ~cost_break
-            u = torch.where(accept, u_new, u)
-            last_cost = torch.where(accept, cost, last_cost)
-            q_keep = torch.where(accept, q, q_keep)
-            done = done | step_done | cost_break
+                u_new, step_done = u_star, None
+            u, last_cost, q_keep, done = accept_step(u_new, cost_fn(u_new), q, step_done, u,
+                                                     last_cost, q_keep, done, idx > 0)
         u = torch.nan_to_num(u)
         last_plan = self._rollout(pstate.dyn, u)
 
@@ -389,27 +343,25 @@ class KlergPlanner:
 
     def _apply(self, cost_fn, u, u_eff, u_star, djdlam, idx: int, last_cost):
         """Apply u_star at the slot t_app where the cost falls fastest, over
-        a fixed window (``fixed_lam``) or the line search's. ``full_cost``
-        takes t_app from the costs of the H one-slot substitutions of u_star
-        into the nominal plan, renormalized, instead of djdlam. Returns
-        (u_new, step_done); a value at t_app that is not negative stops the
-        loop without updating."""
+        a fixed window (``fixed_lam``) or the line search's: all candidate
+        windows (lam = 1 .. max_app_dur) are costed in one batched call and
+        the sequential early-stopping acceptance runs as a masked loop over
+        the cost vector (``control/descent.py``). ``full_cost`` takes t_app
+        from the costs of the H one-slot substitutions of u_star into the
+        nominal plan, renormalized, instead of djdlam. Returns (u_new,
+        step_done); a value at t_app that is not negative stops the loop
+        without updating."""
         cfg = self.cfg
         H = cfg.horizon
-        t = torch.arange(H, device=u.device)
         if cfg.full_cost:
             slot = torch.eye(H, dtype=torch.bool, device=u.device)[:, :, None]
             djdlam = renormalize(cost_fn(torch.where(slot, u_star[None], u[None]))) - 1.0
-        t_app = torch.argmin(djdlam)
-        u_app = u_star.index_select(0, t_app.reshape(1))[0]
         if cfg.fixed_lam:
-            m = ((t >= t_app) & (t < t_app + cfg.lam))[:, None]
-        else:
-            # the windows are costed on the nominal plan, applied to u_eff
-            ti, tf, ls_ok = self._line_search(cost_fn, t_app, u_app, u, idx, last_cost)
-            m = (ls_ok & (t >= ti) & (t < tf))[:, None]
-        step_done = ~(djdlam.gather(0, t_app.reshape(1))[0] < 0)
-        return torch.where(m, u_app[None], u_eff), step_done
+            s = choose_slot(djdlam, u, u_eff, u_star, idx, lam=cfg.lam)
+            return s.plans, s.step_done
+        # the windows are costed on the nominal plan, applied to u_eff
+        s = choose_slot(djdlam, u, u_eff, u_star, idx, max_app_dur=cfg.max_app_dur)
+        return accept_window(cost_fn(s.plans), last_cost, s, u_eff, idx)[3], s.step_done
 
     def plot_dists(self, pstate: PlannerState, pdf_ctx, samples, plot_idx,
                    temp: float = 1.0):

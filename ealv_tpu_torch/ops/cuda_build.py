@@ -24,6 +24,9 @@ BUILD_DIR = _PKG / "_build"
 # -Xptxas=-v reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# a source's own flags after those: the planner's bookkeeping kernels must
+# give torch's bits, so nvcc contracts no multiply and add into an FMA there
+SOURCE_FLAGS = {"descent.cu": ("--fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -37,9 +40,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _flags(source: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def _library_path(source: str) -> Path:
     src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(source)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
 
@@ -54,7 +61,7 @@ def build(*sources: str) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [_nvcc(), *_flags(source), "-o", str(tmp), str(CSRC / source)]
         jobs.append((source, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []

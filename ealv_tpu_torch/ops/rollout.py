@@ -33,8 +33,9 @@ PASS, BARRIER, LQR = 0, 1, 2  # the kernel's policies
 
 @functools.cache
 def _library():
-    # a plan launches K1 too: one build call, so a first run waits for one nvcc
-    cuda_build.build(_SOURCE, "footprint.cu")
+    # a plan launches K1 and the descent kernels too: one build call, so a
+    # first run waits for one nvcc
+    cuda_build.build(_SOURCE, "footprint.cu", "descent.cu")
     lib = cuda_build.load(_SOURCE)
     roll = lib.horizon_rollout_f32
     roll.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \

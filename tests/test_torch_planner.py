@@ -175,7 +175,10 @@ def test_forward_backward_tapp_line_search(frozen, gauss):
     J0_j, J0_t = cost_j(jps.u), cost_t(tps.u)
     _close(J0_t, J0_j, rtol=2e-3)
     win_j = jpl._line_search(cost_j, jnp.asarray(t_app), us_j[t_app], jps.u, 0, J0_j)
-    win_t = tpl._line_search(cost_t, torch.tensor(t_app), us_t[t_app], tps.u, 0, J0_t)
+    from ealv_tpu_torch.control.descent import accept_window, choose_slot
+    slot = choose_slot(dj_t, tps.u, ue_t, us_t, 0, max_app_dur=tpl.cfg.max_app_dur)
+    assert int(slot.t_app) == t_app
+    win_t = accept_window(cost_t(slot.plans), J0_t, slot, ue_t, 0)[:3]
     assert [int(v) for v in win_t] == [int(v) for v in win_j]
 
 
