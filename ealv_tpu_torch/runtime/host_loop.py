@@ -58,6 +58,16 @@ runner's step the experiment state's fields and the pending plan are the
 graph's static buffers, which the next replay overwrites: copy what you
 keep. With ``plan_graph`` and ``step_graph`` set to None, and on the CPU,
 everything runs eagerly.
+
+Tracing (``runtime/tracing.py``): ``step`` is one tick, the host ``tick``
+span around it and the device ``tick`` from its first kernel to its last;
+inside, the planner's ``decode`` and ``descent``, ``env`` (the plan's
+command conversion), ``absorb``, the device span ``arm`` around the
+bridge's command and observation in the composed step, and the host span
+``watchdog`` around the stuck check (the wait for the slice's copy, the
+check and any escape). The host counters: ``prime`` (a plan from a host
+observation), ``stuck``, ``escape``, ``recover`` and ``drift`` (the arm's
+drift corrections, read from its host command counter).
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ import numpy as np
 import torch
 
 from ..utils.host_copy import HostCopy
+from . import tracing
 from .agent import Experiment, ExperimentState, TickDraws, advance_env, drift_key, \
     sim_carry, with_sim_carry
 from .graphs import CaptureError, StepGraph, _addresses, run_step
@@ -132,6 +143,12 @@ class HostLoopRunner:
         self._obs = None  # last sensed (pose6, vel6, force, img), host-side
         self._pending = None  # pipelined (pstate, info, cmd7, its HostCopy or None)
         self._prev_small = None  # device-resident step: the deferred watchdog slice
+        # the last absorb's tick info (``absorb_step``'s: the absorbed plan's
+        # ergodic cost, the robot state, ...), out of any graph's memory;
+        # and the plan the last step made, (pstate, info, cmd7), whether it
+        # is pending or a stuck hit dropped it (after a replay, the step
+        # graph's buffers, which the next replay overwrites)
+        self.last_info = self.last_plan = None
         # the fork every plan runs on, made on the first plan (_fork_parts)
         self._fork_memory = self._fork_generator = None
         # the plan from a host observation and the runner's step as captured
@@ -161,7 +178,9 @@ class HostLoopRunner:
             if pure is not None:
                 def _cmd_absorb_plan(es, pstate, info, env_s, cmd7, draws=(None, None),
                                      host=None):
+                    tracing.begin("arm")
                     env_s2, flat, small = pure(env_s, cmd7)
+                    tracing.end("arm")
                     es, pstate2, cmd7n, info2, tick_info = self._absorb_plan_flat(
                         es, pstate, info, flat, draws, host)
                     return es, pstate2, cmd7n, info2, tick_info, env_s2, small
@@ -243,7 +262,11 @@ class HostLoopRunner:
         fork = dataclasses.replace(es, pstate=self._fork(es.pstate))
         pstate, vel6_cmd, b_cmd, info = exp.plan_step(fork, full_state, draws)
         tail = vel6_cmd.new_full((1,), -1.0) if b_cmd is None else b_cmd.reshape(1)
-        return pstate, torch.cat([vel6_cmd, tail]), info
+        cmd7 = torch.cat([vel6_cmd, tail])
+        # plan_step opens ``env`` at the command, which the bridge executes
+        # in another step: the span ends with the command's conversion
+        tracing.end("env")
+        return pstate, cmd7, info
 
     def _plan_obs(self, es, obs):
         """A plan from a host observation (the first step, after a drop, or
@@ -257,6 +280,7 @@ class HostLoopRunner:
         through ``plan_graph`` where the runner has one; its carry (the
         experiment's tick carry) stays as it was. Returns (pstate, cmd7,
         info)."""
+        tracing.count("prime")
         self._seed_fork(es)
         staged = (inputs, self._draws(es.explr_step))
 
@@ -264,11 +288,15 @@ class HostLoopRunner:
             return es, self._plan_cmd7(es, *staged[0], staged[1])
 
         if self.plan_graph is None:
-            return run(es, staged)[1]
-        exp = self.exp
-        return run_step(self.plan_graph, es, exp._carry, exp._with_carry, self._base,
-                        (es.explr_step < exp.cfg.prior_steps,), staged, run,
-                        [self._fork_generator])[1]
+            plan = run(es, staged)[1]
+        else:
+            exp = self.exp
+            plan = run_step(self.plan_graph, es, exp._carry, exp._with_carry, self._base,
+                            (es.explr_step < exp.cfg.prior_steps,), staged, run,
+                            [self._fork_generator])[1]
+        pstate, cmd7, info = plan
+        self.last_plan = (pstate, info, cmd7)
+        return plan
 
     def _absorb(self, es, pstate, info, pose6, vel6, b, img, force, draws=None, host=None):
         """Adopt the plan and absorb the observation (``absorb_step``;
@@ -334,11 +362,11 @@ class HostLoopRunner:
 
         state = (es, pending, env_s)
         if self.step_graph is None:
-            (es, pending, env_s), (cmd7n, small, _) = run(state, (inputs, draws))
+            (es, pending, env_s), (cmd7n, small, tick_info) = run(state, (inputs, draws))
         else:
             pattern = self._pattern(es, env_s, plan)
             host = exp._stage(es, pattern[0])
-            view, (cmd7n, small, _) = run_step(
+            view, (cmd7n, small, tick_info) = run_step(
                 self.step_graph, state, self._carry, self._with_carry,
                 lambda state, carry: self._base(state[0], carry), pattern, (inputs, draws),
                 run, [es.gen, self._fork_generator])
@@ -346,6 +374,9 @@ class HostLoopRunner:
             es.explr_step += 1
             pending, env_s = view[1], None if view[2] is None else advance_env(view[2], 1)
         es.pstate.gen.set_state(adopted)
+        self.last_info = tick_info
+        if plan:
+            self.last_plan = pending
         return es, pending, env_s, cmd7n, small
 
     def _pattern(self, es, env_s, plan=True) -> tuple:
@@ -405,6 +436,7 @@ class HostLoopRunner:
     def _recover(self):
         """Recovery escalation: clear controllers, re-level (random_listener
         parity: ErrorRecoveryActionGoal + EE re-align)."""
+        tracing.count("recover")
         self.bridge.reset()
         self._drop_pipeline()
         self._log("recover", "bridge reset + controller re-arm")
@@ -430,7 +462,26 @@ class HostLoopRunner:
 
     # ------------------------------------------------------------------
     def step(self, es: ExperimentState) -> ExperimentState:
-        """One explore+learn step through the bridge with failure handling."""
+        """One explore+learn step through the bridge with failure handling:
+        one tick of the tracer (host and device ``tick``; the ``drift``
+        counter from the arm's command counter)."""
+        with tracing.tick():
+            tracing.begin("tick")
+            env0 = getattr(self.bridge, "state", None) if tracing.state() is not None else None
+            es = self._step(es)
+            if env0 is not None:
+                tracing.count("drift", self._drift_count(env0))
+            tracing.end("tick")
+        return es
+
+    def _drift_count(self, env0) -> int:
+        """The arm's drift corrections since its state ``env0`` (0 off the
+        arm): one at each command whose count is a multiple of
+        ``drift_every``."""
+        n = getattr(self.bridge.state, "count", 0) - getattr(env0, "count", 0)
+        return sum(drift_key(getattr(self.bridge, "env", None), env0, n)) if n > 0 else 0
+
+    def _step(self, es: ExperimentState) -> ExperimentState:
         self.heartbeat.tick(self.pause, recover_fn=self._recover)
         if self.pause.paused or self.pause.manual:
             # the operator may move the robot while paused/manual: any
@@ -468,14 +519,16 @@ class HostLoopRunner:
         pose2, vel2, force2, img2 = self.bridge.observe()
 
         # stuck detection + force-direction escape (check_cmd parity)
-        moved_ok, escape = self.stuck.check(pose2, force=self._escape_force(force2))
-        if not moved_ok:
-            if escape is not None:
-                self._escape(escape, pose2)
-                pose2, vel2, force2, img2 = self.bridge.observe()
-            else:
-                self.bridge.reset()
-                self._log("stuck_reset", "no force reading; controller reset")
+        with tracing.span("watchdog"):
+            moved_ok, escape = self.stuck.check(pose2, force=self._escape_force(force2))
+            if not moved_ok:
+                tracing.count("stuck")
+                if escape is not None:
+                    self._escape(escape, pose2)
+                    pose2, vel2, force2, img2 = self.bridge.observe()
+                else:
+                    self.bridge.reset()
+                    self._log("stuck_reset", "no force reading; controller reset")
 
         obs = self._dev_obs(pose2, vel2, force2, img2)
         if self.pipeline:
@@ -581,27 +634,30 @@ class HostLoopRunner:
         return es
 
     def _check_watchdog(self, small: HostCopy):
-        """Stuck detection + escape on a watchdog slice. On a hit the
-        pipeline is dropped, so the next step primes from a post-escape
-        observation; unlike the host-side check (escape before the absorb),
-        the wedged frame was already absorbed (in the deferred form, up to
-        two frames)."""
-        small_h = small.numpy()
-        pose2 = small_h[:6]
-        force2 = small_h[12:12 + self._nf]
-        moved_ok, escape = self.stuck.check(pose2, force=self._escape_force(force2))
-        if moved_ok:
-            return
-        self._pending = None
-        self._prev_small = None  # a held slice predates the escape
-        if escape is not None:
-            self._escape(escape, pose2)
-        else:
-            self.bridge.reset()
-            self._log("stuck_reset", "no force reading; controller reset")
+        """Stuck detection + escape on a watchdog slice, the tracer's host
+        span ``watchdog``. On a hit the pipeline is dropped, so the next
+        step primes from a post-escape observation; unlike the host-side
+        check (escape before the absorb), the wedged frame was already
+        absorbed (in the deferred form, up to two frames)."""
+        with tracing.span("watchdog"):
+            small_h = small.numpy()
+            pose2 = small_h[:6]
+            force2 = small_h[12:12 + self._nf]
+            moved_ok, escape = self.stuck.check(pose2, force=self._escape_force(force2))
+            if moved_ok:
+                return
+            tracing.count("stuck")
+            self._pending = None
+            self._prev_small = None  # a held slice predates the escape
+            if escape is not None:
+                self._escape(escape, pose2)
+            else:
+                self.bridge.reset()
+                self._log("stuck_reset", "no force reading; controller reset")
 
     def _escape(self, escape, pose2):
         """Command the escape twist along the force direction and log it."""
+        tracing.count("escape")
         esc6 = np.zeros(6)
         esc6[:3] = escape[:3] if escape.shape[0] >= 3 else np.pad(
             escape, (0, 3 - escape.shape[0]))

@@ -8,11 +8,13 @@ process, ``disable()`` off.
 
 Host spans. ``span(name)`` records the name, the tick it runs in, the span
 that encloses it, and its start and end on ``time.perf_counter_ns``. The
-runtimes open ``tick`` around ``Experiment.tick``, ``EvalExperiment.tick``
-and the identification tick (``fingerprint/test_runtime.py``; ``tick()``,
-which also numbers the ticks);
+runtimes open ``tick`` around ``Experiment.tick``, ``EvalExperiment.tick``,
+the identification tick (``fingerprint/test_runtime.py``) and
+``HostLoopRunner.step`` (``tick()``, which also numbers the ticks);
 ``runtime/graphs.py`` ``StepGraph.step`` opens ``key``, ``stage``,
-``replay`` and ``clone`` inside it. While a ``torch.profiler`` runs, a span
+``replay`` and ``clone`` inside it, and the host loop ``watchdog`` around
+its stuck check (the wait for the watchdog slice's copy, the check and any
+escape). While a ``torch.profiler`` runs, a span
 also opens ``record_function("ealv." + name)``, so the profiler's trace
 carries it on the profiler's clock.
 
@@ -30,8 +32,18 @@ clock. The device spans: ``tick``, from the tick body's first kernel to its
 last, and inside it ``decode`` and ``descent`` (``control/klerg.py``),
 ``env`` (``agent.py``, ``tester.py``), ``absorb`` and ``train``
 (``agent.py``: the trainer call is made inside ``absorb_step``, so
-``train`` lies inside ``absorb``), and in an identification tick
-``seek``, ``match`` and ``fuse`` (``fingerprint/test_runtime.py``).
+``train`` lies inside ``absorb``), in an identification tick
+``seek``, ``match`` and ``fuse`` (``fingerprint/test_runtime.py``), and in
+a host-loop step (``runtime/host_loop.py``, whose ``tick`` spans the whole
+step) ``arm``, the bridge's command and observation on the card; there
+``env`` spans only the command's conversion, the arm's work being ``arm``.
+
+Host counters. ``count(name, n=1)`` adds ``n`` to the counter ``name`` of
+the tick it runs in (outside every tick, to the run's): events a tick
+makes on the host, such as the host loop's plan primed from a host
+observation (``prime``), stuck hit (``stuck``), escape (``escape``), drift
+correction (``drift``) and recovery (``recover``) in
+``runtime/host_loop.py``. Off, it returns at once and keeps nothing.
 
 One clock. ``read()`` drains the records and maps the stamps onto the host
 clock by the tightest of a few calibration pairs (host clock, stamp,
@@ -94,6 +106,7 @@ class Trace:
     uncertainty_ns: int  # half the calibration pair's round trip
     drift_ns: int  # offset_ns less the previous calibration's (at enable or the last read)
     lost: int  # ticks read whose stamps the ring had already overwritten
+    counts: dict = dataclasses.field(default_factory=dict)  # {name: {tick or None: n}}
 
 
 @functools.cache
@@ -125,6 +138,7 @@ class _Tracer:
         self.points: dict = {}  # (name, edge, occurrence) -> the ring's column
         self.seen: dict = {}  # (name, edge) -> its stamps so far in the open tick
         self.spans: list = []  # host spans: [name, tick, parent, start, end]
+        self.counts: dict = {}  # (name, tick or None) -> n
         self.open: list = []  # the open host spans' indices
         if self.cuda:
             self.lib = _library()
@@ -184,6 +198,10 @@ class _Tracer:
                 _checked(self.lib.ealv_advance(self.counter.data_ptr(), self._stream()),
                          "advance")
 
+    def count(self, name: str, n: int) -> None:
+        key = (name, self.current)
+        self.counts[key] = self.counts.get(key, 0) + n
+
     def stamp(self, name: str, edge: int) -> None:
         if self.current is None:
             return
@@ -230,10 +248,15 @@ class _Tracer:
                 keep[i] = Span(name, tick, parent, start, end)
         renumber = {old: new for new, old in enumerate(keep)}
         host = [dataclasses.replace(s, parent=renumber.get(s.parent)) for s in keep.values()]
+        counts: dict = {}
+        for (name, tick), n in self.counts.items():
+            if (first <= tick < last) if tick is not None else not window:
+                counts.setdefault(name, {})[tick] = n
         trace = Trace(ticks=range(first, last), host=host, device=device, offset_ns=h1 - g1,
                       uncertainty_ns=uncertainty, drift_ns=(h1 - g1) - (h0 - g0),
-                      lost=max(0, oldest - first))
-        self.spans, self.first, self.calibration = [], self.ticks, (h1, g1, uncertainty)
+                      lost=max(0, oldest - first), counts=counts)
+        self.spans, self.counts = [], {}
+        self.first, self.calibration = self.ticks, (h1, g1, uncertainty)
         return trace
 
 
@@ -288,6 +311,12 @@ def tick():
     return _NULL if _tracer is None else _tracer.tick()
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the host counter ``name`` of the open tick."""
+    if _tracer is not None:
+        _tracer.count(name, n)
+
+
 def begin(name: str) -> None:
     """Stamp the start of the device span ``name``."""
     if _tracer is not None:
@@ -331,10 +360,11 @@ def self_ns(spans: list) -> list:
 def summary(trace: Trace, lo=None, hi=None) -> dict:
     """Per tick of ``trace``: each host and device span's self time and
     each device span's duration (ms, means a tick), the device spans'
-    count; and over [lo, hi] on the host clock (by default the first host
-    ``tick`` span's start to the last tick's end on either side), the share
-    in which no tick's device span was open, those gaps in ms a tick by the
-    innermost host span over each gap's midpoint ("outside" where none)."""
+    count; each host counter's sum over the trace (``counts``); and over
+    [lo, hi] on the host clock (by default the first host ``tick`` span's
+    start to the last tick's end on either side), the share in which no
+    tick's device span was open, those gaps in ms a tick by the innermost
+    host span over each gap's midpoint ("outside" where none)."""
     n = max(1, len(trace.ticks))
     ticks = [s for s in trace.device if s.name == "tick"]
     host_ticks = [s for s in trace.host if s.name == "tick"]
@@ -343,7 +373,8 @@ def summary(trace: Trace, lo=None, hi=None) -> dict:
     if hi is None:
         hi = max((s.end_ns for s in host_ticks + ticks), default=lo)
     out = {"ticks": len(trace.ticks), "host_self_ms": {}, "device_ms": {},
-           "device_self_ms": {}, "device_calls": {}, "wait_ms": {}}
+           "device_self_ms": {}, "device_calls": {}, "wait_ms": {},
+           "counts": {name: sum(by_tick.values()) for name, by_tick in trace.counts.items()}}
     for kind, spans in (("host_self_ms", trace.host), ("device_self_ms", trace.device)):
         for s, ns in zip(spans, self_ns(spans)):
             out[kind][s.name] = out[kind].get(s.name, 0.0) + ns / 1e6 / n
@@ -373,8 +404,12 @@ def describe(s: dict) -> str:
     """``summary``'s numbers as lines for a run's log."""
     ms = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in sorted(d.items(), key=lambda kv: -kv[1]))
     wait = s["device_wait_pct"]
-    return "\n".join([
+    lines = [
         f"tracer: {s['ticks']} ticks; host self ms a tick: {ms(s['host_self_ms'])}",
         f"tracer: device ms a tick: {ms(s['device_ms'])}; self: {ms(s['device_self_ms'])}",
         "tracer: device wait " + ("not measured" if wait is None else f"{wait:.2f}%")
-        + f" of the window, ms a tick by host span: {ms(s['wait_ms'])}"])
+        + f" of the window, ms a tick by host span: {ms(s['wait_ms'])}"]
+    if s["counts"]:
+        lines.append("tracer: counts: " + ", ".join(f"{k} {v}" for k, v in
+                                                    sorted(s["counts"].items())))
+    return "\n".join(lines)

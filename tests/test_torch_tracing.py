@@ -78,7 +78,7 @@ def test_off_the_tracer_runs_nothing_and_on_it_changes_no_output(kind, monkeypat
         raise AssertionError("the tracer ran while off")
 
     with monkeypatch.context() as m:
-        for name in ("stamp", "span", "tick", "read"):
+        for name in ("stamp", "span", "tick", "count", "read"):
             m.setattr(tracing._Tracer, name, called)
         off = Runtime(kind)
         infos_off = [off.tick() for _ in range(TICKS)]
@@ -201,6 +201,34 @@ def test_stamps_outside_a_tick_do_nothing():
         tracing.end("x")
     tr = tracing.read()
     assert [s.name for s in tr.device] == ["x"] and tr.device[0].tick == 0
+
+
+def test_counts_are_kept_per_tick_and_summed():
+    """``count`` adds to the open tick's counter (outside every tick, to
+    the run's); ``read`` keeps a window's ticks' counts, or all of them
+    with those outside, and drains them; ``summary`` sums each over the
+    trace and ``describe`` lists the sums. Off, ``count`` does nothing."""
+    tracing.count("prime")  # off: nothing is kept, nothing raises
+    tracing.enable("cpu")
+    tracing.count("stuck")  # outside every tick
+    for t in range(4):
+        with tracing.tick():
+            tracing.count("prime")
+            if t % 2:
+                tracing.count("drift", 3)
+    tr = tracing.read(1, 3)
+    assert tr.counts == {"prime": {1: 1, 2: 1}, "drift": {1: 3}}
+    s = tracing.summary(tr)
+    assert s["counts"] == {"prime": 2, "drift": 3}
+    assert "tracer: counts: drift 3, prime 2" in tracing.describe(s)
+    with tracing.tick():
+        tracing.count("escape")
+    assert tracing.read().counts == {"escape": {4: 1}}  # the earlier ones were drained
+    tracing.count("recover")
+    assert tracing.summary(tracing.read())["counts"] == {"recover": 1}
+    tracing.disable()
+    tracing.count("prime")
+    assert tracing.state() is None
 
 
 def test_summary_puts_each_gap_down_to_a_host_span():
