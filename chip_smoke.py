@@ -25,7 +25,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bookkeeping kernels (slot and windows, window acceptance, step
      acceptance) at the cells' shapes and at the edge cases (ties, NaNs,
      t_app at 0, idx and H - 1, fixed windows), bit-equal to their plain
-     versions, and their device us as graph nodes;
+     versions, and their device us as graph nodes; the plan cost kernel
+     (footprint, renormalisation, KL and box barrier of a plan or of
+     candidate plans) against its plain version at the cells' shapes and
+     edge cases (within 1e-6 relative; a candidate equal to the plan gets
+     the plan's bits), its device us as a graph node at m = 3 and 6;
   4. agreement: two toy-size ticks on the card and on the CPU with the same
      weights and the same fed random draws (float32, TF32 off), at xyw, at
      xywb with the force variant and the z-ensemble, and with each baseline
@@ -79,7 +83,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      CVAE at xyw, xyzrpw and on the arm (60 warm ticks, so that a
      drift-correcting tick replays), each through its tick graph and
      eagerly in one call, in turns, 3 ticks of each profiled, every
-     observation and the state bit-equal, 12 K1 launches a plan read
+     observation and the state bit-equal, 6 K1 launches a plan read
      through the graphs and none eager in the replayed chunks;
      evaluate_test_set over the set, and baseline ticks (no K1 launch in
      their plan_step); then the fingerprint path (bf16, weights from seed
@@ -91,21 +95,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and fuse_matches device times, 30 identification ticks over the four
      combinations in each seek mode with adoption at step 10, graphed and
      eager (histories and beliefs bit-equal), then identification ticks
-     graphed and eager in turns; 12 K1 launches a capture or
+     graphed and eager in turns; 6 K1 launches a capture or
      identification tick through the graphs and none in the clustering,
      matching or entropy slices; one belief fusion launch an
      identification tick and none elsewhere; the fusion kernel at the
      identification cell's sizes (16 beliefs of 50^3 cells) against its
      plain version, with both device times beside its bound; then the arm: 12 ticks
      on sim_backend="arm" two ways after 60 warm ticks (so that a
-     drift-correcting tick replays its graph; 13 K1 launches a tick), then
+     drift-correcting tick replays its graph; 7 K1 launches a tick), then
      ArmEnv.step_vel
      (with and without the drift correction), step_pose and observe alone
      (device intervals, device ms and host ms per call; each enqueued
      behind a spin kernel must return before the spin ends: the host
      never waits for the device); the host loop on arm-dynamic in the
      device-resident mode through the runner's plan and step graphs and
-     eagerly (drive_to_start with no K1 launch, then 24 timed steps at 13
+     eagerly (drive_to_start with no K1 launch, then 24 timed steps at 7
      K1 launches a plan); and the host loop over
      NativeBridge: the controller library built from native/, its C++
      1 kHz loop against a numpy driver, the camera rendered on the card,
@@ -131,7 +135,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      trainer call per option card against CPU, and per option the
      production Experiment through its tick graphs, bit-equal to eager
      ticks, the sync check on a replayed tick with a trainer call, ms per
-     tick, capture seconds, K1 (13 a tick) and K3 (0) through the graphs,
+     tick, capture seconds, K1 (7 a tick) and K3 (0) through the graphs,
      and the captured post-training call's host and busy ms;
   6. the learning path at production size through the port's run entry
      (``ealv_tpu_torch.scripts.run_experiment.run``) with
@@ -152,7 +156,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on the same draws (25 K2 and 75 K3 launches a call, K2's table never
      rebuilt; host ms and device busy ms beside the plain call's; captured
      in the post-training call's graph against eager post-training calls,
-     kernels on and off), and 12 ticks of Experiment(mesh=...) at 13 K1
+     kernels on and off), and 12 ticks of Experiment(mesh=...) at 7 K1
      launches a tick; two spawned
      ranks on the one card over gloo (a data-parallel SGD step's averaged
      gradients against the full batch's, the ranks bit-equal after a bf16
@@ -163,14 +167,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      --resume), the run entry's --profile trace (it names K1's kernel) and
      the browser panel (GET /status, POST /cmd pause);
   8. the port's ``repro planner`` table at 2 seeds x 30 steps (the
-     published spec otherwise; 13 K1 launches a step), its rows finite and
+     published spec otherwise; 7 K1 launches a step), its rows finite and
      printed as one JSON line.
 Every path of phases 4 to 8 whose K1 launches are counted has the
 planner's horizon and bookkeeping kernels counted beside them, from the
-same counts set to 0: 17 horizon_rollout, 5 costate_sweep and 5 of each of
-descent_slot, descent_window and descent_accept launches a plan (a toy
-planner mode's own numbers: no window launch under fixed_lam, only the
-step acceptance without the slot search), one more rollout for each
+same counts set to 0: 17 horizon_rollout, 5 costate_sweep, 5 of each of
+descent_slot, descent_window and descent_accept, and 11 plan_cost launches
+a plan (a toy planner mode's own numbers: no window launch under
+fixed_lam, only the step acceptance without the slot search, 16 costs
+under full_cost), one more rollout for each
 planner state set up in the window (``init_state`` rolls out the zero
 plan), none where nothing plans.
 The line before the last is the kernels' JSON record (the horizon kernels'
@@ -194,6 +199,10 @@ from port_bench import trace
 from port_bench.counts import k1_bound_s
 
 TOL = dict(rtol=1e-5, atol=1e-6)  # f32 K1: summation order only
+# K1 launches a plan at the default config: the base footprint and one a
+# forward pass (5), and in a learning tick the target spread besides (the
+# costs are the plan cost kernel's)
+K1_PLAN, K1_TICK = 6, 7
 # f32 K2, same formula; nvcc contracts the moment updates into FMAs
 ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
 # K3 against the plain version in f64, the exact sums: the kernels' f32
@@ -573,8 +582,8 @@ def _graph_us(fn, inner=50, reps=11):
 
 
 HORIZON = ("horizon_rollout", "costate_sweep", "descent_slot", "descent_window",
-           "descent_accept")
-DESCENT = HORIZON[2:]
+           "descent_accept", "plan_cost")
+DESCENT = HORIZON[2:5]
 # each path's planner kernel launches, plans and planner set-ups, summed
 # over its checked windows by _horizon_launches, for the kernels record
 HORIZON_LAUNCHES: dict = {}
@@ -582,23 +591,26 @@ HORIZON_LAUNCHES: dict = {}
 
 def _horizon_want(kcfg) -> tuple:
     """The planner kernels' launches a plan (rollouts, costate sweeps, the
-    three bookkeeping kernels) at a planner config: a rollout for the
-    initial cost, for every inner iteration's forward pass, line search
-    (its windows as one batch), ``full_cost`` substitutions and new plan's
-    cost, and for the final plan; a sweep for every backward pass; a slot
-    launch for every inner iteration with the slot search, a window launch
-    for every line search, a step acceptance for every inner iteration.
-    (17, 5, 5, 5, 5) at the default config."""
+    three bookkeeping kernels, the cost) at a planner config: a rollout
+    and a cost launch for the initial cost and for every inner iteration's
+    line search (its windows as one batch), ``full_cost`` substitutions
+    and new plan's cost, a rollout for every forward pass and for the final
+    plan; a sweep for every backward pass; a slot launch for every inner
+    iteration with the slot search, a window launch for every line search,
+    a step acceptance for every inner iteration. (17, 5, 5, 5, 5, 11) at
+    the default config."""
     search = kcfg.ctrl_app_search and not kcfg.fixed_lam
-    per_iter = 2 + int(search) + int(kcfg.ctrl_app_search and kcfg.full_cost)
+    costs = 1 + int(search) + int(kcfg.ctrl_app_search and kcfg.full_cost)
     n = kcfg.num_iters
-    return 2 + n * per_iter, n, n * int(kcfg.ctrl_app_search), n * int(search), n
+    return (2 + n * (1 + costs), n, n * int(kcfg.ctrl_app_search), n * int(search), n,
+            1 + n * costs)
 
 
-def _horizon_launches(counts, plans, path, inits=0, per_plan=(17, 5, 5, 5, 5), record=True):
+def _horizon_launches(counts, plans, path, inits=0, per_plan=(17, 5, 5, 5, 5, 11),
+                      record=True):
     """Check the planner kernels' launches in ``counts`` (kernel name ->
     launches, set to 0 before the window): ``per_plan`` (rollouts, sweeps,
-    slot, window and step launches) for each of ``plans`` planner calls,
+    slot, window, step and cost launches) for each of ``plans`` planner calls,
     and one eager rollout for each of ``inits`` planner states set up
     (``init_state`` rolls out the zero plan). Adds them to
     ``HORIZON_LAUNCHES[path]``."""
@@ -787,6 +799,96 @@ def phase_descent(dev):
                   f"(empty kernel {bound:.2f}); plain {plain_us:.2f} us captured, "
                   f"{plain_ms * 1e3:.2f} us eager (CUDA events)")
             out[name][states] = dict(us=us, plain_us=plain_us, plain_ms=plain_ms)
+    return out
+
+
+def phase_cost(dev):
+    """The planner's plan cost kernel (``control/descent.py::plan_cost``)
+    at the cells' shapes (H = 10, N = 2000 samples, the box barrier; m = 3
+    and n = 6 at xyw, m = 6 and n = 12 at xyzrpw; one plan and the line
+    search's 5 candidates, the views of a rollout) and at edge cases (every
+    psi underflowing with no base, a base of 0, samples on trajectory
+    points, states outside both limits, no barrier, 10 candidates, N =
+    2010), each against its plain version (K1 for one plan, the plain psi
+    matrix for candidates) on the same tensors within 1e-6 relative; a
+    candidate equal to the plan gets the plan's bits; then device us a
+    launch as a node of a captured graph, beside an empty kernel's (the
+    latency bound) and the plain version's, captured and eager."""
+    import torch
+    from ealv_tpu_torch import control as tc
+    from ealv_tpu_torch.control import descent as td
+    from ealv_tpu_torch.control.horizon import rollout
+    from ealv_tpu_torch.ops import cost_norm
+    from ealv_tpu_torch.utils.timing import device_ms
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=dev) * 2 - 1
+    plain_cost = lambda x, s, p, q, std, idx, cols, bar: td.plan_cost_reference(x, s, p, q, std,
+                                                                                idx, bar)
+
+    def case(states, k, n=2000, edit=None):
+        d = len(states)
+        dyn = tc.make_dynamics(states, dt=0.1, device=dev)
+        m = dyn.num_actions
+        lim = torch.tensor([[-1.0, 1.0]] * d, device=dev)
+        box, _ = tc.setup_barrier(states, lim, torch.tensor([[-1.0, 1.0]] * m, device=dev),
+                                  list(range(d)))
+        s0 = dyn.init(torch.cat([rand(d) * 0.8, torch.zeros(dyn.num_states - d, device=dev)]))
+        u = rand(k, 10, m) * 1.5
+        trajs = rollout(dyn, None, s0.x, s0.R, u)[0][:, 1:, :]
+        samples = rand(n, d) * 1.1
+        p_n, q_base = cost_norm(rand(n).abs() + 0.1), (rand(n) + 1.0) * 1.5
+        std, bar = torch.full((d,), 0.05, device=dev), box
+        idx, cols = torch.arange(d, device=dev), tuple(range(d))
+        if edit == "underflow":
+            trajs, q_base = trajs + 100.0, torch.zeros_like(q_base)
+        elif edit == "zero base":
+            q_base = torch.zeros_like(q_base)
+        elif edit == "on points":
+            samples[0], samples[1] = trajs[0, 3, :d], trajs[-1, 9, :d]
+        elif edit == "outside":
+            trajs = trajs.clone()
+            trajs[:, ::2], trajs[:, 1::2] = 2.0, -2.0
+        elif edit == "no barrier":
+            bar = tc.NoBarrier()
+        return trajs, (samples, p_n, q_base, std, idx, cols, bar)
+
+    worst, cases = 0.0, 0
+    for states in ("xyw", "xyzrpw"):
+        for k, n, edit in ((1, 2000, None), (5, 2000, None), (10, 2000, None), (5, 2010, None),
+                           *((kk, 2000, e) for e in ("underflow", "zero base", "on points",
+                                                    "outside", "no barrier") for kk in (1, 5))):
+            trajs, args = case(states, k, n, edit)
+            x = trajs[0] if k == 1 else trajs
+            got, want = td.plan_cost(x, *args), plain_cost(x, *args)
+            gap = float(((got - want).abs() / want.abs()).max())
+            if not (torch.isfinite(want).all() and gap <= 1e-6):
+                raise RuntimeError(f"plan_cost {states} K={k} N={n} {edit}: gap {gap:.3e}")
+            worst, cases = max(worst, gap), cases + 1
+        trajs, args = case(states, 5)
+        single = td.plan_cost(trajs[2].clone(), *args)
+        if not torch.equal(td.plan_cost(trajs, *args)[2].view(torch.int32),
+                           single.view(torch.int32)):
+            raise RuntimeError(f"plan_cost {states}: a candidate equal to the plan is not "
+                               f"bit-equal to the plan's cost")
+    print(f"[cost] plan_cost: {cases} launches within {worst:.3e} relative of the plain "
+          f"version (K1 for a plan, the psi matrix for candidates; underflow, zero base, "
+          f"samples on points, states outside both limits, no barrier, N = 2010); a candidate "
+          f"equal to the plan bit-equal to the plan's cost")
+
+    bound = _graph_us(lambda: torch.cuda._sleep(0))
+    out = {"bound_us": bound, "worst_gap": worst}
+    for states in ("xyw", "xyzrpw"):
+        for k in (1, 5):
+            trajs, args = case(states, k)
+            x = trajs[0] if k == 1 else trajs
+            kern = lambda: td.plan_cost(x, *args)
+            plain = lambda: plain_cost(x, *args)
+            us, plain_us, plain_ms = _graph_us(kern), _graph_us(plain), device_ms(plain)
+            print(f"[cost] plan_cost {states} (m = {len(states)}) K={k}: kernel {us:.2f} us a "
+                  f"graph node (empty kernel {bound:.2f}); plain {plain_us:.2f} us captured, "
+                  f"{plain_ms * 1e3:.2f} us eager (CUDA events)")
+            out[f"{states} K={k}"] = dict(us=us, plain_us=plain_us, plain_ms=plain_ms)
     return out
 
 
@@ -1110,9 +1212,9 @@ def phase_planner_agreement():
     """Every dynamics model, policy and mode of the planner: one toy call
     on the card and on the CPU with the same fed draws (f32, TF32 off);
     plan and cost at rtol 1e-3, atol 1e-4, R at atol 1e-5 and orthonormal
-    to 1e-5 on both; 13 K1 launches per call on the card in every mode, and
-    the horizon kernels' launches of its mode (17 rollouts and 5 costate
-    sweeps at the default)."""
+    to 1e-5 on both; 7 K1 launches per call on the card in every mode, and
+    the horizon kernels' launches of its mode (17 rollouts, 5 costate
+    sweeps and 11 costs at the default)."""
     import torch
     from ealv_tpu_torch.control import KlergConfig
     worst = {"u": 0.0, "cost": 0.0, "R": 0.0, "RtR": 0.0}
@@ -1127,9 +1229,9 @@ def phase_planner_agreement():
         rtr = max(float((R.T @ R - torch.eye(3)).abs().max()) for R in (R_c, R_g))
         if rtr > 1e-5:
             raise RuntimeError(f"{what}: R off orthonormal by {rtr:.2e}")
-        if launches["footprint_and_spread"] != 13:
+        if launches["footprint_and_spread"] != K1_TICK:
             raise RuntimeError(f"{what}: {launches['footprint_and_spread']} K1 launches in one "
-                               f"plan, expected 13")
+                               f"plan, expected {K1_TICK}")
         _horizon_launches(launches, 1, what, per_plan=_horizon_want(KlergConfig(**mode)),
                           record=False)
         if float(u_c.abs().max()) == 0.0:
@@ -1140,7 +1242,7 @@ def phase_planner_agreement():
     print(f"[agreement] planner, {len(PLANNER_CASES)} toy calls (4 dynamics x 4 policies, 5 "
           f"modes on the roll model), cuda vs cpu with fed draws: max|du| {worst['u']:.3e}, "
           f"max|dcost| {worst['cost']:.3e}, max|dR| {worst['R']:.3e}, max|R^T R - I| "
-          f"{worst['RtR']:.3e}; 13 K1 launches per call on the card in every mode, and the "
+          f"{worst['RtR']:.3e}; {K1_TICK} K1 launches per call on the card in every mode, and the "
           f"horizon kernels' launches of its mode")
 
 
@@ -1816,7 +1918,7 @@ def _two_ways(name, r) -> str:
 
 def phase_main_path(states="xyw", n_timed=24):
     """The tick path at production size over ``states``, two ways
-    (``_tick_paths``: tick graphs bit-equal to eager ticks), 13 K1 launches
+    (``_tick_paths``: tick graphs bit-equal to eager ticks), 7 K1 launches
     a tick counted through the tick graphs; then the checks of the path's
     state and the sync check on a replayed tick without and with a trainer
     call. Returns (launches, ms/tick, peak MiB, readings)."""
@@ -1829,9 +1931,9 @@ def phase_main_path(states="xyw", n_timed=24):
     losses = r["infos"]["loss"].cpu()
     costs = r["infos"]["ergodic_cost"].cpu()
     trained = losses[losses != 0]
-    if launches != 13 * n_timed:
+    if launches != K1_TICK * n_timed:
         raise RuntimeError(f"footprint kernel launched {launches} times in {n_timed} ticks "
-                           f"through the tick graphs, expected {13 * n_timed}")
+                           f"through the tick graphs, expected {K1_TICK * n_timed}")
     _horizon_launches(r["launches"], n_timed, f"main path {states}, tick graphs")
     if not (torch.isfinite(costs).all() and torch.isfinite(losses).all()):
         raise RuntimeError(f"non-finite costs {costs} or losses {losses}")
@@ -1849,9 +1951,10 @@ def phase_main_path(states="xyw", n_timed=24):
     print(f"[main path {states}] {n_timed} timed ticks through the tick graphs: {ms:.2f} "
           f"ms/tick = {1e3 / ms:.2f} Hz | last loss {float(trained[-1]):.4f} | ergodic cost "
           f"{float(costs[-1]):.4f} | {r['calls']} trainer calls | K1 launches {launches} "
-          f"(13/tick, the wrappers' eager counts 0), horizon_rollout "
+          f"({K1_TICK}/tick, the wrappers' eager counts 0), horizon_rollout "
           f"{r['launches']['horizon_rollout']} (17/tick), costate_sweep "
-          f"{r['launches']['costate_sweep']} (5/tick) | planner |R^T R - I| {rtr:.1e} | "
+          f"{r['launches']['costate_sweep']} (5/tick), plan_cost "
+          f"{r['launches']['plan_cost']} (11/tick) | planner |R^T R - I| {rtr:.1e} | "
           f"{_graph_note(exp)}")
     print(_two_ways(f"main path {states}", r))
     if states == "xyw":
@@ -1881,7 +1984,7 @@ def phase_variant_path(n_timed=12):
     "xywb" (the brightness state), the force variant, the z-ensemble target
     (5 x 2000 decoder rows a plan) and both trainer kernels on; two ways
     (``_tick_paths``), with K1, K2 and K3 counted through the tick graphs
-    over the timed ticks (13 K1 launches a tick and one per trainer call,
+    over the timed ticks (7 K1 launches a tick and one per trainer call,
     whose entropy grade takes a fresh plain decode under the ensemble; 25
     K2 and 75 K3 a trainer call). Then the ensemble pdf at 2000 samples
     against its plain decode-and-average, in the bf16 model and in an f32
@@ -1899,10 +2002,10 @@ def phase_variant_path(n_timed=12):
                   counts["conv_wgrad_direct"])
     if calls <= 0:
         raise RuntimeError("the variant path made no trainer call in the timed ticks")
-    if (k1, k2, k3) != (13 * n_timed + calls, 25 * calls, 75 * calls):
+    if (k1, k2, k3) != (K1_TICK * n_timed + calls, 25 * calls, 75 * calls):
         raise RuntimeError(f"variant path: {calls} trainer calls in {n_timed} ticks made "
                            f"K1 {k1}, K2 {k2}, K3 {k3} launches; expected "
-                           f"{13 * n_timed + calls}, {25 * calls}, {75 * calls}")
+                           f"{K1_TICK * n_timed + calls}, {25 * calls}, {75 * calls}")
     _horizon_launches(counts, n_timed, "variant path, tick graphs")
     losses, costs = r["infos"]["loss"].cpu(), r["infos"]["ergodic_cost"].cpu()
     if not (torch.isfinite(losses).all() and torch.isfinite(costs).all()):
@@ -1915,7 +2018,7 @@ def phase_variant_path(n_timed=12):
     dt = r["ms"]["ticks"]
     print(f"[variant path] xywb, learn_force, use_z_ensemble, K2 and K3 on: {n_timed} timed "
           f"ticks through the tick graphs: {dt:.2f} ms/tick = {1e3 / dt:.2f} Hz | {calls} "
-          f"trainer calls | K1 {k1} (13/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} "
+          f"trainer calls | K1 {k1} ({K1_TICK}/tick + 1/call) | K2 {k2} (25/call) | K3 {k3} "
           f"(75/call) | last loss {float(losses[losses != 0][-1]):.4f} | brightness "
           f"{float(b):.4f} | {_graph_note(exp)}")
     print(_two_ways("variant path", r))
@@ -2064,7 +2167,7 @@ def _option_production(name, opts, n_timed=6, rounds=4):
     warm ticks (at least 9) until each of the next ``n_timed`` + 3 replays
     its pattern's graph, then ``n_timed`` timed ticks (two or more trainer
     calls among them, replayed), K1, K2 and K3 counted through the graphs
-    (13, 0 and 0 a tick; the wrappers' eager counts 0); every tick's info
+    (7, 0 and 0 a tick; the wrappers' eager counts 0); every tick's info
     and the state then held bit for bit against an eager experiment taking
     the same ticks; the sync check on a replayed tick with a trainer call;
     then the trainer call captured in a post-training call (the
@@ -2107,10 +2210,10 @@ def _option_production(name, opts, n_timed=6, rounds=4):
     if exp.tick_graph.replays != n_timed or any(eager.values()):
         raise RuntimeError(f"model option {name}: {exp.tick_graph.replays} replays in "
                            f"{n_timed} timed ticks, eager wrapper launches {eager}")
-    if calls < 2 or (k1, k2, k3) != (13 * n_timed, 0, 0):
+    if calls < 2 or (k1, k2, k3) != (K1_TICK * n_timed, 0, 0):
         raise RuntimeError(f"model option {name}: {calls} trainer calls and K1 {k1}, K2 "
                            f"{k2}, K3 {k3} launches in {n_timed} timed ticks, expected two "
-                           f"or more calls and {13 * n_timed}, 0, 0")
+                           f"or more calls and {K1_TICK * n_timed}, 0, 0")
     _horizon_launches(launches, n_timed, f"model option {name}, tick graphs")
     losses = infos["loss"]
     if not (torch.isfinite(losses).all() and torch.isfinite(infos["ergodic_cost"]).all()):
@@ -2173,7 +2276,7 @@ def phase_model_options(n_timed=6):
         r = out[name] = _option_production(name, opts, n_timed)
         print(f"[model options] {name}: {n_timed} timed ticks through the tick graphs "
               f"{r['ms']:.2f} ms/tick, {r['calls']} trainer calls replayed, K1 {r['k1']} "
-              f"(13/tick), K3 {r['k3']}; tick-graph captures (s) "
+              f"({K1_TICK}/tick), K3 {r['k3']}; tick-graph captures (s) "
               + ", ".join(f"{k} {', '.join(f'{t:.2f}' for t in v)}"
                           for k, v in r["capture_s"].items())
               + f"; {r['held'][0]} ticks bit-equal to eager (every info, {r['held'][1]} "
@@ -2236,7 +2339,7 @@ def _eval_pattern_name(pattern) -> str:
     return kind + extra + (", drift" if any(drift) else "")
 
 
-def _steps_two_ways(name, make, step, n_warm, rounds=2, chunk=6, k1_per_step=12,
+def _steps_two_ways(name, make, step, n_warm, rounds=2, chunk=6, k1_per_step=K1_PLAN,
                     profile=True):
     """A step path of the eval runtime two ways in one call. ``make(graphs)``
     builds (ev_exp, state) with the runtime's tick graph or, eager, with
@@ -2356,7 +2459,7 @@ def phase_eval_path(n_points=25):
     EvalExperiment ticks toward a frozen production CVAE's pdf (weights
     from seed 0, seeded with the set's first sample) through the tick
     graph and eagerly in one call (``_steps_two_ways``: 2 warm ticks, 4
-    chunks of 6 in turns, 3 profiled; 12 K1 launches a plan read through
+    chunks of 6 in turns, 3 profiled; 6 K1 launches a plan read through
     the graphs; every observation and the state bit-equal), at xyw, at
     xyzrpw (2 chunks, none profiled) and on the arm (60 warm ticks, so that
     the drift correction of every 20th command replays its graph; 2
@@ -2664,14 +2767,14 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     """The fingerprint stage at production size (bf16, weights from seed 0,
     ``TrayScene.make(3, seed=0)``): find_clusters over 1000 samples seeded
     by six images of the port's grid collector; a 50-tick sphere capture at
-    each true centre (12 K1 launches a tick, read through the capture's
+    each true centre (6 K1 launches a tick, read through the capture's
     step graph); the first centre's capture steps again two ways
     (``_steps_two_ways``: through its step graph and eagerly, in turns,
     every step bit-equal; the eager steps' fingerprint bit-equal to the
     public capture's); FingerprintSet and thresholds for L2, KL and BC;
     device times of one identify_step and of one update_beliefs per
     combination; the matrix runtime over the four combinations for 30
-    ticks with adoption at step 10, fixed and then uncertain (12 K1
+    ticks with adoption at step 10, fixed and then uncertain (6 K1
     launches a tick), through its step graph and eagerly, the histories
     and beliefs bit-equal; then identification ticks two ways in turns;
     replayed capture and identification steps under the sync check;
@@ -2846,10 +2949,10 @@ def phase_fingerprint_path(n_capture=50, n_id=30, adopt=10):
     zs = np.concatenate([np.concatenate([d["z_mu"], d["z_var"]], 1) for d in dicts])
     if not (np.isfinite(zs).all() and np.isfinite(slices["all"][1]).all()):
         raise RuntimeError("non-finite captured latents or entropy slice")
-    want = {"find_clusters": 0, "capture": 12 * n_capture * len(truth),
-            "identify fixed": 12 * n_id, "identify uncertain": 12 * n_id,
-            "identify fixed eager": 12 * n_id, "identify uncertain eager": 12 * n_id,
-            "entropy_slices": 0}
+    want = {"find_clusters": 0, "capture": K1_PLAN * n_capture * len(truth),
+            "identify fixed": K1_PLAN * n_id, "identify uncertain": K1_PLAN * n_id,
+            "identify fixed eager": K1_PLAN * n_id,
+            "identify uncertain eager": K1_PLAN * n_id, "entropy_slices": 0}
     if launches != want:
         raise RuntimeError(f"fingerprint path K1 launches {launches}, expected {want}")
     # one fusion launch a tick for the 4 x 3 beliefs, through the graphs too
@@ -3122,7 +3225,7 @@ def phase_arm_path(n_timed=12):
     two ways (``_tick_paths``) after at least 60 warm ticks, so that the
     tick graphs replay a drift-correcting tick (the 60th: the corrections
     fall on every 20th command) in the run held bit-equal to the eager
-    ticks; exactly 13 K1 launches a timed tick; then ``ArmEnv.step_vel``
+    ticks; exactly 7 K1 launches a timed tick; then ``ArmEnv.step_vel``
     (without and with the drift correction), ``step_pose`` and ``observe``
     alone at the tick's state: the device intervals of one call under
     torch.profiler, device ms by CUDA events, host ms, and a check that the
@@ -3137,9 +3240,9 @@ def phase_arm_path(n_timed=12):
     exp, es, r = _tick_paths(cfg, n_timed, least=60)
     launches = r["launches"]["footprint_and_spread"]
     drift = {p: c for p, c in exp.tick_graph.counts.items() if any(p[2])}
-    if launches != 13 * n_timed:
+    if launches != K1_TICK * n_timed:
         raise RuntimeError(f"arm path: K1 launched {launches} times in {n_timed} ticks, "
-                           f"expected {13 * n_timed}")
+                           f"expected {K1_TICK * n_timed}")
     _horizon_launches(r["launches"], n_timed, "arm path, tick graphs")
     if not any(c[2] for c in drift.values()):
         raise RuntimeError(f"arm path: no drift-correcting tick replayed: {drift}")
@@ -3152,7 +3255,7 @@ def phase_arm_path(n_timed=12):
     dt = r["ms"]["ticks"]
     print(f"[arm path] sim_backend=arm, xyw: {n_timed} timed ticks through the tick graphs "
           f"after {r['n_warm']} warm: {dt:.2f} ms/tick = {1e3 / dt:.2f} Hz | last loss "
-          f"{float(losses[losses != 0][-1]):.4f} | K1 launches {launches} (13/tick) | pose "
+          f"{float(losses[losses != 0][-1]):.4f} | K1 launches {launches} ({K1_TICK}/tick) | pose "
           f"{[round(v, 4) for v in es.env.pose.tolist()]} | {_graph_note(exp)}")
     print(_two_ways("arm path", r))
     ticks = _tick_builders()
@@ -3248,8 +3351,8 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
     ``rounds`` x 4 timed chunks of ``chunk`` steps in turns (graphed,
     eager, eager, graphed), 3 profiled steps each. In a graphed chunk every
     step replays and makes no eager K1 launch but in a primed plan after a
-    stuck hit that the plan graph runs eagerly, and K1 launches 13 times a
-    plan through the replays; in an eager chunk 13 a plan. Every pending command, every
+    stuck hit that the plan graph runs eagerly, and K1 launches 7 times a
+    plan through the replays; in an eager chunk 7 a plan. Every pending command, every
     arm state, the events and every state leaf are held bit for bit. Then
     a replayed step without and with a trainer call under
     ``set_sync_debug_mode("error")``. Returns the readings."""
@@ -3322,12 +3425,12 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
         k1[mode][1] += plans
         if mode == "graphs":
             eager_plans = g_run["runner"].plan_graph.warmups - warm_plans
-            if (g.replays - replays != chunk or launches != 13 * plans
-                    or eager != 13 * eager_plans):
+            if (g.replays - replays != chunk or launches != K1_TICK * plans
+                    or eager != K1_TICK * eager_plans):
                 raise RuntimeError(f"host loop path: {g.replays - replays} replays in a chunk "
                                    f"of {chunk}, K1 {launches} through the graphs for {plans} "
                                    f"plans, {eager} eager")
-        elif eager != 13 * plans:
+        elif eager != K1_TICK * plans:
             raise RuntimeError(f"host loop path, eager: K1 {eager} for {plans} plans")
         _horizon_launches(total_launches(), plans, f"host loop path, {mode}")
     profiles = {}
@@ -3374,7 +3477,7 @@ def phase_host_loop_path(least=24, rounds=2, chunk=6):
                                      f"{p[m]['intervals']}" for m in p)
           + f" | K1 in the timed chunks: graphed {k1['graphs'][0]} through the replays for "
           f"{k1['graphs'][1]} plans, 0 eager in replayed steps; eager {k1['eager'][0]} for "
-          f"{k1['eager'][1]} plans (13/plan) | [eager, captured, replays] by pattern "
+          f"{k1['eager'][1]} plans ({K1_TICK}/plan) | [eager, captured, replays] by pattern "
           f"{r['counts']} | capture s {r['capture_s']} | pool {r['pool_mib']} MiB | "
           f"{r['steps']} steps bit-equal to eager steps: {n_out} command and arm leaves, "
           f"{n_state} state leaves, the events {r['events'] or 'none'} | learning_ind "
@@ -3393,7 +3496,7 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     later). The runner takes the host-pipelined step through its step
     graph (the host observation staged), which replays once a pattern is
     captured; every plan (a step's, or one primed after a recovery) makes
-    13 K1 launches, counted through the replays. Prints the loop's stats."""
+    7 K1 launches, counted through the replays. Prints the loop's stats."""
     import torch
     from ealv_tpu_torch.hw.bridge import NativeBridge
     from ealv_tpu_torch.runtime import Experiment, HostLoopRunner
@@ -3455,7 +3558,7 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     counts = {_host_pattern_name(p): c for p, c in g.counts.items()}
     capture_s = {_host_pattern_name(p): [round(t, 3) for t in v]
                  for p, v in g.capture_seconds.items()}
-    if g.replays < 1 or k1 != 13 * plans[0]:
+    if g.replays < 1 or k1 != K1_TICK * plans[0]:
         raise RuntimeError(f"native bridge: {g.replays} step-graph replays, K1 {k1} for "
                            f"{plans[0]} plans")
     if es.explr_step < n_steps:
@@ -3468,7 +3571,7 @@ def phase_native_bridge(n_steps=12, budget_s=60.0):
     print(f"[native bridge] library built/loaded in {t_build:.2f} s; {es.explr_step} samples "
           f"in {iters} host-loop steps, {wall:.2f} s ({wall / iters * 1e3:.2f} ms/step) | "
           f"host-pipelined step graph [eager, captured, replays] by pattern {counts}, "
-          f"capture s {capture_s} | K1 launches {k1} for {plans[0]} plans (13/plan, through the replays) | "
+          f"capture s {capture_s} | K1 launches {k1} for {plans[0]} plans ({K1_TICK}/plan, through the replays) | "
           f"events {runner.events or 'none'} | "
           f"loop_stats: {stats['rate_hz']:.1f} Hz over {stats['ticks']} ticks, jitter mean "
           f"{stats['jitter_mean_s'] * 1e6:.1f} us, max {stats['jitter_max_s'] * 1e6:.1f} us, "
@@ -3532,9 +3635,9 @@ def phase_learning_path(steps=12, chunk=6, train_every=3, save_rate=6, n_post=3)
         if k2 != 25 * calls or k3 != 75 * calls:
             raise RuntimeError(f"{calls} trainer calls made {k2} K2 launches and {k3} "
                                f"K3 calls; expected {25 * calls} and {75 * calls}")
-        if k1 != 13 * steps + n_posted:
-            raise RuntimeError(f"K1 launched {k1} times; expected 13 per tick and one "
-                               f"per post-training call, {13 * steps + n_posted}")
+        if k1 != K1_TICK * steps + n_posted:
+            raise RuntimeError(f"K1 launched {k1} times; expected {K1_TICK} per tick and one "
+                               f"per post-training call, {K1_TICK * steps + n_posted}")
         _horizon_launches(counts, steps, "learning path, tick graphs")
         if exp.tick_graph.replays < 1 or exp.post_train_graph.replays < 1:
             raise RuntimeError(f"the run replayed no tick or post-training graph: "
@@ -3864,7 +3967,7 @@ def phase_mesh_tick(xyw_ms, least=9, rounds=2, chunk=6):
     of the next ``2 rounds chunk`` + 3 ticks replays its pattern's graph,
     then ``rounds`` x 4 timed chunks of ``chunk`` ticks in turns (graphed,
     eager, eager, graphed): in a graphed chunk every tick replays with no
-    eager kernel launch, and through the replays K1 launches 13 times a
+    eager kernel launch, and through the replays K1 launches 7 times a
     tick, K2 25 and K3 75 times a trainer call, as in an eager chunk. Every
     info and state leaf held bit for bit; 3 profiled ticks each; a replayed
     tick without and with a trainer call under ``set_sync_debug_mode
@@ -3912,7 +4015,7 @@ def phase_mesh_tick(xyw_ms, least=9, rounds=2, chunk=6):
         calls = st.learning_ind - calls
         got = {n: total_launches()[v] for n, v in names.items()}
         eager = kernel_counts()
-        want = {"K1": 13 * chunk, "K2": 25 * calls, "K3": 75 * calls}
+        want = {"K1": K1_TICK * chunk, "K2": 25 * calls, "K3": 75 * calls}
         if got != want or (mode == "graphs" and (exp.tick_graph.replays - replays != chunk
                                                  or any(eager.values()))):
             raise RuntimeError(f"mesh tick, {mode}: launches {got} for {chunk} ticks and "
@@ -4102,7 +4205,7 @@ def phase_studies():
 def phase_repro_planner(seeds=(0, 1), steps=30):
     """The port's ``repro planner`` table at a reduced length (``seeds`` x
     ``steps`` after one warm step a seed; the published spec otherwise:
-    1500 x 1000 samples, horizon 10), 13 K1 launches a step; the port's
+    1500 x 1000 samples, horizon 10), 7 K1 launches a step; the port's
     rows finite. Prints the rows as one JSON line. Returns the launches."""
     from ealv_tpu_torch.runtime.graphs import reset_launches, total_launches
     from ealv_tpu_torch.scripts.repro import planner_study
@@ -4111,7 +4214,7 @@ def phase_repro_planner(seeds=(0, 1), steps=30):
     rows, _ = planner_study(seeds=seeds, steps=steps, device="cuda")
     counts = total_launches()
     launches = counts["footprint_and_spread"]
-    want = 13 * len(seeds) * (steps + 1)
+    want = K1_TICK * len(seeds) * (steps + 1)
     if launches != want:
         raise RuntimeError(f"repro planner: {launches} K1 launches, expected {want}")
     # two planner set-ups a seed: the warm step's and the timed steps'
@@ -4154,6 +4257,7 @@ def main() -> int:
     k3 = phase_wgrad(dev)
     horizon = phase_rollout(dev)
     descent = phase_descent(dev)
+    cost = phase_cost(dev)
     stamp("kernels")
     phase_agreement()
     phase_eval_agreement()
@@ -4192,7 +4296,7 @@ def main() -> int:
           f"xywb force z-ensemble {var_ms:.2f} ms/tick, peak {var_peak:.1f} MiB | eval "
           f"{eval_ms:.2f} ms/tick ({eval_per_plan:.0f} K1 launches a plan) | fingerprint "
           f"capture {fp['capture_ms']:.2f} and identification {fp['identify_ms']:.2f} ms/tick "
-          f"(12 K1 launches a tick on both), peak {fp['peak']:.1f} MiB; toy card-vs-CPU "
+          f"({K1_PLAN} K1 launches a tick on both), peak {fp['peak']:.1f} MiB; toy card-vs-CPU "
           f"max|diff| {fp_err:.3e} | arm tick {arm_ms:.2f} ms, peak {arm_peak:.1f} MiB; "
           f"step_vel {step_vel['step_vel']['device_ms']:.4f} ms device, "
           f"{step_vel['step_vel']['intervals']} intervals "
@@ -4268,7 +4372,9 @@ def main() -> int:
          "replaces": None, **fp["fusion"]},
         *({"name": name, "route": "cuda", "source": "ealv_tpu_torch/csrc/descent.cu",
            "replaces": "ealv_tpu/control/klerg.py:299", **_horizon_record(name),
-           **descent[name]} for name in DESCENT)]}))
+           **descent[name]} for name in DESCENT),
+        {"name": "plan_cost", "route": "cuda", "source": "ealv_tpu_torch/csrc/descent.cu",
+         "replaces": None, **_horizon_record("plan_cost"), **cost}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,21 @@
-"""The planner's inner-iteration bookkeeping: the slot where the cost falls
-fastest and the candidate windows, the window search's acceptance, and the
-step's acceptance.
+"""The planner's inner iteration: the slot where the cost falls fastest and
+the candidate windows, the window search's acceptance, the step's
+acceptance, and the cost those read.
 
-``choose_slot``, ``accept_window`` and ``accept_step`` serve
+``choose_slot``, ``accept_window``, ``accept_step`` and ``plan_cost`` serve
 ``control/klerg.py``'s inner loop. On CUDA tensors each call is one launch
 of a hand-written kernel (``ops/descent.py``); on CPU tensors they run
-``choose_slot_reference``, ``accept_window_reference`` and
-``accept_step_reference``, the torch operations the planner always ran
-(the JAX package's ``_line_search`` and inner loop, ``ealv_tpu/control/
-klerg.py``), which are also the kernels' oracles. They do integer
-arithmetic, comparisons, ``where``, ``gather`` and ``argmin`` alone, so the
-kernels give the same bits. An input the kernels do not take raises on
-either device; there is no fallback from a kernel to the plain version.
+``choose_slot_reference``, ``accept_window_reference``,
+``accept_step_reference`` and ``plan_cost_reference``, the torch
+operations the planner always ran (the JAX package's ``_line_search``,
+inner loop and ``_cost``, ``ealv_tpu/control/klerg.py``), which are also
+the kernels' oracles. The first three do integer arithmetic, comparisons,
+``where``, ``gather`` and ``argmin`` alone, so their kernels give the same
+bits. The cost's kernel sums in another order, and gives a single plan's
+footprint K1's bits; its costs only decide (the slot's windows, the
+acceptances), so a plan's outputs keep their bits unless a decision sits
+on a near-tie. An input the kernels do not take raises on either device;
+there is no fallback from a kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 
 from ..ops import descent as kernels
 from ..ops.descent import Slot
+from ..ops.kernels import cost_norm, psi_matrix, renormalize, traj_footprint
+from .barrier import BarrierFunction, NoBarrier
 
 
 def choose_slot_reference(djdlam, u, u_eff, u_star, idx: int, max_app_dur=None,
@@ -108,6 +114,38 @@ def accept_step_reference(u_new, cost, q, step_done, u, last_cost, q_keep, done,
             torch.where(accept, q, q_keep), done | step_done | cost_break)
 
 
+def plan_cost_reference(trajs, samples, p_n, q_base, std, explr_idx, barrier):
+    """KL + barrier cost of a trajectory (H, n) -> (), through K1, or of
+    candidates (K, H, n) -> (K,), through one plain psi matrix: the
+    footprint of the states' columns ``explr_idx`` (an index tensor on the
+    states' device) at the samples added to ``q_base``, renormalised,
+    against the target ``p_n``, plus the barrier over the steps."""
+    if trajs.ndim == 2:
+        q_iter = traj_footprint(trajs, samples, explr_idx, std)
+        q = cost_norm(renormalize(q_base + q_iter))
+        return (p_n * torch.log(p_n / q)).sum() + barrier.batch(trajs).sum()
+    k, h, _ = trajs.shape
+    flat = trajs[..., explr_idx].reshape(k * h, -1)
+    psi_m = psi_matrix(samples, flat, std)  # (N, K*H)
+    q_iters = psi_m.reshape(-1, k, h).sum(-1).T  # (K, N)
+    q = renormalize(q_base[None, :] + q_iters, dim=1)
+    q = torch.where(torch.isnan(q), torch.full_like(q, 1e-6), q)
+    q = q / q.sum(1, keepdim=True)
+    d_kl = (p_n[None, :] * torch.log(p_n[None, :] / q)).sum(1)
+    return d_kl + barrier.batch(trajs).sum(-1)
+
+
+def _barrier_rows(barrier):
+    """The box barrier's rows as the cost kernel takes them: (b_lim,
+    barr_weight, power) of a ``BarrierFunction``, none of ``NoBarrier``,
+    and None for another barrier, whose plain ``batch`` is added after."""
+    if isinstance(barrier, BarrierFunction):
+        return barrier.b_lim, barrier.barr_weight, barrier.power
+    if isinstance(barrier, NoBarrier):
+        return ()
+    return None
+
+
 def choose_slot(djdlam, u, u_eff, u_star, idx: int, max_app_dur=None, lam=None) -> Slot:
     """``choose_slot_reference``: one kernel launch on CUDA tensors."""
     if djdlam.device.type == "cpu":
@@ -132,3 +170,18 @@ def accept_step(u_new, cost, q, step_done, u, last_cost, q_keep, done, check_cos
                                      check_cost)
     return kernels.descent_accept(u_new, cost, q, step_done, u, last_cost, q_keep, done,
                                   check_cost)
+
+
+def plan_cost(trajs, samples, p_n, q_base, std, explr_idx, explr_locs, barrier):
+    """``plan_cost_reference``: one kernel launch on CUDA tensors, with the
+    plain barrier of a barrier that is neither the box nor none added
+    after it. The exploration columns come twice: ``explr_idx`` as an index
+    tensor for the plain version, ``explr_locs`` as the same ints for the
+    kernel, which takes them by value (no copy from host memory)."""
+    rows = _barrier_rows(barrier)
+    args = (trajs, samples, p_n, q_base, std, explr_locs, *(rows or ()))
+    if trajs.device.type == "cpu":
+        kernels.check_cost(*args)
+        return plan_cost_reference(trajs, samples, p_n, q_base, std, explr_idx, barrier)
+    cost = kernels.plan_cost(*args)
+    return cost if rows is not None else cost + barrier.batch(trajs).sum(-1)

@@ -7,21 +7,26 @@ with ``torch.where`` on the masks: no call in a planner call synchronises
 with the device (no ``.item()``, ``bool(tensor)``, ``.cpu()`` or tensor
 built from Python data; ``chip_smoke.py`` runs ``plan_step`` under
 ``torch.cuda.set_sync_debug_mode("error")``), and the number of K1 launches
-per call is fixed (13 at the default config: the target spread, the base
-footprint, the initial cost, and two per inner iteration). The horizon
+per call is fixed (7 at the default config: the target spread, the base
+footprint, and one per inner iteration's forward pass). The horizon
 recurrences (``control/horizon.py``) are one launch a call on the card: a
 rollout for every cost, forward pass and the final plan (17 a call at the
 default config) and a costate sweep for every backward pass (5). The
-inner iteration's bookkeeping (``control/descent.py``: the slot and the
-windows, the window search's acceptance, the step's acceptance) is three
-launches an iteration there, where it was about 170 torch operations.
-That leaves about 1,000 launches a call at the production config (1,800
-before the bookkeeping kernels, 7,700 and 20,000 with the recurrences'
-per-step loops), about what the card's launch queue holds. ``full_cost``
-costs its H one-slot substitutions as one batch through the plain psi
-matrix and one rollout launch, as the line search costs its windows, so it
-adds no K1 launch. Models whose linearization depends on the state
-(``dyn.state_dependent``) are linearized at every step of the horizon.
+inner iteration's bookkeeping and the cost it reads (``control/descent.py``:
+the slot and the windows, the window search's acceptance, the step's
+acceptance; ``plan_cost``, the footprint, KL and barrier of a plan or of a
+batch of candidates) are one launch each there: three bookkeeping launches
+an iteration, where they were about 170 torch operations, and 11 cost
+launches a call at the default config (the initial cost, then each
+iteration's candidate windows and its new plan), where each cost was about
+39. That leaves about 430 launches a call at the production config at xyw
+and 540 at xyzrpw (840 and 950 before the cost kernel, about 1,800 before
+the bookkeeping kernels, 7,700 and 20,000 with the recurrences' per-step
+loops). ``full_cost`` costs its H
+one-slot substitutions as one more batch, one rollout and one cost launch,
+as the line search costs its windows. Models whose linearization depends on
+the state (``dyn.state_dependent``) are linearized at every step of the
+horizon.
 """
 
 from __future__ import annotations
@@ -37,10 +42,9 @@ from ..ops import (
     traj_footprint,
     traj_spread,
     kldiv_grad_batch,
-    psi_matrix,
 )
 from ..data.replay import TrajMemory
-from .descent import accept_step, accept_window, choose_slot
+from .descent import accept_step, accept_window, choose_slot, plan_cost
 from .dynamics import DynState
 from .horizon import costate, rollout
 from .policies import BarrierPushPolicy, RollPolicy, ZeroPolicy
@@ -103,6 +107,7 @@ class KlergPlanner:
         self.prior_dist = prior_dist if prior_dist is not None else make_prior(states, device)
         self.states = states
         self.explr_locs = list(explr_locs)
+        self._explr_cols = tuple(int(c) for c in self.explr_locs)  # for the cost kernel
         # index with a device tensor: a Python list index is copied to the
         # card from pageable memory, and that copy waits for the device
         self._explr_idx = torch.tensor(self.explr_locs, device=device)
@@ -160,22 +165,10 @@ class KlergPlanner:
 
     def _cost(self, dyn0, u_test, samples, p_n, q_base, barrier):
         """KL + barrier cost of a plan (H, m) -> (), or of candidates
-        (K, H, m) -> (K,) through one plain psi matrix."""
-        if u_test.ndim == 2:
-            traj = self._traj_states(dyn0, u_test)
-            q_iter = traj_footprint(traj, samples, self._explr_idx, self.std)
-            q = cost_norm(renormalize(q_base + q_iter))
-            return (p_n * torch.log(p_n / q)).sum() + barrier.batch(traj).sum()
-        trajs = self._traj_states(dyn0, u_test)  # (K, H, n)
-        k, h, _ = trajs.shape
-        flat = trajs[..., self._explr_idx].reshape(k * h, -1)
-        psi_m = psi_matrix(samples, flat, self.std)  # (N, K*H)
-        q_iters = psi_m.reshape(-1, k, h).sum(-1).T  # (K, N)
-        q = renormalize(q_base[None, :] + q_iters, dim=1)
-        q = torch.where(torch.isnan(q), torch.full_like(q, 1e-6), q)
-        q = q / q.sum(1, keepdim=True)
-        d_kl = (p_n[None, :] * torch.log(p_n[None, :] / q)).sum(1)
-        return d_kl + barrier.batch(trajs).sum(-1)
+        (K, H, m) -> (K,): one rollout launch and one ``plan_cost`` launch
+        on the card."""
+        return plan_cost(self._traj_states(dyn0, u_test), samples, p_n, q_base, self.std,
+                         self._explr_idx, self._explr_cols, barrier)
 
     def _forward(self, pstate: PlannerState, u, idx: int):
         """Forward pass collecting linearizations at the pre-step states.

@@ -1,12 +1,14 @@
-"""The planner's inner-iteration bookkeeping kernels (``csrc/descent.cu``):
-the slot and its candidate windows, the window search's acceptance, and
-the step's acceptance, one launch each on CUDA float32 tensors.
+"""The planner's inner-iteration kernels (``csrc/descent.cu``): the slot
+and its candidate windows, the window search's acceptance, the step's
+acceptance, and the cost of a plan or of candidate plans, one launch each
+on CUDA float32 tensors.
 
 These wrappers take plain tensors and ints. The planner reaches them
 through ``control/descent.py``, which runs the plain torch versions on CPU
 tensors. A wrapper checks its inputs (dtype, contiguity, one device, the
 kernel's sizes) and raises on anything else; ``check_slot``,
-``check_window`` and ``check_accept`` are those checks alone. A launch
+``check_window``, ``check_accept`` and ``check_cost`` are those checks
+alone. A launch
 reads no value back, allocates its outputs with ``torch.empty`` and runs on
 the current stream, so a captured CUDA graph replays it. Each wrapper's
 ``launches`` counts its kernel's launches.
@@ -26,6 +28,11 @@ _SOURCE = "descent.cu"
 MAX_HORIZON = 1024  # kMaxHorizon in csrc/descent.cu
 MAX_APP_DUR = 1024  # kMaxAppDur: the search's windows
 MAX_ACTIONS = 32  # kMaxActions
+MAX_COST_HORIZON = 1024  # kCostMaxHorizon: the plan cost's steps
+MAX_COST_SAMPLES = 4096  # kCostMaxSamples
+MAX_COST_DIM = 8  # kCostMaxDim: K1's widths
+MAX_BARRIER_ROWS = 64  # kCostMaxRows
+MAX_CANDIDATES = 65535  # kCostMaxCandidates
 
 
 class Slot(NamedTuple):
@@ -69,9 +76,12 @@ def _library():
     window.argtypes = [ptr] * 5 + [i32] * 4 + [ptr] * 4
     accept = lib.descent_accept_f32
     accept.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 5
-    for fn in (slot, window, accept):
+    cost = lib.plan_cost_f32
+    cost.argtypes = [ptr, i64] + [i32] * 3 + [ptr, i32] + [ptr] * 4 + [i32] + [ptr] * 3 \
+        + [i32, ptr, ptr]
+    for fn in (slot, window, accept, cost):
         fn.restype = ctypes.c_int
-    return slot, window, accept
+    return slot, window, accept, cost
 
 
 def _check(name: str, x, dev, shape, dtype=torch.float32) -> None:
@@ -225,6 +235,80 @@ def descent_accept(u_new, cost, q, step_done, u, last_cost, q_keep, done, check_
     return u_out, cost_out, q_out, done_out
 
 
+def check_cost(trajs, samples, p_n, q_base, std, explr_locs, b_lim=None, barr_weight=None,
+               power=None) -> tuple:
+    """Raise unless ``plan_cost`` takes these inputs: trajectories (H, n)
+    or (K, H, n) whose candidates are each a row-major (H, n) block (a
+    view of the rollout's post-step states is), samples (N, d), ``p_n`` and
+    ``q_base`` (N,), ``std`` (d,), ``explr_locs`` d state columns as ints,
+    and the box barrier's rows (b_lim (r, 2), barr_weight (r,), power
+    (r,), r <= n) or none of them. Returns (K, H, n, N, d, r)."""
+    dev = trajs.device
+    if trajs.dtype != torch.float32:
+        raise TypeError(f"trajs: need {torch.float32}, got {trajs.dtype}")
+    if trajs.dim() not in (2, 3):
+        raise ValueError(f"trajs: need (H, n) or (K, H, n), got {tuple(trajs.shape)}")
+    k, h, n = (1, *trajs.shape) if trajs.dim() == 2 else tuple(trajs.shape)
+    rows_ok = trajs.stride(-1) == 1 and (h == 1 or trajs.stride(-2) == n)
+    if not rows_ok or (trajs.dim() == 3 and k > 1 and trajs.stride(0) < h * n):
+        raise ValueError(f"trajs: each candidate must be a row-major ({h}, {n}) block, got "
+                         f"strides {trajs.stride()}")
+    n_s = samples.shape[0] if samples.dim() == 2 else -1
+    d = samples.shape[1] if samples.dim() == 2 else -1
+    _check("samples", samples, dev, (n_s, d))
+    _check("p_n", p_n, dev, (n_s,))
+    _check("q_base", q_base, dev, (n_s,))
+    _check("std", std, dev, (d,))
+    cols = list(explr_locs)
+    if len(cols) != d or not all(isinstance(c, int) and 0 <= c < n for c in cols):
+        raise ValueError(f"explr_locs: need {d} ints in [0, {n}), got {cols}")
+    given = [x is not None for x in (b_lim, barr_weight, power)]
+    r = 0
+    if any(given):
+        if not all(given):
+            raise ValueError("give the barrier's b_lim, barr_weight and power, or none")
+        r = b_lim.shape[0] if b_lim.dim() == 2 else -1
+        _check("b_lim", b_lim, dev, (r, 2))
+        _check("barr_weight", barr_weight, dev, (r,))
+        _check("power", power, dev, (r,))
+    if not (1 <= k <= MAX_CANDIDATES and 1 <= h <= MAX_COST_HORIZON
+            and 1 <= n_s <= MAX_COST_SAMPLES and 1 <= d <= MAX_COST_DIM
+            and 0 <= r <= min(n, MAX_BARRIER_ROWS)):
+        raise ValueError(f"the cost kernel takes 1 <= K <= {MAX_CANDIDATES}, 1 <= H <= "
+                         f"{MAX_COST_HORIZON}, 1 <= N <= {MAX_COST_SAMPLES}, 1 <= d <= "
+                         f"{MAX_COST_DIM} and at most min(n, {MAX_BARRIER_ROWS}) barrier rows; "
+                         f"got K={k}, H={h}, N={n_s}, d={d}, n={n}, rows={r}")
+    return k, h, n, n_s, d, r
+
+
+def plan_cost(trajs, samples, p_n, q_base, std, explr_locs, b_lim=None, barr_weight=None,
+              power=None):
+    """The planner's cost of each candidate trajectory: the KL divergence
+    of the target ``p_n`` (N,) from the renormalised footprint q_base +
+    sum_h psi(samples, x_h) over the columns ``explr_locs``, plus the box
+    barrier summed over the steps. Trajectories (H, n) give a () cost,
+    (K, H, n) a (K,) one. One launch; CUDA float32 tensors only, or it
+    raises (``check_cost``)."""
+    k, h, n, n_s, d, r = check_cost(trajs, samples, p_n, q_base, std, explr_locs, b_lim,
+                                    barr_weight, power)
+    _cuda_only(trajs, "plan cost")
+    cost = torch.empty(trajs.shape[:-2], device=trajs.device, dtype=torch.float32)
+    cols = (ctypes.c_int * d)(*explr_locs)
+    stride = trajs.stride(0) if trajs.dim() == 3 else h * n
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(trajs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library()[3](trajs.data_ptr(), stride, k, h, n, cols, d, samples.data_ptr(),
+                            p_n.data_ptr(), q_base.data_ptr(), std.data_ptr(), n_s,
+                            ptr(b_lim), ptr(barr_weight), ptr(power), r, cost.data_ptr(),
+                            stream)
+    if err != 0:
+        raise RuntimeError(f"plan cost kernel launch failed: cudaError {err}")
+    plan_cost.launches += 1
+    return cost
+
+
 descent_slot.launches = 0
 descent_window.launches = 0
 descent_accept.launches = 0
+plan_cost.launches = 0

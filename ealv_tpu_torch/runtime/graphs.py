@@ -63,7 +63,7 @@ from torch import nn
 
 from ..ops.adam import adam_apply
 from ..ops.belief import fuse_beliefs
-from ..ops.descent import descent_accept, descent_slot, descent_window
+from ..ops.descent import descent_accept, descent_slot, descent_window, plan_cost
 from ..ops.footprint import footprint_and_spread
 from ..ops.rollout import costate_sweep, horizon_rollout
 from ..ops.wgrad import conv_wgrad_direct
@@ -73,7 +73,7 @@ KERNELS = {"footprint_and_spread": footprint_and_spread, "adam_apply": adam_appl
            "conv_wgrad_direct": conv_wgrad_direct, "horizon_rollout": horizon_rollout,
            "costate_sweep": costate_sweep, "fuse_beliefs": fuse_beliefs,
            "descent_slot": descent_slot, "descent_window": descent_window,
-           "descent_accept": descent_accept}
+           "descent_accept": descent_accept, "plan_cost": plan_cost}
 # the launches every graph's replays made since the last reset_launches(),
 # for a caller that cannot reach the graphs (a capture's EvalExperiment
 # lives only inside capture_fingerprint)

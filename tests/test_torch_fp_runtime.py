@@ -338,27 +338,29 @@ def test_results_table_and_files_match_jax(id_setup, tmp_path):
 
 
 def _count_footprints(monkeypatch):
-    calls = []
-    for name in ("traj_footprint", "traj_spread"):
+    calls, costs = [], []
+    for name, out in (("traj_footprint", calls), ("traj_spread", calls), ("plan_cost", costs)):
         fn = getattr(tklerg, name)
         monkeypatch.setattr(tklerg, name,
-                            lambda *a, _fn=fn, **k: calls.append(1) or _fn(*a, **k))
-    return calls
+                            lambda *a, _fn=fn, _out=out, **k: _out.append(1) or _fn(*a, **k))
+    return calls, costs
 
 
 def test_k1_calls_per_capture_and_identification_tick(id_setup, monkeypatch):
-    """12 footprint calls a tick on both paths (the eval planner's); none
-    in the matching and fusion. Counted on the CPU by wrapping the
-    planner's calls, where the kernel's own counter does not move."""
-    calls = _count_footprints(monkeypatch)
+    """6 footprint calls and 11 cost calls a tick on both paths (the eval
+    planner's); none in the matching and fusion. Counted on the CPU by
+    wrapping the planner's calls, where the kernels' own counters do not
+    move."""
+    calls, costs = _count_footprints(monkeypatch)
     _, tc, _, _, tm, _, _ = id_setup
     tcap.capture_fingerprint(tm, tc, np.array([0.1, 0.0, 0.0], np.float32), num_steps=2,
                              device="cpu")
-    assert len(calls) == 24
+    assert (len(calls), len(costs)) == (12, 22)
     calls.clear()
+    costs.clear()
     _, rt_t = matrix_pair(id_setup, "uncertain")
     rt_t.run(3, seed=0)
-    assert len(calls) == 36
+    assert (len(calls), len(costs)) == (18, 33)
 
 
 @pytest.mark.parametrize("seek_mode", ["fixed", "uncertain"])

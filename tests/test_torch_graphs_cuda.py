@@ -319,7 +319,8 @@ def test_captured_post_training_call_is_bit_equal(cuda, kernels):
     assert entry.recorded == {"footprint_and_spread": 1, "adam_apply": 2 if kernels else 0,
                               "conv_wgrad_direct": 6 if kernels else 0,
                               "horizon_rollout": 0, "costate_sweep": 0, "fuse_beliefs": 0,
-                              "descent_slot": 0, "descent_window": 0, "descent_accept": 0}
+                              "descent_slot": 0, "descent_window": 0, "descent_accept": 0,
+                              "plan_cost": 0}
 
 
 # ------------------------------------------------------------ the eval runtime's steps

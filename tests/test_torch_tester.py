@@ -163,33 +163,38 @@ def test_use_pose_matches_jax():
 
 
 def _count_footprints(monkeypatch):
-    """Count the planner's K1 calls (footprint and spread) on the CPU, where
-    the kernel's own launch counter does not move."""
-    calls = []
-    for name in ("traj_footprint", "traj_spread"):
+    """Count the planner's K1 calls (footprint and spread) and its cost
+    calls (``plan_cost``, a kernel of its own on the card) on the CPU, where
+    the kernels' own launch counters do not move."""
+    calls, costs = [], []
+    for name, out in (("traj_footprint", calls), ("traj_spread", calls), ("plan_cost", costs)):
         fn = getattr(tklerg, name)
         monkeypatch.setattr(tklerg, name,
-                            lambda *a, _fn=fn, **k: calls.append(1) or _fn(*a, **k))
-    return calls
+                            lambda *a, _fn=fn, _out=out, **k: _out.append(1) or _fn(*a, **k))
+    return calls, costs
 
 
 def test_k1_calls_per_plan(monkeypatch):
-    """12 per eval plan (base footprint, initial cost, two per each of the
-    5 inner iterations), 13 per experiment tick (and the target spread), 0
-    per baseline tick."""
-    calls = _count_footprints(monkeypatch)
+    """6 K1 calls per eval plan (base footprint, one per each of the 5
+    inner iterations' forward passes), 7 per experiment tick (and the
+    target spread), 0 per baseline tick; 11 cost calls per plan (the
+    initial cost, then each inner iteration's windows and new plan), 0 per
+    baseline tick."""
+    calls, costs = _count_footprints(monkeypatch)
     _, _, _, et, vt, tctx = _eval_pair("explr")
     for _ in range(2):
         vt, _ = et.tick(vt, tctx)
-    assert len(calls) == 24
-    for method, want in (("entklerg", 13), ("randomWalk", 0), ("uniform", 0)):
+    assert (len(calls), len(costs)) == (12, 22)
+    for method, want, want_costs in (("entklerg", 7, 11), ("randomWalk", 0, 0),
+                                     ("uniform", 0, 0)):
         calls.clear()
+        costs.clear()
         exp = Experiment(ExperimentConfig(**TOY, explr_method=method, compute_dtype="float32"),
                          train_calls_per_tick=0, device="cpu")
         es = exp.init(seed=0)
         for _ in range(2):
             es, _ = exp.tick(es)
-        assert len(calls) == 2 * want, method
+        assert (len(calls), len(costs)) == (2 * want, 2 * want_costs), method
 
 
 @pytest.mark.parametrize("kwargs", [dict(states="xyXY")])
