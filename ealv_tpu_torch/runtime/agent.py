@@ -17,6 +17,8 @@ captured CUDA graph (``tick_graph``, a ``runtime/graphs.py``
 over the tick, one graph for each pattern of the host values the tick
 branches on (``_tick_pattern``:
 which trainer calls run, the prior, the arm's drift corrections); a
+tick that captures also captures, ahead, its pattern's twins that differ
+only in the arm's drift corrections (``_capture_drift_twins``); a
 post-training call likewise (``post_train_graph``). The host values the
 tick computes with (the step it records in the hyperparameter ring, the
 manual ramps) are staged into device scalars (``HostValues``). With
@@ -28,6 +30,7 @@ does (``eager_reason`` says which).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -47,7 +50,8 @@ from ..sim.arm import ArmEnv, ArmState
 from ..sim.env import SyntheticEnv, EnvState
 from ..sim.renderer import TrayScene
 from . import tracing
-from .graphs import StepGraph, _addresses, _spec, module_key, optimizer_key, run_step
+from .graphs import StepGraph, _addresses, _spec, module_key, optimizer_key, prepare_step, \
+    run_step
 from .trainer import TrainerStatics, TrainDraws, train_call
 from .schedules import HyperState, hyperparam_update, entropy_grade, \
     entropy_grade_spread, manual_ramp
@@ -409,10 +413,16 @@ class Experiment:
         """One exploration step plus throttled learning, through the tick
         graph where the experiment has one. Returns (es, tick_info); ``es``
         is updated in place."""
-        with tracing.tick():
-            if self.tick_graph is None:
+        if self.tick_graph is None:
+            with tracing.tick():
                 return self._tick(es, draws)
-            return self._graph_tick(es, draws)
+        arm = isinstance(es.env, ArmState) and self.env.drift_every > 0
+        start, captures = copy.copy(es) if arm else None, self.tick_graph.captures
+        with tracing.tick():
+            out = self._graph_tick(es, draws)
+        if arm and self.tick_graph.captures > captures:
+            self._capture_drift_twins(start, draws)
+        return out
 
     def _tick(self, es: ExperimentState, draws: TickDraws | None = None,
               host: HostValues | None = None):
@@ -452,7 +462,8 @@ class Experiment:
                     force, draws: TickDraws | None = None, host: HostValues | None = None):
         """Push the sample, reseed the target distribution, update the
         hyperparameters and run the throttled learning: the tracer's device
-        span ``absorb``, the trainer calls' ``train`` spans inside it."""
+        span ``absorb``, the trainer calls' ``train`` spans inside it and,
+        where a call does not fold the planner's decode, its ``grade``."""
         tracing.begin("absorb")
         cfg = self.cfg
         force = force.float().reshape(-1)
@@ -503,7 +514,8 @@ class Experiment:
     def _grade_spread(self, es: ExperimentState, samples=None):
         """Entropy grade and coverage spread from a fresh pdf decode at
         ``samples`` (drawn uniformly from ``es.gen`` unless fed) and the
-        replay ring's poses."""
+        replay ring's poses: the tracer's device span ``grade``."""
+        tracing.begin("grade")
         cfg = self.cfg
         if samples is None:
             lo, hi = self.robot_lim[:, 0], self.robot_lim[:, 1]
@@ -511,9 +523,11 @@ class Experiment:
                                  generator=es.gen, device=self.device) * (hi - lo) + lo
         pdf_vals = es.model.pdf(es.mstate, samples)
         all_x, x_mask = es.buf.get_all_x()
-        return entropy_grade_spread(
+        out = entropy_grade_spread(
             pdf_vals, all_x, x_mask, samples, self._state_idx,
             torch.full((cfg.s_dim,), cfg.std, device=self.device), cfg.xi)
+        tracing.end("grade")
+        return out
 
     def _hyper_and_train(self, es: ExperimentState, grade, spread,
                          train_draws: TrainDraws | None, host: HostValues | None = None,
@@ -674,6 +688,35 @@ class Experiment:
         es.env = advance_env(es.env, self.cfg.data_to_ctrl_rate)
         es.explr_step += 1
         return es, info
+
+    def _capture_drift_twins(self, es: ExperimentState, draws: TickDraws | None) -> None:
+        """Capture ahead the patterns that differ from the pattern of the
+        tick from ``es`` (a tick that captured its graph) only in which of
+        its commands correct the arm's drift, each on a view of ``es``
+        whose command count takes those corrections. A correction's IK
+        runs the damped solve that every command runs, so it needs no eager
+        step of its own. Without this an arm run's first correction under
+        each trainer pattern runs eagerly and the next one captures, late
+        in the run: ticks 39 and 99, with a correction every 20 commands
+        and a trainer call every third tick. The tracer records each
+        graph's stamps (``tracing.ahead``)."""
+        rate = self.cfg.data_to_ctrl_rate
+        counts: dict = {}
+        for k in range(self.env.drift_every):
+            count = es.env.count + k * rate
+            key = drift_key(self.env, dataclasses.replace(es.env, count=count), rate)
+            counts.setdefault(key, count)
+        counts.pop(drift_key(self.env, es.env, rate))
+        for count in counts.values():
+            view = copy.copy(es)
+            view.env = dataclasses.replace(es.env, count=count)
+            pattern = self._tick_pattern(view)
+            host = self._stage(view, pattern[0])
+            with tracing.ahead():
+                prepare_step(self.tick_graph, view, self._carry, self._with_carry, self._base,
+                             pattern, draws,
+                             lambda v, d: (v, self._tick(v, d, host=host)[1]),
+                             [view.gen, view.pstate.gen])
 
     def _graph_post_train(self, es: ExperimentState, d: PostTrainDraws | None):
         """One post-training call through the post-training graph (one

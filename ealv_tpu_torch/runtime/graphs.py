@@ -20,7 +20,10 @@ A captured step reads fixed device addresses and frozen host values. So
   corrections, ...). A pattern's first step runs eagerly (a real step of
   the run, which also creates the optimizer's moments, the library
   workspaces and the kernels' launch plans), its second captures and
-  replays, later ones replay;
+  replays, later ones replay. A pattern whose step runs nothing that
+  another pattern's eager step has not (the arm's drift corrections,
+  ``Experiment.tick``) can be captured ahead (``prepare_step``): its first
+  step replays;
 - what the step replaces (the planner and env state, the target state,
   beta and gamma; the capture's model state; the identification's
   beliefs; the host loop's pending plan) is its carry, resident in static
@@ -407,7 +410,7 @@ class StepGraph:
     - ``pattern`` keys the host values the step branches on (which trainer
       calls run, ...); with the fed draws' structure it picks the graph. A
       pattern's first step runs eagerly, its second captures and replays,
-      later ones replay;
+      later ones replay (``prepare`` captures one ahead);
     - ``carry`` is staged: copied into the static carry that every
       pattern's graph reads (a tensor that is its static buffer, as after
       a replay, is not copied), and the graph ends by writing the new
@@ -481,10 +484,29 @@ class StepGraph:
             out = _clone(out)
         return self.carry, out
 
+    def prepare(self, base_fn, pattern, carry, draws, body, generators) -> bool:
+        """Capture ``pattern``'s graph ahead of its first step, without
+        running it, so that its first step replays (``step``'s arguments).
+        Only for a pattern whose step runs nothing that the steps made
+        under the base have not run eagerly: there is no eager step to
+        create what it would create. Needs a capture under the base, whose
+        static carry the graph reads; ``carry`` only keys the base, and the
+        static carry's values are left as they are. Returns whether it
+        captured (False: the pattern has its graph)."""
+        self._rebase(base_fn())
+        key = (pattern, _spec(draws))
+        if key in self.entries:
+            return False
+        if self.carry is None:
+            raise RuntimeError("a step graph captures a pattern ahead only after a capture "
+                               "under its base")
+        self._capture(key, None, draws, body, generators)
+        return True
+
     def _capture(self, key, carry, draws, body, generators) -> _Entry:
         if self.carry is None:
             self.carry = _clone(carry)
-        else:
+        elif carry is not None:
             _copy_into(self.carry, carry)
         static_draws = _clone(draws)
 
@@ -515,12 +537,28 @@ def run_step(graph: StepGraph, state, split, join, base, pattern, draws, run, ge
     step. Returns (a view of ``state`` holding the new carry, out); the
     caller advances its host values."""
     carry = split(state)
+    carry, out = graph.step(lambda: base(state, carry), pattern, carry, draws,
+                            _body(state, split, join, run), generators)
+    return join(state, carry), out
+
+
+def prepare_step(graph: StepGraph, state, split, join, base, pattern, draws, run,
+                 generators) -> bool:
+    """``StepGraph.prepare`` for ``run_step``'s step on ``state``: capture
+    ``pattern``'s graph ahead, the body reading ``state``'s host values,
+    without running it. Returns whether it captured."""
+    carry = split(state)
+    return graph.prepare(lambda: base(state, carry), pattern, carry, draws,
+                         _body(state, split, join, run), generators)
+
+
+def _body(state, split, join, run):
+    """The step's body on the carry: ``run`` on a view of ``state`` as it
+    is now (its host values frozen, as a capture freezes them)."""
     frozen = copy.copy(state)
 
     def body(carry, draws):
         new, out = run(join(frozen, carry), draws)
         return split(new), out
 
-    carry, out = graph.step(lambda: base(state, carry), pattern, carry, draws, body,
-                            generators)
-    return join(state, carry), out
+    return body

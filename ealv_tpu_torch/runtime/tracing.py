@@ -27,12 +27,15 @@ is one event on every replay, but a stamp reads the tick counter through a
 pointer, so each replay writes its own tick's row. ``tick()`` launches the
 counter's advance after the tick, so the device's tick ids and the host's
 move together whether the tick ran eagerly, captured or replayed. Outside a
-tick ``begin`` and ``end`` do nothing. On the CPU a stamp takes the host
+tick ``begin`` and ``end`` do nothing, but inside ``ahead()``, around a
+step captured ahead of its first tick, which records them. On the CPU a stamp takes the host
 clock. The device spans: ``tick``, from the tick body's first kernel to its
 last, and inside it ``decode`` and ``descent`` (``control/klerg.py``),
-``env`` (``agent.py``, ``tester.py``), ``absorb`` and ``train``
-(``agent.py``: the trainer call is made inside ``absorb_step``, so
-``train`` lies inside ``absorb``), in an identification tick
+``env`` (``agent.py``, ``tester.py``), ``absorb``, ``train`` and
+``grade`` (``agent.py``: the trainer call is made inside ``absorb_step``,
+so ``train`` lies inside ``absorb``; ``grade``, the entropy grade's fresh
+decode and coverage spread before a call that does not fold the planner's
+decode, lies there too), in an identification tick
 ``seek``, ``match`` and ``fuse`` (``fingerprint/test_runtime.py``), and in
 a host-loop step (``runtime/host_loop.py``, whose ``tick`` spans the whole
 step) ``arm``, the bridge's command and observation on the card; there
@@ -198,6 +201,18 @@ class _Tracer:
                 _checked(self.lib.ealv_advance(self.counter.data_ptr(), self._stream()),
                          "advance")
 
+    @contextlib.contextmanager
+    def ahead(self):
+        if self.current is not None:
+            raise RuntimeError("a capture ahead opened inside a tick")
+        # the tick id the stamps would take: only checked against None, since
+        # a captured stamp reads the tick counter when the graph replays
+        self.current, self.seen = self.ticks, {}
+        try:
+            yield
+        finally:
+            self.current = None
+
     def count(self, name: str, n: int) -> None:
         key = (name, self.current)
         self.counts[key] = self.counts.get(key, 0) + n
@@ -309,6 +324,13 @@ def tick():
     """The host span ``tick``, which numbers the ticks (see the module's
     docstring)."""
     return _NULL if _tracer is None else _tracer.tick()
+
+
+def ahead():
+    """Around a step captured ahead of the tick that first replays it
+    (``Experiment.tick``'s drift twins), outside every tick: its stamps
+    take their points as a tick's do, and no tick is counted."""
+    return _NULL if _tracer is None else _tracer.ahead()
 
 
 def count(name: str, n: int = 1) -> None:

@@ -293,6 +293,29 @@ def test_captured_tick_is_bit_equal(cuda, path, fed):
 
 
 @pytest.mark.cuda
+def test_drift_twins_captured_ahead_are_bit_equal(cuda):
+    """The contact arm at xyz with the force model and the z-ensemble, a
+    drift correction every tenth command and a trainer call every third
+    tick (corrections at ticks 9 and 19): the correcting patterns are
+    captured ahead with their twins and replay on their first tick, never
+    eagerly; twenty ticks bit for bit against the eager ticks."""
+    (exp_e, es_e), (exp_g, es_g) = _pair(train_every=3, drift_every=10, states="xyz",
+                                         sim_backend="arm-dynamic", learn_force=True,
+                                         use_z_ensemble=True)
+    infos = ([], [])
+    for _ in range(20):
+        for (exp, es), out in zip(((exp_e, es_e), (exp_g, es_g)), infos):
+            out.append(exp.tick(es)[1])
+        _assert_states_equal(es_e, es_g)
+    for k, (a, b) in enumerate(zip(*infos)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (k, key)
+    for calls in ((True,), (False,)):
+        warmups, _, replays = exp_g.tick_graph.counts[(calls, False, (True,))]
+        assert warmups == 0 and replays == 1, calls
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernels", [False, True], ids=["stock", "K2-K3"])
 def test_captured_post_training_call_is_bit_equal(cuda, kernels):
     """Four post-training calls on fed draws over a filled ring (an eager

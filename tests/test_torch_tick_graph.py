@@ -144,6 +144,33 @@ def test_arm_chunk_through_the_tick_graph_flips_the_drift_key():
     assert len(patterns) == 4 and exp.tick_graph.replays >= 4
 
 
+def test_arm_drift_twins_are_captured_ahead_and_replay_on_their_first_tick():
+    """The arm with a drift correction every tenth command (ticks 9 and
+    19, a trainer tick and an exploration tick): each tick that captures
+    also captures its pattern's drift-correcting twin, so neither
+    correction runs eagerly or captures in its own tick, and the twenty
+    ticks equal the eager ones bit for bit."""
+    runs = [_experiment(staged, sim_backend="arm", drift_every=10) for staged in (False, True)]
+    g = runs[1].tick_graph
+    runs = [(exp, exp.init(seed=0)) for exp in runs]
+    made, infos = [], [[], []]  # made: (warm-ups, captures) after each tick
+    for _ in range(20):
+        for (exp, es), out in zip(runs, infos):
+            out.append(exp.tick(es)[1])
+        made.append((g.warmups, g.captures))
+    for i, (a, b) in enumerate(zip(*infos)):
+        for k in a:
+            assert torch.equal(a[k], b[k]), (i, k)
+    assert_states_equal(runs[0][1], runs[1][1])
+    assert _host_ints(runs[0][1]) == _host_ints(runs[1][1])
+    t, u = (True,), (False,)
+    for calls in (t, u):
+        warmups, _, replays = g.counts[(calls, False, (True,))]
+        assert warmups == 0 and replays == 1, calls
+    for step in (9, 19):
+        assert made[step] == made[step - 1], step
+
+
 def test_the_ring_records_each_ticks_step():
     """The hyperparameter ring's explr_ind after every tick equals the
     eager tick's: it is the tick's step, staged into a device scalar (a

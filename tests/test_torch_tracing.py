@@ -203,6 +203,30 @@ def test_stamps_outside_a_tick_do_nothing():
     assert [s.name for s in tr.device] == ["x"] and tr.device[0].tick == 0
 
 
+def test_a_capture_ahead_counts_no_tick_and_opens_no_span():
+    """``ahead()``, around a step captured ahead of the tick that first
+    replays it: its stamps are taken (on the card a graph records them),
+    no tick is counted and no host span opened; the next tick's first
+    stamp clears its row as ever. Inside a tick it raises."""
+    tracing.enable("cpu")
+    with tracing.tick():
+        tracing.begin("x")
+        tracing.end("x")
+    with tracing.ahead():
+        tracing.begin("y")
+        tracing.end("y")
+    assert tracing.ticks() == 1
+    with tracing.tick():
+        with pytest.raises(RuntimeError, match="inside a tick"):
+            with tracing.ahead():
+                pass
+        tracing.begin("x")
+        tracing.end("x")
+    tr = tracing.read()
+    assert [(s.name, s.tick) for s in tr.device] == [("x", 0), ("x", 1)]
+    assert [(s.name, s.tick) for s in tr.host] == [("tick", 0), ("tick", 1)]
+
+
 def test_counts_are_kept_per_tick_and_summed():
     """``count`` adds to the open tick's counter (outside every tick, to
     the run's); ``read`` keeps a window's ticks' counts, or all of them
